@@ -1,6 +1,7 @@
 """Build the port's Hopper kernels from the sources in this package.
 
-The CUDA kernel (``csrc/flash_flat.cu``) is compiled with ``nvcc`` for
+The CUDA kernel (``csrc/flash_flat.cu``, one instantiation per head dim) is
+compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes``. The library's name carries a hash of its source and flags, so an
 edited source is rebuilt. Triton kernels compile at their first launch; their
@@ -70,8 +71,8 @@ def flash_flat_lib():
     so = build_shared_lib("flash_flat", [CSRC_DIR / "flash_flat.cu"])
     fn = ctypes.CDLL(str(so)).flash_flat_forward
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([vp] * 6            # q, k, v, o, bias, kv_mask
-                   + [i32] * 5         # B, H, KVH, Sq, Sk
+    fn.argtypes = ([vp] * 7            # q, k, v, o, bias, kv_mask, seg
+                   + [i32] * 6         # B, H, KVH, Sq, Sk, D
                    + [i64] * 14        # q/k/v (batch, row, col offset), o, bias
                    + [i32, ctypes.c_float, vp])  # causal, scale, stream
     fn.restype = ctypes.c_int

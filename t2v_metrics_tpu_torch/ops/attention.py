@@ -12,18 +12,19 @@ Port of the flat half of t2v_metrics_tpu/ops/attention.py:
   * ``attention_flat`` / ``attention_flat_packed``: the dispatchers the
     models call.
 
-The TPU package reaches its flat kernel only for sq >= 128 (a Mosaic tiling
-limit), so its T5 decoder self- and cross-attention (sq = 4) ran the XLA
-reference. The CUDA kernel masks its own ragged edge, so here all four
-attention sites of clip-flant5 (CLIP ViT, T5 encoder, T5 decoder self and
-cross) go through the one kernel.
+The TPU package reaches its flat kernel only for sq >= 128 and sk <= 2048
+(Mosaic tiling and VMEM limits), so its T5 decoder self- and cross-attention
+(sq = 4) ran the XLA reference, and the Qwen2.5-VL ViT's layers over a whole
+5120-row patch bucket ran the per-head ``_flash_kernel``. The CUDA kernel
+masks its own ragged edge and streams the keys, so here every attention site
+of clip-flant5 and Qwen2.5-VL goes through the one kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-HEAD_DIM = 64   # the only head dim the CUDA kernel is built for
+HEAD_DIMS = (64, 80, 128)   # the head dims the CUDA kernel is built for
 
 
 # ---------------------------------------------------------------------------
@@ -108,12 +109,13 @@ def _check_operand(x, name):
         raise ValueError(f"flash_attention_flat: {name} is not 16-byte aligned")
 
 
-def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, sq, sk,
-                      bias, kv_mask, causal, scale):
+def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, d, sq,
+                      sk, bias, kv_mask, causal, scale, segment_ids=None):
     """Launch the CUDA kernel on column-offset views of q, k and v.
 
     q/k/v are the base (B, S, cols) tensors (the same tensor three times for
-    a packed projection); *_off are element column offsets of head 0.
+    a packed projection); *_off are element column offsets of head 0; d is
+    the head dim.
     """
     from ..build import flash_flat_lib
 
@@ -126,11 +128,11 @@ def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, sq, sk,
         _check_operand(x, name)
         if x.device != q.device:
             raise ValueError("flash_attention_flat: operands on different devices")
-        if off % 8 or off + n * HEAD_DIM > x.shape[2]:
+        if off % 8 or off + n * d > x.shape[2]:
             raise ValueError(f"flash_attention_flat: {name} columns out of range")
     if k.shape[0] != b or v.shape[0] != b or k.shape[1] < sk or v.shape[1] < sk:
         raise ValueError("flash_attention_flat: k/v batch or length mismatch")
-    out = torch.empty((b, sq, heads * HEAD_DIM), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, heads * d), dtype=q.dtype, device=q.device)
     bias_ptr, bias_strides = None, (0, 0, 0)
     if bias is not None:
         if bias.dtype != torch.float32 or bias.device != q.device:
@@ -145,9 +147,17 @@ def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, sq, sk,
             raise ValueError(f"flash_attention_flat: kv_mask must be ({b}, {sk})")
         kv_mask = kv_mask.to(torch.int32).contiguous()
         mask_ptr = kv_mask.data_ptr()
+    seg_ptr = None
+    if segment_ids is not None:
+        if sq != sk:
+            raise ValueError("flash_attention_flat: segment_ids need sq == sk")
+        if segment_ids.shape != (b, sk) or segment_ids.device != q.device:
+            raise ValueError(f"flash_attention_flat: segment_ids must be ({b}, {sk})")
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+        seg_ptr = segment_ids.data_ptr()
     rc = flash_flat_lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_ptr,
-        mask_ptr, b, heads, kvh, sq, sk,
+        mask_ptr, seg_ptr, b, heads, kvh, sq, sk, d,
         q.stride(0), q.stride(1), q_off, k.stride(0), k.stride(1), k_off,
         v.stride(0), v.stride(1), v_off, out.stride(0), out.stride(1),
         *bias_strides, int(causal), float(scale),
@@ -166,27 +176,30 @@ def _kernel_device(x, d):
         return False
     if x.device.type != "cuda":
         raise ValueError(f"flash_attention_flat: no kernel for device {x.device}")
-    if d != HEAD_DIM:
+    if d not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention_flat: the CUDA kernel takes head dim {HEAD_DIM}, got {d}")
+            f"flash_attention_flat: the CUDA kernel takes head dims {HEAD_DIMS}, "
+            f"got {d}")
     return True
 
 
 def flash_attention_flat(q, k, v, heads, kv_heads=None, bias=None,
-                         kv_mask=None, causal=False, scale=None):
+                         kv_mask=None, causal=False, scale=None,
+                         segment_ids=None):
     """Attention over flat q (B, Sq, H*D), k/v (B, Sk, KvH*D): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     d = q.shape[-1] // heads
     if not _kernel_device(q, d):
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,
-                                        kv_mask, causal, scale)
-    return flash_flat_launch(q, k, v, 0, 0, 0, heads, kv_heads, q.shape[1],
+                                        kv_mask, causal, scale, segment_ids)
+    return flash_flat_launch(q, k, v, 0, 0, 0, heads, kv_heads, d, q.shape[1],
                              k.shape[1], bias, kv_mask, causal,
-                             d ** -0.5 if scale is None else scale)
+                             d ** -0.5 if scale is None else scale, segment_ids)
 
 
 def flash_attention_flat_packed(qkv, heads, kv_heads=None, bias=None,
-                                kv_mask=None, causal=False, scale=None):
+                                kv_mask=None, causal=False, scale=None,
+                                segment_ids=None):
     """Self-attention over a packed (B, S, (H + 2*KvH)*D) projection. The
     kernel reads q, k and v as column-offset views of the one array."""
     kvh = kv_heads or heads
@@ -194,25 +207,24 @@ def flash_attention_flat_packed(qkv, heads, kv_heads=None, bias=None,
     if not _kernel_device(qkv, d):
         q, k, v, _ = _split_packed(qkv, heads, kv_heads)
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,
-                                        kv_mask, causal, scale)
+                                        kv_mask, causal, scale, segment_ids)
     s = qkv.shape[1]
     return flash_flat_launch(qkv, qkv, qkv, 0, heads * d, (heads + kvh) * d,
-                             heads, kv_heads, s, s, bias, kv_mask, causal,
-                             d ** -0.5 if scale is None else scale)
+                             heads, kv_heads, d, s, s, bias, kv_mask, causal,
+                             d ** -0.5 if scale is None else scale, segment_ids)
 
 
 # ---------------------------------------------------------------------------
 # Dispatchers
 # ---------------------------------------------------------------------------
 
-def _extra_terms(q, segment_ids, local_window, bidir_ids):
+def _extra_terms(q, local_window, bidir_ids):
     """True when a term the CUDA kernel lacks is set (CPU only)."""
-    if segment_ids is None and local_window is None and bidir_ids is None:
+    if local_window is None and bidir_ids is None:
         return False
     if q.device.type != "cpu":
         raise NotImplementedError(
-            "attention_flat: segment_ids, local_window and bidir_ids have no "
-            "CUDA kernel yet")
+            "attention_flat: local_window and bidir_ids have no CUDA kernel yet")
     return True
 
 
@@ -220,22 +232,22 @@ def attention_flat(q, k, v, heads, kv_heads=None, bias=None, kv_mask=None,
                    causal=False, scale=None, segment_ids=None,
                    local_window=None, bidir_ids=None):
     """Attention over flat (B, S, H*D) inputs and output."""
-    if _extra_terms(q, segment_ids, local_window, bidir_ids):
+    if _extra_terms(q, local_window, bidir_ids):
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,
                                         kv_mask, causal, scale, segment_ids,
                                         local_window, bidir_ids)
     return flash_attention_flat(q, k, v, heads, kv_heads, bias, kv_mask,
-                                causal, scale)
+                                causal, scale, segment_ids)
 
 
 def attention_flat_packed(qkv, heads, kv_heads=None, bias=None, kv_mask=None,
                           causal=False, scale=None, segment_ids=None,
                           local_window=None, bidir_ids=None):
     """Self-attention over a packed (B, S, (H + 2*KvH)*D) qkv projection."""
-    if _extra_terms(qkv, segment_ids, local_window, bidir_ids):
+    if _extra_terms(qkv, local_window, bidir_ids):
         q, k, v, _ = _split_packed(qkv, heads, kv_heads)
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,
                                         kv_mask, causal, scale, segment_ids,
                                         local_window, bidir_ids)
     return flash_attention_flat_packed(qkv, heads, kv_heads, bias, kv_mask,
-                                       causal, scale)
+                                       causal, scale, segment_ids)

@@ -1,5 +1,6 @@
 """Image preprocessing: Pillow-parity separable resize, pad, crop, normalize,
-patchify (port of t2v_metrics_tpu/ops/image.py).
+patchify, and the Qwen-VL ``smart_resize`` geometry (port of
+t2v_metrics_tpu/ops/image.py).
 
 Resize is two dense interpolation-weight matmuls, ``W_h @ img @ W_w.T``,
 whose coefficients reproduce Pillow's resampling; the coefficient matrices
@@ -11,6 +12,7 @@ kron(W_w, I_C).
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -98,6 +100,27 @@ def resize_shortest_side(img_hw: tuple[int, int], target: int) -> tuple[int, int
     return max(1, int(round(h * target / w))), target
 
 
+def smart_resize(height: int, width: int, factor: int = 28,
+                 min_pixels: int = 56 * 56,
+                 max_pixels: int = 14 * 14 * 4 * 1280) -> tuple[int, int]:
+    """Qwen-VL smart_resize geometry: snap H/W to multiples of ``factor``
+    while keeping the pixel count within [min_pixels, max_pixels] and the
+    aspect ratio (qwen_vl_utils semantics, as the JAX package's)."""
+    if max(height, width) / min(height, width) > 200:
+        raise ValueError("absolute aspect ratio must be smaller than 200")
+    h_bar = max(factor, round(height / factor) * factor)
+    w_bar = max(factor, round(width / factor) * factor)
+    if h_bar * w_bar > max_pixels:
+        beta = math.sqrt((height * width) / max_pixels)
+        h_bar = max(factor, math.floor(height / beta / factor) * factor)
+        w_bar = max(factor, math.floor(width / beta / factor) * factor)
+    elif h_bar * w_bar < min_pixels:
+        beta = math.sqrt(min_pixels / (height * width))
+        h_bar = math.ceil(height * beta / factor) * factor
+        w_bar = math.ceil(width * beta / factor) * factor
+    return h_bar, w_bar
+
+
 def resize_np(img: np.ndarray, out_h: int, out_w: int, filter: str = "bicubic",
               quantize_uint8: bool = False) -> np.ndarray:
     """Resize a (..., H, W, C) numpy image with the same weights.
@@ -131,6 +154,24 @@ def resize_flat(img: torch.Tensor, out_h: int, out_w: int, channels: int,
     kw = torch.from_numpy(
         kron_resize_weights(wc // channels, out_w, channels, filter)).to(img)
     return torch.matmul(torch.matmul(wh, img), kw.T)
+
+
+def resize_uint8_levels_flat(img: torch.Tensor, out_h: int, out_w: int,
+                             channels: int, filter: str = "bicubic") -> torch.Tensor:
+    """Resize a (..., H, W*C) float image holding uint8 levels the way
+    Pillow resizes a uint8 image: the W pass first, each pass rounded half
+    up and clipped to [0, 255] (Pillow clips the cubic overshoot of its
+    first pass into a uint8 image). Within one level of Pillow, whose
+    coefficients are fixed-point; an image already at the output size
+    passes through exactly. Returns uint8 levels as floats."""
+    h, wc = img.shape[-2], img.shape[-1]
+    if (h, wc) == (out_h, out_w * channels):
+        return img
+    kw = torch.from_numpy(
+        kron_resize_weights(wc // channels, out_w, channels, filter)).to(img)
+    x = torch.clamp(torch.floor(torch.matmul(img, kw.T) + 0.5), 0.0, 255.0)
+    wh = torch.from_numpy(resize_weights(h, out_h, filter)).to(img)
+    return torch.clamp(torch.floor(torch.matmul(wh, x) + 0.5), 0.0, 255.0)
 
 
 def pad_square_flat(img: torch.Tensor, channels: int, fill_rgb) -> torch.Tensor:

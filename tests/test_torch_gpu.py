@@ -8,7 +8,9 @@ runs on a machine without it:
 
 Tolerances as in chip_smoke.py: norms within 1 bf16 ulp (rtol 8e-3; 1.6e-2
 for T5's twice-rounded RMSNorm) plus atol 1e-5 near zero; attention atol and
-rtol 2e-2 (P rounded to bf16 against per-tile running maxima).
+rtol 2e-2 (P rounded to bf16 against per-tile running maxima); the rotary
+embedding within 1 bf16 ulp (rtol 8e-3; the kernel may fuse a multiply-add
+that the plain version rounds twice in fp32) plus atol 1e-5 near zero.
 """
 
 import pytest
@@ -17,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from t2v_metrics_tpu_torch.ops import attention as A  # noqa: E402
 from t2v_metrics_tpu_torch.ops import launch_counts, norms as N  # noqa: E402
+from t2v_metrics_tpu_torch.ops import rope as R  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -95,12 +98,65 @@ def test_attention_kernel_packed_and_masked_rows(dev):
     assert torch.count_nonzero(out[1]) == 0
 
 
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    (2, 100, 16, 16, 80),     # Qwen ViT: MHA, d=80, ragged rows
+    (2, 64, 28, 4, 128),      # Qwen decoder prefill: GQA 28/4, d=128
+    (1, 40, 4, 4, 64),
+])
+def test_rope_kernel(dev, b, s, h, kvh, d):
+    lanes = (h + 2 * kvh) * d
+    pk = _randn(dev, b, s, lanes)
+    pos = torch.randint(0, 5000, (b, s), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    ang = pos[..., None].float() * _randn(dev, d, seed=2, dtype=torch.float32).abs()
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    ref = R.rope_pack_plain(pk, cos, sin, h + kvh, d)
+    before = launch_counts()["rope_pack"]
+    out = R.rope_pack(pk.clone(), cos, sin, h + kvh, d)
+    assert launch_counts()["rope_pack"] == before + 1
+    _close(out, ref, 1e-5, 8e-3)
+    assert torch.equal(out[..., (h + kvh) * d:], pk[..., (h + kvh) * d:])
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,windows", [
+    (3, 200, 4, 4, 80, False, True),     # ViT windows (segment ids), d=80
+    (24, 128, 16, 16, 80, False, True),  # ViT window tiles
+    (2, 150, 8, 2, 128, True, False),    # decoder prefill: GQA, causal, d=128
+    (2, 130, 4, 4, 64, True, True),      # segment ids with causal, d=64
+])
+def test_attention_kernel_segments_and_head_dims(dev, b, s, h, kvh, d, causal,
+                                                 windows):
+    qkv = _randn(dev, b, s, (h + 2 * kvh) * d)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    kw = dict(kv_heads=kvh, causal=causal)
+    if windows:  # windows of 1..64 rows in order, the tail padded with -1
+        sizes = torch.randint(1, 65, (s,), generator=gen, device=dev)
+        seg = torch.repeat_interleave(torch.arange(s, device=dev), sizes)[:s]
+        seg = seg.expand(b, s).clone()
+        seg[:, s - 9:] = -1
+        kw["segment_ids"] = seg.int()
+    else:
+        lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
+        kw["kv_mask"] = torch.arange(s, device=dev)[None] < lens[:, None]
+    before = launch_counts()["flash_attention_flat"]
+    out = A.attention_flat_packed(qkv, h, **kw)
+    assert launch_counts()["flash_attention_flat"] == before + 1
+    q, k, v, _ = A._split_packed(qkv, h, kvh)
+    _close(out, A.attention_flat_reference(q, k, v, h, **kw), 2e-2, 2e-2)
+
+
 def test_attention_kernel_refuses_what_it_lacks(dev):
     q = _randn(dev, 1, 8, 4 * 32)
     with pytest.raises(NotImplementedError):
         A.flash_attention_flat(q, q, q, 4)                      # head dim 32
     q = _randn(dev, 1, 8, 4 * 64)
     with pytest.raises(NotImplementedError):
-        A.attention_flat(q, q, q, 4, segment_ids=torch.zeros((1, 8), device=dev))
+        A.attention_flat(q, q, q, 4, causal=True, local_window=4)
+    with pytest.raises(NotImplementedError):
+        A.attention_flat(q, q, q, 4, causal=True,
+                         bidir_ids=torch.zeros((1, 8), device=dev))
+    with pytest.raises(ValueError):                             # not square
+        A.attention_flat(q[:, :4], q, q, 4,
+                         segment_ids=torch.zeros((1, 8), device=dev))
     with pytest.raises(TypeError):
         A.flash_attention_flat(q.float(), q.float(), q.float(), 4)

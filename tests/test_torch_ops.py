@@ -96,7 +96,7 @@ def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors the kernel wrappers run their plain versions and count
     no launch."""
     from t2v_metrics_tpu_torch.ops import (attention, launch_counts, norms,
-                                           reset_launch_counts)
+                                           reset_launch_counts, rope)
 
     reset_launch_counts()
     x = torch.from_numpy(_x((4, 64)))
@@ -108,8 +108,11 @@ def test_cpu_tensors_take_the_plain_versions():
     q, k, v = qkv.split(4 * 64, dim=-1)
     assert torch.equal(attention.flash_attention_flat_packed(qkv, 4),
                        attention.attention_flat_reference(q, k, v, 4))
+    cos, sin = torch.ones(2, 5, 64), torch.zeros(2, 5, 64)
+    assert torch.equal(rope.rope_pack(qkv, cos, sin, 8, 64),
+                       rope.rope_pack_plain(qkv, cos, sin, 8, 64))
     assert launch_counts() == {"flash_attention_flat": 0, "layer_norm": 0,
-                               "rms_norm": 0}
+                               "rms_norm": 0, "rope_pack": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -118,18 +121,25 @@ def test_kernel_wrappers_refuse_other_devices():
         TL.layer_norm(x, torch.ones(8, device="meta"), None)
     with pytest.raises(ValueError):
         TL.rms_norm(x, torch.ones(8, device="meta"))
+    from t2v_metrics_tpu_torch.ops.rope import rope_pack
+
+    pk = torch.zeros(1, 2, 24, device="meta")
+    with pytest.raises(ValueError):
+        rope_pack(pk, torch.ones(1, 2, 8, device="meta"),
+                  torch.ones(1, 2, 8, device="meta"), 2, 8)
 
 
 def test_port_imports_no_jax():
-    """Importing the port and scoring the test config leaves jax out of
+    """Importing the port and scoring the test configs leaves jax out of
     sys.modules (the GPU machine has no jax)."""
     code = (
         "import sys, numpy as np\n"
         "import t2v_metrics_tpu_torch as t\n"
-        "s = t.VQAScore('clip-flant5-test', device='cpu')\n"
         "img = np.random.default_rng(0).integers(0, 256, (40, 56, 3), dtype=np.uint8)\n"
-        "out = s(images=[img], texts=['a red cube'])\n"
-        "assert out.shape == (1, 1) and np.isfinite(out).all(), out\n"
+        "for name in ('clip-flant5-test', 'qwen2.5-vl-test'):\n"
+        "    s = t.VQAScore(name, device='cpu')\n"
+        "    out = s(images=[img], texts=['a red cube', 'a dog'])\n"
+        "    assert out.shape == (1, 2) and np.isfinite(out).all(), out\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
