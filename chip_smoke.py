@@ -5,29 +5,33 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. environment: the card's name and power limit; build every kernel of the
-     clip-flant5 and Qwen2.5-VL paths from the sources in this checkout (nvcc
-     for the CUDA flash attention at head dims 64/80/128, Triton for
-     LayerNorm, RMSNorm and the rotary embedding) and time the build;
+     clip-flant5, Qwen2.5-VL and Qwen3-VL paths from the sources in this
+     checkout (one nvcc per CUDA source, started together: the flash
+     attention at head dims 64/72/80/128 and the MoE grouped GEMM; Triton
+     for LayerNorm, RMSNorm and the rotary embedding) and time the build;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the clip-flant5-xl and Qwen2.5-VL-7B paths give it, with its
-     tolerance and CUDA-event times (``--kernels-only`` stops here, with no
-     result line);
+     shapes the clip-flant5-xl, Qwen2.5-VL-7B and Qwen3-VL-30B-A3B paths
+     give it, with its tolerance and CUDA-event times (``--kernels-only``
+     stops here, with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
-     full, and 2 decoder layers) on the card in bf16 with the kernels,
-     against the CPU in fp32 with the plain versions, on one set of random
-     parameters each;
+     full, and 2 decoder layers; Qwen3-VL-30B-A3B widths with 2 ViT and 2
+     decoder layers of 128 experts, deepstack at ViT layers 0 and 1) on the
+     card in bf16 with the kernels, against the CPU in fp32 with the plain
+     versions, on one set of random parameters each;
   4. the slices through the public entry point, each with the kernel launch
-     counts of its first call, ``batch_forward`` and pairs/s:
-     ``VQAScore("clip-flant5-xl", init="random")`` and
+     counts of its first call, ``batch_forward``, pairs/s and its peak
+     device memory, each slice's model freed before the next is built:
+     ``VQAScore("clip-flant5-xl", init="random")``,
      ``VQAScore("qwen2.5-vl-7b", init="random")`` (1024x1024 images, which
      take the untiled window layout, then 300x380 images through
-     ``batch_forward``, which take the tiled one); with ``--profile``, the
-     device time of one ``batch_forward`` of each, and of the Qwen forward
-     at 1024x1024, by kernel family (torch.profiler) and the device's busy
-     share.
+     ``batch_forward``, which take the tiled one) and
+     ``VQAScore("qwen3-vl-30b-a3b", init="random")`` (1024x1024 images);
+     with ``--profile``, the device time of one ``batch_forward`` of each,
+     and of the Qwen forwards at 1024x1024, by kernel family
+     (torch.profiler) and the device's busy share.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the two slices), the card's name and power
+summed over the first calls of the three slices), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -38,14 +42,21 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# the ~31 B bf16 parameters of qwen3-vl-30b-a3b follow two freed slices: let
+# the caching allocator grow segments rather than fragment (set before CUDA
+# starts)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEED = 0
 WARMUP, ITERS = 3, 20
@@ -78,6 +89,16 @@ ROWS_TOL_NATS = 0.1
 # the bf16 roundings of ~12 matmuls and the 152064-way log-softmax put the
 # gap near 1e-2 nats, so the limit is 5x that.
 QWEN_CHAIN_TOL_NATS = 5e-2
+# Grouped GEMM: kernel and plain version both sum in fp32 and round once to
+# bf16, in other orders, so a result may land one bf16 ulp away (rtol
+# 2^-7); atol 1e-4 covers sums that cancel to near zero.
+GMM_RTOL, GMM_ATOL = 2 ** -7, 1e-4
+# Qwen3 chain: 30b-a3b widths, 2 ViT + 2 decoder layers of 128 experts,
+# bf16 on the card against fp32 on the CPU. Besides the roundings of the
+# Qwen2.5 chain, the router's bf16 logits swap the 8th and 9th expert of
+# some tokens, each such swap moving ~1/12 of that token's MoE output:
+# predicted ~2e-2 nats, limit 5e-2 as for Qwen2.5.
+QWEN3_CHAIN_TOL_NATS = 5e-2
 
 KERNELS = {
     "flash_attention_flat": ("cuda", "t2v_metrics_tpu_torch/csrc/flash_flat.cu",
@@ -88,6 +109,8 @@ KERNELS = {
                  "t2v_metrics_tpu/ops/norms.py:113"),
     "rope_pack": ("triton", "t2v_metrics_tpu_torch/ops/rope.py",
                   "t2v_metrics_tpu/ops/rope.py:51"),
+    "grouped_gemm": ("cuda", "t2v_metrics_tpu_torch/csrc/grouped_gemm.cu",
+                     "t2v_metrics_tpu/ops/moe.py:105"),
 }
 
 
@@ -139,6 +162,12 @@ def outside(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> i
     return int(((out.float() - ref).abs() > atol + rtol * ref.abs()).sum())
 
 
+def free_cuda() -> None:
+    """Return the memory of dropped tensors to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance between two bf16 tensors in units of the last place."""
     def ordered(t):
@@ -156,7 +185,7 @@ def phase_build() -> None:
     from t2v_metrics_tpu_torch.ops import norms, rope
 
     t0 = time.perf_counter()
-    build.flash_flat_lib()
+    build.build_all()          # one nvcc per CUDA source, all at once
     t_nvcc = time.perf_counter() - t0
     # Triton compiles at first launch: launch each kernel once at its widths
     dev = torch.device("cuda")
@@ -164,19 +193,23 @@ def phase_build() -> None:
     def ones(*shape, dtype=torch.bfloat16):
         return torch.ones(shape, device=dev, dtype=dtype)
 
-    norms.layer_norm_fused(ones(8, 1024), ones(1024), ones(1024))
+    for d in (1024, 1152, 4608):
+        norms.layer_norm_fused(ones(8, d), ones(d), ones(d))
     for d in (2048, 1280, 3584):
         norms.rms_norm_fused(ones(8, d), ones(d))
-    for heads, d in ((32, 80), (36, 128)):
+    norms.rms_norm_heads_fused(ones(1, 8, 40 * 128), ones(128), ones(128), 32, 4, 128)
+    for heads, d in ((32, 80), (36, 128), (32, 72)):
         rope.rope_pack(ones(1, 8, heads * d), ones(1, 8, d, dtype=torch.float32),
                        ones(1, 8, d, dtype=torch.float32), 32, d)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    log(f"[build] nvcc flash_flat.cu (head dims 64/80/128): {t_nvcc:.2f} s; "
-        f"with the Triton norms and rotary embedding: {total:.2f} s")
-    for line in build.build_log("flash_flat").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] nvcc flash_flat.cu (head dims 64/72/80/128) and "
+        f"grouped_gemm.cu in parallel: {t_nvcc:.2f} s; with the Triton norms "
+        f"and rotary embedding: {total:.2f} s")
+    for lib in ("flash_flat", "grouped_gemm"):
+        for line in build.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] ptxas {lib}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -196,23 +229,28 @@ def phase_kernels() -> dict:
 
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
-    def record(name, label, out, ref, ok, detail, fn, plain_fn, main):
+    def record(name, label, out, ref, ok, detail, fn, plain_fn, main, flop=None):
         err = float((out.float() - ref.float()).abs().max())
         ms, plain_ms = cuda_ms(fn), cuda_ms(plain_fn)
+        rate = "" if flop is None else (
+            f" ({flop / ms / 1e9:.1f} / {flop / plain_ms / 1e9:.1f} TFLOP/s)")
         log(f"[kernel] {name} {label}: max_abs_err {err:.3e} ({detail}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{rate}")
         check(ok, f"{name} {label} disagrees with its plain version: {detail}")
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
             r["ms"], r["plain_ms"] = ms, plain_ms
 
-    # LayerNorm: ln_pre at (M*577, 1024), ln1/ln2 at (M*640, 1024), M=4
-    for rows, main in ((4 * 577, False), (4 * 640, True)):
-        x, w, b = randn(rows, 1024, std=3.0), randn(1024), randn(1024)
+    # LayerNorm: ln_pre at (M*577, 1024), ln1/ln2 at (M*640, 1024), M=4;
+    # Qwen3-VL ViT blocks at (M*4096, 1152) and the deepstack mergers
+    # (post-shuffle) at (M*1024, 4608), one row per program
+    for rows, d, main in ((4 * 577, 1024, False), (4 * 640, 1024, True),
+                          (4 * 4096, 1152, False), (4 * 1024, 4608, False)):
+        x, w, b = randn(rows, d, std=3.0), randn(d), randn(d)
         out, ref = N.layer_norm_fused(x, w, b), N.layer_norm_plain(x, w, b)
         bad = outside(out, ref, NORM_ATOL, LN_RTOL)
-        record("layer_norm", f"({rows}, 1024)", out, ref, bad == 0,
+        record("layer_norm", f"({rows}, {d})", out, ref, bad == 0,
                f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; "
                f"max {bf16_ulps(out, ref)} bf16 ulps",
                lambda: N.layer_norm_fused(x, w, b),
@@ -231,26 +269,46 @@ def phase_kernels() -> dict:
                lambda: N.rms_norm_fused(x, w),
                lambda: N.rms_norm_plain(x, w), main)
 
+    # qk-norm of the Qwen3-VL-30B-A3B decoder: 16 pairs x 1024 tokens (the
+    # 4 x 4 slice at 1024x1024: 984-987-token prompts + 8 in bucket 1024),
+    # the 32 q + 4 k heads of 128 of each packed (32 + 2*4) x 128 row, in place
+    pk, qs, ks = randn(16 * 1024, 40 * 128, std=3.0), randn(128), randn(128)
+    buf = pk.clone()
+    out = N.rms_norm_heads_fused(buf, qs, ks, 32, 4, 128)
+    ref = N.rms_norm_heads_plain(pk, qs, ks, 32, 4, 128)
+    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
+    v_same = bool(torch.equal(out[:, 36 * 128:], pk[:, 36 * 128:]))
+    record("rms_norm", "qk-norm (16384, 40x128), 32+4 heads of 128 in place",
+           out, ref, bad == 0 and v_same and out.data_ptr() == buf.data_ptr(),
+           f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max "
+           f"{bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
+           lambda: N.rms_norm_heads_fused(buf, qs, ks, 32, 4, 128),
+           lambda: N.rms_norm_heads_plain(pk, qs, ks, 32, 4, 128), False)
+
     # Rotary embedding on the packed q|k|v rows of Qwen2.5-VL-7B: the ViT
     # (M=4 images x 5120 patch rows, 16 q + 16 k heads of 80, 3840 lanes)
-    # and the decoder prefill (P=16 x 1280, 28 q + 4 k heads of 128, 4608)
-    for b, s, lanes, d, main in ((4, 5120, 3840, 80, False),
-                                 (16, 1280, 4608, 128, True)):
+    # and the decoder prefill (P=16 x 1280, 28 q + 4 k heads of 128, 4608);
+    # of Qwen3-VL-30B-A3B: the ViT (4 x 4096, 16 + 16 heads of 72, 3456)
+    # and the decoder prefill (16 x 1024, 32 + 4 heads of 128, 5120)
+    for b, s, lanes, d, rot, main in ((4, 5120, 3840, 80, 32, False),
+                                      (16, 1280, 4608, 128, 32, True),
+                                      (4, 4096, 3456, 72, 32, False),
+                                      (16, 1024, 5120, 128, 36, False)):
         pk = randn(b, s, lanes)
         ang = (torch.randint(0, 4096, (b, s, 1), generator=gen, device=dev).float()
                * randn(d, dtype=torch.float32).abs())
         cos, sin = torch.cos(ang), torch.sin(ang)
         buf = pk.clone()
-        out = R.rope_pack(buf, cos, sin, 32, d)     # in place on buf
-        ref = R.rope_pack_plain(pk, cos, sin, 32, d)
+        out = R.rope_pack(buf, cos, sin, rot, d)     # in place on buf
+        ref = R.rope_pack_plain(pk, cos, sin, rot, d)
         bad = outside(out, ref, NORM_ATOL, ROPE_RTOL)
-        v_same = bool(torch.equal(out[..., 32 * d:], pk[..., 32 * d:]))
-        record("rope_pack", f"({b}, {s}, {lanes}) 32 heads of {d}", out, ref,
+        v_same = bool(torch.equal(out[..., rot * d:], pk[..., rot * d:]))
+        record("rope_pack", f"({b}, {s}, {lanes}) {rot} heads of {d}", out, ref,
                bad == 0 and v_same,
                f"{bad} outside atol {NORM_ATOL} + rtol {ROPE_RTOL}; "
                f"max {bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
-               lambda: R.rope_pack(buf, cos, sin, 32, d),
-               lambda: R.rope_pack_plain(pk, cos, sin, 32, d), main)
+               lambda: R.rope_pack(buf, cos, sin, rot, d),
+               lambda: R.rope_pack_plain(pk, cos, sin, rot, d), main)
 
     # Attention at the four sites of the xl path, P=32 pairs, M=4 images
     def lengths_mask(b, s, lo, hi):
@@ -293,6 +351,16 @@ def phase_kernels() -> dict:
                   "causal, kv_mask", False, (randn(16, 1280, 36 * 128), 28),
                   dict(kv_heads=4, causal=True,
                        kv_mask=lengths_mask(16, 1280, 1200, 1280))))
+    # Qwen3-VL-30B-A3B: the ViT over 4 images of 992x992 (3844 patches in
+    # bucket 4096, pads under segment -1), d=72; the decoder prefill
+    seg3 = torch.where(torch.arange(4096, device=dev) < 3844, 0, -1).int()
+    sites.append(("Qwen3 ViT (4, 4096, 3*1152) d=72, 3844 rows then -1 pads",
+                  False, (randn(4, 4096, 3 * 1152), 16),
+                  dict(segment_ids=seg3.expand(4, 4096))))
+    sites.append(("Qwen3 decoder prefill (16, 1024, 40*128) d=128, GQA 32/4, "
+                  "causal, kv_mask", False, (randn(16, 1024, 40 * 128), 32),
+                  dict(kv_heads=4, causal=True,
+                       kv_mask=lengths_mask(16, 1024, 985, 988))))
 
     for label, main, args, kw in sites:
         if len(args) == 2:
@@ -310,6 +378,40 @@ def phase_kernels() -> dict:
         record("flash_attention_flat", label, out, ref, ok,
                f"{bad} elements outside atol {ATTN_ATOL} + rtol {ATTN_RTOL}",
                fn, plain_fn, main)
+        del out, ref
+
+    # Grouped GEMM at the Qwen3-VL-30B-A3B expert shapes of the slice: a
+    # seeded top-8 routing of 16 x 1024 tokens over 128 experts (P = 147,456
+    # buffer rows with the padding), gate_up (P, 2048) x (128, 2048, 1536)
+    # and down (P, 768) x (128, 768, 2048); and a skewed routing where
+    # experts 5 and 77 take every assignment and the other 126 are empty
+    from t2v_metrics_tpu_torch.ops import moe as M
+
+    tokens = 16 * 1024
+    top8 = torch.randn((tokens, 128), generator=gen, device=dev).topk(8).indices
+    skewed = torch.tensor([5, 77], device=dev).repeat(tokens * 4)
+    weights = {"gate_up": randn(128, 2048, 1536, std=2048 ** -0.5),
+               "down": randn(128, 768, 2048, std=768 ** -0.5)}
+    for routing, ids in (("top-8", top8.reshape(-1)), ("skewed", skewed)):
+        _, _, be, p = M.plan_groups(ids, 128, M.BLOCK_M)
+        be_host = be.cpu()   # the plain version reads the block ids on the host
+        for wname, w in weights.items():
+            xg = randn(p, w.shape[1])
+            out = M.grouped_matmul(xg, w, be)
+            ref = M.grouped_matmul_reference(xg, w, be_host)
+            torch.cuda.synchronize()
+            bad = outside(out, ref, GMM_ATOL, GMM_RTOL)
+            record("grouped_gemm",
+                   f"{wname} ({p}, {w.shape[1]}) x (128, {w.shape[1]}, "
+                   f"{w.shape[2]}), {routing} routing", out, ref,
+                   bad == 0 and bool(torch.isfinite(out).all()),
+                   f"{bad} outside atol {GMM_ATOL} + rtol 2^-7; max "
+                   f"{bf16_ulps(out, ref)} bf16 ulps",
+                   lambda: M.grouped_matmul(xg, w, be),
+                   lambda: M.grouped_matmul_reference(xg, w, be_host),
+                   routing == "top-8" and wname == "gate_up",
+                   flop=2 * p * w.shape[1] * w.shape[2])
+            del out, ref
     return results
 
 
@@ -409,7 +511,7 @@ def phase_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
 # ---------------------------------------------------------------------------
 
 def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
-                expected=(95, 47, 122, 0), profile: bool = False) -> dict:
+                expected=(95, 47, 122, 0, 0), profile: bool = False) -> dict:
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -417,6 +519,7 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
         if device == "cuda":
             torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     scorer = t2v.VQAScore(model=model, init="random", seed=SEED, device=device)
     sync()
@@ -476,9 +579,12 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     fwd_s = 32 / (time.perf_counter() - t0)
     log(f"[slice] pairs/s after warm-up: batch_forward (64 pairs, batch 8) "
         f"{pairs_s:.2f}; forward (4 x 8) {fwd_s:.2f}")
+    log(f"[slice] {model} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
     if profile:
         phase_profile(lambda: scorer.batch_forward(data, batch_size=8),
                       f"{model} batch_forward")
+    del scorer
     return counts
 
 
@@ -544,6 +650,7 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
         if device == "cuda":
             torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     scorer = t2v.VQAScore(model, init="random", seed=SEED, device=device)
     sync()
@@ -568,7 +675,8 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
     # final norm (7B: 60 / 60 / 122)
     vit, layers = scorer.model.config.vision.depth, scorer.model.config.text.layers
     want = {"flash_attention_flat": vit + layers, "layer_norm": 0,
-            "rms_norm": 2 * vit + 1 + 2 * layers + 1, "rope_pack": vit + layers}
+            "rms_norm": 2 * vit + 1 + 2 * layers + 1, "rope_pack": vit + layers,
+            "grouped_gemm": 0}
     if device != "cuda":  # the plain versions launch nothing
         want = dict.fromkeys(want, 0)
     check(counts == want, f"qwen slice: launch counts {counts} != {want}")
@@ -603,13 +711,147 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
     log(f"[qwen slice] pairs/s after warm-up: batch_forward (32 pairs of 300x380, "
         f"batch 4) {pairs_s:.2f}; forward (4 x 4 at {side}x{side}) {fwd_s:.2f}")
     if device == "cuda":
-        log(f"[qwen slice] peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-            f"allocated; card {card_line()}")
+        log(f"[qwen slice] {model} peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; "
+            f"card {card_line()}")
     if profile:
         phase_profile(lambda: scorer.batch_forward(data, batch_size=4),
                       f"{model} batch_forward 300x380")
         phase_profile(lambda: scorer(images=images, texts=texts),
                       f"{model} forward 4 x 4 at {side}x{side}")
+    del scorer
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Qwen3-VL-30B-A3B: chain (phase 3) and slice (phase 4)
+# ---------------------------------------------------------------------------
+
+QWEN3 = "qwen3-vl-30b-a3b"
+
+
+def qwen3_chain_config(vit_layers: int = 2, dec_layers: int = 2):
+    """Qwen3-VL-30B-A3B widths (128 experts, top-8) cut to ``vit_layers``
+    ViT layers, both tapped by a deepstack merger, and ``dec_layers``
+    decoder layers, which both take a deepstack residual."""
+    from t2v_metrics_tpu_torch.models.qwen3vl import resolve_config
+
+    cfg = resolve_config(QWEN3)
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, depth=vit_layers,
+                                        deepstack_indexes=tuple(range(vit_layers))),
+        text=dataclasses.replace(cfg.text, layers=dec_layers))
+
+
+def phase_qwen3_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.models.qwen3vl import Qwen3VLModel, init_qwen3vl
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    card = init_qwen3vl(cfg, SEED + 1, device, torch.bfloat16)
+    host = Qwen3VLModel(cfg, "cpu", torch.float32)
+    with torch.no_grad():    # one tensor at a time: no second host copy
+        dst = host.state_dict()
+        for name, t in card.state_dict().items():
+            dst[name].copy_(t.float().cpu())
+    tok = t2v.SimpleT5Tokenizer(cfg.text.vocab_size)
+    images, texts = seeded_images(m, 51), seeded_texts(n, 52)
+    scorers = [t2v.VQAScore(QWEN3, params=p, config=cfg, tokenizer=tok, device=d)
+               for p, d in ((card, device), (host, "cpu"))]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = np.log(scorers[0](images=images, texts=texts))
+    t1 = time.perf_counter()
+    counts = launch_counts()
+    on_cpu = np.log(scorers[1](images=images, texts=texts))
+    t2 = time.perf_counter()
+    diff = float(np.abs(on_card - on_cpu).max())
+    log(f"[qwen3 chain] 30b-a3b widths, {cfg.vision.depth} ViT layers (deepstack "
+        f"at {cfg.vision.deepstack_indexes}) + {cfg.text.layers} decoder layers of "
+        f"{cfg.text.num_experts} experts, M={m} N={n} 300x380 images: card bf16 "
+        f"{t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; card launches {json.dumps(counts)}")
+    log(f"[qwen3 chain] mean answer log-probs card {on_card.ravel().round(4).tolist()}")
+    log(f"[qwen3 chain] mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
+    log(f"[qwen3 chain] max |card - cpu| {diff:.4e} nats (limit {QWEN3_CHAIN_TOL_NATS}); "
+        f"spread over pairs {float(np.ptp(on_cpu)):.4e} nats")
+    check(np.isfinite(on_card).all() and on_card.shape == (m, n),
+          "qwen3 chain: card scores not finite or wrong shape")
+    check(counts["grouped_gemm"] == 2 * cfg.text.layers,
+          f"qwen3 chain: {counts['grouped_gemm']} grouped GEMM launches")
+    check(diff <= QWEN3_CHAIN_TOL_NATS, f"qwen3 chain: card and CPU differ by {diff} nats")
+
+
+def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024,
+                      profile: bool = False) -> dict:
+    """``VQAScore("qwen3-vl-30b-a3b", init="random")``, ~31 B parameters:
+    4 x 4 on 1024x1024 images (992x992 after smart_resize at factor 32,
+    3844 patches in bucket 4096, 961 visual tokens), the same pairs through
+    ``batch_forward``, pairs/s and the slice's peak memory."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer = t2v.VQAScore(model, init="random", seed=SEED, device=device)
+    torch.cuda.synchronize()
+    log(f"[qwen3 slice] {model} random init on {device}: "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of parameters")
+    images = seeded_images(4, 61, side, side)
+    texts = seeded_texts(4, 62)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"[qwen3 slice] first forward (4 images {side}x{side} x 4 texts): "
+        f"{t_first:.3f} s; launches {json.dumps(counts)}")
+    check(scores.shape == (4, 4), f"qwen3 slice: shape {scores.shape}")
+    check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
+          "qwen3 slice: scores not finite in [0, 1]")
+    # one same-shape image group (one tower call) and one prefill: attention
+    # and rope once a layer; RMSNorm twice a layer, the qk-norm once a layer
+    # and the final norm; LayerNorm twice a ViT layer, the merger and the
+    # deepstack mergers; the grouped GEMM twice a decoder layer (gate_up,
+    # down). 30b-a3b: 75 / 75 / 145 / 58 / 96
+    v, text = scorer.model.config.vision, scorer.model.config.text
+    want = {"flash_attention_flat": v.depth + text.layers,
+            "layer_norm": 2 * v.depth + 1 + len(v.deepstack_indexes),
+            "rms_norm": 3 * text.layers + 1, "rope_pack": v.depth + text.layers,
+            "grouped_gemm": 2 * text.layers}
+    check(counts == want, f"qwen3 slice: launch counts {counts} != {want}")
+    check(np.array_equal(scores, scorer(images=images, texts=texts)),
+          "qwen3 slice: second call differs")
+    log(f"[qwen3 slice] log scores: {np.log(scores).round(4).tolist()}")
+
+    data = [{"images": [images[i]], "texts": texts} for i in range(4)]
+    rows = scorer.batch_forward(data, batch_size=4)
+    media, texts_ = scorer._flatten_pairs(data, "images", 8)
+    check(rows.shape == (4, 1, 4)
+          and np.array_equal(rows.ravel(), scorer.model.forward(media, texts_)),
+          "qwen3 batch_forward rows differ from the pairwise forward")
+    log("[qwen3 slice] batch_forward rows equal the pairwise forward of the same pairs")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer.batch_forward(data, batch_size=4)
+    torch.cuda.synchronize()
+    pairs_s = 16 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    fwd_s = 16 / (time.perf_counter() - t0)
+    log(f"[qwen3 slice] pairs/s after warm-up: batch_forward (16 pairs at "
+        f"{side}x{side}, batch 4) {pairs_s:.2f}; forward (4 x 4) {fwd_s:.2f}")
+    log(f"[qwen3 slice] {model} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB allocated; card {card_line()}")
+    if profile:
+        phase_profile(lambda: scorer(images=images, texts=texts),
+                      f"{model} forward 4 x 4 at {side}x{side}")
+    del scorer
     return counts
 
 
@@ -619,7 +861,8 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
 
 # kernel families by substrings of the kernel's name; the rest is "other"
 # (elementwise ops, gathers, copies, log-softmax)
-KERNEL_FAMILIES = (("attention", ("flash_flat_kernel",)),
+KERNEL_FAMILIES = (("grouped_gemm", ("grouped_gemm_kernel",)),
+                   ("attention", ("flash_flat_kernel",)),
                    ("rope", ("rope_kernel",)),
                    ("rms_norm", ("rms_kernel",)),
                    ("layer_norm", ("ln_kernel",)),
@@ -667,7 +910,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one batch_forward of each slice (and the "
-                         "Qwen forward at 1024x1024) with torch.profiler and "
+                         "Qwen forwards at 1024x1024) with torch.profiler and "
                          "print the device time by kernel family")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-2); prints "
@@ -685,13 +928,19 @@ def main() -> int:
     results = phase_kernels()
     if args.kernels_only:
         return 0
-    phase_chain(chain_config())
-    phase_qwen_chain(qwen_chain_config())
-    counts = phase_slice(profile=args.profile)
-    torch.cuda.empty_cache()
-    qwen_counts = phase_qwen_slice(profile=args.profile)
+    free_cuda()
+    for chain in (lambda: phase_chain(chain_config()),
+                  lambda: phase_qwen_chain(qwen_chain_config()),
+                  lambda: phase_qwen3_chain(qwen3_chain_config())):
+        chain()
+        free_cuda()
+    # each slice's model is dropped on return and freed before the next
+    slice_counts = []
+    for run in (phase_slice, phase_qwen_slice, phase_qwen3_slice):
+        slice_counts.append(run(profile=args.profile))
+        free_cuda()
     table = [{"name": name, "route": route, "source": src, "replaces": rep,
-              "launches": counts[name] + qwen_counts[name],
+              "launches": sum(c[name] for c in slice_counts),
               "max_abs_err": results[name]["max_abs_err"],
               "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
              for name, (route, src, rep) in KERNELS.items()]

@@ -9,11 +9,12 @@ the generic ``score.Score`` facade).
     scorer = t2v.VQAScore(model="clip-flant5-xl", init="random", device="cuda")
     scores = scorer(images=[uint8_hwc_array], texts=["a photo of a cat"])
 
-The VQAScore models are clip-flant5 (xl, xxl) and Qwen2.5-VL (3b, 7b, 32b,
-72b; image scoring). On CUDA tensors the hot ops run hand-written Hopper
-kernels (``csrc/flash_flat.cu``, the Triton norms in ``ops/norms.py`` and
-the Triton rotary embedding in ``ops/rope.py``); on CPU tensors the same
-entry points run their plain PyTorch versions.
+The VQAScore models are clip-flant5 (xl, xxl), Qwen2.5-VL (3b, 7b, 32b,
+72b) and Qwen3-VL (dense and MoE; image scoring). On CUDA tensors the hot
+ops run hand-written Hopper kernels (``csrc/flash_flat.cu``, the MoE
+grouped GEMM ``csrc/grouped_gemm.cu``, the Triton norms in
+``ops/norms.py`` and the Triton rotary embedding in ``ops/rope.py``); on
+CPU tensors the same entry points run their plain PyTorch versions.
 """
 
 from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer

@@ -19,6 +19,7 @@ from .models import clip as tclip
 from .models import clip_flant5 as tcft5
 from .models import decoder as tdec
 from .models import qwen2vl as tqwen
+from .models import qwen3vl as tqwen3
 from .models import t5 as tt5
 from .ops import quant as Q
 
@@ -123,8 +124,17 @@ def _load_decoder(p: tdec.Decoder, tree: dict) -> tdec.Decoder:
         attn = src["attn"]
         _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
         _leaf(dst.o, attn["o"])
-        for name in ("gate", "up", "down"):
-            _leaf(getattr(dst, name), src["mlp"][name])
+        if dst.q_norm is not None:
+            _norm(dst.q_norm, attn["q_norm"])
+            _norm(dst.k_norm, attn["k_norm"])
+        if dst.moe is not None:
+            moe = src["mlp"]["moe"]
+            _leaf(dst.moe.router, moe["router"])
+            _copy(dst.moe.gate_up, moe["gate_up"])
+            _copy(dst.moe.down, moe["down"])
+        else:
+            for name in ("gate", "up", "down"):
+                _leaf(getattr(dst, name), src["mlp"][name])
     return p
 
 
@@ -145,5 +155,29 @@ def qwen2vl_from_numpy(tree: dict, cfg: tqwen.Qwen2VLConfig, device,
     _norm(v.merger.ln_q, src["merger"]["ln_q"])
     _leaf(v.merger.fc1, src["merger"]["fc1"])
     _leaf(v.merger.fc2, src["merger"]["fc2"])
+    _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+@torch.no_grad()
+def qwen3vl_from_numpy(tree: dict, cfg: tqwen3.Qwen3VLConfig, device,
+                       dtype) -> tqwen3.Qwen3VLModel:
+    model = tqwen3.Qwen3VLModel(cfg, device, dtype)
+    v, src = model.vision, tree["vision"]
+    for name in ("patch_w", "patch_b", "pos_emb"):
+        _copy(getattr(v, name), src[name])
+    for dst, blk in zip(v.blocks, src["blocks"], strict=True):
+        _norm(dst.ln1, blk["ln1"])
+        _norm(dst.ln2, blk["ln2"])
+        attn = blk["attn"]
+        _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
+        _leaf(dst.o, attn["o"])
+        _leaf(dst.fc1, blk["mlp"]["fc1"])
+        _leaf(dst.fc2, blk["mlp"]["fc2"])
+    for dst, m in zip([v.merger, *v.deepstack], [src["merger"], *src["deepstack"]],
+                      strict=True):
+        _norm(dst.norm, m["norm"])
+        _leaf(dst.fc1, m["fc1"])
+        _leaf(dst.fc2, m["fc2"])
     _load_decoder(model.decoder, tree["decoder"])
     return model

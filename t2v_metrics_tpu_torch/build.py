@@ -1,12 +1,13 @@
 """Build the port's Hopper kernels from the sources in this package.
 
-The CUDA kernel (``csrc/flash_flat.cu``, one instantiation per head dim) is
-compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
+Each CUDA source (``csrc/flash_flat.cu``, one instantiation per head dim;
+``csrc/grouped_gemm.cu``) is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface and loaded with
 ``ctypes``. The library's name carries a hash of its source and flags, so an
-edited source is rebuilt. Triton kernels compile at their first launch; their
-cache is kept beside the library. Everything lands in ``_build/`` inside the
-package, which git ignores. Nothing is downloaded.
+edited source is rebuilt. ``build_all`` starts one ``nvcc`` per source at
+once. Triton kernels compile at their first launch; their cache is kept
+beside the libraries. Everything lands in ``_build/`` inside the package,
+which git ignores. Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -77,6 +78,27 @@ def flash_flat_lib():
                    + [i32, ctypes.c_float, vp])  # causal, scale, stream
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def grouped_gemm_lib():
+    """The ``grouped_gemm_forward`` C entry point, built on first use."""
+    so = build_shared_lib("grouped_gemm", [CSRC_DIR / "grouped_gemm.cu"])
+    fn = ctypes.CDLL(str(so)).grouped_gemm_forward
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [i32] * 4 + [vp]   # x, w, be, o; P, K, N, E; stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_all() -> None:
+    """Build every CUDA library, one ``nvcc`` per source, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = (flash_flat_lib, grouped_gemm_lib)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for fut in [pool.submit(lib) for lib in libs]:
+            fut.result()
 
 
 def build_log(name: str) -> str:

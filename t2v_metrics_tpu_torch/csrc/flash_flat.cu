@@ -1,5 +1,5 @@
-// Flat flash attention for Hopper (sm_90a), head dim 64, 80 or 128, bf16 in
-// and out.
+// Flat flash attention for Hopper (sm_90a), head dim 64, 72, 80 or 128, bf16
+// in and out.
 //
 // Replaces the TPU kernel t2v_metrics_tpu/ops/attention.py:_flash_flat_kernel
 // (entered through flash_attention_flat / flash_attention_flat_packed).
@@ -45,7 +45,13 @@
 // segment ids of each thread's rows in a pass after the other masks (in the
 // per-element mask loop they cost the d=64 T5 site ~13%); no key tile is
 // skipped (the ViT's windowed layers over a whole 5120-row
-// bucket compute every tile and mask all but their window). The TPU kernel's
+// bucket compute every tile and mask all but their window). A head dim that
+// is not a multiple of 16 (72 in the Qwen3-VL ViT) runs its Q.K^T k-steps
+// over DP = 80 columns: the Q and K tiles load the head's 72 columns and
+// zero columns 72..79 (in the packed layout those lanes belong to the next
+// head), and P.V writes 72 output columns; 72 * 2 bytes keeps every head's
+// offset 16-byte aligned. With D a multiple of 16, DP == D and the
+// instruction stream is the one without this padding. The TPU kernel's
 // head-group planning and its ones-column denominator on v are MXU and VMEM
 // devices and are not carried over.
 
@@ -76,11 +82,17 @@ struct Params {
   float scale;
 };
 
-// Dynamic shared memory of one block: Q and K tiles of D + 8 columns, and
+// Head dim D rounded up to the 16-wide k-step of m16n8k16.
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 15) / 16 * 16;
+}
+
+// Dynamic shared memory of one block: Q and K tiles of DP + 8 columns, and
 // the transposed V tile of D rows of BK + 8 keys, all bf16.
 template <int D>
 constexpr int smem_bytes() {
-  return ((BQ + BK) * (D + 8) + D * LDV) * 2;
+  return ((BQ + BK) * (padded_dim<D>() + 8) + D * LDV) * 2;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -105,9 +117,10 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
 template <int D, bool SEG>
 __global__ void __launch_bounds__(THREADS)
 flash_flat_kernel(const Params p) {
-  constexpr int LD = D + 8;      // padded row length of the Q and K tiles
-  constexpr int CH = D / 8;      // 16-byte chunks per row
-  constexpr int KS = D / 16;     // k-steps of Q.K^T
+  constexpr int DP = padded_dim<D>();
+  constexpr int LD = DP + 8;     // padded row length of the Q and K tiles
+  constexpr int CH = DP / 8;     // 16-byte chunks per Q/K tile row
+  constexpr int KS = DP / 16;    // k-steps of Q.K^T
   constexpr int NT = D / 8;      // 8-column output tiles of P.V
   extern __shared__ __align__(16) unsigned char smem[];
   auto Qs = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem);
@@ -128,11 +141,12 @@ flash_flat_kernel(const Params p) {
   const __nv_bfloat16* vb = p.v + b * p.v_bs + p.v_off + (long long)kvh * D;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  // Q tile -> shared (16-byte chunks, rows past Sq zero-filled)
+  // Q tile -> shared (16-byte chunks; rows past Sq and columns past D
+  // zero-filled, the latter only when D is not a multiple of 16)
   for (int i = tid; i < BQ * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 8;
     uint4 val = zero;
-    if (q0 + r < p.Sq)
+    if ((DP == D || c < D) && q0 + r < p.Sq)
       val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * p.q_rs + c);
     *reinterpret_cast<uint4*>(&Qs[r][c]) = val;
   }
@@ -177,15 +191,18 @@ flash_flat_kernel(const Params p) {
     __syncthreads();  // every warp is done with the previous tile
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
+      const bool col_in = DP == D || c < D;   // a column of this head
       uint4 kv = zero, vv = zero;
-      if (k0 + r < p.Sk) {
+      if (col_in && k0 + r < p.Sk) {
         kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * p.k_rs + c);
         vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * p.v_rs + c);
       }
       *reinterpret_cast<uint4*>(&Ks[r][c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+      if (col_in) {
+        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[c + j][r] = ve[j];
+        for (int j = 0; j < 8; ++j) Vt[c + j][r] = ve[j];
+      }
     }
     __syncthreads();
 
@@ -324,7 +341,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // of q, k, v and o must keep 16-byte alignment (the wrapper checks). seg is
 // an int32 (B, Sk) array or null, and needs Sq == Sk. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a head dim
-// other than 64, 80 or 128).
+// other than 64, 72, 80 or 128).
 extern "C" int flash_flat_forward(
     const void* q, const void* k, const void* v, void* o, const void* bias,
     const void* kv_mask, const void* seg, int B, int H, int KVH, int Sq,
@@ -357,6 +374,7 @@ extern "C" int flash_flat_forward(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return static_cast<int>(launch<64>(p, B, s));
+    case 72: return static_cast<int>(launch<72>(p, B, s));
     case 80: return static_cast<int>(launch<80>(p, B, s));
     case 128: return static_cast<int>(launch<128>(p, B, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -1,14 +1,17 @@
 """Decoder-only transformer (GQA + RoPE / M-RoPE) in PyTorch: the Qwen2.5
-parts of t2v_metrics_tpu/models/decoder.py.
+and Qwen3 parts of t2v_metrics_tpu/models/decoder.py.
 
 Ported: ``DecoderConfig`` (every field), ``rope_cos_sin`` (1-D RoPE,
 Qwen2.5-VL's sectioned M-RoPE and Qwen3-VL's interleaved layout, linear
 scaling), the prefill branch of the attention (one packed q|k|v linear,
-``rope_pack`` on the q|k lanes, the flat attention with GQA, key mask and
-causal mask, the o-projection), the dense SwiGLU MLP, ``forward`` with
-``logit_positions`` (the lm head runs only at the rows that score) and the
-random init. The cached decode path, MoE, qk-norm, sandwich norms and
-sliding windows come with the slices that need them and raise until then.
+qk-norm over the q|k heads in place, ``rope_pack`` on the q|k lanes, the
+flat attention with GQA, key mask and causal mask, the o-projection), the
+dense SwiGLU MLP, the routed-expert MLP (Qwen3-VL-MoE: the sorted dispatch
+with the grouped GEMM of ``ops/moe.py`` when ``moe_dispatch``, else the dense
+``_moe_mlp`` oracle), ``forward`` with ``logit_positions`` (the lm head runs
+only at the rows that score) and deepstack residuals, and the random init.
+The cached decode path, the shared expert, sandwich norms and sliding
+windows come with the slices that need them and raise until then.
 
 Parameters keep the JAX layouts (linear weights (in, out), activations flat
 (B, S, H*D)); each layer's q|k|v weights are one packed (d_model,
@@ -25,6 +28,7 @@ from torch import nn
 from ..ops import layers as L
 from ..ops import quant as Q
 from ..ops.attention import attention_flat_packed
+from ..ops.moe import moe_mlp_dispatch
 from ..ops.rope import rope_pack
 from .clip import Norm, init_norm_, normal_
 
@@ -67,7 +71,7 @@ class DecoderConfig:
 def check_supported(cfg: DecoderConfig) -> None:
     """Raise for the decoder options whose slices are not ported yet."""
     missing = [name for name, on in (
-        ("MoE", cfg.num_experts), ("qk_norm", cfg.qk_norm),
+        ("the shared expert", cfg.moe_shared_ff),
         ("sandwich_norms", cfg.sandwich_norms),
         ("sliding windows", cfg.sliding_window is not None
          or cfg.layer_types is not None)) if on]
@@ -123,18 +127,40 @@ def rope_cos_sin(cfg: DecoderConfig, position_ids: torch.Tensor,
 # Parameters
 # ---------------------------------------------------------------------------
 
+class MoE(nn.Module):
+    """Routed experts: ``router`` (a leaf, w (H, E)), ``gate_up`` (E, H, 2I)
+    with the gate and up halves side by side, and ``down`` (E, I, H)."""
+
+    def __init__(self, cfg: DecoderConfig, device, dtype):
+        super().__init__()
+        e, d, i = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+        self.router = Q.Linear.empty(d, e, False, device, dtype)
+        self.gate_up = nn.Parameter(torch.empty((e, d, 2 * i), device=device,
+                                                dtype=dtype), requires_grad=False)
+        self.down = nn.Parameter(torch.empty((e, i, d), device=device, dtype=dtype),
+                                 requires_grad=False)
+
+
 class DecoderBlock(nn.Module):
+    """``ln1``, ``qkv`` (q|k|v packed), ``q_norm`` / ``k_norm`` (qk-norm, or
+    None), ``o``, ``ln2`` and either ``moe`` or the dense ``gate``, ``up``,
+    ``down`` (the others None)."""
+
     def __init__(self, cfg: DecoderConfig, device, dtype):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         qkv_out = (cfg.heads + 2 * cfg.kv_heads) * hd
         self.ln1 = Norm(d, False, device, dtype)
         self.qkv = Q.Linear.empty(d, qkv_out, cfg.qkv_bias, device, dtype)
+        self.q_norm = Norm(hd, False, device, dtype) if cfg.qk_norm else None
+        self.k_norm = Norm(hd, False, device, dtype) if cfg.qk_norm else None
         self.o = Q.Linear.empty(cfg.heads * hd, d, False, device, dtype)
         self.ln2 = Norm(d, False, device, dtype)
-        self.gate = Q.Linear.empty(d, cfg.d_ff, False, device, dtype)
-        self.up = Q.Linear.empty(d, cfg.d_ff, False, device, dtype)
-        self.down = Q.Linear.empty(cfg.d_ff, d, False, device, dtype)
+        self.moe = MoE(cfg, device, dtype) if cfg.num_experts else None
+        dense = not cfg.num_experts
+        self.gate = Q.Linear.empty(d, cfg.d_ff, False, device, dtype) if dense else None
+        self.up = Q.Linear.empty(d, cfg.d_ff, False, device, dtype) if dense else None
+        self.down = Q.Linear.empty(cfg.d_ff, d, False, device, dtype) if dense else None
 
 
 class Decoder(nn.Module):
@@ -158,16 +184,25 @@ class Decoder(nn.Module):
 @torch.no_grad()
 def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
     """Fill a decoder in place with init_decoder's distributions: linears
-    N(0, 1/d_in), zero biases, ones for norms, N(0, 0.02^2) for ``embed``
-    and ``lm_head``."""
+    N(0, 1/d_in), zero biases, ones for norms (qk-norm included), N(0,
+    0.02^2) for ``embed`` and ``lm_head``; the router and ``gate_up``
+    N(0, 1/d_model), ``down`` N(0, 1/moe_d_ff)."""
     normal_(p.embed, 0.02, gen)
     if p.lm_head is not None:
         normal_(p.lm_head, 0.02, gen)
     init_norm_(p.ln_final)
     for blk in p.blocks:
-        init_norm_(blk.ln1)
-        init_norm_(blk.ln2)
-        for leaf in (blk.qkv, blk.o, blk.gate, blk.up, blk.down):
+        for norm in (blk.ln1, blk.ln2, blk.q_norm, blk.k_norm):
+            if norm is not None:
+                init_norm_(norm)
+        leaves = [blk.qkv, blk.o]
+        if blk.moe is None:
+            leaves += [blk.gate, blk.up, blk.down]
+        else:
+            leaves.append(blk.moe.router)
+            normal_(blk.moe.gate_up, blk.moe.gate_up.shape[1] ** -0.5, gen)
+            normal_(blk.moe.down, blk.moe.down.shape[1] ** -0.5, gen)
+        for leaf in leaves:
             normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
             if leaf.b is not None:
                 leaf.b.zero_()
@@ -181,6 +216,10 @@ def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
 def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask):
     h, kvh, d = cfg.heads, cfg.kv_heads, cfg.head_dim
     packed = Q.linear(x, p.qkv)                        # (B, S, (H+2KvH)*D)
+    if cfg.qk_norm:
+        packed = L.rms_norm_heads(packed, p.q_norm.scale, p.k_norm.scale, h,
+                                  kvh, d, cfg.rms_eps, offset=cfg.rms_offset,
+                                  cast_weight_dtype=cfg.rms_cast_weight)
     pk = rope_pack(packed, cos, sin, h + kvh, d)
     out = attention_flat_packed(pk, h, kv_heads=kvh, kv_mask=mask, causal=True,
                                 scale=cfg.q_scale)
@@ -188,14 +227,39 @@ def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask):
 
 
 def _mlp(p: DecoderBlock, cfg: DecoderConfig, x):
+    if p.moe is not None:
+        if cfg.moe_dispatch:
+            return moe_mlp_dispatch(p.moe, cfg, x)
+        return _moe_mlp(p.moe, cfg, x)
     h = L.ACT_FNS[cfg.act](Q.mm(x, p.gate)) * Q.mm(x, p.up)
     return Q.mm(h, p.down)
+
+
+def _moe_mlp(p: MoE, cfg: DecoderConfig, x):
+    """Top-k routed SwiGLU experts as a dense einsum: every token runs every
+    expert and zero router weights mask the rest (HF Qwen3VLMoe semantics:
+    fp32 router softmax, top-k renormalised when ``moe_norm_topk``). The
+    numerics oracle of ``moe_mlp_dispatch``; its (T, E, 2I) and (T, E, H)
+    intermediates rule it out at real widths."""
+    b, s, h = x.shape
+    xt = x.reshape(-1, h)
+    probs = torch.softmax(Q.mm(xt, p.router).float(), dim=-1)   # (T, E)
+    topv, topi = torch.topk(probs, cfg.experts_per_tok, dim=-1)
+    if cfg.moe_norm_topk:
+        topv = topv / topv.sum(-1, keepdim=True)
+    w = torch.zeros_like(probs).scatter_(1, topi, topv)
+    gu = torch.einsum("th,ehi->tei", xt, p.gate_up)
+    g, u = gu.chunk(2, dim=-1)
+    act = L.ACT_FNS[cfg.act](g) * u
+    out = torch.einsum("tei,eih->teh", act, p.down)
+    out = (out * w[..., None].to(out.dtype)).sum(dim=1)
+    return out.reshape(b, s, h).to(x.dtype)
 
 
 def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
             position_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
             logit_positions: torch.Tensor | None = None,
-            cache=None) -> torch.Tensor:
+            cache=None, deepstack=None) -> torch.Tensor:
     """embeds: (B, S, D) -> fp32 logits, causal self-attention over the
     whole sequence (teacher-forced scoring).
 
@@ -203,6 +267,9 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
     a real token. logit_positions: optional (B, A) rows; the lm head then
     runs only there and the logits are (B, A, vocab) (the head is per row,
     so gathering rows before it equals gathering logits after it).
+    deepstack: optional list of (B, S, D) residuals added, in the
+    activation dtype, after layers 0..len-1 (Qwen3-VL's deepstack visual
+    features, zero away from the visual positions).
     """
     if cache is not None:
         raise NotImplementedError("decoder: the KV-cached decode path is not "
@@ -214,9 +281,11 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
 
     cos, sin = rope_cos_sin(cfg, position_ids, scaling=cfg.rope_scaling_factor)
     x = embeds
-    for blk in params.blocks:
+    for i, blk in enumerate(params.blocks):
         x = x + _attn(blk, cfg, norm(x, blk.ln1), cos, sin, attn_mask)
         x = x + _mlp(blk, cfg, norm(x, blk.ln2))
+        if deepstack is not None and i < len(deepstack):
+            x = x + deepstack[i].to(x.dtype)
     x = norm(x, params.ln_final)
     if logit_positions is not None:
         rows = logit_positions.long().clamp(0, x.shape[1] - 1)

@@ -441,16 +441,26 @@ def splice_and_score(params: Qwen2VLModel, cfg: Qwen2VLConfig,
                      ans_ids: torch.Tensor,      # (B, A)
                      ans_pos: torch.Tensor,      # (B, A) logit positions
                      ans_mask: torch.Tensor,     # (B, A)
-                     temperature: float = 1.0) -> torch.Tensor:
+                     temperature: float = 1.0,
+                     deepstack_feats=None) -> torch.Tensor:
     """Teacher-forced mean log-prob of the answer tokens per sequence.
-    ans_pos[b, i] is the row whose logits predict answer token i."""
+    ans_pos[b, i] is the row whose logits predict answer token i.
+    deepstack_feats (Qwen3-VL): levels of (B, T, D) features aligned with
+    vis_feats' slots, scattered to the visual positions (zero elsewhere)
+    and added after the first decoder layers."""
     dp = params.decoder
     tok = dp.embed[ids]
     slot = vis_slot.long().clamp(0, vis_feats.shape[1] - 1)
-    vis = torch.gather(vis_feats, 1, slot[..., None].expand(-1, -1, vis_feats.shape[-1]))
+    idx = slot[..., None].expand(-1, -1, vis_feats.shape[-1])
+    vis = torch.gather(vis_feats, 1, idx)
     embeds = torch.where(vis_mask[..., None], vis.to(tok.dtype), tok)
+    deepstack = None
+    if deepstack_feats is not None:
+        deepstack = [torch.where(vis_mask[..., None], torch.gather(level, 1, idx), 0.0)
+                     for level in deepstack_feats]
     logits = dec.forward(dp, cfg.text, embeds, position_ids, attn_mask,
-                         logit_positions=ans_pos)     # (B, A, V) fp32
+                         logit_positions=ans_pos,
+                         deepstack=deepstack)         # (B, A, V) fp32
     logp = L.log_softmax_fp32(logits / temperature)
     ans = ans_ids.long().clamp(0, logp.shape[-1] - 1)
     tok_logp = torch.gather(logp, -1, ans[..., None])[..., 0] * ans_mask

@@ -107,6 +107,9 @@ class Qwen2VLAdapter(VQAScoreModel):
     """
 
     video_mode = "direct"
+    # tokens added to the longest prompt before its sequence bucket (the JAX
+    # Qwen3-VL adapter adds 8)
+    seq_extra = 0
 
     def load_model(self):
         spec = q.QWEN2_VL_MODELS[self.model_name]
@@ -129,21 +132,26 @@ class Qwen2VLAdapter(VQAScoreModel):
 
             params = qwen2vl_from_numpy(params, cfg, device, dtype)
         self.params = params
+        self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
+        self._geometry = {}
 
+    def _load_tokenizer(self, hf_name, vocab_size):
+        """The ``tokenizer`` kwarg (an object or a local directory), else
+        SimpleT5Tokenizer (with a warning when the model has a hub
+        tokenizer, which is never fetched)."""
         tok = self.kwargs.get("tokenizer")
         if isinstance(tok, str):
             if not os.path.isdir(tok):
                 raise ValueError(f"tokenizer {tok!r} is not a local directory")
             tok = load_hf_tokenizer(tok)
         if tok is None:
-            if spec["hf"] is not None:
+            if hf_name is not None:
                 warnings.warn(
-                    f"no local tokenizer for {spec['hf']}; using "
+                    f"no local tokenizer for {hf_name}; using "
                     "SimpleT5Tokenizer, so scores will NOT match pretrained "
                     "weights (pass tokenizer=<local dir>)")
-            tok = SimpleT5Tokenizer(cfg.text.vocab_size)
-        self.tokenizer = tok
-        self._geometry = {}
+            tok = SimpleT5Tokenizer(vocab_size)
+        return tok
 
     def load_images(self, images):
         return images  # decoded and preprocessed in batches
@@ -236,7 +244,7 @@ class Qwen2VLAdapter(VQAScoreModel):
         ids_list = [self._build_ids(questions[j],
                                     int(np.prod(encoded[inv[j]][1])) // mu)
                     for j in range(p)]
-        s = _bucket(max(len(x) for x in ids_list), SEQ_BUCKETS)
+        s = _bucket(max(len(x) for x in ids_list) + self.seq_extra, SEQ_BUCKETS)
         ids = np.zeros((p, s), np.int64)
         vis_mask = np.zeros((p, s), bool)
         vis_slot = np.zeros((p, s), np.int64)
@@ -254,9 +262,10 @@ class Qwen2VLAdapter(VQAScoreModel):
             pos[:, j, :n] = q.build_rope_index(arr, [encoded[inv[j]][1]], cfg)
             prompt_lens.append(n)
         # per-pair features gathered on the device from the unique images'
-        t_max = max(max(e[0].shape[0] for e in encoded), 1)
+        # (the token axis is the second last: (T, D), or (levels, T, D))
+        t_max = max(max(e[0].shape[-2] for e in encoded), 1)
         padded = torch.stack([torch.nn.functional.pad(
-            e[0], (0, 0, 0, t_max - e[0].shape[0])) for e in encoded])
+            e[0], (0, 0, 0, t_max - e[0].shape[-2])) for e in encoded])
         feats = padded[torch.as_tensor(inv, device=padded.device)]
         return (ids, feats, vis_mask, vis_slot, pos, attn), prompt_lens
 
@@ -306,9 +315,13 @@ class Qwen2VLAdapter(VQAScoreModel):
         dev = [torch.from_numpy(a).to(self.device)
                for a in (full_ids, vis_mask, vis_slot, pos, attn, ans_ids,
                          ans_pos, ans_mask)]
-        logp = q.splice_and_score(self.params, self.config, dev[0], feats,
-                                  *dev[1:], temperature=float(temperature))
+        logp = self._splice_and_score(dev[0], feats, *dev[1:],
+                                      temperature=float(temperature))
         return _HostScores(torch.exp(logp.float())), pcount
+
+    def _splice_and_score(self, ids, feats, *arrays, temperature):
+        return q.splice_and_score(self.params, self.config, ids, feats,
+                                  *arrays, temperature=temperature)
 
     def score_matrix(self, images, texts, **kw) -> np.ndarray:
         m, n = len(images), len(texts)

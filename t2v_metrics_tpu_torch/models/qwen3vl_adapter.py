@@ -1,0 +1,136 @@
+"""Qwen3-VL VQAScore adapter, image scoring (port of
+t2v_metrics_tpu/models/qwen3vl_adapter.py).
+
+A subclass of the port's Qwen2.5-VL adapter with the same scoring contract
+and batched flow, and Qwen3's vision encoding: no windows (the patch rows
+stay in merge-group order), the interpolated position embeddings, and the
+deepstack levels, which travel beside the main features and are added to
+the decoder's hidden state after its first layers. The features stay on the
+device (the JAX adapter copies them through host f32 numpy, which is exact
+from bf16, so the numbers are the same). The sequence bucket is chosen for
+the longest prompt plus 8 tokens, as in the JAX adapter. qwen3.5 prompts end
+with the closed empty thinking block of ``enable_thinking=False``. Video
+scoring, generation and traces are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from t2v_metrics_tpu.constants import VIDEO_EXTENSIONS
+
+from ..engine.scoring import _load_uint8
+from ..ops.image import smart_resize
+from . import qwen2vl as q2
+from . import qwen3vl as q3
+from .adapters import default_dtype
+from .qwen2vl_adapter import (IMAGE_MAX_PIXELS, IMAGE_MIN_PIXELS,
+                              PATCH_BUCKETS, Qwen2VLAdapter, _bucket)
+
+THINKING_OFF_SUFFIX = "<think>\n\n</think>\n\n"
+
+
+class Qwen3VLAdapter(Qwen2VLAdapter):
+    """Qwen3-VL VQAScore adapter (images), dense and MoE.
+
+    kwargs as ``Qwen2VLAdapter``'s: init='random', params (a
+    ``Qwen3VLModel`` or a numpy pytree in the JAX package's layout), config
+    (a ``Qwen3VLConfig``), seed, dtype, tokenizer. Checkpoint loading
+    raises: pretrained weights are not ported yet.
+    """
+
+    seq_extra = 8
+
+    def load_model(self):
+        spec = q3.QWEN3_VL_MODELS[self.model_name]
+        cfg: q3.Qwen3VLConfig = self.kwargs.get("config") or q3.resolve_config(
+            self.model_name)
+        self.config = cfg
+        self._assistant_suffix = (THINKING_OFF_SUFFIX
+                                  if spec.get("enable_thinking") is False else "")
+        device = self.device
+        dtype = self.kwargs.get("dtype") or default_dtype(device)
+        if self.kwargs.get("checkpoint"):
+            raise NotImplementedError("checkpoint loading is not ported yet; "
+                                      "pass init='random' or params=")
+        params = self.kwargs.get("params")
+        if params is None:
+            if self.kwargs.get("init") != "random" and spec["hf"] is not None:
+                raise NotImplementedError(
+                    f"pretrained weights for {self.model_name} are not ported "
+                    "yet; pass init='random' or params=")
+            params = q3.init_qwen3vl(cfg, self.kwargs.get("seed", 0), device, dtype)
+        elif not isinstance(params, q3.Qwen3VLModel):
+            from ..bridge import qwen3vl_from_numpy
+
+            params = qwen3vl_from_numpy(params, cfg, device, dtype)
+        self.params = params
+        self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
+        self._geometry = {}
+
+    def _build_ids(self, question, n_vis):
+        ids = super()._build_ids(question, n_vis)
+        if self._assistant_suffix:
+            ids = ids + self._encode_text(self._assistant_suffix)
+        return ids
+
+    def _device_geometry(self, grid, s, sb):
+        """Rotary ids and segment ids padded to the bucket, and the position
+        table's interpolation, on the device (kept per shape)."""
+        key = (grid, sb)
+        if key not in self._geometry:
+            cfg = self.config.vision
+            pos_hw = np.concatenate([q3.vision_geometry(grid, cfg),
+                                     np.zeros((sb - s, 2), np.int32)])
+            seg = np.concatenate([np.zeros(s, np.int32), np.full(sb - s, -1, np.int32)])
+            pe_idx, pe_w, pe_perm = q3.pos_embed_interp(grid, cfg)
+            self._geometry[key] = tuple(
+                torch.from_numpy(a).to(self.device)
+                for a in (pos_hw.astype(np.int64), seg, pe_idx.astype(np.int64),
+                          pe_w, pe_perm.astype(np.int64)))
+        return self._geometry[key]
+
+    @torch.inference_mode()
+    def _encode_visuals(self, visuals):
+        """Encode unique images, one batched tower call per group of
+        same-shape images -> [(levels (1 + n_ds, T, D) on the device,
+        grid_thw)]: the merged features, then the deepstack levels."""
+        cfg = self.config.vision
+        hosts = []
+        for v in visuals:
+            if isinstance(v, str) and v.lower().endswith(VIDEO_EXTENSIONS):
+                raise NotImplementedError("Qwen3-VL video scoring is not "
+                                          "ported yet")
+            hosts.append(_load_uint8(v))
+        groups = {}
+        for i, img in enumerate(hosts):
+            groups.setdefault(img.shape, []).append(i)
+        mu = cfg.merge_unit
+        out = [None] * len(hosts)
+        for (h0, w0, _), idxs in groups.items():
+            hb, wb = smart_resize(h0, w0, cfg.patch_size * cfg.merge_size,
+                                  IMAGE_MIN_PIXELS, IMAGE_MAX_PIXELS)
+            grid = (1, hb // cfg.patch_size, wb // cfg.patch_size)
+            s = grid[1] * grid[2]
+            sb = _bucket(s, PATCH_BUCKETS)
+            pos_hw, seg, pe_idx, pe_w, pe_perm = self._device_geometry(grid, s, sb)
+            n = len(idxs)
+            stack = np.stack([hosts[i] for i in idxs]).reshape(n, h0, w0 * 3)
+            pixels = torch.from_numpy(stack).to(self.device)
+            rows = q2.image_patches(pixels, cfg, hb, wb)
+            if rows.shape[1] < sb:
+                rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
+            main, deepstack = q3.vision_tower(
+                self.params.vision, cfg, rows, pos_hw.expand(n, -1, -1), pe_idx,
+                pe_w, pe_perm, seg.expand(n, -1), grid_t=grid[0])
+            levels = torch.stack([main, *deepstack], dim=1)   # (n, 1+n_ds, S/mu, D)
+            for row, i in enumerate(idxs):
+                out[i] = (levels[row, :, : s // mu], grid)
+        return out
+
+    def _splice_and_score(self, ids, feats, *arrays, temperature):
+        # feats: (P, 1 + n_ds, T, D) -> the main level and the deepstack ones
+        return q3.splice_and_score(self.params, self.config, ids, feats[:, 0],
+                                   feats[:, 1:].unbind(1), *arrays,
+                                   temperature=temperature)

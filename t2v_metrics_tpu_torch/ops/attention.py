@@ -14,17 +14,18 @@ Port of the flat half of t2v_metrics_tpu/ops/attention.py:
 
 The TPU package reaches its flat kernel only for sq >= 128 and sk <= 2048
 (Mosaic tiling and VMEM limits), so its T5 decoder self- and cross-attention
-(sq = 4) ran the XLA reference, and the Qwen2.5-VL ViT's layers over a whole
-5120-row patch bucket ran the per-head ``_flash_kernel``. The CUDA kernel
-masks its own ragged edge and streams the keys, so here every attention site
-of clip-flant5 and Qwen2.5-VL goes through the one kernel.
+(sq = 4) ran the XLA reference, and the Qwen2.5-VL and Qwen3-VL ViT layers
+over a whole 5120- or 4096-row patch bucket ran the per-head
+``_flash_kernel``. The CUDA kernel masks its own ragged edge and streams the
+keys, so here every attention site of clip-flant5, Qwen2.5-VL and Qwen3-VL
+goes through the one kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-HEAD_DIMS = (64, 80, 128)   # the head dims the CUDA kernel is built for
+HEAD_DIMS = (64, 72, 80, 128)   # the head dims the CUDA kernel is built for
 
 
 # ---------------------------------------------------------------------------

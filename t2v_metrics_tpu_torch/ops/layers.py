@@ -30,6 +30,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return norms.rms_norm_fused(x, scale, eps, offset, cast_weight_dtype)
 
 
+def rms_norm_heads(packed: torch.Tensor, q_scale: torch.Tensor,
+                   k_scale: torch.Tensor, n_q: int, n_k: int, d: int,
+                   eps: float = 1e-6, offset: float = 0.0,
+                   cast_weight_dtype: bool = True) -> torch.Tensor:
+    """qk-norm: ``rms_norm`` over each head of the q|k lanes of a packed
+    qkv row, ``q_scale`` on the q heads and ``k_scale`` on the k heads (in
+    place on CUDA; use the returned tensor)."""
+    return norms.rms_norm_heads_fused(packed, q_scale, k_scale, n_q, n_k, d,
+                                      eps, offset, cast_weight_dtype)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)

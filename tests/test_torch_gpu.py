@@ -10,7 +10,9 @@ Tolerances as in chip_smoke.py: norms within 1 bf16 ulp (rtol 8e-3; 1.6e-2
 for T5's twice-rounded RMSNorm) plus atol 1e-5 near zero; attention atol and
 rtol 2e-2 (P rounded to bf16 against per-tile running maxima); the rotary
 embedding within 1 bf16 ulp (rtol 8e-3; the kernel may fuse a multiply-add
-that the plain version rounds twice in fp32) plus atol 1e-5 near zero.
+that the plain version rounds twice in fp32) plus atol 1e-5 near zero; the
+grouped GEMM within 1 bf16 ulp (rtol 2^-7: both sum in fp32 and round once,
+in other orders) plus atol 1e-4 for sums that cancel to near zero.
 """
 
 import pytest
@@ -19,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from t2v_metrics_tpu_torch.ops import attention as A  # noqa: E402
 from t2v_metrics_tpu_torch.ops import launch_counts, norms as N  # noqa: E402
+from t2v_metrics_tpu_torch.ops import moe as M  # noqa: E402
 from t2v_metrics_tpu_torch.ops import rope as R  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -40,7 +43,7 @@ def _close(out, ref, atol, rtol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("shape", [(7, 1024), (3, 5, 1000), (16, 64)])
+@pytest.mark.parametrize("shape", [(7, 1024), (3, 5, 1000), (16, 64), (5, 4608)])
 def test_layer_norm_kernel(dev, shape):
     x = _randn(dev, *shape, std=3.0)
     w, b = _randn(dev, shape[-1], seed=1), _randn(dev, shape[-1], seed=2)
@@ -160,3 +163,74 @@ def test_attention_kernel_refuses_what_it_lacks(dev):
                          segment_ids=torch.zeros((1, 8), device=dev))
     with pytest.raises(TypeError):
         A.flash_attention_flat(q.float(), q.float(), q.float(), 4)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,seg", [
+    (4, 300, 16, 16, 72, False, True),   # Qwen3 ViT: real rows, then -1 pads
+    (2, 130, 16, 16, 72, False, False),  # d=72 without segment ids
+    (2, 70, 8, 2, 72, True, False),      # d=72, GQA, causal, ragged tiles
+])
+def test_attention_kernel_head_dim_72(dev, b, s, h, kvh, d, causal, seg):
+    """72 is not a multiple of the 16-wide k-step: the kernel zero-fills Q/K
+    columns 72..79 (in the packed row they are the next head's lanes) and
+    stores 72 output columns."""
+    qkv = _randn(dev, b, s, (h + 2 * kvh) * d, seed=6)
+    kw = dict(kv_heads=kvh, causal=causal)
+    if seg:
+        ids = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        for i in range(b):
+            ids[i, s - 17 * (i + 1):] = -1
+        kw["segment_ids"] = ids
+    before = launch_counts()["flash_attention_flat"]
+    out = A.attention_flat_packed(qkv, h, **kw)
+    assert launch_counts()["flash_attention_flat"] == before + 1
+    q, k, v, _ = A._split_packed(qkv, h, kvh)
+    _close(out, A.attention_flat_reference(q, k, v, h, **kw), 2e-2, 2e-2)
+
+
+@pytest.mark.parametrize("h,kvh,d", [(32, 4, 128), (16, 16, 72), (4, 2, 64)])
+def test_rms_norm_heads_kernel(dev, h, kvh, d):
+    """qk-norm in place over the q|k heads of a packed row; v untouched."""
+    pk = _randn(dev, 3, 37, (h + 2 * kvh) * d, std=3.0)
+    qs, ks = _randn(dev, d, seed=1), _randn(dev, d, seed=2)
+    ref = N.rms_norm_heads_plain(pk, qs, ks, h, kvh, d)
+    buf = pk.clone()
+    before = launch_counts()["rms_norm"]
+    out = N.rms_norm_heads_fused(buf, qs, ks, h, kvh, d)
+    assert launch_counts()["rms_norm"] == before + 1
+    assert out.data_ptr() == buf.data_ptr()          # written in place
+    _close(out, ref, 1e-5, 1.6e-2)
+    assert torch.equal(out[..., (h + kvh) * d:], pk[..., (h + kvh) * d:])
+
+
+@pytest.mark.parametrize("e,k,n,routing", [
+    (3, 64, 128, "random"),     # an odd expert count
+    (7, 96, 256, "random"),
+    (5, 64, 128, "skewed"),     # two experts take every row, three are empty
+    (1, 32, 128, "random"),     # one expert
+])
+def test_grouped_gemm_kernel(dev, e, k, n, routing):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tk = 700
+    if routing == "skewed":
+        ids = torch.tensor([1, 3], device=dev).repeat(tk // 2)
+    else:
+        ids = torch.randint(0, e, (tk,), generator=gen, device=dev)
+    _, _, be, p = M.plan_groups(ids, e, M.BLOCK_M)
+    xg = _randn(dev, p, k, seed=8)
+    w = _randn(dev, e, k, n, seed=9, std=k ** -0.5)
+    before = launch_counts()["grouped_gemm"]
+    out = M.grouped_matmul(xg, w, be)
+    assert launch_counts()["grouped_gemm"] == before + 1
+    _close(out, M.grouped_matmul_reference(xg, w, be.cpu()), 1e-4, 2 ** -7)
+
+
+def test_grouped_gemm_refuses_what_it_lacks(dev):
+    be = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                             # N % 128
+        M.grouped_matmul(_randn(dev, 128, 64), _randn(dev, 2, 64, 96), be)
+    with pytest.raises(ValueError):                             # K % 32
+        M.grouped_matmul(_randn(dev, 128, 48), _randn(dev, 2, 48, 128), be)
+    with pytest.raises(TypeError):
+        M.grouped_matmul(_randn(dev, 128, 64, dtype=torch.float32),
+                         _randn(dev, 2, 64, 128, dtype=torch.float32), be)

@@ -95,8 +95,8 @@ def test_int8_leaf_raises():
 def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors the kernel wrappers run their plain versions and count
     no launch."""
-    from t2v_metrics_tpu_torch.ops import (attention, launch_counts, norms,
-                                           reset_launch_counts, rope)
+    from t2v_metrics_tpu_torch.ops import (attention, launch_counts, moe,
+                                           norms, reset_launch_counts, rope)
 
     reset_launch_counts()
     x = torch.from_numpy(_x((4, 64)))
@@ -111,8 +111,14 @@ def test_cpu_tensors_take_the_plain_versions():
     cos, sin = torch.ones(2, 5, 64), torch.zeros(2, 5, 64)
     assert torch.equal(rope.rope_pack(qkv, cos, sin, 8, 64),
                        rope.rope_pack_plain(qkv, cos, sin, 8, 64))
+    assert torch.equal(norms.rms_norm_heads_fused(qkv, w, w, 4, 4, 64),
+                       norms.rms_norm_heads_plain(qkv, w, w, 4, 4, 64))
+    xg, we = torch.from_numpy(_x((16, 8))), torch.from_numpy(_x((3, 8, 4), 1))
+    be = torch.tensor([2, 0], dtype=torch.int32)
+    assert torch.equal(moe.grouped_matmul(xg, we, be, 8),
+                       moe.grouped_matmul_reference(xg, we, be, 8))
     assert launch_counts() == {"flash_attention_flat": 0, "layer_norm": 0,
-                               "rms_norm": 0, "rope_pack": 0}
+                               "rms_norm": 0, "rope_pack": 0, "grouped_gemm": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
