@@ -5,33 +5,42 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. environment: the card's name and power limit; build every kernel of the
-     clip-flant5, Qwen2.5-VL and Qwen3-VL paths from the sources in this
-     checkout (one nvcc per CUDA source, started together: the flash
-     attention at head dims 64/72/80/128 and the MoE grouped GEMM; Triton
-     for LayerNorm, RMSNorm and the rotary embedding) and time the build;
+     clip-flant5 (bf16 and W8A8), Qwen2.5-VL and Qwen3-VL paths from the
+     sources in this checkout (one nvcc per CUDA source, started together:
+     the flash attention at head dims 64/72/80/128, the MoE grouped GEMM and
+     the int8 GEMM; Triton for LayerNorm, RMSNorm, the rotary embedding and
+     the per-row int8 quant) and time the build;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the clip-flant5-xl, Qwen2.5-VL-7B and Qwen3-VL-30B-A3B paths
-     give it, with its tolerance and CUDA-event times (``--kernels-only``
-     stops here, with no result line);
+     shapes the clip-flant5-xl/xxl, Qwen2.5-VL-7B and Qwen3-VL-30B-A3B
+     paths give it, with its tolerance, CUDA-event times, its bound (the
+     least time the card could take: bytes over 3.35 TB/s or operations
+     over the peak rate of their type) and, where one PyTorch call computes
+     the same function, that call's time (``--kernels-only`` stops here,
+     with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
      full, and 2 decoder layers; Qwen3-VL-30B-A3B widths with 2 ViT and 2
-     decoder layers of 128 experts, deepstack at ViT layers 0 and 1) on the
-     card in bf16 with the kernels, against the CPU in fp32 with the plain
-     versions, on one set of random parameters each;
+     decoder layers of 128 experts, deepstack at ViT layers 0 and 1;
+     clip-flant5-xxl widths with 2 ViT and 2+2 T5 layers in bf16, ``int8``
+     and ``int8+vit`` on the same int8 weights) on the card in bf16 with the
+     kernels, against the CPU in fp32 with the plain versions, on one set of
+     random parameters each;
   4. the slices through the public entry point, each with the kernel launch
-     counts of its first call, ``batch_forward``, pairs/s and its peak
-     device memory, each slice's model freed before the next is built:
+     counts of its first call (checked against the counts the code gives),
+     ``batch_forward``, pairs/s and its peak device memory, each slice's
+     model freed before the next is built:
      ``VQAScore("clip-flant5-xl", init="random")``,
      ``VQAScore("qwen2.5-vl-7b", init="random")`` (1024x1024 images, which
      take the untiled window layout, then 300x380 images through
-     ``batch_forward``, which take the tiled one) and
-     ``VQAScore("qwen3-vl-30b-a3b", init="random")`` (1024x1024 images);
-     with ``--profile``, the device time of one ``batch_forward`` of each,
-     and of the Qwen forwards at 1024x1024, by kernel family
-     (torch.profiler) and the device's busy share.
+     ``batch_forward``, which take the tiled one),
+     ``VQAScore("qwen3-vl-30b-a3b", init="random")`` (1024x1024 images) and
+     ``VQAScore("clip-flant5-xxl", init="random", quant=q)`` for q in None,
+     "int8", "int8+vit", with each int8 mode's score gap from bf16 on the
+     same rows; with ``--profile``, the device time of one
+     ``batch_forward`` of each, and of the Qwen forwards at 1024x1024, by
+     kernel family (torch.profiler) and the device's busy share.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the three slices), the card's name and power
+summed over the first calls of the six slices), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -57,6 +66,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 SEED = 0
 WARMUP, ITERS = 3, 20
@@ -83,7 +93,13 @@ CHAIN_TOL_NATS = 2.5e-2
 # shapes (1 image, 4 pairs against 8 images, 32 pairs), so other cuBLAS
 # tilings and bf16 roundings: measured 0.037 nats at 24+24 layers with the
 # fold (and 1.5 nats without it, where near-argmax attention amplifies them).
-ROWS_TOL_NATS = 0.1
+# xxl (24+24 layers at d_model 4096) amplifies them more: measured 0.082
+# nats in bf16 on an H100 80GB HBM3 at 700 W, so 0.25; in the int8 modes the T5
+# products are exact per row, but the bf16 ViT / projector / lm_head GEMMs
+# still change with the batch, and an int8 rounding flip downstream is a
+# whole int8 step: 0.238 nats under int8, so 0.6.
+ROWS_TOL_NATS = {("clip-flant5-xl", None): 0.1, ("clip-flant5-xxl", None): 0.25,
+                 ("clip-flant5-xxl", "int8"): 0.6, ("clip-flant5-xxl", "int8+vit"): 0.6}
 # Qwen chain: 7B widths, 2 ViT + 2 decoder layers, bf16 on the card against
 # fp32 on the CPU. Random init gives q.k scores of std ~1 (no fold needed);
 # the bf16 roundings of ~12 matmuls and the 152064-way log-softmax put the
@@ -99,6 +115,16 @@ GMM_RTOL, GMM_ATOL = 2 ** -7, 1e-4
 # some tokens, each such swap moving ~1/12 of that token's MoE output:
 # predicted ~2e-2 nats, limit 5e-2 as for Qwen2.5.
 QWEN3_CHAIN_TOL_NATS = 5e-2
+# The int8 GEMM and the row quant: bitwise (an exact int32 sum and the same
+# f32 operations, each correctly rounded, in the kernel and the plain
+# version). xxl int8 chain: see phase_xxl_chain.
+XXL_INT8_CHAIN_TOL_NATS = 0.1
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W) for the
+# bound: the larger of bytes over the HBM rate and operations over the peak
+# rate of their type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 KERNELS = {
     "flash_attention_flat": ("cuda", "t2v_metrics_tpu_torch/csrc/flash_flat.cu",
@@ -111,7 +137,20 @@ KERNELS = {
                   "t2v_metrics_tpu/ops/rope.py:51"),
     "grouped_gemm": ("cuda", "t2v_metrics_tpu_torch/csrc/grouped_gemm.cu",
                      "t2v_metrics_tpu/ops/moe.py:105"),
+    "quant_matmul": ("cuda", "t2v_metrics_tpu_torch/csrc/quant_matmul.cu",
+                     "t2v_metrics_tpu/ops/quant_matmul.py:48"),
+    # no TPU kernel: the jnp chain _quantize_rows
+    "quantize_rows": ("triton", "t2v_metrics_tpu_torch/ops/quant.py",
+                      "t2v_metrics_tpu/ops/quant.py:52"),
 }
+
+
+def bound(ops: float, nbytes: float, kind: str) -> tuple[float, str]:
+    """(least milliseconds, "operations" or "bytes") for ``ops`` operations
+    of type ``kind`` that must move ``nbytes`` through HBM."""
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 class SmokeFailure(RuntimeError):
@@ -182,7 +221,7 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def phase_build() -> None:
     from t2v_metrics_tpu_torch import build
-    from t2v_metrics_tpu_torch.ops import norms, rope
+    from t2v_metrics_tpu_torch.ops import norms, quant, rope
 
     t0 = time.perf_counter()
     build.build_all()          # one nvcc per CUDA source, all at once
@@ -201,12 +240,14 @@ def phase_build() -> None:
     for heads, d in ((32, 80), (36, 128), (32, 72)):
         rope.rope_pack(ones(1, 8, heads * d), ones(1, 8, d, dtype=torch.float32),
                        ones(1, 8, d, dtype=torch.float32), 32, d)
+    for d in (1024, 4096, 10240):
+        quant.quantize_rows(ones(8, d))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    log(f"[build] nvcc flash_flat.cu (head dims 64/72/80/128) and "
-        f"grouped_gemm.cu in parallel: {t_nvcc:.2f} s; with the Triton norms "
-        f"and rotary embedding: {total:.2f} s")
-    for lib in ("flash_flat", "grouped_gemm"):
+    log(f"[build] nvcc flash_flat.cu (head dims 64/72/80/128), grouped_gemm.cu "
+        f"and quant_matmul.cu in parallel: {t_nvcc:.2f} s; with the Triton "
+        f"norms, rotary embedding and row quant: {total:.2f} s")
+    for lib in ("flash_flat", "grouped_gemm", "quant_matmul"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] ptxas {lib}: {line.strip()}")
@@ -229,7 +270,12 @@ def phase_kernels() -> dict:
 
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
-    def record(name, label, out, ref, ok, detail, fn, plain_fn, main, flop=None):
+    def record(name, label, out, ref, ok, detail, fn, plain_fn, main, flop=None,
+               lower=None, library=None):
+        """Check one launch against its plain version and time both. The
+        main shape's numbers go into the kernel table: ``lower`` is (ops,
+        bytes, type) for its bound; ``library`` (name, ms) of the one
+        PyTorch call that computes the same function, or None."""
         err = float((out.float() - ref.float()).abs().max())
         ms, plain_ms = cuda_ms(fn), cuda_ms(plain_fn)
         rate = "" if flop is None else (
@@ -241,6 +287,12 @@ def phase_kernels() -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
             r["ms"], r["plain_ms"] = ms, plain_ms
+            r["bound_ms"], r["bound_by"] = bound(*lower)
+            r["library_ms"] = None if library is None else library[1]
+            lib = ("no single PyTorch call" if library is None
+                   else f"{library[0]} {library[1]:.4f} ms")
+            log(f"[kernel] {name} {label} (the table's shape): bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}; {lib}")
 
     # LayerNorm: ln_pre at (M*577, 1024), ln1/ln2 at (M*640, 1024), M=4;
     # Qwen3-VL ViT blocks at (M*4096, 1152) and the deepstack mergers
@@ -254,7 +306,10 @@ def phase_kernels() -> dict:
                f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; "
                f"max {bf16_ulps(out, ref)} bf16 ulps",
                lambda: N.layer_norm_fused(x, w, b),
-               lambda: N.layer_norm_plain(x, w, b), main)
+               lambda: N.layer_norm_plain(x, w, b), main,
+               lower=(8 * rows * d, 4 * rows * d + 4 * d, "fp32"),
+               library=main and ("F.layer_norm", cuda_ms(
+                   lambda: F.layer_norm(x, (d,), w, b, 1e-5))) or None)
 
     # RMSNorm: T5 encoder at (P*640, 2048), decoder at (P*4, 2048), P=32;
     # Qwen2.5-VL-7B ViT at (M*5120, 1280), M=4, decoder at (P*1280, 3584), P=16
@@ -267,7 +322,10 @@ def phase_kernels() -> dict:
                f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; "
                f"max {bf16_ulps(out, ref)} bf16 ulps",
                lambda: N.rms_norm_fused(x, w),
-               lambda: N.rms_norm_plain(x, w), main)
+               lambda: N.rms_norm_plain(x, w), main,
+               lower=(5 * rows * d, 4 * rows * d + 2 * d, "fp32"),
+               library=main and ("F.rms_norm", cuda_ms(
+                   lambda: F.rms_norm(x, (d,), w, 1e-6))) or None)
 
     # qk-norm of the Qwen3-VL-30B-A3B decoder: 16 pairs x 1024 tokens (the
     # 4 x 4 slice at 1024x1024: 984-987-token prompts + 8 in bucket 1024),
@@ -308,7 +366,8 @@ def phase_kernels() -> dict:
                f"{bad} outside atol {NORM_ATOL} + rtol {ROPE_RTOL}; "
                f"max {bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
                lambda: R.rope_pack(buf, cos, sin, rot, d),
-               lambda: R.rope_pack_plain(pk, cos, sin, rot, d), main)
+               lambda: R.rope_pack_plain(pk, cos, sin, rot, d), main,
+               lower=(3 * b * s * rot * d, 4 * b * s * rot * d + 8 * b * s * d, "fp32"))
 
     # Attention at the four sites of the xl path, P=32 pairs, M=4 images
     def lengths_mask(b, s, lo, hi):
@@ -322,7 +381,7 @@ def phase_kernels() -> dict:
                   (qkv, 16), dict(kv_mask=mask)))
     qkv = randn(32, 640, 3 * 2048)
     sites.append(("T5 encoder self (32, 640, 3*2048) packed, bias, kv_mask",
-                  False, (qkv, 32),
+                  True, (qkv, 32),
                   dict(bias=randn(1, 32, 640, 640, dtype=torch.float32),
                        kv_mask=lengths_mask(32, 640, 590, 640), scale=1.0)))
     qkv = randn(32, 4, 3 * 2048)
@@ -342,7 +401,7 @@ def phase_kernels() -> dict:
                   False, (randn(24, 128, 3 * 1280), 16),
                   dict(segment_ids=tile_seg.repeat(4, 1).reshape(24, 128))))
     sites.append(("Qwen ViT windowed (1, 5120, 3*1280) d=80, 81 window segments",
-                  True, (randn(1, 5120, 3 * 1280), 16),
+                  False, (randn(1, 5120, 3 * 1280), 16),
                   dict(segment_ids=bucket_seg[None])))
     sites.append(("Qwen ViT full (1, 5120, 3*1280) d=80, segment 0 / -1 pads",
                   False, (randn(1, 5120, 3 * 1280), 16),
@@ -375,10 +434,11 @@ def phase_kernels() -> dict:
         torch.cuda.synchronize()
         bad = outside(out, ref, ATTN_ATOL, ATTN_RTOL)
         ok = bad == 0 and bool(torch.isfinite(out).all())
+        extra = t5_attention_yardsticks(args, kw) if main else {}
         record("flash_attention_flat", label, out, ref, ok,
                f"{bad} elements outside atol {ATTN_ATOL} + rtol {ATTN_RTOL}",
-               fn, plain_fn, main)
-        del out, ref
+               fn, plain_fn, main, **extra)
+        del out, ref, extra
 
     # Grouped GEMM at the Qwen3-VL-30B-A3B expert shapes of the slice: a
     # seeded top-8 routing of 16 x 1024 tokens over 128 experts (P = 147,456
@@ -395,12 +455,23 @@ def phase_kernels() -> dict:
     for routing, ids in (("top-8", top8.reshape(-1)), ("skewed", skewed)):
         _, _, be, p = M.plan_groups(ids, 128, M.BLOCK_M)
         be_host = be.cpu()   # the plain version reads the block ids on the host
+        # the experts' groups end at these rows of the block-aligned buffer
+        counts = torch.bincount(ids, minlength=128)
+        offs = torch.cumsum((counts + 127) // 128 * 128, 0).int()
+        tk = ids.numel()
         for wname, w in weights.items():
             xg = randn(p, w.shape[1])
             out = M.grouped_matmul(xg, w, be)
             ref = M.grouped_matmul_reference(xg, w, be_host)
             torch.cuda.synchronize()
             bad = outside(out, ref, GMM_ATOL, GMM_RTOL)
+            main = routing == "top-8" and wname == "gate_up"
+            k, n = w.shape[1], w.shape[2]
+            library = None
+            if main:
+                ms = library_ms(lambda: torch._grouped_mm(xg, w, offs=offs),
+                                "torch._grouped_mm")
+                library = None if ms is None else ("torch._grouped_mm", ms)
             record("grouped_gemm",
                    f"{wname} ({p}, {w.shape[1]}) x (128, {w.shape[1]}, "
                    f"{w.shape[2]}), {routing} routing", out, ref,
@@ -408,11 +479,111 @@ def phase_kernels() -> dict:
                    f"{bad} outside atol {GMM_ATOL} + rtol 2^-7; max "
                    f"{bf16_ulps(out, ref)} bf16 ulps",
                    lambda: M.grouped_matmul(xg, w, be),
-                   lambda: M.grouped_matmul_reference(xg, w, be_host),
-                   routing == "top-8" and wname == "gate_up",
-                   flop=2 * p * w.shape[1] * w.shape[2])
+                   lambda: M.grouped_matmul_reference(xg, w, be_host), main,
+                   flop=2 * p * k * n,
+                   # the work this routing needs: its tk assignments, not
+                   # the buffer's pad rows
+                   lower=(2 * tk * k * n, 2 * (tk * k + 128 * k * n + tk * n), "bf16"),
+                   library=library)
             del out, ref
+    del weights, xg
+    free_cuda()
+    quant_kernels(randn, record)
     return results
+
+
+def library_ms(fn, name: str) -> float | None:
+    """CUDA-event ms of a PyTorch call used as a yardstick, or None (said
+    so) where it refuses the inputs."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError, TypeError, NotImplementedError) as e:
+        log(f"[kernel] yardstick {name} refused: {type(e).__name__}: {str(e)[:300]}")
+        return None
+    return cuda_ms(fn)
+
+
+def t5_attention_yardsticks(args, kw) -> dict:
+    """The bound of the T5 encoder attention site and the time of
+    ``F.scaled_dot_product_attention`` on its inputs: q, k, v viewed as
+    (B, H, S, D) from the packed projection, the fp32 bias and the key mask
+    folded into one bf16 additive mask (its dtype must be the query's)."""
+    packed, heads = args
+    b, s, lanes = packed.shape
+    d = lanes // (3 * heads)
+    bias, kv_mask = kw["bias"], kw["kv_mask"]
+    lower = (4 * b * heads * s * s * d,
+             2 * b * s * lanes + 2 * b * s * heads * d + 4 * heads * s * s + b * s, "bf16")
+    q, k, v = packed.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = (bias + torch.where(kv_mask, 0.0, float("-inf"))[:, None, None, :]
+            ).to(torch.bfloat16)
+    name = "F.scaled_dot_product_attention (bf16 float mask, scale 1.0)"
+    ms = library_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                           scale=1.0), name)
+    return {"lower": lower, "library": None if ms is None else (name, ms)}
+
+
+# clip-flant5-xxl W8A8 shapes at 32 pairs (the slice's 4 x 8 call and its
+# batch_forward chunks; encoder rows 32 x 640, decoder rows 32 x A with A=4)
+# and 4 images (ViT rows 4 x 640): (label, M, K, N, the table's shape)
+XXL_GEMMS = (("T5 encoder q|k|v", 32 * 640, 4096, 12288, True),
+             ("T5 encoder o; cross k, v on encoder rows", 32 * 640, 4096, 4096, False),
+             ("T5 encoder wi_0|wi_1", 32 * 640, 4096, 20480, False),
+             ("T5 encoder wo", 32 * 640, 10240, 4096, False),
+             ("T5 decoder q|k|v", 32 * 4, 4096, 12288, False),
+             ("T5 decoder wo", 32 * 4, 10240, 4096, False),
+             ("T5 decoder o, 25 pairs (ragged rows)", 25 * 4, 4096, 4096, False),
+             ("ViT-L q|k|v", 4 * 640, 1024, 3072, False),
+             ("ViT-L fc1", 4 * 640, 1024, 4096, False),
+             ("ViT-L fc2", 4 * 640, 4096, 1024, False))
+
+
+def quant_kernels(randn, record) -> None:
+    """The int8 GEMM and the row quant against their plain versions at the
+    xxl shapes, bitwise; beside each GEMM, ``torch._int_mm`` with the same
+    f32 epilogue (the library yardstick) and the bf16 ``torch.matmul`` of
+    the same product (does int8 pay on this card at all?)."""
+    from t2v_metrics_tpu_torch.ops import quant as Q
+
+    for label, m, k, n, main in XXL_GEMMS:
+        x = randn(m, k, std=3.0)
+        w = randn(k, n, std=k ** -0.5)
+        leaf = Q.Linear(w.clone()).quantize_()
+        x_q, xs = Q.quantize_rows_plain(x)
+        w_q, ws = leaf.w_q, leaf.scale
+        fn = lambda: Q.quant_matmul(x_q, w_q, xs, ws)  # noqa: E731
+        plain_fn = lambda: Q.quant_matmul_plain(x_q, w_q, xs, ws)  # noqa: E731
+        lib_fn = lambda: (torch._int_mm(x_q, w_q).float() * xs * ws  # noqa: E731
+                          ).to(torch.bfloat16)
+        out, ref = fn(), plain_fn()
+        torch.cuda.synchronize()
+        lib = library_ms(lib_fn, f"torch._int_mm ({m}, {k}) x ({k}, {n})")
+        lib_same = lib is not None and bool(torch.equal(lib_fn(), ref))
+        bf16_ms = cuda_ms(lambda: x @ w)
+        ops = 2 * m * k * n
+        lower = (ops, m * k + k * n + 4 * (m + n) + 2 * m * n, "int8")
+        log(f"[kernel] quant_matmul ({m}, {k}) x ({k}, {n}) {label}: bound "
+            f"{bound(*lower)[0]:.4f} ms by {bound(*lower)[1]}; torch._int_mm + "
+            f"epilogue {'refused' if lib is None else f'{lib:.4f} ms'} "
+            f"(bitwise equal to the plain version: {lib_same}); bf16 torch.matmul "
+            f"{bf16_ms:.4f} ms ({ops / bf16_ms / 1e9:.1f} TFLOP/s)")
+        record("quant_matmul", f"({m}, {k}) x ({k}, {n}) {label}", out, ref,
+               bool(torch.equal(out, ref)), "bitwise equal required",
+               fn, plain_fn, main, flop=ops, lower=lower,
+               library=None if lib is None else ("torch._int_mm + f32 epilogue", lib))
+        del x, w, leaf, x_q, xs, out, ref
+        free_cuda()
+
+    for rows, k, main in ((32 * 640, 4096, True), (32 * 640, 10240, False),
+                          (32 * 4, 4096, False), (4 * 640, 1024, False)):
+        x = randn(rows, k, std=3.0)
+        (out, out_s), (ref, ref_s) = Q.quantize_rows(x), Q.quantize_rows_plain(x)
+        same = bool(torch.equal(out, ref) and torch.equal(out_s, ref_s))
+        record("quantize_rows", f"({rows}, {k})", out, ref, same,
+               "int8 values and f32 scales bitwise equal required",
+               lambda: Q.quantize_rows(x), lambda: Q.quantize_rows_plain(x), main,
+               lower=(4 * rows * k, 3 * rows * k + 4 * rows, "fp32"))
 
 
 def qwen_vit_segments(dev):
@@ -449,10 +620,11 @@ def seeded_texts(n: int, seed: int) -> list[str]:
     return [" ".join(rng.choice(words, size=rng.integers(3, 8))) for _ in range(n)]
 
 
-def chain_config(layers_vit: int = 2, layers_t5: int = 2):
+def chain_config(layers_vit: int = 2, layers_t5: int = 2,
+                 model: str = "clip-flant5-xl"):
     from t2v_metrics_tpu_torch.models.clip_flant5 import CLIP_T5_CONFIGS
 
-    cfg = CLIP_T5_CONFIGS["clip-flant5-xl"]
+    cfg = CLIP_T5_CONFIGS[model]
     return dataclasses.replace(
         cfg, vision=dataclasses.replace(cfg.vision, layers=layers_vit),
         t5=dataclasses.replace(cfg.t5, enc_layers=layers_t5, dec_layers=layers_t5))
@@ -468,12 +640,23 @@ def fold_t5_attention_scale(params, cfg) -> None:
     turns bf16 rounding into 0.1-0.2 nats between any two bf16 evaluations
     of a 2+2-layer chain, kernels or not, and ~1.5 nats at 24+24 layers.
     With the fold (x 1/8, exact in bf16) a comparison measures the code.
+    On an int8 leaf the q columns' scales take the 1/8: the same int8
+    weights and scales as quantizing the folded dense weights (a power of
+    two commutes with the rounding).
     """
     inner = cfg.t5.num_heads * cfg.t5.d_kv
+    f = cfg.t5.d_kv ** -0.5
+
+    def fold(leaf, cols):
+        if leaf.quantized:
+            leaf.scale[cols] *= f
+        else:
+            leaf.w[:, cols] *= f
+
     for blk in [*params.t5.encoder.blocks, *params.t5.decoder.blocks]:
-        blk.attn.qkv.w[:, :inner] *= cfg.t5.d_kv ** -0.5
+        fold(blk.attn.qkv, slice(0, inner))
     for blk in params.t5.decoder.blocks:
-        blk.cross.q.w *= cfg.t5.d_kv ** -0.5
+        fold(blk.cross.q, slice(None))
 
 
 def phase_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
@@ -506,12 +689,108 @@ def phase_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
     del card, host
 
 
+def int8_launches(cfg, quant: str | None, t5_passes: int = 1,
+                  vision_encodes: int = 1) -> int:
+    """quant_matmul launches (and quantize_rows launches: one each per int8
+    product) that the code gives: per T5 pass 4 a gated encoder layer
+    (q|k|v, o, wi_0|wi_1, wo) and 8 a decoder layer (q|k|v, o, cross q, k,
+    v, o, wi_0|wi_1, wo); under int8+vit 4 per ViT layer run (q|k|v, o,
+    fc1, fc2; feature_layer=-2 runs all but the last). A non-gated MLP
+    (wi, wo) has as many products as the packed gated one."""
+    if not quant:
+        return 0
+    n = t5_passes * (4 * cfg.t5.enc_layers + 8 * cfg.t5.dec_layers)
+    if quant == "int8+vit":
+        n += vision_encodes * 4 * (cfg.vision.layers - 1)
+    return n
+
+
+@torch.no_grad()
+def phase_xxl_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
+    """clip-flant5-xxl widths, 2 ViT + 2+2 T5 layers, T5 scale folded: bf16,
+    then ``int8``, then ``int8+vit`` on the same weights, each on the card
+    (bf16 activations, the kernels) against the CPU (fp32 activations, the
+    plain versions). Both sides quantize the same bf16 weights (the CPU copy
+    in fp32 is exact), and the int8 weights and scales are checked equal.
+
+    The int8 limit, XXL_INT8_CHAIN_TOL_NATS = 0.1: the card's activations
+    are bf16, the CPU's fp32, so the two quantize ~10-15% of the elements
+    of each activation row to neighbouring int8 levels (bf16 rounding is
+    ~0.4% of a value, the int8 step ~2.8% of the row's std); that adds an
+    error of the order of the W8A8 error itself, predicted 3-6e-2 nats on
+    top of the bf16-vs-fp32 gap (~1.5e-2).
+    """
+    from t2v_metrics_tpu_torch import SimpleT5Tokenizer
+    from t2v_metrics_tpu_torch.engine.scoring import CLIPT5Engine
+    from t2v_metrics_tpu_torch.models.clip_flant5 import CLIPT5Model, init_clip_t5
+    from t2v_metrics_tpu_torch.ops import launch_counts, quant as Q, reset_launch_counts
+
+    card = init_clip_t5(cfg, SEED + 2, device, torch.bfloat16)
+    fold_t5_attention_scale(card, cfg)
+    host = CLIPT5Model(cfg, "cpu", torch.float32)
+    host.load_state_dict({k: t.float().cpu() for k, t in card.state_dict().items()})
+    tok = SimpleT5Tokenizer(cfg.t5.vocab_size)
+    images, texts = seeded_images(m, 13), seeded_texts(n, 14)
+    engines = (CLIPT5Engine(card, cfg, tok, device), CLIPT5Engine(host, cfg, tok, "cpu"))
+    label = (f"[xxl chain] xxl widths, {len(card.vision.blocks)} ViT + "
+             f"{len(card.t5.encoder.blocks)}+{len(card.t5.decoder.blocks)} T5 layers, "
+             f"M={m} N={n}")
+    bf16 = None
+    for mode in (None, "int8", "int8+vit"):
+        if mode:
+            for model in (card, host):
+                Q.quantize_t5_(model.t5)
+                if mode == "int8+vit":
+                    Q.quantize_clip_vision_(model.vision)
+            host_sd = host.state_dict()
+            same = all(torch.equal(t.cpu(), host_sd[k]) for k, t in card.state_dict().items()
+                       if k.endswith((".w_qt", ".scale")) and t.dtype != torch.bfloat16)
+            check(same, f"xxl chain {mode}: card and CPU int8 weights differ")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        on_card = np.log(engines[0].score_matrix(images, texts))
+        t1 = time.perf_counter()
+        counts = launch_counts()
+        on_cpu = np.log(engines[1].score_matrix(images, texts))
+        t2 = time.perf_counter()
+        diff = float(np.abs(on_card - on_cpu).max())
+        limit = XXL_INT8_CHAIN_TOL_NATS if mode else CHAIN_TOL_NATS
+        log(f"{label} {mode or 'bf16'}: card {t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; "
+            f"card launches quant_matmul {counts['quant_matmul']}, quantize_rows "
+            f"{counts['quantize_rows']}")
+        log(f"{label} {mode or 'bf16'}: log-probs card {on_card.ravel().round(4).tolist()}, "
+            f"cpu {on_cpu.ravel().round(4).tolist()}")
+        log(f"{label} {mode or 'bf16'}: max |card - cpu| {diff:.4e} nats (limit {limit}); "
+            f"spread over pairs {float(np.ptp(on_cpu)):.4e} nats")
+        if bf16 is None:
+            bf16 = (on_card, on_cpu)
+        else:
+            log(f"{label} {mode}: against bf16 on the same weights: card "
+                f"{float(np.abs(on_card - bf16[0]).max()):.4e} nats, cpu (int8 vs fp32) "
+                f"{float(np.abs(on_cpu - bf16[1]).max()):.4e} nats")
+        want = int8_launches(cfg, mode)
+        check(np.isfinite(on_card).all() and on_card.shape == (m, n),
+              f"xxl chain {mode}: card scores not finite or wrong shape")
+        check(counts["quant_matmul"] == want and counts["quantize_rows"] == want,
+              f"xxl chain {mode}: launches {counts} (want {want} of each int8 kernel)")
+        check(diff <= limit, f"xxl chain {mode}: card and CPU differ by {diff} nats")
+    del card, host, engines
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice through the public entry point
 # ---------------------------------------------------------------------------
 
 def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
-                expected=(95, 47, 122, 0, 0), profile: bool = False) -> dict:
+                quant: str | None = None, profile: bool = False,
+                bf16_rows=None) -> tuple[dict, np.ndarray]:
+    """``VQAScore(model, init="random", quant=quant)``: the first 4 x 8 call
+    with its launch counts, ``batch_forward`` of 16 x (1 image, 4 texts)
+    against the pairwise forward, then with the T5 scale folded (see
+    fold_t5_attention_scale) its rows against per-sample calls, pairs/s,
+    memory. Returns the launch counts and the folded ``batch_forward`` rows;
+    an int8 mode prints its gap from ``bf16_rows``, the bf16 mode's rows on
+    the same weights."""
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -519,11 +798,16 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
         if device == "cuda":
             torch.cuda.synchronize()
 
+    name = f"{model} {quant or 'bf16'}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    scorer = t2v.VQAScore(model=model, init="random", seed=SEED, device=device)
+    scorer = t2v.VQAScore(model=model, init="random", seed=SEED, device=device,
+                          quant=quant)
     sync()
-    log(f"[slice] {model} random init on {device}: {time.perf_counter() - t0:.2f} s")
+    log(f"[slice] {name} random init on {device}: {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of parameters, load peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
     images, texts = seeded_images(4, 21), seeded_texts(8, 22)
 
     reset_launch_counts()
@@ -533,12 +817,23 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     sync()
     t_first = time.perf_counter() - t0
     counts = launch_counts()
-    log(f"[slice] first forward (4 images x 8 texts): {t_first:.3f} s; "
-        f"launches {json.dumps(counts)}")
+    # one vision encode (4 images) and one T5 pass (32 pairs): attention at
+    # the ViT layers run, the encoder, the decoder's self and cross;
+    # LayerNorm twice a ViT layer and ln_pre; RMSNorm twice an encoder and
+    # three times a decoder layer and each stack's final norm; the int8
+    # kernels as int8_launches says (xl bf16: 95 / 47 / 122)
+    cfg = scorer.model.config
+    vit, enc, dec = cfg.vision.layers - 1, cfg.t5.enc_layers, cfg.t5.dec_layers
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention_flat=vit + enc + 2 * dec, layer_norm=1 + 2 * vit,
+                rms_norm=2 * enc + 1 + 3 * dec + 1,
+                quant_matmul=int8_launches(cfg, quant),
+                quantize_rows=int8_launches(cfg, quant))
+    log(f"[slice] {name} first forward (4 images x 8 texts): {t_first:.3f} s; "
+        f"launches {json.dumps(counts)}; from the code {json.dumps(want)}")
     check(scores.shape == (4, 8), f"slice: shape {scores.shape}")
     check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
           "slice: scores not finite in [0, 1]")
-    want = dict(zip(KERNELS, expected))
     check(counts == want, f"slice: launch counts {counts} != {want}")
     again = scorer(images=images, texts=texts)
     check(np.array_equal(scores, again), "slice: second call differs")
@@ -559,14 +854,18 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     log("[slice] batch_forward rows equal the pairwise forward of the same chunks")
     fold_t5_attention_scale(scorer.model.engine.params, scorer.model.config)
     rows = scorer.batch_forward(data, batch_size=8)
-    worst = 0.0
+    worst, tol = 0.0, ROWS_TOL_NATS[(model, quant)]
     for i, sample in enumerate(data):
         one = scorer(images=sample["images"], texts=sample["texts"])
         worst = max(worst, float(np.abs(np.log(rows[i, 0]) - np.log(one[0])).max()))
-    log(f"[slice] T5 scale folded into W_q: batch_forward rows vs per-sample "
-        f"forward max {worst:.4e} nats (limit {ROWS_TOL_NATS}); spread "
+    log(f"[slice] {name} T5 scale folded into W_q: batch_forward rows vs per-sample "
+        f"forward max {worst:.4e} nats (limit {tol}); spread "
         f"{float(np.ptp(np.log(rows))):.4e} nats")
-    check(worst <= ROWS_TOL_NATS, f"batch_forward rows differ by {worst} nats")
+    check(worst <= tol, f"batch_forward rows differ by {worst} nats")
+    if bf16_rows is not None:
+        gap = np.abs(np.log(rows) - np.log(bf16_rows))
+        log(f"[slice] {name} against bf16 on the same rows and weights (folded): "
+            f"max {float(gap.max()):.4e} nats, mean {float(gap.mean()):.4e} nats")
 
     sync()
     t0 = time.perf_counter()
@@ -577,15 +876,15 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     scorer(images=images, texts=texts)
     sync()
     fwd_s = 32 / (time.perf_counter() - t0)
-    log(f"[slice] pairs/s after warm-up: batch_forward (64 pairs, batch 8) "
+    log(f"[slice] {name} pairs/s after warm-up: batch_forward (64 pairs, batch 8) "
         f"{pairs_s:.2f}; forward (4 x 8) {fwd_s:.2f}")
-    log(f"[slice] {model} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        "allocated")
+    log(f"[slice] {name} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"allocated while scoring; card {card_line()}")
     if profile:
         phase_profile(lambda: scorer.batch_forward(data, batch_size=8),
-                      f"{model} batch_forward")
+                      f"{name} batch_forward")
     del scorer
-    return counts
+    return counts, rows
 
 
 # ---------------------------------------------------------------------------
@@ -676,7 +975,7 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
     vit, layers = scorer.model.config.vision.depth, scorer.model.config.text.layers
     want = {"flash_attention_flat": vit + layers, "layer_norm": 0,
             "rms_norm": 2 * vit + 1 + 2 * layers + 1, "rope_pack": vit + layers,
-            "grouped_gemm": 0}
+            "grouped_gemm": 0, "quant_matmul": 0, "quantize_rows": 0}
     if device != "cuda":  # the plain versions launch nothing
         want = dict.fromkeys(want, 0)
     check(counts == want, f"qwen slice: launch counts {counts} != {want}")
@@ -821,7 +1120,7 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
     want = {"flash_attention_flat": v.depth + text.layers,
             "layer_norm": 2 * v.depth + 1 + len(v.deepstack_indexes),
             "rms_norm": 3 * text.layers + 1, "rope_pack": v.depth + text.layers,
-            "grouped_gemm": 2 * text.layers}
+            "grouped_gemm": 2 * text.layers, "quant_matmul": 0, "quantize_rows": 0}
     check(counts == want, f"qwen3 slice: launch counts {counts} != {want}")
     check(np.array_equal(scores, scorer(images=images, texts=texts)),
           "qwen3 slice: second call differs")
@@ -861,7 +1160,9 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
 
 # kernel families by substrings of the kernel's name; the rest is "other"
 # (elementwise ops, gathers, copies, log-softmax)
-KERNEL_FAMILIES = (("grouped_gemm", ("grouped_gemm_kernel",)),
+KERNEL_FAMILIES = (("quant_matmul", ("quant_matmul_kernel",)),
+                   ("quantize_rows", ("quant_rows_kernel",)),
+                   ("grouped_gemm", ("grouped_gemm_kernel",)),
                    ("attention", ("flash_flat_kernel",)),
                    ("rope", ("rope_kernel",)),
                    ("rms_norm", ("rms_kernel",)),
@@ -931,19 +1232,30 @@ def main() -> int:
     free_cuda()
     for chain in (lambda: phase_chain(chain_config()),
                   lambda: phase_qwen_chain(qwen_chain_config()),
-                  lambda: phase_qwen3_chain(qwen3_chain_config())):
+                  lambda: phase_qwen3_chain(qwen3_chain_config()),
+                  lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl"))):
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
-    slice_counts = []
-    for run in (phase_slice, phase_qwen_slice, phase_qwen3_slice):
+    slice_counts = [phase_slice(profile=args.profile)[0]]
+    free_cuda()
+    for run in (phase_qwen_slice, phase_qwen3_slice):
         slice_counts.append(run(profile=args.profile))
         free_cuda()
+    bf16_rows = None
+    for quant in (None, "int8", "int8+vit"):
+        counts, rows = phase_slice("clip-flant5-xxl", quant=quant, profile=args.profile,
+                                   bf16_rows=bf16_rows)
+        slice_counts.append(counts)
+        bf16_rows = rows if quant is None else bf16_rows
+        free_cuda()
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,
               "launches": sum(c[name] for c in slice_counts),
-              "max_abs_err": results[name]["max_abs_err"],
-              "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+              **{k: results[name][k] for k in keys}}
              for name, (route, src, rep) in KERNELS.items()]
+    for row in table:
+        check(row["launches"] > 0, f"{row['name']} was never launched on the main paths")
     print(json.dumps({"kernels": table}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

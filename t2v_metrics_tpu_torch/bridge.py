@@ -3,9 +3,11 @@
 Input: a parameter pytree in t2v_metrics_tpu's layout (nested dicts and
 lists) with numpy arrays as leaves, e.g. ``jax.tree.map(np.asarray,
 params)``. Output: the port's modules on ``device`` in ``dtype``, computing
-the same function. The self-attention q|k|v weights (and biases) are packed
-once here, in the order ``ops/quant.pack`` and the JAX package's
-``mm_packed`` use, so no forward pass concatenates weights (the JAX Qwen
+the same function. Int8 leaves of the JAX W8A8 mode (``{"w_q": int8 (K, N),
+"scale": f32 (N,)}``, plus ``"b"``) become the port's int8 leaves, with the
+gated T5 MLP's wi_0|wi_1 packed into ``wi_01``. The self-attention q|k|v
+weights (and biases) are packed once here, in the order ``ops/quant.pack``
+and the JAX package's ``mm_packed`` use, so no forward pass concatenates weights (the JAX Qwen
 code concatenates them on every call; eagerly that would copy ~50 MB per
 Qwen2.5-VL-7B decoder layer per forward).
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from .models import clip as tclip
 from .models import clip_flant5 as tcft5
@@ -31,14 +34,36 @@ def _copy(dst: torch.Tensor, src) -> None:
     dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
 
+def _copy_int8(dst: Q.Linear, w_q, scale) -> None:
+    """Make ``dst`` an int8 leaf holding the JAX leaf's (K, N) ``w_q`` and
+    (N,) ``scale``, stored as the port's (N, K) ``w_qt``."""
+    w_q, scale = np.asarray(w_q), np.array(scale, np.float32)
+    dense = dst.w if dst.w is not None else dst.w_q
+    if w_q.dtype != np.int8 or w_q.shape != tuple(dense.shape) or scale.shape != w_q.shape[1:]:
+        raise ValueError(f"int8 leaf {w_q.dtype} {w_q.shape} / {scale.shape} does not "
+                         f"fit {tuple(dense.shape)}")
+    dev = dense.device
+    dst.w = None
+    dst.w_qt = nn.Parameter(torch.from_numpy(np.ascontiguousarray(w_q.T)).to(dev),
+                            requires_grad=False)
+    dst.scale = nn.Parameter(torch.from_numpy(scale).to(dev), requires_grad=False)
+
+
 def _leaf(dst: Q.Linear, src: dict) -> None:
-    _copy(dst.w, src["w"])
+    if "w_q" in src:
+        _copy_int8(dst, src["w_q"], src["scale"])
+    else:
+        _copy(dst.w, src["w"])
     if dst.b is not None:
         _copy(dst.b, src["b"])
 
 
 def _packed_leaf(dst: Q.Linear, srcs: list[dict]) -> None:
-    _copy(dst.w, np.concatenate([s["w"] for s in srcs], axis=1))
+    if "w_q" in srcs[0]:
+        _copy_int8(dst, np.concatenate([s["w_q"] for s in srcs], axis=1),
+                   np.concatenate([s["scale"] for s in srcs]))
+    else:
+        _copy(dst.w, np.concatenate([s["w"] for s in srcs], axis=1))
     if dst.b is not None:
         _copy(dst.b, np.concatenate([s["b"] for s in srcs]))
     elif any(s.get("b") is not None for s in srcs):
@@ -99,6 +124,7 @@ def _load_t5(p: tt5.T5Model, tree: dict) -> tt5.T5Model:
                     _leaf(getattr(dst.cross, name), src["cross"][name])
             for name, leaf in dst.mlp.named_children():
                 _leaf(leaf, src["mlp"][name])
+            Q.pack_gated_mlp_(dst.mlp)
     return p
 
 

@@ -1,8 +1,8 @@
 """Build the port's Hopper kernels from the sources in this package.
 
 Each CUDA source (``csrc/flash_flat.cu``, one instantiation per head dim;
-``csrc/grouped_gemm.cu``) is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library of its own with a plain C interface and loaded with
+``csrc/grouped_gemm.cu``; ``csrc/quant_matmul.cu``) is compiled with
+``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C interface and loaded with
 ``ctypes``. The library's name carries a hash of its source and flags, so an
 edited source is rebuilt. ``build_all`` starts one ``nvcc`` per source at
 once. Triton kernels compile at their first launch; their cache is kept
@@ -91,11 +91,25 @@ def grouped_gemm_lib():
     return fn
 
 
+@functools.cache
+def quant_matmul_lib():
+    """The ``quant_matmul_forward`` C entry point, built on first use."""
+    so = build_shared_lib("quant_matmul", [CSRC_DIR / "quant_matmul.cu"])
+    fn = ctypes.CDLL(str(so)).quant_matmul_forward
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 5 + [i32] * 3 + [vp]   # x_q, w_qt, xs, ws, o; M, N, K; stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
+CUDA_LIBS = (flash_flat_lib, grouped_gemm_lib, quant_matmul_lib)
+
+
 def build_all() -> None:
     """Build every CUDA library, one ``nvcc`` per source, all at once."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = (flash_flat_lib, grouped_gemm_lib)
+    libs = CUDA_LIBS
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for fut in [pool.submit(lib) for lib in libs]:
             fut.result()

@@ -17,14 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from t2v_metrics_tpu.constants import (CLIP_MEAN, CLIP_STD,
-                                       DEFAULT_ANSWER_TEMPLATE,
-                                       DEFAULT_QUESTION_TEMPLATE,
-                                       IMAGE_TOKEN_INDEX)
-from t2v_metrics_tpu.tokenization import splice_image_tokens_t5
-
+from ..constants import (CLIP_MEAN, CLIP_STD, DEFAULT_ANSWER_TEMPLATE,
+                         DEFAULT_QUESTION_TEMPLATE, IMAGE_TOKEN_INDEX)
 from ..models import clip_flant5 as tcft5
 from ..ops import image as timage
+from ..tokenization import splice_image_tokens_t5
 
 
 def _bucket(n: int, buckets) -> int:

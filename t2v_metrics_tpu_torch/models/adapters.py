@@ -15,11 +15,10 @@ import warnings
 import numpy as np
 import torch
 
-from t2v_metrics_tpu.constants import (DEFAULT_ANSWER_TEMPLATE,
-                                       DEFAULT_QUESTION_TEMPLATE)
-from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer, load_hf_tokenizer
-
+from ..constants import DEFAULT_ANSWER_TEMPLATE, DEFAULT_QUESTION_TEMPLATE
 from ..engine.scoring import CLIPT5Engine
+from ..ops import quant as Q
+from ..tokenization import SimpleT5Tokenizer, load_hf_tokenizer
 from . import clip as tclip
 from . import clip_flant5 as tcft5
 from . import t5 as tt5
@@ -111,7 +110,10 @@ class CLIPT5Adapter(VQAScoreModel):
       seed: random-init seed (default 0)
       dtype: parameter dtype (default bf16 on CUDA, fp32 on CPU)
       tokenizer: a tokenizer object or a local tokenizer directory
-    Checkpoint loading and the int8 modes are not ported yet and raise.
+      quant: None, "int8" (W8A8 T5 linears) or "int8+vit" (and the ViT
+        linears); the environment's ``T2V_QUANT`` when not given. A
+        ``CLIPT5Model`` passed as ``params`` is quantized in place.
+    Checkpoint loading is not ported yet and raises.
     """
 
     video_mode = "concat"
@@ -122,8 +124,9 @@ class CLIPT5Adapter(VQAScoreModel):
         self.config = cfg
         device = self.device
         dtype = self.kwargs.get("dtype") or default_dtype(device)
-        if self.kwargs.get("quant"):
-            raise NotImplementedError("quantized (W8A8) scoring is not ported yet")
+        quant = self.kwargs.get("quant") or os.environ.get("T2V_QUANT")
+        if quant not in (None, "", "int8", "int8+vit"):
+            raise ValueError(f"unknown quant mode {quant!r} ('int8' or 'int8+vit')")
         if self.kwargs.get("checkpoint"):
             raise NotImplementedError("checkpoint loading is not ported yet; "
                                       "pass init='random' or params=")
@@ -140,6 +143,11 @@ class CLIPT5Adapter(VQAScoreModel):
             from ..bridge import clip_t5_from_numpy
 
             params = clip_t5_from_numpy(params, cfg, device, dtype)
+        if quant:
+            # in place, one leaf at a time, each dense leaf freed as it goes
+            Q.quantize_t5_(params.t5)
+            if quant == "int8+vit":
+                Q.quantize_clip_vision_(params.vision)
 
         tokenizer = self.kwargs.get("tokenizer")
         if isinstance(tokenizer, str):

@@ -4,8 +4,10 @@ The tower is an ``nn.Module`` holding its parameters in the JAX package's
 layouts (linear weights (in, out), the patch embedding as a
 (3*p*p, width) matrix in conv (c, ph, pw) row order); ``vision_tower`` is
 the forward. The q|k|v projection of each block is packed into one
-(width, 3*width) leaf at load, so attention reads it in place. The text
-tower comes with the CLIPScore slice.
+(width, 3*width) leaf at load, so attention reads it in place; under
+``int8+vit`` (``ops/quant.quantize_clip_vision_``) the q|k|v, o, fc1 and fc2
+leaves are int8 and their biases carried through. The text tower comes with
+the CLIPScore slice.
 """
 
 from __future__ import annotations

@@ -15,8 +15,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from t2v_metrics_tpu.constants import DEFAULT_IMAGE_TOKEN, SYSTEM_MSG
-
+from ..constants import DEFAULT_IMAGE_TOKEN, SYSTEM_MSG
 from ..ops import layers as L
 from ..ops import quant as Q
 from . import clip as tclip

@@ -28,8 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from t2v_metrics_tpu.constants import CLIP_MEAN, CLIP_STD
-
+from ..constants import CLIP_MEAN, CLIP_STD
 from ..ops import image as timage
 from ..ops import layers as L
 from ..ops import quant as Q

@@ -23,11 +23,10 @@ import warnings
 import numpy as np
 import torch
 
-from t2v_metrics_tpu.constants import VIDEO_EXTENSIONS
-from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer, load_hf_tokenizer
-
+from ..constants import VIDEO_EXTENSIONS
 from ..engine.scoring import _HostScores, _load_uint8
 from ..ops.image import smart_resize
+from ..tokenization import SimpleT5Tokenizer, load_hf_tokenizer
 from . import qwen2vl as q
 from .adapters import VQAScoreModel, default_dtype
 

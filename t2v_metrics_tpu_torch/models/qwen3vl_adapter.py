@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from t2v_metrics_tpu.constants import VIDEO_EXTENSIONS
-
+from ..constants import VIDEO_EXTENSIONS
 from ..engine.scoring import _load_uint8
 from ..ops.image import smart_resize
 from . import qwen2vl as q2

@@ -12,7 +12,10 @@ Parity-critical conventions, as in the JAX package:
     ``x @ lm_head`` cast to fp32.
 
 Self-attention q|k|v weights are packed into one (d_model, 3*inner) leaf at
-load, so the attention kernel reads the one projection in place.
+load, so the attention kernel reads the one projection in place. Under int8
+(``ops/quant.quantize_t5_``) the packed q|k|v and the other linears become
+int8 leaves, cross-attention q, k and v stay separate products as in the JAX
+package, and a gated MLP runs one packed wi_0|wi_1 leaf (``wi_01``).
 """
 
 from __future__ import annotations
@@ -204,7 +207,12 @@ def _cross_attention(p: T5CrossAttention, x, kv, heads, kv_mask=None):
 
 
 def _t5_mlp(p: T5MLP, x, cfg: T5Config):
-    if cfg.gated:
+    if cfg.gated and hasattr(p, "wi_01"):
+        # int8: ONE packed wi_0|wi_1 product (one activation quant for both),
+        # split into its halves
+        hh = Q.mm(x, p.wi_01)
+        h = L.ACT_FNS[cfg.act](hh[..., :cfg.d_ff]) * hh[..., cfg.d_ff:]
+    elif cfg.gated:
         h = L.ACT_FNS[cfg.act](Q.mm(x, p.wi_0)) * Q.mm(x, p.wi_1)
     else:
         h = torch.relu(Q.mm(x, p.wi))

@@ -12,7 +12,9 @@ rtol 2e-2 (P rounded to bf16 against per-tile running maxima); the rotary
 embedding within 1 bf16 ulp (rtol 8e-3; the kernel may fuse a multiply-add
 that the plain version rounds twice in fp32) plus atol 1e-5 near zero; the
 grouped GEMM within 1 bf16 ulp (rtol 2^-7: both sum in fp32 and round once,
-in other orders) plus atol 1e-4 for sums that cancel to near zero.
+in other orders) plus atol 1e-4 for sums that cancel to near zero; the
+int8 GEMM and the row quant bitwise (an exact int32 sum and the same f32
+operations, correctly rounded, in both).
 """
 
 import pytest
@@ -22,6 +24,7 @@ torch = pytest.importorskip("torch")
 from t2v_metrics_tpu_torch.ops import attention as A  # noqa: E402
 from t2v_metrics_tpu_torch.ops import launch_counts, norms as N  # noqa: E402
 from t2v_metrics_tpu_torch.ops import moe as M  # noqa: E402
+from t2v_metrics_tpu_torch.ops import quant as TQ  # noqa: E402
 from t2v_metrics_tpu_torch.ops import rope as R  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -234,3 +237,78 @@ def test_grouped_gemm_refuses_what_it_lacks(dev):
     with pytest.raises(TypeError):
         M.grouped_matmul(_randn(dev, 128, 64, dtype=torch.float32),
                          _randn(dev, 2, 64, 128, dtype=torch.float32), be)
+
+
+def _int8(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 32, 8),          # one row, one k step of 32 (half a stage)
+    (100, 64, 24),       # ragged rows and columns
+    (130, 96, 136),      # a K tail of 32 bytes, N past one tile
+    (257, 1024, 264),
+    (640, 4096, 512),    # acc past 2^24, which f32 rounds
+])
+def test_quant_matmul_kernel(dev, m, k, n):
+    """Bitwise: an exact int32 sum, then the same two f32 products rounded
+    once to bf16."""
+    x_q = _int8(dev, m, k, seed=1)
+    x_q[0] = 127
+    w_qt = _int8(dev, n, k, seed=2)
+    w_qt[0] = 127
+    xs = torch.rand((m, 1), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev) * 1e-2 + 1e-3
+    ws = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev) * 1e-2 + 1e-3
+    before = launch_counts()["quant_matmul"]
+    out = TQ.quant_matmul(x_q, w_qt.t(), xs, ws)
+    assert launch_counts()["quant_matmul"] == before + 1
+    ref = TQ.quant_matmul_plain(x_q, w_qt.t(), xs, ws)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("shape", [(7, 96), (3, 5, 1024), (33, 4096), (2, 10240)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_rows_kernel(dev, shape, dtype):
+    """Bitwise: int8 values and f32 scales, rounding ties included."""
+    x = _randn(dev, *shape, seed=5, std=3.0).to(dtype)
+    ties = (torch.arange(shape[-1], device=dev) % 200 - 100).to(dtype) + 0.5
+    rows = x.view(-1, shape[-1])
+    rows[-1] = ties
+    rows[-1, 0] = 127.0          # absmax 127, scale exactly 1: the k + 0.5 are ties
+    before = launch_counts()["quantize_rows"]
+    x_q, xs = TQ.quantize_rows(x)
+    assert launch_counts()["quantize_rows"] == before + 1
+    ref_q, ref_s = TQ.quantize_rows_plain(x)
+    assert torch.equal(x_q, ref_q) and torch.equal(xs, ref_s)
+    assert x_q.shape == x.shape and xs.shape == (*shape[:-1], 1)
+
+
+def test_int8_leaf_on_the_card(dev):
+    """An int8 leaf's product through both kernels equals the plain chain."""
+    w = _randn(dev, 256, 200, seed=6, std=0.05)
+    b = _randn(dev, 200, seed=7)
+    leaf = TQ.Linear(w.clone(), b).quantize_()
+    x = _randn(dev, 3, 50, 256, seed=8)
+    x_q, xs = TQ.quantize_rows_plain(x)
+    ref = TQ.quant_matmul_plain(x_q.reshape(-1, 256), leaf.w_q, xs.reshape(-1, 1),
+                                leaf.scale).reshape(3, 50, 200) + b
+    assert torch.equal(TQ.linear(x, leaf), ref)
+
+
+def test_quant_matmul_refuses_what_it_lacks(dev):
+    x_q, w_qt = _int8(dev, 64, 48), _int8(dev, 16, 48)
+    xs, ws = torch.ones(64, 1, device=dev), torch.ones(16, device=dev)
+    with pytest.raises(ValueError):                             # K % 32
+        TQ.quant_matmul(x_q, w_qt.t(), xs, ws)
+    x_q, w_q = _int8(dev, 64, 64), _int8(dev, 64, 16)
+    with pytest.raises(ValueError):                             # w_q.t() not contiguous
+        TQ.quant_matmul(x_q, w_q, xs, ws)
+    with pytest.raises(ValueError):                             # N % 8
+        TQ.quant_matmul(x_q, _int8(dev, 12, 64).t(), xs, torch.ones(12, device=dev))
+    with pytest.raises(TypeError):
+        TQ.quant_matmul(x_q.float(), w_q, xs, ws)
+    with pytest.raises(TypeError):                              # the kernel writes bf16
+        TQ.quant_matmul(x_q, _int8(dev, 16, 64).t(), xs, ws, out_dtype=torch.float32)

@@ -1,0 +1,132 @@
+"""The port stands alone: it imports nothing of the JAX package, and its own
+copies of the host layers (tokenization, constants, video frames) give the
+JAX package's results.
+
+Tolerances: token ids, constants and frame layouts are compared exactly.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from t2v_metrics_tpu import constants as JC  # noqa: E402
+from t2v_metrics_tpu import tokenization as JT  # noqa: E402
+from t2v_metrics_tpu.media import video as JV  # noqa: E402
+from t2v_metrics_tpu_torch import constants as TC  # noqa: E402
+from t2v_metrics_tpu_torch import tokenization as TT  # noqa: E402
+from t2v_metrics_tpu_torch.media import video as TV  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "t2v_metrics_tpu_torch"
+
+
+def test_port_and_chip_smoke_load_no_jax_package():
+    """Importing the port, every module under it and chip_smoke (as a
+    module) leaves no t2v_metrics_tpu module and no jax in sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import t2v_metrics_tpu_torch as t\n"
+        "for m in pkgutil.walk_packages(t.__path__, 't2v_metrics_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 't2v_metrics_tpu')\n"
+        "             or m.startswith(('jax.', 't2v_metrics_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+def _imports(path: pathlib.Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted([*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_nothing_of_the_jax_package(path):
+    """No import statement of the port or of chip_smoke names jax or
+    t2v_metrics_tpu, at top level or inside a function."""
+    bad = [n for n in _imports(path)
+           if n.split(".")[0] in ("jax", "jaxlib", "t2v_metrics_tpu")]
+    assert not bad, bad
+
+
+def test_simple_t5_tokenizer_gives_the_jax_ids():
+    texts = ["a red cube on a table", "two dogs", "a red dog", "", "cube  cube",
+             "USER: <image>\nDoes this show a cat? ASSISTANT:"]
+    for vocab in (32128, 8):     # 8: the vocabulary fills and unknown words map to <unk>
+        jt, tt = JT.SimpleT5Tokenizer(vocab), TT.SimpleT5Tokenizer(vocab)
+        for text in texts:
+            assert tt(text).input_ids == jt(text).input_ids
+            assert tt.encode(text, add_special_tokens=False) == jt.encode(
+                text, add_special_tokens=False)
+        ids = jt("a red cube").input_ids
+        assert tt.decode(ids) == jt.decode(ids)
+        for attr in ("pad_token_id", "eos_token_id", "unk_token_id", "bos_token_id"):
+            assert getattr(tt, attr) == getattr(jt, attr)
+
+
+def test_splice_image_tokens_t5_gives_the_jax_ids():
+    from t2v_metrics_tpu_torch.models.clip_flant5 import format_question
+
+    prompts = [format_question("a red cube"), "<image>a dog", "no image here",
+               "two <image> images <image> here"]
+    jt, tt = JT.SimpleT5Tokenizer(), TT.SimpleT5Tokenizer()
+    for prompt in prompts:
+        # the port's splice with the port's tokenizer, the JAX splice with
+        # the JAX tokenizer, each fed the same sequence of prompts
+        assert (TT.splice_image_tokens_t5(prompt, tt)
+                == JT.splice_image_tokens_t5(prompt, jt))
+
+
+def test_constants_equal_the_jax_package():
+    for name in ("SYSTEM_MSG", "IMAGE_TOKEN_INDEX", "DEFAULT_IMAGE_TOKEN",
+                 "DEFAULT_QUESTION_TEMPLATE", "DEFAULT_ANSWER_TEMPLATE",
+                 "CLIP_MEAN", "CLIP_STD", "VIDEO_EXTENSIONS"):
+        assert getattr(TC, name) == getattr(JC, name), name
+
+
+def test_video_helpers_equal_the_jax_package():
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((12, 20), (16, 8), (5, 5))]
+    np.testing.assert_array_equal(TV.concatenate_horizontal(frames, dist=3),
+                                  JV.concatenate_horizontal(frames, dist=3))
+    for total, n, mode in ((100, 8, "step"), (7, 8, "step"), (100, 8, "linspace"),
+                           (0, 4, "linspace")):
+        np.testing.assert_array_equal(TV.frame_indices(total, n, mode),
+                                      JV.frame_indices(total, n, mode))
+    for path in ("a.mp4", "b.MOV", "c.png", 3, None, "d.webm"):
+        assert TV.is_video_path(path) == JV.is_video_path(path)
+
+
+def test_load_hf_tokenizer_stays_local(monkeypatch):
+    """A path that is not a directory is read from the local cache only."""
+    seen = {}
+
+    class AutoTokenizer:
+        @staticmethod
+        def from_pretrained(path, **kwargs):
+            seen.update(kwargs, path=path)
+            return "tok"
+
+    import types
+
+    monkeypatch.setitem(sys.modules, "transformers",
+                        types.SimpleNamespace(AutoTokenizer=AutoTokenizer))
+    assert TT.load_hf_tokenizer("google/flan-t5-xxl") == "tok"
+    assert seen["local_files_only"] is True and seen["use_fast"] is True

@@ -82,14 +82,19 @@ def test_quant_bf16_branches_match_jax(bias):
 
 
 def test_int8_leaf_raises():
-    class Int8Leaf:
-        w_q = torch.zeros((4, 4), dtype=torch.int8)
-        scale = torch.ones(4)
-
-    with pytest.raises(NotImplementedError):
-        TQ.mm(torch.zeros(2, 4), Int8Leaf())
-    with pytest.raises(NotImplementedError):
-        TQ.mm_packed(torch.zeros(2, 4), [Int8Leaf(), Int8Leaf()])
+    """Mixed packs of int8 and dense leaves, and int8 leaves that are not
+    int8, are refused (the JAX package supports no mixed pack either)."""
+    w_q = torch.zeros((4, 4), dtype=torch.int8)
+    int8 = TQ.Linear(w_q=w_q, scale=torch.ones(4))
+    dense = TQ.Linear(torch.zeros(4, 4))
+    with pytest.raises(ValueError):
+        TQ.pack([int8, dense])
+    with pytest.raises(ValueError):
+        TQ.mm_packed(torch.zeros(2, 4), [dense, int8])
+    with pytest.raises(TypeError):
+        TQ.Linear(w_q=w_q.float(), scale=torch.ones(4))
+    with pytest.raises(ValueError):
+        TQ.Linear(torch.zeros(4, 4), w_q=w_q, scale=torch.ones(4))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -117,8 +122,14 @@ def test_cpu_tensors_take_the_plain_versions():
     be = torch.tensor([2, 0], dtype=torch.int32)
     assert torch.equal(moe.grouped_matmul(xg, we, be, 8),
                        moe.grouped_matmul_reference(xg, we, be, 8))
+    x_q, xs = TQ.quantize_rows(x)
+    assert all(map(torch.equal, (x_q, xs), TQ.quantize_rows_plain(x)))
+    w_q = torch.arange(64 * 16).reshape(64, 16).remainder(255).sub(127).to(torch.int8)
+    assert torch.equal(TQ.quant_matmul(x_q, w_q, xs, w.abs()[:16]),
+                       TQ.quant_matmul_plain(x_q, w_q, xs, w.abs()[:16]))
     assert launch_counts() == {"flash_attention_flat": 0, "layer_norm": 0,
-                               "rms_norm": 0, "rope_pack": 0, "grouped_gemm": 0}
+                               "rms_norm": 0, "rope_pack": 0, "grouped_gemm": 0,
+                               "quant_matmul": 0, "quantize_rows": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -133,6 +144,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         rope_pack(pk, torch.ones(1, 2, 8, device="meta"),
                   torch.ones(1, 2, 8, device="meta"), 2, 8)
+    with pytest.raises(ValueError):
+        TQ.quantize_rows(x)
+    with pytest.raises(ValueError):
+        TQ.quant_matmul(x.to(torch.int8), x.to(torch.int8).T, torch.ones(2, 1, device="meta"),
+                        torch.ones(2, device="meta"))
 
 
 def test_port_imports_no_jax():

@@ -110,8 +110,8 @@ def test_path_input_scores(scorers, tmp_path):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tt2v.VQAScore("clip-flant5-test", device="cpu", quant="int8")
+    with pytest.raises(ValueError):   # int8 and int8+vit are ported; no other mode
+        tt2v.VQAScore("clip-flant5-test", device="cpu", quant="int4")
     with pytest.raises(NotImplementedError):
         tt2v.VQAScore("clip-flant5-xl", device="cpu")  # pretrained weights
     if not torch.cuda.is_available():
