@@ -5,26 +5,32 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. environment: the card's name and power limit; build every kernel of the
-     clip-flant5 (bf16 and W8A8), Qwen2.5-VL and Qwen3-VL paths from the
-     sources in this checkout (one nvcc per CUDA source, started together:
-     the flash attention at head dims 64/72/80/128, the MoE grouped GEMM and
-     the int8 GEMM; Triton for LayerNorm, RMSNorm, the rotary embedding and
-     the per-row int8 quant) and time the build;
+     clip-flant5 (bf16 and W8A8), Qwen2.5-VL, Qwen3-VL and Gemma 3 paths from
+     the sources in this checkout (one nvcc per CUDA source, started
+     together: the flat flash attention and the per-head flash attention at
+     head dims 64/72/80/128/256, the MoE grouped GEMM and the int8 GEMM;
+     Triton for LayerNorm, RMSNorm, the rotary embedding and the per-row int8
+     quant) and time the build;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the clip-flant5-xl/xxl, Qwen2.5-VL-7B and Qwen3-VL-30B-A3B
-     paths give it, with its tolerance, CUDA-event times, its bound (the
-     least time the card could take: bytes over 3.35 TB/s or operations
-     over the peak rate of their type) and, where one PyTorch call computes
-     the same function, that call's time (``--kernels-only`` stops here,
-     with no result line);
+     shapes the clip-flant5-xl/xxl, Qwen2.5-VL-7B, Qwen3-VL-30B-A3B and
+     Gemma-3-4B paths give it (the per-head kernel also with the in-kernel
+     T5 bias at the clip-flant5-xl shapes), with its tolerance, CUDA-event
+     times, its bound (the least time the card could take: bytes over 3.35
+     TB/s or operations over the peak rate of their type) and, where one
+     PyTorch call computes the same function, that call's time
+     (``--kernels-only`` stops here, with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
      full, and 2 decoder layers; Qwen3-VL-30B-A3B widths with 2 ViT and 2
      decoder layers of 128 experts, deepstack at ViT layers 0 and 1;
      clip-flant5-xxl widths with 2 ViT and 2+2 T5 layers in bf16, ``int8``
-     and ``int8+vit`` on the same int8 weights) on the card in bf16 with the
-     kernels, against the CPU in fp32 with the plain versions, on one set of
-     random parameters each;
+     and ``int8+vit`` on the same int8 weights; Gemma-3-4B widths with 2
+     SigLIP layers at 896 px and 2 decoder layers, one sliding and one full)
+     on the card in bf16 with the kernels, against the CPU in fp32 with the
+     plain versions, on one set of random parameters each; and the
+     clip-flant5-xl chain under ``INKERNEL_REL_BIAS`` (the per-head kernel
+     with the T5 bias in the kernel) against its dense-bias path on the same
+     parameters, both on the card;
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -33,14 +39,15 @@ Phases (any failure exits non-zero and prints no result line):
      ``VQAScore("qwen2.5-vl-7b", init="random")`` (1024x1024 images, which
      take the untiled window layout, then 300x380 images through
      ``batch_forward``, which take the tiled one),
-     ``VQAScore("qwen3-vl-30b-a3b", init="random")`` (1024x1024 images) and
+     ``VQAScore("qwen3-vl-30b-a3b", init="random")`` (1024x1024 images),
+     ``VQAScore("gemma-3-4b-it", init="random")`` (1024x1024 images) and
      ``VQAScore("clip-flant5-xxl", init="random", quant=q)`` for q in None,
      "int8", "int8+vit", with each int8 mode's score gap from bf16 on the
      same rows; with ``--profile``, the device time of one
      ``batch_forward`` of each, and of the Qwen forwards at 1024x1024, by
      kernel family (torch.profiler) and the device's busy share.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the six slices), the card's name and power
+summed over the first calls of the seven slices), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -76,11 +83,19 @@ WARMUP, ITERS = 3, 20
 # on the summation order and on the kernel's fused multiply-add, so a result
 # may land one bf16 ulp away (rtol 8e-3); T5's RMSNorm rounds twice (the
 # normalized value, then the product), so two (1.6e-2); atol 1e-5 covers
-# results near zero, where the bias add cancels. Attention: P is rounded to
-# bf16 against the running max of each key tile in the kernel and against
-# the row max in the plain version, and the sums run in another order.
+# results near zero, where the bias add cancels.
 LN_RTOL, RMS_RTOL, NORM_ATOL = 8e-3, 1.6e-2, 1e-5
-ATTN_ATOL = ATTN_RTOL = 2e-2
+# Attention: P is rounded to bf16 against the running max of each key tile
+# in the kernel and against the row max in the plain version, the sums run
+# in another order, and each side rounds its output to bf16 once. So per
+# element |kernel - plain| <= ATTN_ATOL_RMS * rms(plain) + ATTN_RTOL *
+# |plain| (rtol 2^-7: one bf16 rounding flip; atol: the P roundings, scaled
+# to the outputs compared, which are ~0.026 at the SigLIP shape and O(1) at
+# the T5 sites), and over the tensor rms(kernel - plain) <= ATTN_RMS_RATIO *
+# rms(plain). A scale of 1/8 for 1/sqrt(72) moves the SigLIP outputs by ~6%
+# of their rms and a dropped last key tile by ~12%: the SigLIP check runs
+# both as negative controls, which must fail it.
+ATTN_ATOL_RMS, ATTN_RTOL, ATTN_RMS_RATIO = 5e-2, 2 ** -7, 1e-2
 # Rotary embedding: both sides round one f32 value to bf16; the kernel may
 # fuse a multiply-add the plain version rounds twice, so one bf16 ulp.
 ROPE_RTOL = 8e-3
@@ -119,6 +134,16 @@ QWEN3_CHAIN_TOL_NATS = 5e-2
 # f32 operations, each correctly rounded, in the kernel and the plain
 # version). xxl int8 chain: see phase_xxl_chain.
 XXL_INT8_CHAIN_TOL_NATS = 0.1
+# Gemma chain: 4b widths, 2 SigLIP layers at 896 px + 2 decoder layers, bf16
+# on the card against fp32 on the CPU: the Qwen chains' roundings (a 4096-
+# patch tower, ~12 matmuls, the 262208-way log-softmax) and the Gemma norms
+# multiplied in fp32; limit 5e-2 as for Qwen.
+GEMMA_CHAIN_TOL_NATS = 5e-2
+# The xl chain with the T5 bias in the per-head kernel against the dense
+# bias in the flat kernel, both on the card in bf16: the same GEMMs, the
+# same fp32 bias values and the same tile order in both kernels, so only
+# the two kernels' own instruction schedules differ; limit as the chain's.
+INKERNEL_TOL_NATS = CHAIN_TOL_NATS
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W) for the
 # bound: the larger of bytes over the HBM rate and operations over the peak
@@ -129,6 +154,8 @@ PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 KERNELS = {
     "flash_attention_flat": ("cuda", "t2v_metrics_tpu_torch/csrc/flash_flat.cu",
                              "t2v_metrics_tpu/ops/attention.py:565"),
+    "flash_attention": ("cuda", "t2v_metrics_tpu_torch/csrc/flash_attention.cu",
+                        "t2v_metrics_tpu/ops/attention.py:151"),
     "layer_norm": ("triton", "t2v_metrics_tpu_torch/ops/norms.py",
                    "t2v_metrics_tpu/ops/norms.py:65"),
     "rms_norm": ("triton", "t2v_metrics_tpu_torch/ops/norms.py",
@@ -201,6 +228,20 @@ def outside(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> i
     return int(((out.float() - ref).abs() > atol + rtol * ref.abs()).sum())
 
 
+def attention_agrees(out: torch.Tensor, ref: torch.Tensor) -> tuple[bool, str]:
+    """(within the attention tolerance, what was measured against it)."""
+    out, ref = out.float(), ref.float()
+    rms = float(ref.square().mean().sqrt())
+    err = out - ref
+    atol = ATTN_ATOL_RMS * rms
+    bad = int((err.abs() > atol + ATTN_RTOL * ref.abs()).sum())
+    ratio = float(err.square().mean().sqrt()) / rms
+    ok = bad == 0 and ratio <= ATTN_RMS_RATIO and bool(torch.isfinite(out).all())
+    return ok, (f"{bad} elements outside atol {atol:.3e} (= {ATTN_ATOL_RMS} x rms(plain) "
+                f"{rms:.3e}) + rtol 2^-7; error rms {ratio:.3e} x rms(plain) "
+                f"(limit {ATTN_RMS_RATIO})")
+
+
 def free_cuda() -> None:
     """Return the memory of dropped tensors to the card."""
     gc.collect()
@@ -236,18 +277,23 @@ def phase_build() -> None:
         norms.layer_norm_fused(ones(8, d), ones(d), ones(d))
     for d in (2048, 1280, 3584):
         norms.rms_norm_fused(ones(8, d), ones(d))
+    for d in (2560, 1152):     # Gemma: (1 + w), multiplied in fp32
+        norms.rms_norm_fused(ones(8, d), ones(d), 1e-6, 1.0, False)
     norms.rms_norm_heads_fused(ones(1, 8, 40 * 128), ones(128), ones(128), 32, 4, 128)
-    for heads, d in ((32, 80), (36, 128), (32, 72)):
+    norms.rms_norm_heads_fused(ones(1, 8, 16 * 256), ones(256), ones(256), 8, 4, 256,
+                               1e-6, 1.0, False)
+    for heads, d in ((32, 80), (36, 128), (32, 72), (16, 256)):
         rope.rope_pack(ones(1, 8, heads * d), ones(1, 8, d, dtype=torch.float32),
-                       ones(1, 8, d, dtype=torch.float32), 32, d)
+                       ones(1, 8, d, dtype=torch.float32), min(heads, 32), d)
     for d in (1024, 4096, 10240):
         quant.quantize_rows(ones(8, d))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    log(f"[build] nvcc flash_flat.cu (head dims 64/72/80/128), grouped_gemm.cu "
-        f"and quant_matmul.cu in parallel: {t_nvcc:.2f} s; with the Triton "
-        f"norms, rotary embedding and row quant: {total:.2f} s")
-    for lib in ("flash_flat", "grouped_gemm", "quant_matmul"):
+    log(f"[build] nvcc flash_flat.cu and flash_attention.cu (head dims "
+        f"64/72/80/128/256), grouped_gemm.cu and quant_matmul.cu in parallel: "
+        f"{t_nvcc:.2f} s; with the Triton norms, rotary embedding and row "
+        f"quant: {total:.2f} s")
+    for lib in ("flash_flat", "flash_attention", "grouped_gemm", "quant_matmul"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] ptxas {lib}: {line.strip()}")
@@ -420,6 +466,26 @@ def phase_kernels() -> dict:
                   "causal, kv_mask", False, (randn(16, 1024, 40 * 128), 32),
                   dict(kv_heads=4, causal=True,
                        kv_mask=lengths_mask(16, 1024, 985, 988))))
+    # Gemma-3-4B: the decoder prefill of the 4 x 4 slice (16 pairs of ~290
+    # tokens in bucket 512; the image block of 256 tokens at rows 4..259;
+    # q_scale 1/16; window 1024 on the sliding layers), and a 2048-row
+    # prefill where the window bites and the overlay reopens tiles
+    # outside it
+    def image_block(b, s, start):
+        ids = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+        ids[:, start:start + 256] = 0
+        return ids
+
+    sites.append(("Gemma decoder prefill (16, 512, 16*256) d=256, GQA 8/4, causal, "
+                  "window 1024, bidir block, kv_mask", False, (randn(16, 512, 16 * 256), 8),
+                  dict(kv_heads=4, causal=True, scale=256 ** -0.5, local_window=1024,
+                       bidir_ids=image_block(16, 512, 4),
+                       kv_mask=lengths_mask(16, 512, 285, 295))))
+    sites.append(("Gemma prefill (2, 2048, 16*256) d=256, GQA 8/4, window 1024 "
+                  "bites, bidir block at 1500", False, (randn(2, 2048, 16 * 256), 8),
+                  dict(kv_heads=4, causal=True, scale=256 ** -0.5, local_window=1024,
+                       bidir_ids=image_block(2, 2048, 1500),
+                       kv_mask=lengths_mask(2, 2048, 2000, 2048))))
 
     for label, main, args, kw in sites:
         if len(args) == 2:
@@ -432,13 +498,17 @@ def phase_kernels() -> dict:
             plain_fn = lambda: A.attention_flat_reference(*args, **kw)  # noqa: E731
         out, ref = fn(), plain_fn()
         torch.cuda.synchronize()
-        bad = outside(out, ref, ATTN_ATOL, ATTN_RTOL)
-        ok = bad == 0 and bool(torch.isfinite(out).all())
+        ok, detail = attention_agrees(out, ref)
         extra = t5_attention_yardsticks(args, kw) if main else {}
-        record("flash_attention_flat", label, out, ref, ok,
-               f"{bad} elements outside atol {ATTN_ATOL} + rtol {ATTN_RTOL}",
-               fn, plain_fn, main, **extra)
+        if "bidir_ids" in kw:
+            masked_attention_yardsticks(label, *args, kw)
+        record("flash_attention_flat", label, out, ref, ok, detail, fn, plain_fn, main,
+               **extra)
         del out, ref, extra
+    del sites
+    free_cuda()
+    per_head_kernels(randn, record, lengths_mask)
+    free_cuda()
 
     # Grouped GEMM at the Qwen3-VL-30B-A3B expert shapes of the slice: a
     # seeded top-8 routing of 16 x 1024 tokens over 128 experts (P = 147,456
@@ -492,6 +562,111 @@ def phase_kernels() -> dict:
     return results
 
 
+def per_head_kernels(randn, record, lengths_mask) -> None:
+    """The per-head kernel against its plain version: the SigLIP-896 tower's
+    attention (the table's shape: 16 images, 16 heads of 72 over 4096
+    patches, q/k/v strided views of the packed projection; the plain
+    version runs in batch chunks of 4 to bound its (B, H, S, S) fp32
+    scores) with ``F.scaled_dot_product_attention`` beside it, and two
+    wrong plain versions (scale 1/8; the last key tile dropped) that must
+    fail the tolerance; and the T5
+    attention of clip-flant5-xl with the bias in the kernel (encoder: 32
+    pairs x 640, bidirectional buckets, key mask; decoder: 32 x 4, causal
+    buckets), with SDPA on the materialized bias beside the encoder."""
+    from t2v_metrics_tpu_torch.ops.position import compute_position_bias
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    b, h, s, d = 16, 16, 4096, 72
+    q, k, v = A.packed_heads(randn(b, s, 3 * h * d), h)
+
+    def plain(**kw):
+        return torch.cat([A.attention_reference(q[i:i + 4], k[i:i + 4], v[i:i + 4], **kw)
+                          for i in range(0, b, 4)])
+
+    fn = lambda: A.flash_attention(q, k, v)  # noqa: E731
+    out, ref = fn(), plain()
+    torch.cuda.synchronize()
+    ok, detail = attention_agrees(out, ref)
+    cut = (torch.arange(s, device=q.device) < s - 64).expand(4, s)
+    for wrong, kw in (("scale 1/8", dict(scale=0.125)), ("last key tile dropped",
+                                                          dict(kv_mask=cut))):
+        caught, why = attention_agrees(plain(**kw), ref)
+        log(f"[kernel] flash_attention SigLIP-896 negative control, plain version with "
+            f"{wrong}: {why}")
+        check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    name = "F.scaled_dot_product_attention (no mask)"
+    ms = library_ms(lambda: F.scaled_dot_product_attention(q, k, v), name)
+    flop = 4 * b * h * s * s * d
+    record("flash_attention", f"SigLIP-896 ({b}, {h}, {s}, {d}) views of the "
+           "packed projection, no mask", out, ref, ok, detail, fn, plain, True,
+           flop=flop, lower=(flop, 2 * 4 * b * s * h * d, "bf16"),
+           library=None if ms is None else (name, ms))
+    del q, k, v, out, ref, cut
+    free_cuda()
+
+    heads, nb, md = 32, 32, 128
+    rel = randn(heads, nb, dtype=torch.float32, std=3.0)
+    for label, (bq, sq), bidirectional in (("T5 encoder", (32, 640), True),
+                                           ("T5 decoder self", (32, 4), False)):
+        q, k, v = A.packed_heads(randn(bq, sq, 3 * heads * 64), heads)
+        kw = dict(scale=1.0, rel_bias=rel, rel_cfg=(bidirectional, nb, md, 0))
+        if bidirectional:
+            kw["kv_mask"] = lengths_mask(bq, sq, 590, 640)
+        else:
+            kw["causal"] = True
+        fn = lambda: A.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain_fn = lambda: A.attention_reference(q, k, v, **kw)  # noqa: E731
+        out, ref = fn(), plain_fn()
+        torch.cuda.synchronize()
+        ok, detail = attention_agrees(out, ref)
+        if bidirectional:
+            # contiguous: compute_position_bias returns a permuted view, and a
+            # sum that keeps its strides sends SDPA to its math fallback
+            bias = compute_position_bias(rel.T, sq, sq, True, nb, md).contiguous()
+            mask = (bias + torch.where(kw["kv_mask"], 0.0, float("-inf"))[:, None, None, :]
+                    ).to(torch.bfloat16).contiguous()
+            lib = "F.scaled_dot_product_attention (materialized bias + mask, bf16)"
+            ms = library_ms(lambda: F.scaled_dot_product_attention(  # noqa: B023
+                q, k, v, attn_mask=mask, scale=1.0), lib)
+            flop = 4 * bq * heads * sq * sq * 64
+            lo = bound(flop, 2 * 4 * bq * sq * heads * 64 + 4 * heads * nb + bq * sq,
+                       "bf16")
+            log(f"[kernel] flash_attention {label} in-kernel bias: bound {lo[0]:.4f} ms "
+                f"by {lo[1]}; {lib} " + ("refused" if ms is None else f"{ms:.4f} ms"))
+            del mask
+        record("flash_attention", f"{label} ({bq}, {heads}, {sq}, 64), T5 bias in the "
+               f"kernel ({'bidirectional, kv_mask' if bidirectional else 'causal'})",
+               out, ref, ok, detail, fn, plain_fn, False)
+        del q, k, v, out, ref
+
+
+def masked_attention_yardsticks(label, packed, heads, kw) -> None:
+    """Log the bound of a Gemma flat attention site, from the (row, col)
+    pairs its masks keep (causal / window band OR the overlay, AND the key
+    mask), and the time of ``F.scaled_dot_product_attention`` on the same
+    q/k/v views with that mask materialized (GQA through enable_gqa)."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    b, s, _ = packed.shape
+    kvh = kw["kv_heads"]
+    q, k, v, d = A._split_packed(packed, heads, kvh)
+    qh, kh, vh = (t.view(b, s, n, d).transpose(1, 2)
+                  for t, n in ((q, heads), (k, kvh), (v, kvh)))
+    pos = torch.arange(s, device=packed.device)
+    band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - kw["local_window"])
+    ids = kw["bidir_ids"]
+    same = (ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0)
+    keep = (band[None] | same) & kw["kv_mask"][:, None, :]          # (B, S, S)
+    ops = 4 * d * heads * int(keep.sum())
+    lo = bound(ops, 2 * b * s * (2 * heads + 2 * kvh) * d + 5 * b * s, "bf16")
+    name = "F.scaled_dot_product_attention (bool mask, enable_gqa)"
+    ms = library_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=keep[:, None], scale=kw["scale"], enable_gqa=True), name)
+    log(f"[kernel] flash_attention_flat {label}: bound {lo[0]:.4f} ms by {lo[1]} "
+        f"({ops / 1e9:.2f} GFLOP kept by the masks); {name} "
+        + ("refused" if ms is None else f"{ms:.4f} ms"))
+
+
 def library_ms(fn, name: str) -> float | None:
     """CUDA-event ms of a PyTorch call used as a yardstick, or None (said
     so) where it refuses the inputs."""
@@ -509,13 +684,15 @@ def t5_attention_yardsticks(args, kw) -> dict:
     ``F.scaled_dot_product_attention`` on its inputs: q, k, v viewed as
     (B, H, S, D) from the packed projection, the fp32 bias and the key mask
     folded into one bf16 additive mask (its dtype must be the query's)."""
+    from t2v_metrics_tpu_torch.ops.attention import packed_heads
+
     packed, heads = args
     b, s, lanes = packed.shape
     d = lanes // (3 * heads)
     bias, kv_mask = kw["bias"], kw["kv_mask"]
     lower = (4 * b * heads * s * s * d,
              2 * b * s * lanes + 2 * b * s * heads * d + 4 * heads * s * s + b * s, "bf16")
-    q, k, v = packed.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    q, k, v = packed_heads(packed, heads)
     mask = (bias + torch.where(kv_mask, 0.0, float("-inf"))[:, None, None, :]
             ).to(torch.bfloat16)
     name = "F.scaled_dot_product_attention (bf16 float mask, scale 1.0)"
@@ -973,7 +1150,7 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
     # and rope once a layer; RMSNorm twice a layer plus the merger's and the
     # final norm (7B: 60 / 60 / 122)
     vit, layers = scorer.model.config.vision.depth, scorer.model.config.text.layers
-    want = {"flash_attention_flat": vit + layers, "layer_norm": 0,
+    want = {"flash_attention_flat": vit + layers, "flash_attention": 0, "layer_norm": 0,
             "rms_norm": 2 * vit + 1 + 2 * layers + 1, "rope_pack": vit + layers,
             "grouped_gemm": 0, "quant_matmul": 0, "quantize_rows": 0}
     if device != "cuda":  # the plain versions launch nothing
@@ -1117,7 +1294,7 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
     # deepstack mergers; the grouped GEMM twice a decoder layer (gate_up,
     # down). 30b-a3b: 75 / 75 / 145 / 58 / 96
     v, text = scorer.model.config.vision, scorer.model.config.text
-    want = {"flash_attention_flat": v.depth + text.layers,
+    want = {"flash_attention_flat": v.depth + text.layers, "flash_attention": 0,
             "layer_norm": 2 * v.depth + 1 + len(v.deepstack_indexes),
             "rms_norm": 3 * text.layers + 1, "rope_pack": v.depth + text.layers,
             "grouped_gemm": 2 * text.layers, "quant_matmul": 0, "quantize_rows": 0}
@@ -1155,6 +1332,178 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
 
 
 # ---------------------------------------------------------------------------
+# Gemma-3-4B: chain (phase 3) and slice (phase 4); clip-flant5-xl with the T5
+# bias in the per-head kernel (phase 3)
+# ---------------------------------------------------------------------------
+
+GEMMA = "gemma-3-4b-it"
+
+
+def gemma_chain_config(vit_layers: int = 2):
+    """Gemma-3-4B widths cut to ``vit_layers`` SigLIP layers at 896 px and
+    two decoder layers, one sliding (window 1024, the local RoPE table) and
+    one full (the scaled global table)."""
+    from t2v_metrics_tpu_torch.models.gemma3 import GEMMA3_MODELS
+
+    cfg = GEMMA3_MODELS[GEMMA]["config"]
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, layers=vit_layers),
+        text=dataclasses.replace(cfg.text, layers=2,
+                                 layer_types=("sliding_attention", "full_attention")))
+
+
+def phase_gemma_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.models.gemma3 import Gemma3Model, init_gemma3
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    card = init_gemma3(cfg, SEED + 1, device, torch.bfloat16)
+    host = Gemma3Model(cfg, "cpu", torch.float32)
+    with torch.no_grad():
+        dst = host.state_dict()
+        for name, t in card.state_dict().items():
+            dst[name].copy_(t.float().cpu())
+    tok = t2v.SimpleT5Tokenizer(cfg.text.vocab_size)
+    images, texts = seeded_images(m, 71, 1024, 1024), seeded_texts(n, 72)
+    scorers = [t2v.VQAScore(GEMMA, params=p, config=cfg, tokenizer=tok, device=d)
+               for p, d in ((card, device), (host, "cpu"))]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = np.log(scorers[0](images=images, texts=texts))
+    t1 = time.perf_counter()
+    counts = launch_counts()
+    on_cpu = np.log(scorers[1](images=images, texts=texts))
+    t2 = time.perf_counter()
+    diff = float(np.abs(on_card - on_cpu).max())
+    log(f"[gemma chain] 4b widths, {cfg.vision.layers} SigLIP layers at "
+        f"{cfg.vision.image_size} px + {cfg.text.layers} decoder layers "
+        f"{cfg.text.layer_types}, M={m} N={n} 1024x1024 images: card bf16 "
+        f"{t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; card launches {json.dumps(counts)}")
+    log(f"[gemma chain] mean answer log-probs card {on_card.ravel().round(4).tolist()}")
+    log(f"[gemma chain] mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
+    log(f"[gemma chain] max |card - cpu| {diff:.4e} nats (limit {GEMMA_CHAIN_TOL_NATS}); "
+        f"spread over pairs {float(np.ptp(on_cpu)):.4e} nats")
+    check(np.isfinite(on_card).all() and on_card.shape == (m, n),
+          "gemma chain: card scores not finite or wrong shape")
+    check(counts["flash_attention"] == cfg.vision.layers
+          and counts["flash_attention_flat"] == cfg.text.layers,
+          f"gemma chain: attention launches {counts}")
+    check(diff <= GEMMA_CHAIN_TOL_NATS, f"gemma chain: card and CPU differ by {diff} nats")
+
+
+def phase_inkernel_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
+    """The clip-flant5-xl chain (2 ViT + 2+2 T5 layers, T5 scale folded) on
+    the card with the dense T5 bias in the flat kernel, then under
+    ``INKERNEL_REL_BIAS`` with the bias computed in the per-head kernel, on
+    the same parameters."""
+    from t2v_metrics_tpu_torch import SimpleT5Tokenizer
+    from t2v_metrics_tpu_torch.engine.scoring import CLIPT5Engine
+    from t2v_metrics_tpu_torch.models import t5 as T5
+    from t2v_metrics_tpu_torch.models.clip_flant5 import init_clip_t5
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    card = init_clip_t5(cfg, SEED + 3, device, torch.bfloat16)
+    fold_t5_attention_scale(card, cfg)
+    engine = CLIPT5Engine(card, cfg, SimpleT5Tokenizer(cfg.t5.vocab_size), device)
+    images, texts = seeded_images(m, 15), seeded_texts(n, 16)
+    dense = np.log(engine.score_matrix(images, texts))
+    T5.INKERNEL_REL_BIAS = True
+    try:
+        reset_launch_counts()
+        inkernel = np.log(engine.score_matrix(images, texts))
+        counts = launch_counts()
+    finally:
+        T5.INKERNEL_REL_BIAS = False
+    diff = float(np.abs(inkernel - dense).max())
+    enc, dec, vit = cfg.t5.enc_layers, cfg.t5.dec_layers, cfg.vision.layers - 1
+    log(f"[inkernel chain] xl widths, {vit + 1} ViT + {enc}+{dec} T5 layers, M={m} N={n}: "
+        f"T5 bias in the per-head kernel against the dense bias, max {diff:.4e} nats "
+        f"(limit {INKERNEL_TOL_NATS}); launches per-head {counts['flash_attention']}, "
+        f"flat {counts['flash_attention_flat']}")
+    check(np.isfinite(inkernel).all() and inkernel.shape == (m, n),
+          "inkernel chain: scores not finite or wrong shape")
+    check(counts["flash_attention"] == enc + dec
+          and counts["flash_attention_flat"] == vit + dec,
+          f"inkernel chain: launches {counts}")
+    check(diff <= INKERNEL_TOL_NATS, f"inkernel chain: the two paths differ by {diff} nats")
+
+
+def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024,
+                      profile: bool = False) -> dict:
+    """``VQAScore("gemma-3-4b-it", init="random")`` at full width and depth:
+    4 x 4 on 1024x1024 images (resized to 896 on the card, 4096 patches, 256
+    soft tokens; prompts of ~290 tokens in bucket 512), the same 16 pairs
+    through ``batch_forward``, pairs/s and the slice's peak memory."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer = t2v.VQAScore(model, init="random", seed=SEED, device=device)
+    torch.cuda.synchronize()
+    log(f"[gemma slice] {model} random init on {device}: "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of parameters")
+    images = seeded_images(4, 81, side, side)
+    texts = seeded_texts(4, 82)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"[gemma slice] first forward (4 images {side}x{side} x 4 texts): "
+        f"{t_first:.3f} s; launches {json.dumps(counts)}")
+    check(scores.shape == (4, 4), f"gemma slice: shape {scores.shape}")
+    check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
+          "gemma slice: scores not finite in [0, 1]")
+    # one same-shape image group (one tower call) and one prefill: the
+    # per-head attention once a SigLIP layer (4096 patches > 2048), LayerNorm
+    # twice a SigLIP layer and its post-norm; the projector's RMSNorm; per
+    # decoder layer the flat attention, rope, and RMSNorm five times (ln1,
+    # qk-norm, ln1_post, ln_ff_pre, ln_ff_post), and the final norm
+    # (4b: 27 / 34 / 55 / 172 / 34)
+    v, text = scorer.model.config.vision, scorer.model.config.text
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=v.layers, flash_attention_flat=text.layers,
+                layer_norm=2 * v.layers + 1, rms_norm=1 + 5 * text.layers + 1,
+                rope_pack=text.layers)
+    check(counts == want, f"gemma slice: launch counts {counts} != {want}")
+    check(np.array_equal(scores, scorer(images=images, texts=texts)),
+          "gemma slice: second call differs")
+    log(f"[gemma slice] log scores: {np.log(scores).round(4).tolist()}")
+
+    data = [{"images": [images[i]], "texts": texts} for i in range(4)]
+    rows = scorer.batch_forward(data, batch_size=4)
+    media, texts_ = scorer._flatten_pairs(data, "images", 8)
+    check(rows.shape == (4, 1, 4)
+          and np.array_equal(rows.ravel(), scorer.model.forward(media, texts_)),
+          "gemma batch_forward rows differ from the pairwise forward")
+    log("[gemma slice] batch_forward rows equal the pairwise forward of the same pairs")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer.batch_forward(data, batch_size=4)
+    torch.cuda.synchronize()
+    pairs_s = 16 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    fwd_s = 16 / (time.perf_counter() - t0)
+    log(f"[gemma slice] pairs/s after warm-up: batch_forward (16 pairs at "
+        f"{side}x{side}, batch 4) {pairs_s:.2f}; forward (4 x 4) {fwd_s:.2f}")
+    log(f"[gemma slice] {model} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB allocated; card {card_line()}")
+    if profile:
+        phase_profile(lambda: scorer(images=images, texts=texts),
+                      f"{model} forward 4 x 4 at {side}x{side}")
+    del scorer
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Optional phase (--profile): where the device time of batch_forward goes
 # ---------------------------------------------------------------------------
 
@@ -1163,7 +1512,7 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
 KERNEL_FAMILIES = (("quant_matmul", ("quant_matmul_kernel",)),
                    ("quantize_rows", ("quant_rows_kernel",)),
                    ("grouped_gemm", ("grouped_gemm_kernel",)),
-                   ("attention", ("flash_flat_kernel",)),
+                   ("attention", ("attention_kernel",)),
                    ("rope", ("rope_kernel",)),
                    ("rms_norm", ("rms_kernel",)),
                    ("layer_norm", ("ln_kernel",)),
@@ -1211,7 +1560,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one batch_forward of each slice (and the "
-                         "Qwen forwards at 1024x1024) with torch.profiler and "
+                         "Qwen and Gemma forwards at 1024x1024) with torch.profiler and "
                          "print the device time by kernel family")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-2); prints "
@@ -1231,15 +1580,17 @@ def main() -> int:
         return 0
     free_cuda()
     for chain in (lambda: phase_chain(chain_config()),
+                  lambda: phase_inkernel_chain(chain_config()),
                   lambda: phase_qwen_chain(qwen_chain_config()),
                   lambda: phase_qwen3_chain(qwen3_chain_config()),
+                  lambda: phase_gemma_chain(gemma_chain_config()),
                   lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl"))):
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
     slice_counts = [phase_slice(profile=args.profile)[0]]
     free_cuda()
-    for run in (phase_qwen_slice, phase_qwen3_slice):
+    for run in (phase_qwen_slice, phase_qwen3_slice, phase_gemma_slice):
         slice_counts.append(run(profile=args.profile))
         free_cuda()
     bf16_rows = None

@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's flat attention kernel at its attention sites, for
+an A/B comparison of two checkouts on one card.
+
+    PYTHONPATH=<checkout> python3 scripts/torch_attention_ab.py --label L
+
+Imports ``t2v_metrics_tpu_torch`` from the checkout on PYTHONPATH (else the
+current directory), builds that checkout's flat attention kernel from its
+own sources, and prints one JSON line: the label, the package's path, the
+card's name and power limit, the registers and spills ptxas reported for
+each instantiation, a digest of each instantiation's machine code (its
+instruction count and a hash of its opcode sequence, from ``cuobjdump
+-sass``: two checkouts whose digests match run the same instructions), and
+the median CUDA-event milliseconds of the kernel at each site (20 runs after
+3 warm-ups). Compare two checkouts in one call, in turns: parent, change,
+change, parent. Needs one NVIDIA GPU, nvcc and torch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+
+def cuda_ms(fn, warmup=3, iters=20) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)     # the card stays busy while fn enqueues
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def sass_digest(lib: Path) -> dict:
+    """{"flash_flat_kernel<D,flags...>": [instructions, opcode hash]} of
+    every kernel in ``lib``, from ``cuobjdump -sass`` (next to nvcc)."""
+    from t2v_metrics_tpu_torch.build import _nvcc
+
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        return {"error": res.stderr.strip()[:300]}
+    funcs, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            m = re.search(r"([a-z_]+_kernel)I(.*?)EEv", mangled)
+            args = re.findall(r"L[ib](\d+)E", (m.group(2) + "E") if m else "")
+            name = f"{m.group(1)}<{','.join(args)}>" if m else mangled
+            funcs[name] = []
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.+?)\s*;", line)
+        if name is not None and ins:
+            tokens = ins.group(1).split()
+            funcs[name].append(tokens[1] if tokens[0].startswith("@") else tokens[0])
+    return {k: [len(v), hashlib.sha1(" ".join(v).encode()).hexdigest()[:12]]
+            for k, v in sorted(funcs.items())}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_attention_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import t2v_metrics_tpu_torch as pkg
+    from t2v_metrics_tpu_torch import build
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def lengths(b, s, lo):
+        lens = torch.randint(lo, s + 1, (b,), generator=gen, device=dev)
+        return torch.arange(s, device=dev)[None] < lens[:, None]
+
+    ar = torch.arange(5120, device=dev)
+    sites = {
+        "T5 encoder (32, 640, 3*2048) d=64, bias, kv_mask":
+            (randn(32, 640, 3 * 2048), 32,
+             dict(bias=randn(1, 32, 640, 640).float(), kv_mask=lengths(32, 640, 590),
+                  scale=1.0)),
+        "Qwen ViT windowed (1, 5120, 3*1280) d=80, 64-row segments":
+            (randn(1, 5120, 3 * 1280), 16, dict(segment_ids=(ar // 64)[None].int())),
+        "Qwen ViT full (1, 5120, 3*1280) d=80, segment 0 / -1 pads":
+            (randn(1, 5120, 3 * 1280), 16,
+             dict(segment_ids=torch.where(ar < 4900, 0, -1)[None].int())),
+        "Qwen3 ViT (4, 4096, 3*1152) d=72, segment 0 / -1 pads":
+            (randn(4, 4096, 3 * 1152), 16,
+             dict(segment_ids=torch.where(ar[:4096] < 3844, 0, -1).int().expand(4, 4096))),
+        "Qwen decoder prefill (16, 1280, 36*128) d=128, GQA 28/4, causal, kv_mask":
+            (randn(16, 1280, 36 * 128), 28,
+             dict(kv_heads=4, causal=True, kv_mask=lengths(16, 1280, 1200))),
+    }
+    ms = {}
+    for label, (qkv, heads, kw) in sites.items():
+        ms[label] = cuda_ms(lambda: A.flash_attention_flat_packed(qkv, heads, **kw))  # noqa: B023
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    ptxas = [line.strip() for line in build.build_log("flash_flat").splitlines()
+             if "registers" in line or "spill stores" in line]
+    libs = sorted(Path(pkg.__file__).parent.joinpath("_build").glob("libflash_flat_*.so"),
+                  key=lambda f: f.stat().st_mtime)
+    sass = sass_digest(libs[-1]) if libs else {"error": "no library built"}
+    print(json.dumps({"label": args.label, "package": pkg.__file__, "card": card,
+                      "ptxas": ptxas, "sass": sass, "ms": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,17 +7,20 @@ needs (``constants``, ``tokenization``, ``media/video`` and the ``Score``
 facade in ``score``).
 
     import t2v_metrics_tpu_torch as t2v
-    scorer = t2v.VQAScore(model="clip-flant5-xl", init="random", device="cuda")
+    scorer = t2v.VQAScore(model="clip-flant5-xl", init="random")
     scores = scorer(images=[uint8_hwc_array], texts=["a photo of a cat"])
 
-The VQAScore models are clip-flant5 (xl, xxl; xxl also in the W8A8 modes
-``quant="int8"`` and ``"int8+vit"``), Qwen2.5-VL (3b, 7b, 32b, 72b) and
-Qwen3-VL (dense and MoE; image scoring). On CUDA tensors the hot ops run
-hand-written Hopper kernels (``csrc/flash_flat.cu``, the MoE grouped GEMM
-``csrc/grouped_gemm.cu``, the int8 GEMM ``csrc/quant_matmul.cu``, the
-Triton norms in ``ops/norms.py``, the Triton rotary embedding in
-``ops/rope.py`` and the Triton row quant in ``ops/quant.py``); on CPU
-tensors the same entry points run their plain PyTorch versions.
+The entry points run on the GPU and raise without one; ``device="cpu"``
+asks for the CPU. The VQAScore models are clip-flant5 (xl, xxl; xxl also in
+the W8A8 modes ``quant="int8"`` and ``"int8+vit"``), Qwen2.5-VL (3b, 7b,
+32b, 72b), Qwen3-VL (dense and MoE) and Gemma 3 (4b, 12b, 27b), image
+scoring. On CUDA tensors the hot ops run hand-written Hopper kernels (the
+flat and per-head flash attention ``csrc/flash_flat.cu`` and
+``csrc/flash_attention.cu``, the MoE grouped GEMM ``csrc/grouped_gemm.cu``,
+the int8 GEMM ``csrc/quant_matmul.cu``, the Triton norms in
+``ops/norms.py``, the Triton rotary embedding in ``ops/rope.py`` and the
+Triton row quant in ``ops/quant.py``); on CPU tensors the same entry points
+run their plain PyTorch versions.
 """
 
 from .score import VQAScore

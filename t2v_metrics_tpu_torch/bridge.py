@@ -21,8 +21,10 @@ from torch import nn
 from .models import clip as tclip
 from .models import clip_flant5 as tcft5
 from .models import decoder as tdec
+from .models import gemma3 as tgemma3
 from .models import qwen2vl as tqwen
 from .models import qwen3vl as tqwen3
+from .models import siglip as tsiglip
 from .models import t5 as tt5
 from .ops import quant as Q
 
@@ -153,6 +155,9 @@ def _load_decoder(p: tdec.Decoder, tree: dict) -> tdec.Decoder:
         if dst.q_norm is not None:
             _norm(dst.q_norm, attn["q_norm"])
             _norm(dst.k_norm, attn["k_norm"])
+        for name in ("ln1_post", "ln_ff_pre", "ln_ff_post"):   # sandwich norms
+            if getattr(dst, name) is not None:
+                _norm(getattr(dst, name), src[name])
         if dst.moe is not None:
             moe = src["mlp"]["moe"]
             _leaf(dst.moe.router, moe["router"])
@@ -205,5 +210,31 @@ def qwen3vl_from_numpy(tree: dict, cfg: tqwen3.Qwen3VLConfig, device,
         _norm(dst.norm, m["norm"])
         _leaf(dst.fc1, m["fc1"])
         _leaf(dst.fc2, m["fc2"])
+    _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+def _load_siglip(p: tsiglip.SiglipVisionTower, tree: dict) -> tsiglip.SiglipVisionTower:
+    for name in ("patch_w", "patch_b", "pos_emb"):
+        _copy(getattr(p, name), tree[name])
+    _norm(p.ln_post, tree["ln_post"])
+    for dst, src in zip(p.blocks, tree["blocks"], strict=True):
+        _norm(dst.ln1, src["ln1"])
+        _norm(dst.ln2, src["ln2"])
+        attn = src["attn"]
+        _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
+        _leaf(dst.o, attn["o"])
+        _leaf(dst.fc1, src["mlp"]["fc1"])
+        _leaf(dst.fc2, src["mlp"]["fc2"])
+    return p
+
+
+@torch.no_grad()
+def gemma3_from_numpy(tree: dict, cfg: tgemma3.Gemma3Config, device,
+                      dtype) -> tgemma3.Gemma3Model:
+    model = tgemma3.Gemma3Model(cfg, device, dtype)
+    _load_siglip(model.vision, tree["vision"])
+    _norm(model.projector.norm, tree["projector"]["norm"])
+    _copy(model.projector.proj, tree["projector"]["proj"])
     _load_decoder(model.decoder, tree["decoder"])
     return model

@@ -1,10 +1,11 @@
 """Build the port's Hopper kernels from the sources in this package.
 
-Each CUDA source (``csrc/flash_flat.cu``, one instantiation per head dim;
-``csrc/grouped_gemm.cu``; ``csrc/quant_matmul.cu``) is compiled with
-``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C interface and loaded with
-``ctypes``. The library's name carries a hash of its source and flags, so an
-edited source is rebuilt. ``build_all`` starts one ``nvcc`` per source at
+Each CUDA source (``csrc/flash_flat.cu`` and ``csrc/flash_attention.cu``,
+which share the body in ``csrc/flash_common.cuh``; ``csrc/grouped_gemm.cu``;
+``csrc/quant_matmul.cu``) is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface and loaded with
+``ctypes``. The library's name carries a hash of its sources, headers and
+flags, so an edited source or header is rebuilt. ``build_all`` starts one ``nvcc`` per source at
 once. Triton kernels compile at their first launch; their cache is kept
 beside the libraries. Everything lands in ``_build/`` inside the package,
 which git ignores. Nothing is downloaded.
@@ -43,14 +44,16 @@ def _nvcc() -> str:
     return found
 
 
-def build_shared_lib(name: str, sources: list[Path]) -> Path:
-    """Compile ``sources`` into ``_build/lib<name>_<hash>.so`` unless built.
+def build_shared_lib(name: str, sources: list[Path],
+                     headers: tuple[Path, ...] = ()) -> Path:
+    """Compile ``sources`` into ``_build/lib<name>_<hash>.so`` unless built;
+    ``headers`` are the files they include, hashed with them.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
     is written beside the library as ``.log``.
     """
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(src.read_bytes())
     so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if so.exists():
@@ -69,13 +72,30 @@ def build_shared_lib(name: str, sources: list[Path]) -> Path:
 @functools.cache
 def flash_flat_lib():
     """The ``flash_flat_forward`` C entry point, built on first use."""
-    so = build_shared_lib("flash_flat", [CSRC_DIR / "flash_flat.cu"])
+    so = build_shared_lib("flash_flat", [CSRC_DIR / "flash_flat.cu"],
+                          (CSRC_DIR / "flash_common.cuh",))
     fn = ctypes.CDLL(str(so)).flash_flat_forward
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([vp] * 7            # q, k, v, o, bias, kv_mask, seg
+    fn.argtypes = ([vp] * 8            # q, k, v, o, bias, kv_mask, seg, bidir
                    + [i32] * 6         # B, H, KVH, Sq, Sk, D
                    + [i64] * 14        # q/k/v (batch, row, col offset), o, bias
-                   + [i32, ctypes.c_float, vp])  # causal, scale, stream
+                   + [i32, i32, ctypes.c_float, vp])  # causal, window, scale, stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def flash_attention_lib():
+    """The ``flash_attention_forward`` C entry point, built on first use."""
+    so = build_shared_lib("flash_attention", [CSRC_DIR / "flash_attention.cu"],
+                          (CSRC_DIR / "flash_common.cuh",))
+    fn = ctypes.CDLL(str(so)).flash_attention_forward
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([vp] * 10           # q, k, v, o, bias, kv_mask, seg, bidir,
+                                       # rel, rel_bucket
+                   + [i32] * 6         # B, H, Sq, Sk, D, num_buckets
+                   + [i64] * 16        # q/k/v/o (batch, head, row), bias (b, h, q, k)
+                   + [i32, i32, ctypes.c_float, vp])  # causal, window, scale, stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -102,7 +122,7 @@ def quant_matmul_lib():
     return fn
 
 
-CUDA_LIBS = (flash_flat_lib, grouped_gemm_lib, quant_matmul_lib)
+CUDA_LIBS = (flash_flat_lib, flash_attention_lib, grouped_gemm_lib, quant_matmul_lib)
 
 
 def build_all() -> None:

@@ -25,16 +25,28 @@ from . import t5 as tt5
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` picks the GPU when there is one and the CPU otherwise. An
-    explicit CUDA device without a GPU raises."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    """``None`` means the GPU. A CUDA device without a GPU raises: the CPU
+    runs only when the caller asks for it (``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to "
+                           "run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def unique_visuals(visuals):
+    """(distinct visuals, index of each visual among them): a path counts as
+    itself, an array or image object by identity."""
+    uniq, inv, seen = [], [], {}
+    for v in visuals:
+        key = v if isinstance(v, (str, bytes)) else id(v)
+        if key not in seen:
+            seen[key] = len(uniq)
+            uniq.append(v)
+        inv.append(seen[key])
+    return uniq, inv
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -72,6 +84,24 @@ class VQAScoreModel(ScoreModel):
                 question_template: str = DEFAULT_QUESTION_TEMPLATE,
                 answer_template: str = DEFAULT_ANSWER_TEMPLATE, **kwargs):
         raise NotImplementedError
+
+    def _load_tokenizer(self, hf_name, vocab_size):
+        """The ``tokenizer`` kwarg (an object or a local directory), else
+        SimpleT5Tokenizer (with a warning when the model has a hub
+        tokenizer, which is never fetched)."""
+        tok = self.kwargs.get("tokenizer")
+        if isinstance(tok, str):
+            if not os.path.isdir(tok):
+                raise ValueError(f"tokenizer {tok!r} is not a local directory")
+            tok = load_hf_tokenizer(tok)
+        if tok is None:
+            if hf_name is not None:
+                warnings.warn(
+                    f"no local tokenizer for {hf_name}; using "
+                    "SimpleT5Tokenizer, so scores will NOT match pretrained "
+                    "weights (pass tokenizer=<local dir>)")
+            tok = SimpleT5Tokenizer(vocab_size)
+        return tok
 
 
 # Tiny configs for tests and smoke runs.
@@ -149,19 +179,7 @@ class CLIPT5Adapter(VQAScoreModel):
             if quant == "int8+vit":
                 Q.quantize_clip_vision_(params.vision)
 
-        tokenizer = self.kwargs.get("tokenizer")
-        if isinstance(tokenizer, str):
-            if not os.path.isdir(tokenizer):
-                raise ValueError(f"tokenizer {tokenizer!r} is not a local directory")
-            tokenizer = load_hf_tokenizer(tokenizer)
-        if tokenizer is None:
-            if spec["tokenizer"]:
-                warnings.warn(
-                    f"no local tokenizer for {spec['tokenizer']}; using "
-                    "SimpleT5Tokenizer, so scores will NOT match pretrained "
-                    "weights (pass tokenizer=<local dir>)")
-            tokenizer = SimpleT5Tokenizer(cfg.t5.vocab_size)
-
+        tokenizer = self._load_tokenizer(spec["tokenizer"], cfg.t5.vocab_size)
         self.engine = CLIPT5Engine(params, cfg, tokenizer, device)
 
     def load_images(self, images):

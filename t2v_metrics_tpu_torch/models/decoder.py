@@ -1,17 +1,20 @@
-"""Decoder-only transformer (GQA + RoPE / M-RoPE) in PyTorch: the Qwen2.5
-and Qwen3 parts of t2v_metrics_tpu/models/decoder.py.
+"""Decoder-only transformer (GQA + RoPE / M-RoPE) in PyTorch: the Qwen2.5,
+Qwen3 and Gemma 3 parts of t2v_metrics_tpu/models/decoder.py.
 
 Ported: ``DecoderConfig`` (every field), ``rope_cos_sin`` (1-D RoPE,
 Qwen2.5-VL's sectioned M-RoPE and Qwen3-VL's interleaved layout, linear
 scaling), the prefill branch of the attention (one packed q|k|v linear,
 qk-norm over the q|k heads in place, ``rope_pack`` on the q|k lanes, the
-flat attention with GQA, key mask and causal mask, the o-projection), the
-dense SwiGLU MLP, the routed-expert MLP (Qwen3-VL-MoE: the sorted dispatch
-with the grouped GEMM of ``ops/moe.py`` when ``moe_dispatch``, else the dense
-``_moe_mlp`` oracle), ``forward`` with ``logit_positions`` (the lm head runs
-only at the rows that score) and deepstack residuals, and the random init.
-The cached decode path, the shared expert, sandwich norms and sliding
-windows come with the slices that need them and raise until then.
+flat attention with GQA, key mask, causal mask, the ``q_scale`` override,
+a per-layer sliding window and the bidir image-block overlay, the
+o-projection), the dense SwiGLU MLP, the routed-expert MLP (Qwen3-VL-MoE:
+the sorted dispatch with the grouped GEMM of ``ops/moe.py`` when
+``moe_dispatch``, else the dense ``_moe_mlp`` oracle), Gemma's sandwich
+norms and ``layer_types`` (a local RoPE table on the sliding layers, linear
+scaling on the global ones), ``forward`` with ``logit_positions`` (the lm
+head runs only at the rows that score) and deepstack residuals, and the
+random init. The cached decode path and the shared expert come with the
+slices that need them and raise until then.
 
 Parameters keep the JAX layouts (linear weights (in, out), activations flat
 (B, S, H*D)); each layer's q|k|v weights are one packed (d_model,
@@ -70,13 +73,8 @@ class DecoderConfig:
 
 def check_supported(cfg: DecoderConfig) -> None:
     """Raise for the decoder options whose slices are not ported yet."""
-    missing = [name for name, on in (
-        ("the shared expert", cfg.moe_shared_ff),
-        ("sandwich_norms", cfg.sandwich_norms),
-        ("sliding windows", cfg.sliding_window is not None
-         or cfg.layer_types is not None)) if on]
-    if missing:
-        raise NotImplementedError(f"decoder: {', '.join(missing)} not ported yet")
+    if cfg.moe_shared_ff:
+        raise NotImplementedError("decoder: the shared expert not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +142,8 @@ class MoE(nn.Module):
 class DecoderBlock(nn.Module):
     """``ln1``, ``qkv`` (q|k|v packed), ``q_norm`` / ``k_norm`` (qk-norm, or
     None), ``o``, ``ln2`` and either ``moe`` or the dense ``gate``, ``up``,
-    ``down`` (the others None)."""
+    ``down`` (the others None). With sandwich norms also ``ln1_post``,
+    ``ln_ff_pre`` (which takes ``ln2``'s place) and ``ln_ff_post``."""
 
     def __init__(self, cfg: DecoderConfig, device, dtype):
         super().__init__()
@@ -156,6 +155,10 @@ class DecoderBlock(nn.Module):
         self.k_norm = Norm(hd, False, device, dtype) if cfg.qk_norm else None
         self.o = Q.Linear.empty(cfg.heads * hd, d, False, device, dtype)
         self.ln2 = Norm(d, False, device, dtype)
+        sandwich = cfg.sandwich_norms
+        self.ln1_post = Norm(d, False, device, dtype) if sandwich else None
+        self.ln_ff_pre = Norm(d, False, device, dtype) if sandwich else None
+        self.ln_ff_post = Norm(d, False, device, dtype) if sandwich else None
         self.moe = MoE(cfg, device, dtype) if cfg.num_experts else None
         dense = not cfg.num_experts
         self.gate = Q.Linear.empty(d, cfg.d_ff, False, device, dtype) if dense else None
@@ -192,7 +195,8 @@ def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
         normal_(p.lm_head, 0.02, gen)
     init_norm_(p.ln_final)
     for blk in p.blocks:
-        for norm in (blk.ln1, blk.ln2, blk.q_norm, blk.k_norm):
+        for norm in (blk.ln1, blk.ln2, blk.q_norm, blk.k_norm, blk.ln1_post,
+                     blk.ln_ff_pre, blk.ln_ff_post):
             if norm is not None:
                 init_norm_(norm)
         leaves = [blk.qkv, blk.o]
@@ -213,7 +217,8 @@ def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
 # Forward (prefill, no cache)
 # ---------------------------------------------------------------------------
 
-def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask):
+def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask,
+          local_window=None, bidir_ids=None):
     h, kvh, d = cfg.heads, cfg.kv_heads, cfg.head_dim
     packed = Q.linear(x, p.qkv)                        # (B, S, (H+2KvH)*D)
     if cfg.qk_norm:
@@ -222,7 +227,8 @@ def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask):
                                   cast_weight_dtype=cfg.rms_cast_weight)
     pk = rope_pack(packed, cos, sin, h + kvh, d)
     out = attention_flat_packed(pk, h, kv_heads=kvh, kv_mask=mask, causal=True,
-                                scale=cfg.q_scale)
+                                scale=cfg.q_scale, local_window=local_window,
+                                bidir_ids=bidir_ids)
     return Q.linear(out, p.o)
 
 
@@ -259,7 +265,7 @@ def _moe_mlp(p: MoE, cfg: DecoderConfig, x):
 def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
             position_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
             logit_positions: torch.Tensor | None = None,
-            cache=None, deepstack=None) -> torch.Tensor:
+            cache=None, deepstack=None, bidir_ids=None) -> torch.Tensor:
     """embeds: (B, S, D) -> fp32 logits, causal self-attention over the
     whole sequence (teacher-forced scoring).
 
@@ -269,7 +275,11 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
     so gathering rows before it equals gathering logits after it).
     deepstack: optional list of (B, S, D) residuals added, in the
     activation dtype, after layers 0..len-1 (Qwen3-VL's deepstack visual
-    features, zero away from the visual positions).
+    features, zero away from the visual positions). bidir_ids: optional
+    (B, S) group ids, -1 on text: positions sharing a non-negative id attend
+    each other both ways, over the causal mask and the window (Gemma 3 image
+    blocks). Sliding layers (``layer_types``) take the local RoPE table and
+    ``sliding_window``; the others the global table, linearly scaled.
     """
     if cache is not None:
         raise NotImplementedError("decoder: the KV-cached decode path is not "
@@ -279,11 +289,23 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
         return L.rms_norm(x, p.scale, cfg.rms_eps, offset=cfg.rms_offset,
                           cast_weight_dtype=cfg.rms_cast_weight)
 
-    cos, sin = rope_cos_sin(cfg, position_ids, scaling=cfg.rope_scaling_factor)
+    rope_g = rope_cos_sin(cfg, position_ids, scaling=cfg.rope_scaling_factor)
+    rope_l = (rope_g if cfg.local_rope_theta is None
+              else rope_cos_sin(cfg, position_ids, theta=cfg.local_rope_theta))
     x = embeds
     for i, blk in enumerate(params.blocks):
-        x = x + _attn(blk, cfg, norm(x, blk.ln1), cos, sin, attn_mask)
-        x = x + _mlp(blk, cfg, norm(x, blk.ln2))
+        sliding = (cfg.layer_types is not None and cfg.layer_types[
+            i % len(cfg.layer_types)] == "sliding_attention")
+        a = _attn(blk, cfg, norm(x, blk.ln1), *(rope_l if sliding else rope_g),
+                  attn_mask, local_window=cfg.sliding_window if sliding else None,
+                  bidir_ids=bidir_ids)
+        if cfg.sandwich_norms:
+            a = norm(a, blk.ln1_post)
+        x = x + a
+        m = _mlp(blk, cfg, norm(x, blk.ln_ff_pre if cfg.sandwich_norms else blk.ln2))
+        if cfg.sandwich_norms:
+            m = norm(m, blk.ln_ff_post)
+        x = x + m
         if deepstack is not None and i < len(deepstack):
             x = x + deepstack[i].to(x.dtype)
     x = norm(x, params.ln_final)

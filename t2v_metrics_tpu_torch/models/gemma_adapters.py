@@ -1,0 +1,202 @@
+"""Gemma 3 VQAScore adapter, image scoring (port of the Gemma 3 image half
+of t2v_metrics_tpu/models/gemma_adapters.py).
+
+Contract as the JAX adapter's: the prompt ``<start_of_turn>user\\n`` + the
+image block (begin-of-image, 256 image tokens, end-of-image) + the question
++ ``<end_of_turn>\\n<start_of_turn>model\\n``, the answer teacher-forced
+behind it, P(answer tokens) with the temperature applied before an fp32
+log-softmax, geometric mean over the answer tokens, default question 'Does
+this figure show "{}"? Please answer Yes or No.' and answer "Yes"; the
+sequence bucketed to ``SEQ_BUCKETS``.
+
+Images arrive as uint8 HWC arrays (paths and PIL images decode with PIL,
+imported only for them). The SigLIP preprocess (bicubic to 896 x 896, /255,
+normalize with mean and std 0.5) runs on the device with the port's
+Pillow-style two-pass uint8 resize (within one uint8 level of Pillow, and
+exact where the image already has the tower's size); the JAX adapter
+resizes with Pillow on the host. The tower encodes each distinct image once,
+one batched call per group of same-shape images, where the JAX adapter
+calls it once per pair (the tower is per image, so the numbers are the
+same). Video scoring needs a frame reader (the JAX adapter uses cv2, which
+the card machine lacks) and raises; generation waits for the cached
+decode path; PaliGemma and Gemma 4 are later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import SIGLIP_MEAN, SIGLIP_STD, VIDEO_EXTENSIONS
+from ..engine.scoring import _HostScores, _load_uint8
+from ..ops.image import normalize_flat, resize_uint8_levels_flat
+from . import gemma3 as g3
+from .adapters import VQAScoreModel, default_dtype, unique_visuals
+
+DEFAULT_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
+DEFAULT_ANSWER = "Yes"
+
+SEQ_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _bucket(n, buckets=SEQ_BUCKETS):
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 255) // 256) * 256
+
+
+def siglip_preprocess(pixels: torch.Tensor, size: int) -> torch.Tensor:
+    """uint8 images (N, H, W*3) on the device -> (N, size, size*3) fp32:
+    bicubic resize as Pillow does it on uint8, /255, (x - 0.5) / 0.5."""
+    x = resize_uint8_levels_flat(pixels.float(), size, size, 3)
+    return normalize_flat(x / 255.0, SIGLIP_MEAN, SIGLIP_STD)
+
+
+class _GemmaBase(VQAScoreModel):
+    """What the Gemma family's adapters share: text encoding and the
+    refusal of video, which needs a frame reader."""
+
+    def _encode_text(self, text):
+        return self.tokenizer.encode(text, add_special_tokens=False)
+
+    @staticmethod
+    def _check_image(visual):
+        if isinstance(visual, str) and visual.lower().endswith(VIDEO_EXTENSIONS):
+            raise NotImplementedError(
+                "Gemma video scoring needs a video frame reader (the JAX "
+                "adapter reads frames with cv2); it is not ported yet")
+
+
+class Gemma3Adapter(_GemmaBase):
+    """Gemma 3 VQAScore adapter (images).
+
+    kwargs: init='random' (random weights on the device from ``seed``),
+    params (a ``Gemma3Model``, or a numpy pytree in the JAX package's layout
+    carried over by ``bridge.py``), config (a ``Gemma3Config``), seed,
+    dtype (default bf16 on CUDA, fp32 on CPU), tokenizer (an object or a
+    local directory). Checkpoint loading raises: pretrained weights are not
+    ported yet.
+    """
+
+    video_mode = "direct"
+
+    def load_model(self):
+        spec = g3.GEMMA3_MODELS[self.model_name]
+        cfg: g3.Gemma3Config = self.kwargs.get("config") or spec["config"]
+        self.config = cfg
+        device = self.device
+        dtype = self.kwargs.get("dtype") or default_dtype(device)
+        if self.kwargs.get("checkpoint"):
+            raise NotImplementedError("checkpoint loading is not ported yet; "
+                                      "pass init='random' or params=")
+        params = self.kwargs.get("params")
+        if params is None:
+            if self.kwargs.get("init") != "random" and spec["hf"] is not None:
+                raise NotImplementedError(
+                    f"pretrained weights for {self.model_name} are not ported "
+                    "yet; pass init='random' or params=")
+            params = g3.init_gemma3(cfg, self.kwargs.get("seed", 0), device, dtype)
+        elif not isinstance(params, g3.Gemma3Model):
+            from ..bridge import gemma3_from_numpy
+
+            params = gemma3_from_numpy(params, cfg, device, dtype)
+        self.params = params
+        self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
+
+    def load_images(self, images):
+        return images  # decoded and preprocessed in batches
+
+    def _image_block_ids(self):
+        cfg = self.config
+        return ([cfg.boi_token_id] + [cfg.image_token_id] * cfg.mm_tokens_per_image
+                + [cfg.eoi_token_id])
+
+    def _assemble(self, question):
+        """Prompt ids of one (image, question) pair (the JAX adapter's
+        ``_assemble`` for an image)."""
+        return (self._encode_text("<start_of_turn>user\n") + self._image_block_ids()
+                + self._encode_text(question + "<end_of_turn>\n"
+                                    "<start_of_turn>model\n"))
+
+    @torch.inference_mode()
+    def _encode_images(self, visuals):
+        """Soft tokens of each image, (mm_tokens_per_image, d_model) on the
+        device: one preprocess and tower call per group of same-shape
+        images."""
+        cfg = self.config
+        hosts = [_load_uint8(v) for v in visuals]
+        groups = {}
+        for i, img in enumerate(hosts):
+            groups.setdefault(img.shape, []).append(i)
+        out = [None] * len(hosts)
+        for (h0, w0, _), idxs in groups.items():
+            stack = np.stack([hosts[i] for i in idxs]).reshape(len(idxs), h0, w0 * 3)
+            pixels = siglip_preprocess(torch.from_numpy(stack).to(self.device),
+                                       cfg.vision.image_size)
+            feats = g3.image_features(self.params, cfg, pixels)
+            for row, i in enumerate(idxs):
+                out[i] = feats[row]
+        return out
+
+    def forward(self, images, texts, **kw) -> np.ndarray:
+        dev, n = self.forward_device(images, texts, **kw)
+        return np.asarray(dev, np.float32)[:n]
+
+    @torch.inference_mode()
+    def forward_device(self, images, texts,
+                       question_template: str = DEFAULT_QUESTION,
+                       answer_template: str = DEFAULT_ANSWER,
+                       temperature: float = 1.0, **kw):
+        """Pairwise scoring -> (scores, count). The scores stay on the
+        device until ``np.asarray`` copies them to the host, so a caller can
+        queue the next chunk first (``Score.batch_forward``)."""
+        if len(images) != len(texts):
+            raise ValueError("forward_device: one image per text")
+        cfg = self.config
+        for v in images:
+            self._check_image(v)
+        uniq, inv = unique_visuals(images)
+        encoded = torch.stack(self._encode_images(uniq))           # (U, T, D)
+        feats = encoded[torch.as_tensor(inv, device=encoded.device)]
+
+        per_pair = [(self._assemble(question_template.format(t)),
+                     self._encode_text(answer_template.format(t))) for t in texts]
+        p = len(per_pair)
+        s = _bucket(max(len(i) + len(a) for i, a in per_pair))
+        a_max = max(len(a) for _, a in per_pair)
+        ids_arr = np.zeros((p, s), np.int64)
+        vis_mask = np.zeros((p, s), bool)
+        vis_slot = np.zeros((p, s), np.int64)
+        attn = np.zeros((p, s), bool)
+        ans_ids = np.zeros((p, a_max), np.int64)
+        ans_pos = np.zeros((p, a_max), np.int64)
+        ans_mask = np.zeros((p, a_max), np.float32)
+        for j, (ids, ans) in enumerate(per_pair):
+            n = len(ids)
+            ids_arr[j, :n] = ids
+            ids_arr[j, n:n + len(ans)] = ans
+            attn[j, :n + len(ans)] = True
+            vm = ids_arr[j] == cfg.image_token_id
+            vm[n:] = False
+            vis_mask[j] = vm
+            vis_slot[j][vm] = np.arange(vm.sum())
+            ans_ids[j, : len(ans)] = ans
+            ans_pos[j, : len(ans)] = n - 1 + np.arange(len(ans))
+            ans_mask[j, : len(ans)] = 1.0
+        pos = np.broadcast_to(np.arange(s)[None], (p, s)).copy()
+        dev = [torch.from_numpy(a).to(self.device)
+               for a in (ids_arr, vis_mask, vis_slot, pos, attn, ans_ids, ans_pos,
+                         ans_mask)]
+        logp = g3.splice_and_score(self.params, cfg, dev[0], feats, *dev[1:],
+                                   temperature=float(temperature))
+        return _HostScores(torch.exp(logp.float())), p
+
+    def score_matrix(self, images, texts, **kw) -> np.ndarray:
+        m, n = len(images), len(texts)
+        flat_imgs = [im for im in images for _ in range(n)]
+        return self.forward(flat_imgs, list(texts) * m, **kw).reshape(m, n)
+
+    def generate(self, images, texts, **kw):
+        raise NotImplementedError("Gemma 3 generation needs the cached decode "
+                                  "path, which is not ported yet")

@@ -17,18 +17,14 @@ host. Video scoring, generation and traces are not ported yet and raise.
 
 from __future__ import annotations
 
-import os
-import warnings
-
 import numpy as np
 import torch
 
 from ..constants import VIDEO_EXTENSIONS
 from ..engine.scoring import _HostScores, _load_uint8
 from ..ops.image import smart_resize
-from ..tokenization import SimpleT5Tokenizer, load_hf_tokenizer
 from . import qwen2vl as q
-from .adapters import VQAScoreModel, default_dtype
+from .adapters import VQAScoreModel, default_dtype, unique_visuals
 
 DEFAULT_QWEN_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
 DEFAULT_QWEN_ANSWER = "Yes"
@@ -134,24 +130,6 @@ class Qwen2VLAdapter(VQAScoreModel):
         self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
         self._geometry = {}
 
-    def _load_tokenizer(self, hf_name, vocab_size):
-        """The ``tokenizer`` kwarg (an object or a local directory), else
-        SimpleT5Tokenizer (with a warning when the model has a hub
-        tokenizer, which is never fetched)."""
-        tok = self.kwargs.get("tokenizer")
-        if isinstance(tok, str):
-            if not os.path.isdir(tok):
-                raise ValueError(f"tokenizer {tok!r} is not a local directory")
-            tok = load_hf_tokenizer(tok)
-        if tok is None:
-            if hf_name is not None:
-                warnings.warn(
-                    f"no local tokenizer for {hf_name}; using "
-                    "SimpleT5Tokenizer, so scores will NOT match pretrained "
-                    "weights (pass tokenizer=<local dir>)")
-            tok = SimpleT5Tokenizer(vocab_size)
-        return tok
-
     def load_images(self, images):
         return images  # decoded and preprocessed in batches
 
@@ -229,13 +207,7 @@ class Qwen2VLAdapter(VQAScoreModel):
         host arrays of the batched prefill, the per-pair features on the
         device, and the prompt lengths."""
         cfg = self.config
-        uniq, inv, seen = [], [], {}
-        for v in visuals:
-            key = v if isinstance(v, (str, bytes)) else id(v)
-            if key not in seen:
-                seen[key] = len(uniq)
-                uniq.append(v)
-            inv.append(seen[key])
+        uniq, inv = unique_visuals(visuals)
         encoded = self._encode_visuals(uniq)
 
         p = len(visuals)

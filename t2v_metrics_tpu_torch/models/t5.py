@@ -7,7 +7,9 @@ Parity-critical conventions, as in the JAX package:
   * relative-position bias held by layer 0 of each stack (bidirectional
     buckets in the encoder, causal in the decoder) and shared by the later
     layers; cross-attention has no bias; the bias is the dense (1, H, S, S)
-    form (the JAX package's default, ``INKERNEL_REL_BIAS=False``);
+    form by default, or computed in the per-head attention kernel from the
+    (H, num_buckets) table under ``INKERNEL_REL_BIAS`` (as in the JAX
+    package, default False);
   * FlanT5: gated gelu_new MLP, untied lm_head; logits are the bf16
     ``x @ lm_head`` cast to fp32.
 
@@ -21,15 +23,22 @@ package, and a gated MLP runs one packed wi_0|wi_1 leaf (``wi_01``).
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch import nn
 
 from ..ops import layers as L
 from ..ops import quant as Q
-from ..ops.attention import attention_flat, attention_flat_packed
+from ..ops.attention import (attention, attention_flat, attention_flat_packed,
+                             merge_heads, packed_heads)
+from ..ops.position import compute_position_bias
 from .clip import Norm, init_norm_, normal_
+
+# In-kernel T5 relative-position bias (t2v_metrics_tpu/models/t5.py:44, off
+# there too): the self-attention runs the per-head attention() on (B, H, S,
+# D) views of the packed projection with the (H, num_buckets) table, and no
+# dense (1, H, S, S) bias is built.
+INKERNEL_REL_BIAS = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,51 +161,19 @@ def init_t5(p: T5Model, gen: torch.Generator) -> T5Model:
 
 
 # ---------------------------------------------------------------------------
-# Relative position bias
-# ---------------------------------------------------------------------------
-
-def relative_position_bucket(relative_position: torch.Tensor, bidirectional: bool,
-                             num_buckets: int, max_distance: int) -> torch.Tensor:
-    """HF T5's bucketing of relative positions (memory_pos - query_pos)."""
-    rel = relative_position
-    buckets = torch.zeros_like(rel)
-    if bidirectional:
-        num_buckets //= 2
-        buckets = buckets + (rel > 0).to(rel.dtype) * num_buckets
-        rel = rel.abs()
-    else:
-        rel = -torch.clamp(rel, max=0)
-    max_exact = num_buckets // 2
-    is_small = rel < max_exact
-    rel_large = max_exact + (
-        torch.log(rel.float() / max_exact + 1e-9)
-        / math.log(max_distance / max_exact)
-        * (num_buckets - max_exact)
-    ).to(rel.dtype)
-    rel_large = torch.clamp(rel_large, max=num_buckets - 1)
-    return buckets + torch.where(is_small, rel, rel_large)
-
-
-def compute_position_bias(rel_emb: torch.Tensor, qlen: int, klen: int,
-                          bidirectional: bool, num_buckets: int,
-                          max_distance: int, q_offset: int = 0) -> torch.Tensor:
-    """rel_emb: (num_buckets, heads) -> bias (1, heads, qlen, klen)."""
-    dev = rel_emb.device
-    ctx = torch.arange(qlen, device=dev)[:, None] + q_offset
-    mem = torch.arange(klen, device=dev)[None, :]
-    buckets = relative_position_bucket(mem - ctx, bidirectional, num_buckets,
-                                       max_distance)
-    return rel_emb[buckets].permute(2, 0, 1)[None]
-
-
-# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 def _self_attention(p: T5SelfAttention, x, heads, bias=None, kv_mask=None,
-                    causal=False):
-    a = attention_flat_packed(Q.mm(x, p.qkv), heads, bias=bias,
-                              kv_mask=kv_mask, causal=causal, scale=1.0)
+                    causal=False, rel_bias=None, rel_cfg=None):
+    qkv = Q.mm(x, p.qkv)
+    if rel_bias is None:
+        a = attention_flat_packed(qkv, heads, bias=bias, kv_mask=kv_mask,
+                                  causal=causal, scale=1.0)
+    else:
+        a = merge_heads(attention(*packed_heads(qkv, heads), kv_mask=kv_mask,
+                                  causal=causal, scale=1.0, rel_bias=rel_bias,
+                                  rel_cfg=rel_cfg))
     return Q.mm(a, p.o)
 
 
@@ -219,18 +196,18 @@ def _t5_mlp(p: T5MLP, x, cfg: T5Config):
     return Q.mm(h, p.wo)
 
 
-def _enc_block(p: T5Block, x, cfg: T5Config, bias, kv_mask):
+def _enc_block(p: T5Block, x, cfg: T5Config, bias, kv_mask, rel=(None, None)):
     h = L.rms_norm(x, p.ln1.scale, cfg.eps)
-    x = x + _self_attention(p.attn, h, cfg.num_heads, bias=bias, kv_mask=kv_mask)
+    x = x + _self_attention(p.attn, h, cfg.num_heads, bias, kv_mask, False, *rel)
     h = L.rms_norm(x, p.ln2.scale, cfg.eps)
     return x + _t5_mlp(p.mlp, h, cfg)
 
 
 def _dec_block(p: T5Block, x, enc, cfg: T5Config, self_bias, enc_mask,
-               self_mask):
+               self_mask, rel=(None, None)):
     h = L.rms_norm(x, p.ln1.scale, cfg.eps)
-    x = x + _self_attention(p.attn, h, cfg.num_heads, bias=self_bias,
-                            kv_mask=self_mask, causal=True)
+    x = x + _self_attention(p.attn, h, cfg.num_heads, self_bias, self_mask,
+                            True, *rel)
     h = L.rms_norm(x, p.ln_cross.scale, cfg.eps)
     x = x + _cross_attention(p.cross, h, enc, cfg.num_heads, kv_mask=enc_mask)
     h = L.rms_norm(x, p.ln2.scale, cfg.eps)
@@ -241,19 +218,30 @@ def _dec_block(p: T5Block, x, enc, cfg: T5Config, self_bias, enc_mask,
 # Encoder / decoder
 # ---------------------------------------------------------------------------
 
+def _position_bias(stack: T5Stack, cfg: T5Config, qlen: int, klen: int,
+                   bidirectional: bool):
+    """(dense bias, (rel_bias, rel_cfg)) of a stack: the dense (1, H, S, S)
+    fp32 bias, contiguous once per pass since every layer reads it, or
+    under INKERNEL_REL_BIAS the (H, num_buckets) table and its config."""
+    rel_emb = stack.blocks[0].attn.rel_bias
+    if INKERNEL_REL_BIAS:
+        return None, (rel_emb.T, (bidirectional, cfg.num_buckets,
+                                  cfg.max_distance, 0))
+    bias = compute_position_bias(rel_emb, qlen, klen, bidirectional,
+                                 cfg.num_buckets, cfg.max_distance)
+    return bias.float().contiguous(), (None, None)
+
+
 def encode(params: T5Model, cfg: T5Config, input_embeds: torch.Tensor,
            mask: torch.Tensor | None = None) -> torch.Tensor:
     """input_embeds: (B, S, d_model), possibly with image features spliced
     in. mask: (B, S) bool."""
     enc = params.encoder
     s = input_embeds.shape[1]
-    # fp32 and contiguous once per pass; every layer reads it
-    bias = compute_position_bias(enc.blocks[0].attn.rel_bias, s, s, True,
-                                 cfg.num_buckets, cfg.max_distance
-                                 ).float().contiguous()
+    bias, rel = _position_bias(enc, cfg, s, s, True)
     x = input_embeds
     for blk in enc.blocks:
-        x = _enc_block(blk, x, cfg, bias, mask)
+        x = _enc_block(blk, x, cfg, bias, mask, rel)
     return L.rms_norm(x, enc.ln_final.scale, cfg.eps)
 
 
@@ -264,11 +252,9 @@ def decode(params: T5Model, cfg: T5Config, decoder_ids: torch.Tensor,
     dec = params.decoder
     x = params.shared_emb[decoder_ids]
     a = decoder_ids.shape[1]
-    bias = compute_position_bias(dec.blocks[0].attn.rel_bias, a, a, False,
-                                 cfg.num_buckets, cfg.max_distance
-                                 ).float().contiguous()
+    bias, rel = _position_bias(dec, cfg, a, a, False)
     for blk in dec.blocks:
-        x = _dec_block(blk, x, enc_hidden, cfg, bias, enc_mask, dec_mask)
+        x = _dec_block(blk, x, enc_hidden, cfg, bias, enc_mask, dec_mask, rel)
     x = L.rms_norm(x, dec.ln_final.scale, cfg.eps)
     if cfg.tie_word_embeddings:
         logits = (x * cfg.d_model ** -0.5) @ params.shared_emb.T

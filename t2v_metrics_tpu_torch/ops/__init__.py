@@ -7,6 +7,7 @@ def _launchers() -> dict:
     from . import attention, moe, norms, quant, rope
 
     return {"flash_attention_flat": attention.flash_flat_launch,
+            "flash_attention": attention.flash_attention_launch,
             "layer_norm": norms.layer_norm_launch,
             "rms_norm": norms.rms_norm_launch,
             "rope_pack": rope.rope_pack_launch,

@@ -1,63 +1,77 @@
-"""Attention over the flat (B, S, H*D) projection layout.
+"""Attention: the flat (B, S, H*D) and per-head (B, H, S, D) layouts.
 
-Port of the flat half of t2v_metrics_tpu/ops/attention.py:
+Port of t2v_metrics_tpu/ops/attention.py:
 
-  * ``attention_flat_reference``: the plain PyTorch version, with the flat
-    kernel's semantics (fp32 scores and softmax, P rounded to v's dtype
-    before P.V, a fully masked row gives 0);
+  * ``attention_reference`` / ``attention_flat_reference``: the plain PyTorch
+    versions, with the kernels' semantics (fp32 scores and softmax, P
+    rounded to v's dtype before P.V, a fully masked row gives 0);
   * ``flash_attention_flat`` / ``flash_attention_flat_packed``: wrappers of
-    the CUDA kernel in ``csrc/flash_flat.cu`` (see the note there for what
-    it replaces, what bounds it and how it is built); a CPU tensor takes the
-    plain version, a CUDA tensor launches the kernel or raises;
-  * ``attention_flat`` / ``attention_flat_packed``: the dispatchers the
-    models call.
+    the CUDA kernel in ``csrc/flash_flat.cu`` (the TPU ``_flash_flat_kernel``);
+  * ``flash_attention``: the wrapper of the CUDA kernel in
+    ``csrc/flash_attention.cu`` (the TPU ``_flash_kernel``), with the T5
+    relative-position bias computed in the kernel;
+  * ``attention_flat`` / ``attention_flat_packed`` / ``attention``: the
+    dispatchers the models call.
+
+The notes in ``csrc/`` say what each kernel replaces, what bounds it and how
+it is built. A wrapper takes the plain version for a CPU tensor; for a CUDA
+tensor it launches its kernel or raises.
 
 The TPU package reaches its flat kernel only for sq >= 128 and sk <= 2048
 (Mosaic tiling and VMEM limits), so its T5 decoder self- and cross-attention
-(sq = 4) ran the XLA reference, and the Qwen2.5-VL and Qwen3-VL ViT layers
-over a whole 5120- or 4096-row patch bucket ran the per-head
-``_flash_kernel``. The CUDA kernel masks its own ragged edge and streams the
-keys, so here every attention site of clip-flant5, Qwen2.5-VL and Qwen3-VL
-goes through the one kernel.
+(sq = 4) ran the XLA reference, and the ViT layers over 4096 or more rows
+(Qwen2.5-VL, Qwen3-VL, SigLIP at 896 px) ran the per-head ``_flash_kernel``.
+The CUDA flat kernel masks its own ragged edge and streams the keys, so here
+every attention site of clip-flant5, Qwen2.5-VL, Qwen3-VL and the Gemma 3
+decoder goes through it; the SigLIP-896 tower follows the JAX routing to the
+per-head kernel (``models/siglip.py``), as does the T5 attention under
+``models/t5.py:INKERNEL_REL_BIAS``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-HEAD_DIMS = (64, 72, 80, 128)   # the head dims the CUDA kernel is built for
+from .position import compute_position_bias, relative_position_bucket
+
+HEAD_DIMS = (64, 72, 80, 128, 256)   # the head dims the CUDA kernels are built for
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def attention_flat_reference(q, k, v, heads, kv_heads=None, bias=None,
-                             kv_mask=None, causal=False, scale=None,
-                             segment_ids=None, local_window=None,
-                             bidir_ids=None):
-    """Softmax attention over flat inputs.
+def attention_reference(q, k, v, bias=None, kv_mask=None, causal=False,
+                        scale=None, segment_ids=None, local_window=None,
+                        bidir_ids=None, rel_bias=None, rel_cfg=None):
+    """Softmax attention over per-head inputs.
 
-    q: (B, Sq, H*D); k, v: (B, Sk, KvH*D) (GQA when KvH < H).
-    bias: additive, broadcastable to (B, H, Sq, Sk). kv_mask: (B, Sk), true
-    = attend. causal: the diagonal is aligned to the end of the keys, so q
-    row i attends keys <= i + (Sk - Sq). segment_ids, local_window and
-    bidir_ids follow t2v_metrics_tpu/ops/attention.py:attention_reference.
-    Returns (B, Sq, H*D) in q's dtype.
+    q: (B, H, Sq, D); k, v: (B, H, Sk, D). bias: additive, broadcastable to
+    (B, H, Sq, Sk). kv_mask: (B, Sk), true = attend. causal: the diagonal is
+    aligned to the end of the keys, so q row i attends keys <= i + (Sk -
+    Sq). segment_ids (B, S): row i attends key j only when their ids are
+    equal (Sq == Sk). local_window W (causal): row i also drops keys j with
+    j - (Sk - Sq) <= i - W. bidir_ids (B, S), -1 outside blocks: over the
+    causal/window band, rows and keys sharing a non-negative id attend each
+    other (it overrides the window, as HF Gemma 3 does). rel_bias (H,
+    num_buckets) with rel_cfg = (bidirectional, num_buckets, max_distance,
+    q_offset): the T5 relative-position bias, added as the dense bias that
+    ``ops/position.py:compute_position_bias`` builds (not with ``bias``).
+    Returns (B, H, Sq, D) in q's dtype.
     """
-    b, sq, hd = q.shape
-    sk = k.shape[1]
-    d = hd // heads
-    kvh = kv_heads or heads
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     if scale is None:
         scale = d ** -0.5
-    qh = q.reshape(b, sq, heads, d).transpose(1, 2).float()
-    kh = k.reshape(b, sk, kvh, d).transpose(1, 2).float()
-    vh = v.reshape(b, sk, kvh, d).transpose(1, 2)
-    if kvh != heads:
-        kh = kh.repeat_interleave(heads // kvh, dim=1)
-        vh = vh.repeat_interleave(heads // kvh, dim=1)
-    s = qh @ kh.transpose(-1, -2)
+    if rel_bias is not None:
+        if bias is not None:
+            raise ValueError("attention: rel_bias and bias are exclusive")
+        bidirectional, nb, max_distance, q_offset = rel_cfg
+        bias = compute_position_bias(rel_bias.T, sq, sk, bidirectional, nb,
+                                     max_distance, q_offset)
+    s = q.float() @ k.float().transpose(-1, -2)
     if scale != 1.0:
         s = s * scale
     if bias is not None:
@@ -84,9 +98,34 @@ def attention_flat_reference(q, k, v, heads, kv_heads=None, bias=None,
     m = torch.where(m == float("-inf"), 0.0, m)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = p.to(v.dtype).float() @ vh.float()
+    o = p.to(v.dtype).float() @ v.float()
     o = o / torch.where(l == 0.0, 1.0, l)
-    return o.to(q.dtype).transpose(1, 2).reshape(b, sq, heads * d)
+    return o.to(q.dtype)
+
+
+def attention_flat_reference(q, k, v, heads, kv_heads=None, bias=None,
+                             kv_mask=None, causal=False, scale=None,
+                             segment_ids=None, local_window=None,
+                             bidir_ids=None):
+    """``attention_reference`` over flat inputs.
+
+    q: (B, Sq, H*D); k, v: (B, Sk, KvH*D) (GQA when KvH < H). The other
+    arguments as ``attention_reference``'s. Returns (B, Sq, H*D) in q's
+    dtype.
+    """
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    d = hd // heads
+    kvh = kv_heads or heads
+    qh = q.reshape(b, sq, heads, d).transpose(1, 2)
+    kh = k.reshape(b, sk, kvh, d).transpose(1, 2)
+    vh = v.reshape(b, sk, kvh, d).transpose(1, 2)
+    if kvh != heads:
+        kh = kh.repeat_interleave(heads // kvh, dim=1)
+        vh = vh.repeat_interleave(heads // kvh, dim=1)
+    o = attention_reference(qh, kh, vh, bias, kv_mask, causal, scale,
+                            segment_ids, local_window, bidir_ids)
+    return o.transpose(1, 2).reshape(b, sq, heads * d)
 
 
 def _split_packed(qkv, heads, kv_heads):
@@ -96,22 +135,73 @@ def _split_packed(qkv, heads, kv_heads):
             qkv[..., (heads + kvh) * d:], d)
 
 
+def packed_heads(qkv, heads):
+    """A packed (B, S, 3*H*D) q|k|v projection -> q, k, v as (B, H, S, D)
+    strided views (no copy)."""
+    b, s, lanes = qkv.shape
+    d = lanes // (3 * heads)
+    return qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def merge_heads(a):
+    """(B, H, S, D) -> (B, S, H*D); free on the per-head kernel's output."""
+    b, h, s, d = a.shape
+    return a.transpose(1, 2).reshape(b, s, h * d)
+
+
+@functools.lru_cache(maxsize=64)
+def rel_bucket_table(sq: int, sk: int, bidirectional: bool, num_buckets: int,
+                     max_distance: int, q_offset: int,
+                     device: torch.device) -> torch.Tensor:
+    """int32 (Sq + Sk - 1,) table: entry ``col - row + Sq - 1`` is the T5
+    bucket of the distance ``col - (row + q_offset)``, by the port's own
+    ``relative_position_bucket`` (the plain version's function), so the
+    kernel's bias equals ``compute_position_bias`` exactly."""
+    rel = torch.arange(sq + sk - 1, device=device) - (sq - 1) - q_offset
+    return relative_position_bucket(rel, bidirectional, num_buckets,
+                                    max_distance).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_operand(x, name):
+def _check_operand(x, name, dims=3, what="flash_attention_flat"):
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_flat: {name} must be bf16, got {x.dtype}")
-    if x.dim() != 3 or x.stride(2) != 1:
-        raise ValueError(f"flash_attention_flat: {name} must be (B, S, cols) "
-                         "with unit column stride")
-    if (x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8):
-        raise ValueError(f"flash_attention_flat: {name} is not 16-byte aligned")
+        raise TypeError(f"{what}: {name} must be bf16, got {x.dtype}")
+    if x.dim() != dims or x.stride(-1) != 1:
+        raise ValueError(f"{what}: {name} must have {dims} dims and unit "
+                         "column stride")
+    if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1]):
+        raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
+def _ids(ids, b, sk, device, name, what):
+    """A (B, Sk) id or mask array as contiguous int32 on the device."""
+    if ids.shape != (b, sk) or ids.device != device:
+        raise ValueError(f"{what}: {name} must be ({b}, {sk}) on {device}")
+    return ids.to(torch.int32).contiguous()
+
+
+def _band(causal, local_window, bidir_ids, sq, sk, what):
+    """(causal, window, bidir_ids) as the kernels take them: a window
+    implies causal (0 = none); the overlay needs a causal or window band
+    (without one it changes nothing, as in the plain version)."""
+    causal = bool(causal) or local_window is not None
+    window = 0 if local_window is None else int(local_window)
+    if local_window is not None and window < 1:
+        raise ValueError(f"{what}: local_window must be >= 1")
+    if bidir_ids is not None:
+        if not causal:
+            bidir_ids = None
+        elif sq != sk:
+            raise ValueError(f"{what}: bidir_ids need sq == sk")
+    return causal, window, bidir_ids
 
 
 def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, d, sq,
-                      sk, bias, kv_mask, causal, scale, segment_ids=None):
+                      sk, bias, kv_mask, causal, scale, segment_ids=None,
+                      local_window=None, bidir_ids=None):
     """Launch the CUDA kernel on column-offset views of q, k and v.
 
     q/k/v are the base (B, S, cols) tensors (the same tensor three times for
@@ -133,6 +223,8 @@ def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, d, sq,
             raise ValueError(f"flash_attention_flat: {name} columns out of range")
     if k.shape[0] != b or v.shape[0] != b or k.shape[1] < sk or v.shape[1] < sk:
         raise ValueError("flash_attention_flat: k/v batch or length mismatch")
+    causal, window, bidir_ids = _band(causal, local_window, bidir_ids, sq, sk,
+                                      "flash_attention_flat")
     out = torch.empty((b, sq, heads * d), dtype=q.dtype, device=q.device)
     bias_ptr, bias_strides = None, (0, 0, 0)
     if bias is not None:
@@ -142,26 +234,23 @@ def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, d, sq,
             raise ValueError("flash_attention_flat: bias must be (1, H, Sq, Sk)")
         bias = bias.expand(1, heads, sq, sk)
         bias_ptr, bias_strides = bias.data_ptr(), tuple(bias.stride()[1:])
-    mask_ptr = None
+    what = "flash_attention_flat"
     if kv_mask is not None:
-        if kv_mask.shape != (b, sk) or kv_mask.device != q.device:
-            raise ValueError(f"flash_attention_flat: kv_mask must be ({b}, {sk})")
-        kv_mask = kv_mask.to(torch.int32).contiguous()
-        mask_ptr = kv_mask.data_ptr()
-    seg_ptr = None
+        kv_mask = _ids(kv_mask, b, sk, q.device, "kv_mask", what)
     if segment_ids is not None:
         if sq != sk:
             raise ValueError("flash_attention_flat: segment_ids need sq == sk")
-        if segment_ids.shape != (b, sk) or segment_ids.device != q.device:
-            raise ValueError(f"flash_attention_flat: segment_ids must be ({b}, {sk})")
-        segment_ids = segment_ids.to(torch.int32).contiguous()
-        seg_ptr = segment_ids.data_ptr()
+        segment_ids = _ids(segment_ids, b, sk, q.device, "segment_ids", what)
+    if bidir_ids is not None:
+        bidir_ids = _ids(bidir_ids, b, sk, q.device, "bidir_ids", what)
+    ptr = [None if t is None else t.data_ptr()
+           for t in (kv_mask, segment_ids, bidir_ids)]
     rc = flash_flat_lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_ptr,
-        mask_ptr, seg_ptr, b, heads, kvh, sq, sk, d,
+        *ptr, b, heads, kvh, sq, sk, d,
         q.stride(0), q.stride(1), q_off, k.stride(0), k.stride(1), k_off,
         v.stride(0), v.stride(1), v_off, out.stride(0), out.stride(1),
-        *bias_strides, int(causal), float(scale),
+        *bias_strides, int(causal), window, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_flat_forward launch failed: CUDA error {rc}")
@@ -172,35 +261,37 @@ def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, d, sq,
 flash_flat_launch.launches = 0
 
 
-def _kernel_device(x, d):
+def _kernel_device(x, d, what="flash_attention_flat"):
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
-        raise ValueError(f"flash_attention_flat: no kernel for device {x.device}")
+        raise ValueError(f"{what}: no kernel for device {x.device}")
     if d not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention_flat: the CUDA kernel takes head dims {HEAD_DIMS}, "
-            f"got {d}")
+            f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
     return True
 
 
 def flash_attention_flat(q, k, v, heads, kv_heads=None, bias=None,
                          kv_mask=None, causal=False, scale=None,
-                         segment_ids=None):
+                         segment_ids=None, local_window=None, bidir_ids=None):
     """Attention over flat q (B, Sq, H*D), k/v (B, Sk, KvH*D): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     d = q.shape[-1] // heads
     if not _kernel_device(q, d):
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,
-                                        kv_mask, causal, scale, segment_ids)
+                                        kv_mask, causal, scale, segment_ids,
+                                        local_window, bidir_ids)
     return flash_flat_launch(q, k, v, 0, 0, 0, heads, kv_heads, d, q.shape[1],
                              k.shape[1], bias, kv_mask, causal,
-                             d ** -0.5 if scale is None else scale, segment_ids)
+                             d ** -0.5 if scale is None else scale, segment_ids,
+                             local_window, bidir_ids)
 
 
 def flash_attention_flat_packed(qkv, heads, kv_heads=None, bias=None,
                                 kv_mask=None, causal=False, scale=None,
-                                segment_ids=None):
+                                segment_ids=None, local_window=None,
+                                bidir_ids=None):
     """Self-attention over a packed (B, S, (H + 2*KvH)*D) projection. The
     kernel reads q, k and v as column-offset views of the one array."""
     kvh = kv_heads or heads
@@ -208,47 +299,106 @@ def flash_attention_flat_packed(qkv, heads, kv_heads=None, bias=None,
     if not _kernel_device(qkv, d):
         q, k, v, _ = _split_packed(qkv, heads, kv_heads)
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,
-                                        kv_mask, causal, scale, segment_ids)
+                                        kv_mask, causal, scale, segment_ids,
+                                        local_window, bidir_ids)
     s = qkv.shape[1]
     return flash_flat_launch(qkv, qkv, qkv, 0, heads * d, (heads + kvh) * d,
                              heads, kv_heads, d, s, s, bias, kv_mask, causal,
-                             d ** -0.5 if scale is None else scale, segment_ids)
+                             d ** -0.5 if scale is None else scale, segment_ids,
+                             local_window, bidir_ids)
+
+
+def flash_attention_launch(q, k, v, bias, kv_mask, causal, scale, segment_ids,
+                           local_window, rel_bias, rel_cfg, bidir_ids):
+    """Launch the per-head CUDA kernel on (B, H, S, D) CUDA tensors, which
+    may be strided views (unit column stride). Returns (B, H, Sq, D): a
+    view of a (B, Sq, H, D) buffer, so that merging the heads is free."""
+    from ..build import flash_attention_lib
+
+    what = "flash_attention"
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_operand(x, name, dims=4, what=what)
+        if x.device != q.device:
+            raise ValueError(f"{what}: operands on different devices")
+    if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
+        raise ValueError(f"{what}: k and v must be ({b}, {h}, Sk, {d})")
+    causal, window, bidir_ids = _band(causal, local_window, bidir_ids, sq, sk, what)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    bias_ptr, bias_strides = None, (0, 0, 0, 0)
+    if bias is not None:
+        if rel_bias is not None:
+            raise ValueError(f"{what}: rel_bias and bias are exclusive")
+        if bias.dtype != torch.float32 or bias.device != q.device:
+            raise TypeError(f"{what}: bias must be fp32 on q's device")
+        if bias.dim() != 4:
+            raise ValueError(f"{what}: bias must be (B or 1, H or 1, Sq, Sk)")
+        bias = bias.expand(b, h, sq, sk)
+        bias_ptr, bias_strides = bias.data_ptr(), tuple(bias.stride())
+    rel_ptr = bucket_ptr = None
+    num_buckets = 0
+    if rel_bias is not None:
+        bidirectional, num_buckets, max_distance, q_offset = rel_cfg
+        if rel_bias.shape != (h, num_buckets) or rel_bias.device != q.device:
+            raise ValueError(f"{what}: rel_bias must be ({h}, {num_buckets}) on "
+                             f"{q.device}")
+        rel_bias = rel_bias.float().contiguous()
+        table = rel_bucket_table(sq, sk, bool(bidirectional), int(num_buckets),
+                                 int(max_distance), int(q_offset), q.device)
+        rel_ptr, bucket_ptr = rel_bias.data_ptr(), table.data_ptr()
+    if kv_mask is not None:
+        kv_mask = _ids(kv_mask, b, sk, q.device, "kv_mask", what)
+    if segment_ids is not None:
+        if sq != sk:
+            raise ValueError(f"{what}: segment_ids need sq == sk")
+        segment_ids = _ids(segment_ids, b, sk, q.device, "segment_ids", what)
+    if bidir_ids is not None:
+        bidir_ids = _ids(bidir_ids, b, sk, q.device, "bidir_ids", what)
+    ptr = [None if t is None else t.data_ptr()
+           for t in (kv_mask, segment_ids, bidir_ids)]
+    rc = flash_attention_lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_ptr,
+        *ptr, rel_ptr, bucket_ptr, b, h, sq, sk, d, int(num_buckets),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        out.stride(0), out.stride(2), out.stride(1), *bias_strides,
+        int(causal), window, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_forward launch failed: CUDA error {rc}")
+    flash_attention_launch.launches += 1
+    return out.transpose(1, 2)
+
+
+flash_attention_launch.launches = 0
+
+
+def flash_attention(q, k, v, bias=None, kv_mask=None, causal=False, scale=None,
+                    segment_ids=None, local_window=None, rel_bias=None,
+                    rel_cfg=None, bidir_ids=None):
+    """Per-head attention, q (B, H, Sq, D), k/v (B, H, Sk, D), with
+    ``attention_reference``'s contract: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    d = q.shape[-1]
+    if not _kernel_device(q, d, "flash_attention"):
+        return attention_reference(q, k, v, bias, kv_mask, causal, scale,
+                                   segment_ids, local_window, bidir_ids,
+                                   rel_bias, rel_cfg)
+    return flash_attention_launch(q, k, v, bias, kv_mask, causal,
+                                  d ** -0.5 if scale is None else scale,
+                                  segment_ids, local_window, rel_bias, rel_cfg,
+                                  bidir_ids)
 
 
 # ---------------------------------------------------------------------------
 # Dispatchers
 # ---------------------------------------------------------------------------
 
-def _extra_terms(q, local_window, bidir_ids):
-    """True when a term the CUDA kernel lacks is set (CPU only)."""
-    if local_window is None and bidir_ids is None:
-        return False
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "attention_flat: local_window and bidir_ids have no CUDA kernel yet")
-    return True
-
-
-def attention_flat(q, k, v, heads, kv_heads=None, bias=None, kv_mask=None,
-                   causal=False, scale=None, segment_ids=None,
-                   local_window=None, bidir_ids=None):
-    """Attention over flat (B, S, H*D) inputs and output."""
-    if _extra_terms(q, local_window, bidir_ids):
-        return attention_flat_reference(q, k, v, heads, kv_heads, bias,
-                                        kv_mask, causal, scale, segment_ids,
-                                        local_window, bidir_ids)
-    return flash_attention_flat(q, k, v, heads, kv_heads, bias, kv_mask,
-                                causal, scale, segment_ids)
-
-
-def attention_flat_packed(qkv, heads, kv_heads=None, bias=None, kv_mask=None,
-                          causal=False, scale=None, segment_ids=None,
-                          local_window=None, bidir_ids=None):
-    """Self-attention over a packed (B, S, (H + 2*KvH)*D) qkv projection."""
-    if _extra_terms(qkv, local_window, bidir_ids):
-        q, k, v, _ = _split_packed(qkv, heads, kv_heads)
-        return attention_flat_reference(q, k, v, heads, kv_heads, bias,
-                                        kv_mask, causal, scale, segment_ids,
-                                        local_window, bidir_ids)
-    return flash_attention_flat_packed(qkv, heads, kv_heads, bias, kv_mask,
-                                       causal, scale, segment_ids)
+# The JAX package's dispatchers choose between its Pallas kernels and XLA by
+# device and by shape (Mosaic tiling and VMEM limits). On Hopper the kernels
+# take every shape and the wrappers above already choose by device (a CPU
+# tensor runs the plain version, a CUDA tensor the kernel), so the
+# dispatchers are those wrappers under the JAX names.
+attention_flat = flash_attention_flat
+attention_flat_packed = flash_attention_flat_packed
+attention = flash_attention

@@ -5,15 +5,17 @@ from __future__ import annotations
 
 def list_all_vqascore_models() -> list[str]:
     from .models.adapters import CLIP_T5_MODELS
+    from .models.gemma3 import GEMMA3_MODELS
     from .models.qwen2vl import QWEN2_VL_MODELS
     from .models.qwen3vl import QWEN3_VL_MODELS
 
-    return [*CLIP_T5_MODELS, *QWEN2_VL_MODELS, *QWEN3_VL_MODELS]
+    return [*CLIP_T5_MODELS, *QWEN2_VL_MODELS, *QWEN3_VL_MODELS, *GEMMA3_MODELS]
 
 
 def get_vqascore_model(model_name: str, device=None,
                        cache_dir: str | None = None, **kwargs):
     from .models.adapters import CLIP_T5_MODELS, CLIPT5Adapter
+    from .models.gemma3 import GEMMA3_MODELS
     from .models.qwen2vl import QWEN2_VL_MODELS
     from .models.qwen3vl import QWEN3_VL_MODELS
 
@@ -27,5 +29,9 @@ def get_vqascore_model(model_name: str, device=None,
         from .models.qwen3vl_adapter import Qwen3VLAdapter
 
         return Qwen3VLAdapter(model_name, device, cache_dir, **kwargs)
+    if model_name in GEMMA3_MODELS:
+        from .models.gemma_adapters import Gemma3Adapter
+
+        return Gemma3Adapter(model_name, device, cache_dir, **kwargs)
     raise ValueError(f"unknown VQAScore model {model_name!r}; "
                      f"available: {list_all_vqascore_models()}")

@@ -29,7 +29,8 @@ from .registry import get_vqascore_model, list_all_vqascore_models
 class Score:
     """Base facade bound to a registry via subclass hooks.
 
-    ``device``: "cuda", "cpu", or left out to take the GPU when there is one.
+    ``device``: "cuda" (the default: left out, it is the GPU, and raises
+    without one) or "cpu", which runs only when asked for.
     """
 
     def __init__(self, model: str, device: str | None = None,

@@ -113,6 +113,9 @@ def test_cpu_tensors_take_the_plain_versions():
     q, k, v = qkv.split(4 * 64, dim=-1)
     assert torch.equal(attention.flash_attention_flat_packed(qkv, 4),
                        attention.attention_flat_reference(q, k, v, 4))
+    qh, kh, vh = (t.reshape(2, 5, 4, 64).transpose(1, 2) for t in (q, k, v))
+    assert torch.equal(attention.attention(qh, kh, vh, causal=True),
+                       attention.attention_reference(qh, kh, vh, causal=True))
     cos, sin = torch.ones(2, 5, 64), torch.zeros(2, 5, 64)
     assert torch.equal(rope.rope_pack(qkv, cos, sin, 8, 64),
                        rope.rope_pack_plain(qkv, cos, sin, 8, 64))
@@ -127,7 +130,8 @@ def test_cpu_tensors_take_the_plain_versions():
     w_q = torch.arange(64 * 16).reshape(64, 16).remainder(255).sub(127).to(torch.int8)
     assert torch.equal(TQ.quant_matmul(x_q, w_q, xs, w.abs()[:16]),
                        TQ.quant_matmul_plain(x_q, w_q, xs, w.abs()[:16]))
-    assert launch_counts() == {"flash_attention_flat": 0, "layer_norm": 0,
+    assert launch_counts() == {"flash_attention_flat": 0, "flash_attention": 0,
+                               "layer_norm": 0,
                                "rms_norm": 0, "rope_pack": 0, "grouped_gemm": 0,
                                "quant_matmul": 0, "quantize_rows": 0}
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from t2v_metrics_tpu.models import t5 as jt5  # noqa: E402
 from t2v_metrics_tpu_torch import bridge  # noqa: E402
 from t2v_metrics_tpu_torch.models import t5 as tt5  # noqa: E402
+from t2v_metrics_tpu_torch.ops import position  # noqa: E402
 
 TOL = 1e-4
 FIELDS = dict(vocab_size=300, d_model=64, d_kv=16, d_ff=96, num_heads=4,
@@ -26,11 +27,11 @@ FIELDS = dict(vocab_size=300, d_model=64, d_kv=16, d_ff=96, num_heads=4,
 def test_relative_position_bucket(bidirectional):
     rel = np.arange(-300, 300)[None, :] - np.arange(0, 40)[:, None]
     want = jt5.relative_position_bucket(jnp.asarray(rel), bidirectional, 32, 128)
-    got = tt5.relative_position_bucket(torch.from_numpy(rel), bidirectional, 32, 128)
+    got = position.relative_position_bucket(torch.from_numpy(rel), bidirectional, 32, 128)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     emb = np.random.default_rng(0).normal(size=(32, 4)).astype(np.float32)
     np.testing.assert_array_equal(
-        tt5.compute_position_bias(torch.from_numpy(emb), 7, 11, bidirectional,
+        position.compute_position_bias(torch.from_numpy(emb), 7, 11, bidirectional,
                                   32, 128, q_offset=3).numpy(),
         np.asarray(jt5.compute_position_bias(jnp.asarray(emb), 7, 11,
                                              bidirectional, 32, 128, q_offset=3)))
