@@ -501,7 +501,7 @@ def phase_kernels() -> dict:
         ok, detail = attention_agrees(out, ref)
         extra = t5_attention_yardsticks(args, kw) if main else {}
         if "bidir_ids" in kw:
-            masked_attention_yardsticks(label, *args, kw)
+            extra["flop"] = masked_attention_yardsticks(label, *args, kw)
         record("flash_attention_flat", label, out, ref, ok, detail, fn, plain_fn, main,
                **extra)
         del out, ref, extra
@@ -636,15 +636,17 @@ def per_head_kernels(randn, record, lengths_mask) -> None:
             del mask
         record("flash_attention", f"{label} ({bq}, {heads}, {sq}, 64), T5 bias in the "
                f"kernel ({'bidirectional, kv_mask' if bidirectional else 'causal'})",
-               out, ref, ok, detail, fn, plain_fn, False)
+               out, ref, ok, detail, fn, plain_fn, False,
+               flop=4 * bq * heads * sq * sq * 64)
         del q, k, v, out, ref
 
 
-def masked_attention_yardsticks(label, packed, heads, kw) -> None:
+def masked_attention_yardsticks(label, packed, heads, kw) -> int:
     """Log the bound of a Gemma flat attention site, from the (row, col)
     pairs its masks keep (causal / window band OR the overlay, AND the key
     mask), and the time of ``F.scaled_dot_product_attention`` on the same
-    q/k/v views with that mask materialized (GQA through enable_gqa)."""
+    q/k/v views with that mask materialized (GQA through enable_gqa).
+    Returns the operations those pairs need."""
     from t2v_metrics_tpu_torch.ops import attention as A
 
     b, s, _ = packed.shape
@@ -665,6 +667,7 @@ def masked_attention_yardsticks(label, packed, heads, kw) -> None:
     log(f"[kernel] flash_attention_flat {label}: bound {lo[0]:.4f} ms by {lo[1]} "
         f"({ops / 1e9:.2f} GFLOP kept by the masks); {name} "
         + ("refused" if ms is None else f"{ms:.4f} ms"))
+    return ops
 
 
 def library_ms(fn, name: str) -> float | None:
@@ -698,7 +701,8 @@ def t5_attention_yardsticks(args, kw) -> dict:
     name = "F.scaled_dot_product_attention (bf16 float mask, scale 1.0)"
     ms = library_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                            scale=1.0), name)
-    return {"lower": lower, "library": None if ms is None else (name, ms)}
+    return {"lower": lower, "flop": lower[0],
+            "library": None if ms is None else (name, ms)}
 
 
 # clip-flant5-xxl W8A8 shapes at 32 pairs (the slice's 4 x 8 call and its

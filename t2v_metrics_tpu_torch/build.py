@@ -1,12 +1,13 @@
 """Build the port's Hopper kernels from the sources in this package.
 
 Each CUDA source (``csrc/flash_flat.cu`` and ``csrc/flash_attention.cu``,
-which share the body in ``csrc/flash_common.cuh``; ``csrc/grouped_gemm.cu``;
-``csrc/quant_matmul.cu``) is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library of its own with a plain C interface and loaded with
-``ctypes``. The library's name carries a hash of its sources, headers and
-flags, so an edited source or header is rebuilt. ``build_all`` starts one ``nvcc`` per source at
-once. Triton kernels compile at their first launch; their cache is kept
+which share the body in ``csrc/flash_common.cuh`` and the Hopper primitives
+in ``csrc/sm90.cuh``; ``csrc/grouped_gemm.cu``; ``csrc/quant_matmul.cu``) is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own with
+a plain C interface and loaded with ``ctypes``. The library's name carries a
+hash of its sources, of every header under ``csrc/`` and of the flags, so an
+edited source or header is rebuilt. ``build_all`` starts one ``nvcc`` per
+source at once. Triton kernels compile at their first launch; their cache is kept
 beside the libraries. Everything lands in ``_build/`` inside the package,
 which git ignores. Nothing is downloaded.
 """
@@ -44,18 +45,23 @@ def _nvcc() -> str:
     return found
 
 
-def build_shared_lib(name: str, sources: list[Path],
-                     headers: tuple[Path, ...] = ()) -> Path:
-    """Compile ``sources`` into ``_build/lib<name>_<hash>.so`` unless built;
-    ``headers`` are the files they include, hashed with them.
+def library_path(name: str, sources: list[Path], csrc: Path = CSRC_DIR) -> Path:
+    """``_build/lib<name>_<hash>.so``: the hash covers the flags, ``sources``
+    and every header (``*.cuh``) in ``csrc``, whichever a source includes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (*sources, *sorted(csrc.glob("*.cuh"))):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_shared_lib(name: str, sources: list[Path]) -> Path:
+    """Compile ``sources`` into ``library_path(name, sources)`` unless built.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
     is written beside the library as ``.log``.
     """
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (*sources, *headers):
-        h.update(src.read_bytes())
-    so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    so = library_path(name, sources)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -69,35 +75,32 @@ def build_shared_lib(name: str, sources: list[Path],
     return so
 
 
+def _attention_entry(name: str):
+    """The C entry ``<name>_forward`` of csrc/<name>.cu; both attention
+    entries take the same arguments."""
+    so = build_shared_lib(name, [CSRC_DIR / f"{name}.cu"])
+    fn = getattr(ctypes.CDLL(str(so)), f"{name}_forward")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([ctypes.POINTER(i64)]  # geo: q, k, v tensor maps
+                   + [vp] * 7            # o, bias, kv_mask, seg, bidir, rel, rel_bucket
+                   + [i32] * 7           # B, H, KVH, Sq, Sk, D, num_buckets
+                   + [i64] * 7           # o (batch, row, head), bias (b, h, q, k)
+                   + [i32] * 4           # bias_vec2, causal, window, head_major
+                   + [ctypes.c_float, vp])  # scale, stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def flash_flat_lib():
     """The ``flash_flat_forward`` C entry point, built on first use."""
-    so = build_shared_lib("flash_flat", [CSRC_DIR / "flash_flat.cu"],
-                          (CSRC_DIR / "flash_common.cuh",))
-    fn = ctypes.CDLL(str(so)).flash_flat_forward
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([vp] * 8            # q, k, v, o, bias, kv_mask, seg, bidir
-                   + [i32] * 6         # B, H, KVH, Sq, Sk, D
-                   + [i64] * 14        # q/k/v (batch, row, col offset), o, bias
-                   + [i32, i32, ctypes.c_float, vp])  # causal, window, scale, stream
-    fn.restype = ctypes.c_int
-    return fn
+    return _attention_entry("flash_flat")
 
 
 @functools.cache
 def flash_attention_lib():
     """The ``flash_attention_forward`` C entry point, built on first use."""
-    so = build_shared_lib("flash_attention", [CSRC_DIR / "flash_attention.cu"],
-                          (CSRC_DIR / "flash_common.cuh",))
-    fn = ctypes.CDLL(str(so)).flash_attention_forward
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([vp] * 10           # q, k, v, o, bias, kv_mask, seg, bidir,
-                                       # rel, rel_bucket
-                   + [i32] * 6         # B, H, Sq, Sk, D, num_buckets
-                   + [i64] * 16        # q/k/v/o (batch, head, row), bias (b, h, q, k)
-                   + [i32, i32, ctypes.c_float, vp])  # causal, window, scale, stream
-    fn.restype = ctypes.c_int
-    return fn
+    return _attention_entry("flash_attention")
 
 
 @functools.cache

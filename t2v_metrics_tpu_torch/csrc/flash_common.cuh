@@ -1,11 +1,10 @@
 // The flash attention body shared by the two attention kernels of the port:
 // flash_flat.cu (the flat (B, S, H*D) layout) and flash_attention.cu (the
-// per-head (B, H, S, D) layout), both instantiations of attention_kernel.
-// The flat one reads q, k and v through a base pointer, a column offset and
-// batch and row strides (head h at column h*D), the per-head one through
-// batch, head and row strides; both need a unit column stride. They differ
-// in how the wrapper fills Params, in the PER_HEAD flag and in which terms
-// they compile in. See the two sources for what each replaces.
+// per-head (B, H, S, D) layout), both instantiations of attention_kernel. The
+// two layouts differ only in the TMA tensor maps the wrapper describes
+// (ops/attention.py tma_geometry: base address, extents, byte strides, box),
+// so one kernel reads both in place; see the two sources for what each
+// replaces.
 //
 // Semantics (as the TPU kernels and the plain versions):
 //   s = (q . k) * scale + bias[b, h, row, col] + rel[h, bucket(col - row)]
@@ -18,245 +17,296 @@
 //   p = exp(s - running max) in fp32, rounded to bf16 before p . v
 //   out = (sum p.v) / (sum p), and 0 for a row whose keys are all masked.
 //
-// Design: one block of 4 warps per (64-row q tile, head, batch item). K and
-// V are streamed through shared memory in 64-key tiles; each warp's 16x64
-// scores stay in registers, the online softmax keeps an fp32 running max and
-// sum per row, and the probabilities go straight from the score accumulators
-// into the A fragments of P.V (the m16n8k16 C layout is the A layout of the
-// next product). Rows of shared memory are padded by 16 bytes so fragment
-// loads are free of bank conflicts; V is stored transposed so its B
-// fragments are 32-bit loads. Tiles live in dynamic shared memory (past 48 KB
-// at d >= 128). A head dim that is not a multiple of 16 (72) runs its Q.K^T
-// k-steps over DP = 80 columns: the Q and K tiles load the head's 72 columns
-// and zero columns 72..79.
+// Design (Hopper), the usual shape of a Hopper attention kernel:
+//   * A block per (q tile, head, batch item) of three warpgroups (WG = 2,
+//     q tiles of 128 rows). Warpgroup 0 is the producer: after setmaxnreg
+//     gives its registers to the others, one thread loads the block's Q tile
+//     and then keeps the K and V tiles of its key range in flight through a
+//     ring of STAGES shared-memory stages, each a TMA copy
+//     (cp.async.bulk.tensor) that completes on the stage's "full" mbarrier;
+//     warp 1 writes each tile's key terms beside it (below). Warpgroups 1 and
+//     2 are the consumers, 64 q rows each (wgmma's M).
+//   * A consumer, per key tile, in one turn: S = Q K^T by wgmma with both
+//     operands in shared memory (K-major), and O += P V of the previous tile
+//     by wgmma with P as the register A operand (the accumulator's layout is
+//     the A layout, so no shuffle) and V straight from its TMA tile as the
+//     MN-major B operand (never transposed by hand). Once both are done, the
+//     previous stage goes back to the producer (each warp arrives on its
+//     "empty" mbarrier), and the masks and the online softmax of this tile
+//     run on the fp32 accumulators in registers, then O *= alpha. The two
+//     consumers take turns (two named barriers, as FlashAttention-3's
+//     ping-pong), so one's softmax runs under the other's products. A
+//     warpgroup does not overlap its own softmax with its own products: ptxas
+//     serializes every wgmma of a kernel that writes a register of a product
+//     in flight, and the softmax writes the score registers.
+//   * Producer and consumers walk the same list of key tiles and count only
+//     the tiles they visit, so a list with gaps (the band plus the overlay)
+//     or none keeps the barrier phases in step (stage = i % STAGES, parity =
+//     (i / STAGES) & 1 of the i-th visited tile). A block with no tile still
+//     writes its zero rows; a consumer warpgroup whose 64 rows all lie past
+//     Sq leaves at once (the empty barriers count only the warpgroups with
+//     rows).
+//   * Sq <= 64 (the T5 decoder's 4-row self- and cross-attention): one
+//     warpgroup of 64 rows over 64-key tiles and no producer (WG = 1, 128
+//     threads, several blocks an SM, so the blocks' start-up latencies
+//     overlap); its thread 0 issues the TMA copies and the warpgroup refills
+//     a stage once it has released it. The per-head kernel's T5 bias beside
+//     the other terms at d = 256 takes this variant at any Sq, for its
+//     registers (flash_attention.cu).
 //
-// Head dim 256: up to d=128 each warp keeps its 16 q rows as A fragments in
-// registers for the whole pass (KS x 4 registers). At d=256 that is 64
-// registers on top of the 128 of the O accumulator (32 n-tiles x 4) and the
-// 32 of the score tile, past the 255 a thread may hold. So at d > 128 the Q
-// tile stays in shared memory (it is never overwritten) and each k-step
-// loads its A fragment from there (4 lds.32, once per k-step for all 8 key
-// n-tiles): ~200 registers, no spill, 104 KB of shared memory a block.
+// Shared-memory layouts for wgmma. A tile (rows x padded head dim DP) is
+// stored as panels of PW columns, each panel rows x (2 PW) bytes, one TMA box
+// each, swizzled by the TMA as wgmma expects:
+//   DP a multiple of 64 (d = 64, 128, 256): 64-column panels, 128-byte
+//     swizzle; a Q.K^T k-step advances the start address 32 bytes inside a
+//     panel, and 4 k-steps later moves to the next panel;
+//   DP = 80 (d = 72, 80): 16-column panels, 32-byte swizzle (rows of 144 or
+//     160 bytes are not a multiple of the 128-byte swizzle span); a k-step
+//     is one panel. At d = 72 the last panel's box of 16 columns lies over an
+//     extent of 72, so the TMA fills columns 72..79 with zeros (in a packed
+//     row they would be the next head's lanes).
+//   V as the MN-major B operand of P.V: the 8-key groups of a panel are
+//     SBO = 8 x 2 PW bytes apart and the panels (the next PW output columns)
+//     LBO = one panel apart; N = DP (80 at d = 72: the zero columns are
+//     computed and not stored).
+// The ragged key edge (rows k0 + r >= Sk) is the TMA's zero fill too, and is
+// masked as col >= Sk.
 //
-// Terms compiled in by template flags, so that a kernel without them keeps
-// its instruction stream: SEG (segment ids), BAND (local window and the
-// bidir overlay) and REL (the in-kernel T5 relative-position bias). PER_HEAD
-// is the per-head entry: head strides and the bias's batch stride come from
-// Params, and a term that is compiled in also checks its runtime pointer
-// (that kernel compiles all three into one instantiation). Without it (the
-// flat entry) head h sits at column h*D of its row, the bias is (1, H, Sq,
-// Sk) and the launcher guarantees each compiled-in term is present.
+// Registers: 384 threads a block, one block an SM; the producer keeps 40
+// registers and each consumer thread gets 232: at d = 256 the O accumulator
+// is 128 of them (64 x 256 fp32 over 128 threads), the score tile 32 (BK =
+// 64) and P 16, so Q stays in shared memory and is read by wgmma there.
+// Every per-thread array is indexed by constants only: the row max and sum
+// run as four independent chains, since a halving tree's run-time index put
+// its array in local memory, and that alone cost half the kernel's time.
 //
-// The flat instantiations without BAND compile to the machine code the flat
-// kernel had before the per-head entry shared this body (the same opcode
-// sequence, by scripts/torch_attention_ab.py's digests, and the same times).
-// ptxas schedules this loop by small things, so three choices keep it so:
-// the body is the kernel itself and reads its own parameter (as an inlined
-// function reading Params through a reference, some earlier sites ran 3-15%
-// slower), the Params fields the flat kernel reads keep their order, and the
-// mask pass reads p.causal itself.
+// Masks per key tile, not per element from global memory: the producer's
+// warp 1 writes each tile's key terms into the stage beside K and V (an
+// additive 0 or -inf for a key past Sk or masked by kv_mask, and each key's
+// segment id and bidir id), and arrives on the stage's full barrier with the
+// TMA. A consumer adds the key term to each score (read once per column pair
+// it holds, shared by its two rows), and runs the per-element mask pass only
+// for segment ids, the band, or a tile that crosses the causal diagonal. The
+// fp32 bias is read as 8-byte loads of the accumulator's column pairs where
+// it has unit column stride: at d = 64 (the T5 sites) into registers while
+// the tile's products run, and the next tile's prefetched into L1. The T5
+// bucket bias is staged per block in shared memory: the bucket of each
+// distance col - row is computed once per call by the wrapper
+// (ops/position.py relative_position_bucket, the plain version's own
+// function, so the buckets agree exactly; a CUDA logf one ulp off XLA's
+// would flip buckets at their exact edges) into an int32 table of Sq + Sk -
+// 1 entries, and each block stages its head's bias for the distances its
+// rows can see (Sk + 127 floats).
 //
 // Key tiles: with causal the block stops at the last key tile its rows can
-// see; with a window it starts at the first. The bidir overlay can reopen
-// tiles on either side: the block finds the range of keys whose id lies
-// between the smallest and largest non-negative id of its rows (a superset
-// of the keys it can reopen) and also visits those tiles.
+// see; with a window it starts at the first tile it can see. The bidir overlay can reopen tiles on either side: the block finds the
+// range of keys whose id lies between the smallest and largest non-negative
+// id of its rows (a superset of the keys it can reopen) and also visits those
+// tiles. Segment-id tile skipping would plug in as one more term of
+// tile_visible.
 //
-// The T5 bias: the bucket of each distance col - row is computed once per
-// call by the wrapper (ops/position.py relative_position_bucket, the plain
-// version's own function, so the buckets agree exactly; a CUDA logf one ulp
-// off XLA's would flip buckets at their exact edges) into an int32 table of
-// Sq + Sk - 1 entries. Each block stages its head's bias for the distances
-// its rows can see (Sk + 63 floats) in shared memory, so the (H, Sq, Sk)
-// bias never exists in HBM and a tile reads it from shared memory.
+// The grid: a 1-D grid decoded as (q tile, head, batch) with the q tile
+// fastest, so the q tiles of one (batch, head) run together and read its K/V
+// while it is in L2, and the heads of a GQA group are neighbours; with a bias
+// broadcast over the batch (the T5 self-attention's (1, H, S, S) fp32 bias,
+// 52 MB at the encoder, more than the 50 MB L2) the order is (q tile, batch,
+// head), so every block reading one head's bias runs together.
+//
+// Instantiations: head dim D, and terms compiled in by template flags so that
+// a kernel without them keeps a lean instruction stream: SEG (segment ids),
+// BAND (local window and the bidir overlay), REL (the in-kernel T5 bias). A
+// compiled-in term also checks its pointer at run time. The key mask, the
+// dense bias and causal are run-time terms of every instantiation.
 
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace flash {
 
-constexpr int BQ = 64;       // q rows per block: 4 warps x 16
-constexpr int BK = 64;       // keys per shared-memory tile
-constexpr int LDV = BK + 8;  // padded row length of the transposed V tile
-constexpr int THREADS = 128;
 constexpr int NONE = 1 << 30;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int PINGPONG_BAR = 1;   // named barriers 1 and 2: the consumers' turns
 
-// The flat kernel's fields come first, in the order (so at the constant-bank
-// offsets) they had before the per-head kernel shared the body.
+// Tiles of head dim D with WG consumer warpgroups (see the notes above):
+// WG = 2 for a call with Sq > 64, WG = 1 for Sq <= 64.
+template <int D, int WG>
+struct Tile {
+  static constexpr int DP = (D + 15) / 16 * 16;         // padded to the k16 step
+  static constexpr bool SW128 = DP % 64 == 0;
+  static constexpr int PW = SW128 ? 64 : 16;            // panel width, elements
+  static constexpr int NP = DP / PW;                    // panels a tile
+  static constexpr int ROWB = PW * 2;                   // bytes of a panel row
+  static constexpr int SWIZZLE = SW128 ? sm90::SWIZZLE_128B : sm90::SWIZZLE_32B;
+  static constexpr int BQ = 64 * WG;                    // q rows a block
+  static constexpr int BK = WG == 1 || D > 128 ? 64 : 128;   // keys a tile
+  static constexpr int STAGES = WG == 1 ? (D <= 128 ? 3 : 2) : (D <= 80 ? 3 : 2);
+  static constexpr int THREADS = WG == 1 ? 128 : 384;
+  static constexpr int MIN_BLOCKS = WG == 2 ? 1 : D <= 80 ? 3 : D <= 128 ? 2 : 1;
+  static constexpr int Q_PANEL = BQ * ROWB, KV_PANEL = BK * ROWB;
+  static constexpr int Q_BYTES = NP * Q_PANEL, KV_BYTES = NP * KV_PANEL;
+  // dynamic shared memory: Q, K and V of each stage, 256 bytes of mbarriers
+  // and ids, each stage's key terms (an additive float, the segment id and
+  // the bidir id of each key), then the REL kernels' bias; 1 KB of slack to
+  // align the base to the 128-byte swizzle's 1024-byte repeat
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int KEY_OFF = BAR_OFF + 256;
+  static constexpr int KEY_BYTES = 3 * BK * 4;
+  static constexpr int REL_OFF = KEY_OFF + STAGES * KEY_BYTES;
+  static constexpr int SMEM = REL_OFF + 1024;
+};
+
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   __nv_bfloat16* o;
   const float* bias;        // fp32, read through the bias strides
   const int* kv_mask;       // (B, Sk) int32
   const int* seg;           // (B, Sk) int32, Sq == Sk
-  int H, kv_rep, Sq, Sk;
-  long long q_bs, q_rs, q_off, k_bs, k_rs, k_off, v_bs, v_rs, v_off;  // off: flat
-  long long o_bs, o_rs, bias_hs, bias_qs, bias_ks;
-  int causal;
-  float scale;
-  // the band's and the per-head kernel's
   const int* bidir;         // (B, Sk) int32, Sq == Sk
   const float* rel;         // (H, num_buckets) fp32
   const int* rel_bucket;    // (Sq + Sk - 1) int32: bucket of col - row + Sq - 1
-  int num_buckets, window;  // window 0: none
-  long long q_hs, k_hs, v_hs, o_hs, bias_bs;
+  long long o_bs, o_rs, o_hs;
+  long long bias_bs, bias_hs, bias_qs, bias_ks;
+  int B, H, kv_rep, Sq, Sk, q_tiles, num_buckets;
+  int bias_vec2;            // unit column stride, 8-byte aligned pairs
+  int causal, window;       // window 0: none
+  int head_major;           // grid order (q tile, batch, head)
+  float scale;
+  int axis[3][3];           // q, k, v: the map dim (1..3) of head, row, batch
 };
-
-// Head dim D rounded up to the 16-wide k-step of m16n8k16.
-template <int D>
-__host__ __device__ constexpr int padded_dim() {
-  return (D + 15) / 16 * 16;
-}
-
-// Dynamic shared memory of the tiles: Q and K tiles of DP + 8 columns and
-// the transposed V tile of D rows of BK + 8 keys, all bf16. The REL kernels
-// add (Sk + BQ) floats after them.
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return ((BQ + BK) * (padded_dim<D>() + 8) + D * LDV) * 2;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The TMA coordinate of map dim `dim` (1..3), whose axis is one of head,
+// row and batch (`axis` of the operand).
+__device__ __forceinline__ int coord(const int (&axis)[3], int dim, int h, int row, int b) {
+  return axis[0] == dim ? h : axis[1] == dim ? row : b;
 }
 
-template <int D, bool SEG, bool BAND, bool REL, bool PER_HEAD>
-__global__ void __launch_bounds__(THREADS) attention_kernel(const Params p) {
-  constexpr int DP = padded_dim<D>();
-  constexpr int LD = DP + 8;     // padded row length of the Q and K tiles
-  constexpr int CH = DP / 8;     // 16-byte chunks per Q/K tile row
-  constexpr int KS = DP / 16;    // k-steps of Q.K^T
-  constexpr int NT = D / 8;      // 8-column output tiles of P.V
-  constexpr bool QREG = D <= 128;  // Q fragments in registers (see above)
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int ranges[4];      // bidir: row id min / max, key min / max
-  auto Qs = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem);
-  auto Ks = reinterpret_cast<__nv_bfloat16 (*)[LD]>(smem + BQ * LD * 2);
-  auto Vt = reinterpret_cast<__nv_bfloat16 (*)[LDV]>(  // V transposed: [d][key]
-      smem + (BQ + BK) * LD * 2);
-  float* relb = reinterpret_cast<float*>(smem + smem_bytes<D>());
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          const int (&axis)[3], int panels, int panel_bytes,
+                                          int pw, int h, int row, int b) {
+  const int c1 = coord(axis, 1, h, row, b), c2 = coord(axis, 2, h, row, b),
+            c3 = coord(axis, 3, h, row, b);
+  for (int i = 0; i < panels; ++i)
+    sm90::tma_load_4d(static_cast<unsigned char*>(dst) + i * panel_bytes, map, bar, i * pw,
+                      c1, c2, c3);
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// Reductions over the BK/4 scores of accumulator row r (0: row g, 1: row
+// g + 8) that one thread holds: four independent chains, for instruction-
+// level parallelism, with constant indices only (an array with a run-time
+// index, as a halving tree's loop gives, lives in local memory).
+template <int N>
+__device__ __forceinline__ float row_max(const float (&s)[N], int r) {
+  float a = s[2 * r], b = s[2 * r + 1], c = s[4 + 2 * r], d = s[4 + 2 * r + 1];
+#pragma unroll
+  for (int j = 2; j < N / 4; j += 2) {
+    a = fmaxf(a, s[4 * j + 2 * r]);
+    b = fmaxf(b, s[4 * j + 2 * r + 1]);
+    c = fmaxf(c, s[4 * j + 4 + 2 * r]);
+    d = fmaxf(d, s[4 * j + 4 + 2 * r + 1]);
+  }
+  return fmaxf(fmaxf(a, b), fmaxf(c, d));
+}
+
+template <int N>
+__device__ __forceinline__ float row_sum(const float (&s)[N], int r) {
+  float a = s[2 * r], b = s[2 * r + 1], c = s[4 + 2 * r], d = s[4 + 2 * r + 1];
+#pragma unroll
+  for (int j = 2; j < N / 4; j += 2) {
+    a += s[4 * j + 2 * r];
+    b += s[4 * j + 2 * r + 1];
+    c += s[4 * j + 4 + 2 * r];
+    d += s[4 * j + 4 + 2 * r + 1];
+  }
+  return (a + b) + (c + d);
+}
+
+template <int D, int WG, bool SEG, bool BAND, bool REL>
+__global__ void __launch_bounds__(Tile<D, WG>::THREADS, Tile<D, WG>::MIN_BLOCKS)
+attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+  using T = Tile<D, WG>;
+  constexpr int BQ = T::BQ, BK = T::BK, STAGES = T::STAGES, DP = T::DP;
+  constexpr bool EARLY_BIAS = DP == 64 && !BAND;   // the T5 sites
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;             // [STAGES]
+  uint64_t* empty = bars + 1 + STAGES;   // [STAGES]
+  int* ranges = reinterpret_cast<int*>(bars + 1 + 2 * STAGES);  // bidir: row / key min, max
+  float* relb = reinterpret_cast<float*>(smem + T::REL_OFF);
+
+  const int id = blockIdx.x;
+  const int qt = id % p.q_tiles;
+  int h, b;
+  if (p.head_major) {
+    b = (id / p.q_tiles) % p.B;
+    h = id / (p.q_tiles * p.B);
+  } else {
+    h = (id / p.q_tiles) % p.H;
+    b = id / (p.q_tiles * p.H);
+  }
+  const int q0 = qt * BQ;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row group / column pair
+  const int n_wg = min(WG, (p.Sq - q0 + 63) / 64);    // consumer warpgroups with rows
+  const int last_row = min(q0 + BQ, p.Sq) - 1;
   const int kvh = h / p.kv_rep;
 
-  // head strides: the flat layout's D, known at compile time
-  const long long q_hs = PER_HEAD ? p.q_hs : D, k_hs = PER_HEAD ? p.k_hs : D,
-                  v_hs = PER_HEAD ? p.v_hs : D, o_hs = PER_HEAD ? p.o_hs : D;
-  const __nv_bfloat16* qb = p.q + b * p.q_bs + p.q_off + h * q_hs;
-  const __nv_bfloat16* kb = p.k + b * p.k_bs + p.k_off + kvh * k_hs;
-  const __nv_bfloat16* vb = p.v + b * p.v_bs + p.v_off + kvh * v_hs;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // Q tile -> shared (16-byte chunks; rows past Sq and columns past D
-  // zero-filled, the latter only when D is not a multiple of 16)
-  for (int i = tid; i < BQ * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = zero;
-    if ((DP == D || c < D) && q0 + r < p.Sq)
-      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * p.q_rs + c);
-    *reinterpret_cast<uint4*>(&Qs[r][c]) = val;
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      // WG 2: the TMA thread and the 32 lanes staging the key terms
+      sm90::mbar_init(&full[s], WG == 2 ? 33 : 1);
+      sm90::mbar_init(&empty[s], 4 * n_wg);   // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
   }
   // T5 bias of this head for the distances these rows see: relb[j] is the
   // bias of col - row = j + jmin - (Sq - 1)
-  const bool rel_on = REL && (!PER_HEAD || p.rel != nullptr);
-  int jmin = 0;
+  const bool rel_on = REL && p.rel != nullptr;
+  const int jmin = p.Sq - 1 - last_row;
   if (rel_on) {
-    const int last_row = min(q0 + BQ, p.Sq) - 1;
-    jmin = p.Sq - 1 - last_row;
     const int count = p.Sk + last_row - q0;
     const float* col = p.rel + (long long)h * p.num_buckets;
-    for (int i = tid; i < count; i += THREADS) relb[i] = col[p.rel_bucket[jmin + i]];
+    for (int i = tid; i < count; i += T::THREADS) relb[i] = col[p.rel_bucket[jmin + i]];
   }
-  __syncthreads();
-
-  const int wr = warp * 16;
-  uint32_t qf[QREG ? KS : 1][4];
-  if constexpr (QREG) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int c = kk * 16 + t4 * 2;
-      qf[kk][0] = ld32(&Qs[wr + g][c]);
-      qf[kk][1] = ld32(&Qs[wr + g + 8][c]);
-      qf[kk][2] = ld32(&Qs[wr + g][c + 8]);
-      qf[kk][3] = ld32(&Qs[wr + g + 8][c + 8]);
-    }
-  }
-
-  float acc[NT][4];
-#pragma unroll
-  for (int i = 0; i < NT; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const int shift = p.Sk - p.Sq;
-  const bool seg_on = SEG && (!PER_HEAD || p.seg != nullptr);
-  const int* segb = seg_on ? p.seg + (long long)b * p.Sk : nullptr;
-  int seg_row[2] = {0, 0};
-  if (seg_on) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      seg_row[r] = rows[r] < p.Sq ? segb[rows[r]] : 0;
-  }
-
-  // key tiles [kt_lo, n_tiles) of the causal / window band
-  int n_tiles = (p.Sk + BK - 1) / BK;
-  if (p.causal) {
-    const int last_row = min(q0 + BQ, p.Sq) - 1;
-    const int last_key = min(p.Sk - 1, last_row + shift);
-    n_tiles = last_key < 0 ? 0 : last_key / BK + 1;
-  }
-  int kt_lo = 0;
-  const bool band_on = BAND && (!PER_HEAD || p.window > 0 || p.bidir != nullptr);
-  if (BAND && p.window > 0) kt_lo = max(0, q0 + shift - p.window + 1) / BK;
   // key tiles [ob_lo, ob_hi] the bidir overlay may reopen
   int ob_lo = NONE, ob_hi = -1;
   const int* bidb = BAND && p.bidir != nullptr ? p.bidir + (long long)b * p.Sk : nullptr;
-  int bid_row[2] = {-1, -1};
   if (BAND && bidb != nullptr) {
     if (tid == 0) {
       ranges[0] = NONE; ranges[1] = -1; ranges[2] = NONE; ranges[3] = -1;
     }
     __syncthreads();
     if (tid < BQ && q0 + tid < p.Sq) {
-      const int id = bidb[q0 + tid];
-      if (id >= 0) {
-        atomicMin(&ranges[0], id);
-        atomicMax(&ranges[1], id);
+      const int rid = bidb[q0 + tid];
+      if (rid >= 0) {
+        atomicMin(&ranges[0], rid);
+        atomicMax(&ranges[1], rid);
       }
     }
     __syncthreads();
     const int lo = ranges[0], hi = ranges[1];
     if (hi >= 0) {
-      for (int c = tid; c < p.Sk; c += THREADS) {
-        const int id = bidb[c];
-        if (id >= lo && id <= hi) {
+      for (int c = tid; c < p.Sk; c += T::THREADS) {
+        const int kid = bidb[c];
+        if (kid >= lo && kid <= hi) {
           atomicMin(&ranges[2], c);
           atomicMax(&ranges[3], c);
         }
@@ -267,205 +317,487 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Params p) {
       ob_lo = ranges[2] / BK;
       ob_hi = ranges[3] / BK;
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      bid_row[r] = rows[r] < p.Sq ? bidb[rows[r]] : -1;
   }
-  // with the band pass on, causal is applied there (OR-ed with the overlay);
-  // without BAND the mask pass reads p.causal itself (a copy held across the
-  // loop cost the T5 site ~3%)
-  const int causal_main = band_on ? 0 : p.causal;
-  // the band's tiles and the ones the overlay reopens; without BAND the
-  // loop is [0, n_tiles), as before the band existed
-  int kt_begin = 0, kt_end = n_tiles;
-  if constexpr (BAND) {
-    kt_begin = min(kt_lo, ob_lo);
-    kt_end = max(n_tiles, ob_hi + 1);
+  __syncthreads();   // barriers initialised, relb staged
+
+  // key tiles [kt_lo, n_tiles) of the causal / window band, and the overlay's
+  const int shift = p.Sk - p.Sq;
+  int n_tiles = (p.Sk + BK - 1) / BK;
+  if (p.causal) {
+    const int last_key = min(p.Sk - 1, last_row + shift);
+    n_tiles = last_key < 0 ? 0 : last_key / BK + 1;
   }
+  int kt_lo = 0;
+  if (BAND && p.window > 0) kt_lo = max(0, q0 + shift - p.window + 1) / BK;
+  const int kt_begin = BAND ? min(kt_lo, ob_lo) : 0;
+  const int kt_end = BAND ? max(n_tiles, ob_hi + 1) : n_tiles;
+  auto tile_visible = [&](int kt) {
+    return !BAND || (kt >= kt_lo && kt < n_tiles) || (kt >= ob_lo && kt <= ob_hi);
+  };
 
-  // each key tile: K/V to shared memory, the scores, the masks, the online
-  // softmax and P.V
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    if constexpr (BAND) {
-      if ((kt < kt_lo || kt >= n_tiles) && (kt < ob_lo || kt > ob_hi)) continue;
+  const bool seg_on = SEG && p.seg != nullptr;
+  const bool band_on = BAND && (p.window > 0 || bidb != nullptr);
+  const long long key0 = (long long)b * p.Sk;   // batch item b's keys in the id arrays
+  auto key_terms = [&](int stage) {
+    return reinterpret_cast<float*>(smem + T::KEY_OFF + stage * T::KEY_BYTES);
+  };
+  // the key terms of tile kt into a stage, by `n` threads from index i: 0 or
+  // -inf for each key (past Sk or masked), its segment id and bidir id
+  auto stage_keys = [&](int stage, int kt, int i, int n) {
+    float* kadd = key_terms(stage);
+    int* kseg = reinterpret_cast<int*>(kadd + BK);
+    int* kbid = kseg + BK;
+    for (int c = i; c < BK; c += n) {
+      const int col = kt * BK + c;
+      const bool in = col < p.Sk;
+      kadd[c] = in && (p.kv_mask == nullptr || p.kv_mask[key0 + col] != 0) ? 0.f : -INFINITY;
+      if (seg_on) kseg[c] = in ? p.seg[key0 + col] : 0;
+      if (band_on && bidb != nullptr) kbid[c] = in ? p.bidir[key0 + col] : -1;
     }
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < BK * CH; i += THREADS) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool col_in = DP == D || c < D;   // a column of this head
-      uint4 kv = zero, vv = zero;
-      if (col_in && k0 + r < p.Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * p.k_rs + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * p.v_rs + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r][c]) = kv;
-      if (col_in) {
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Vt[c + j][r] = ve[j];
-      }
-    }
-    __syncthreads();
+  };
+  // one thread: the K and V tiles of kt into a stage
+  auto load_kv = [&](int stage, int kt) {
+    unsigned char* k_s = smem + T::Q_BYTES + stage * 2 * T::KV_BYTES;
+    sm90::mbar_expect_tx(&full[stage], 2 * T::KV_BYTES);
+    load_tile(k_s, &tk, &full[stage], p.axis[1], T::NP, T::KV_PANEL, T::PW, kvh, kt * BK, b);
+    load_tile(k_s + T::KV_BYTES, &tv, &full[stage], p.axis[2], T::NP, T::KV_PANEL, T::PW,
+              kvh, kt * BK, b);
+  };
+  int kt_fill = kt_begin;   // WG 1: the next tile to load
+  auto fill_next = [&](int stage) {
+    while (kt_fill < kt_end && !tile_visible(kt_fill)) ++kt_fill;
+    if (kt_fill >= kt_end) return;
+    if (tid == 0) load_kv(stage, kt_fill);
+    stage_keys(stage, kt_fill, tid, T::THREADS);
+    ++kt_fill;
+  };
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[8][4];
-    if constexpr (QREG) {
+  // ---------------- consumers: warpgroup c, rows q0 + 64c .. + 63 ----------------
+  auto consume = [&](int c) {
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
+    const int rows[2] = {q0 + 64 * c + 16 * warp + g, q0 + 64 * c + 16 * warp + g + 8};
+    const int wg_first_row = q0 + 64 * c;
+    const bool pingpong = WG == 2 && n_wg == 2;
+
+    // descriptors: Q rows 64c.., K-major; K per stage K-major; V MN-major
+    const uint32_t q_addr = sm90::smem_u32(q_s) + 64 * c * T::ROWB;
+    const uint32_t kv_addr = sm90::smem_u32(smem + T::Q_BYTES);
+    // A descriptor's start address is its low field, so a k-step's operand
+    // is the tile's descriptor plus a constant (the field never carries).
+    auto kmajor_step = [](int panel_bytes, int kk) -> uint64_t {
+      return (T::SW128 ? (kk / 4) * panel_bytes + (kk % 4) * 32 : kk * panel_bytes) >> 4;
+    };
+    auto tile_desc = [](uint32_t addr, int lbo) {
+      return sm90::make_desc(addr, lbo, 8 * T::ROWB, T::SWIZZLE);
+    };
+    const uint64_t q_desc = tile_desc(q_addr, 16);
+    auto release = [&](int stage) {
+      if constexpr (WG == 2) {
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      } else {
+        __syncthreads();   // the warpgroup is done with the stage: refill it
+        fill_next(stage);
+      }
+    };
+    // O += P V of the tile in `stage`, P from registers (pf, the A operand
+    // of P.V, 16 keys a k-step). ptxas serializes every wgmma of the kernel
+    // if any other instruction writes an input (a descriptor, P, the scale-d
+    // predicate) or an accumulator while a product of the warpgroup is in
+    // flight, so the products are issued unconditionally (no branch joins
+    // that would copy registers), with a constant scale-d (O starts at 0 and
+    // the first P.V adds 0 . V), the registers are fenced around the issue
+    // and after the wait, as CUTLASS does, and the softmax runs only once
+    // both products of the turn are done (so a warpgroup does not overlap its
+    // own softmax with its products; the other warpgroup's turn does).
+    uint32_t pf[BK / 16][4];
+    float o[DP / 2];
+    auto issue_pv = [&](int stage) {
+      const uint64_t v_desc =
+          tile_desc(kv_addr + stage * 2 * T::KV_BYTES + T::KV_BYTES, T::KV_PANEL);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::Wgmma<DP>::rs(o, pf[kk], v_desc + (kk * 16 * T::ROWB >> 4), 1);
+      sm90::wgmma_commit();
+    };
+
+    const bool bias_on = p.bias != nullptr;
+    int seg_row[2] = {0, 0}, bid_row[2] = {-1, -1};
+    const float* bias_row[2] = {nullptr, nullptr};
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          const __nv_bfloat16* kr = &Ks[nt * 8 + g][kk * 16 + t4 * 2];
-          mma16816(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
+    for (int r = 0; r < 2; ++r) {
+      const int row = min(rows[r], p.Sq - 1);
+      if (seg_on) seg_row[r] = p.seg[key0 + row];
+      if (band_on && bidb != nullptr) bid_row[r] = bidb[row];
+      if (bias_on)
+        bias_row[r] = p.bias + b * p.bias_bs + h * p.bias_hs + row * p.bias_qs;
+    }
+    // the causal cut is the band pass's when the band is on
+    const bool causal_main = p.causal && !band_on;
+
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;   // before any product is in flight
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pf[kk][i] = 0u;   // the first P.V adds 0
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+
+    // ping-pong: the two warpgroups take turns to issue their products (the
+    // tile's S and the previous tile's P V), so one's softmax runs under the
+    // other's wgmma; warpgroup 0 goes first
+    if (pingpong && c == 1) sm90::bar_arrive(PINGPONG_BAR, 256);
+    sm90::mbar_wait(q_full, 0);
+    int it = 0, pend = 0;   // pend: the stage of the P.V still to run
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      if (!tile_visible(kt)) continue;
+      const int stage = it % STAGES;
+      sm90::mbar_wait(&full[stage], (it / STAGES) & 1);
+      const int k0 = kt * BK;
+
+      // S = Q K^T of this tile and O += P V of the previous one (of zero P
+      // on the first tile), in one turn
+      const uint64_t k_desc = tile_desc(kv_addr + stage * 2 * T::KV_BYTES, 16);
+      if (pingpong) sm90::bar_sync(PINGPONG_BAR + c, 256);
+      sm90::reg_fence(s);
+      sm90::reg_fence(o);
+      sm90::reg_fence(pf);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        sm90::Wgmma<BK>::ss(s, q_desc + kmajor_step(T::Q_PANEL, kk),
+                            k_desc + kmajor_step(T::KV_PANEL, kk), kk > 0);
+      sm90::wgmma_commit();
+      issue_pv(it > 0 ? pend : stage);
+      sm90::reg_fence(s);
+      sm90::reg_fence(o);
+      if (pingpong) sm90::bar_arrive(PINGPONG_BAR + 1 - c, 256);
+      // d = 64 without the band (the T5 sites): the tile's bias into
+      // registers under the products (elsewhere the registers are needed)
+      float2 bpre[EARLY_BIAS ? BK / 8 : 1][2];
+      if (EARLY_BIAS && bias_on && p.bias_vec2) {
+#pragma unroll
+        for (int j = 0; j < (EARLY_BIAS ? BK / 8 : 0); ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int c0 = k0 + 8 * j + 2 * t4;
+            bpre[j][r] = c0 + 1 < p.Sk
+                ? __ldg(reinterpret_cast<const float2*>(bias_row[r] + c0))
+                : make_float2(__ldg(bias_row[r] + min(c0, p.Sk - 1)),
+                              __ldg(bias_row[r] + min(c0 + 1, p.Sk - 1)));
+          }
+      }
+      if (bias_on && p.bias_vec2 && k0 + BK + 32 * t4 < p.Sk) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) sm90::prefetch_l1(bias_row[r] + k0 + BK + 32 * t4);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(s);
+      sm90::reg_fence(o);
+      sm90::reg_fence(pf);
+      if (it > 0) release(pend);   // the previous tile's P V is done
+
+      // scale, the key terms, bias and masks; s[4j + 2r + e] is (rows[r],
+      // k0 + 8j + 2 t4 + e)
+      const float* kadd = key_terms(stage);
+      const int* kseg = reinterpret_cast<const int*>(kadd + BK);
+      const int* kbid = kseg + BK;
+      const bool need_mask =
+          seg_on || band_on || (causal_main && k0 + BK - 1 - shift > wg_first_row);
+      const bool key_on = p.kv_mask != nullptr || k0 + BK > p.Sk;   // else kadd is 0
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int cl = 8 * j + 2 * t4;   // column pair in the tile
+        const int c0 = k0 + cl;
+        const float2 ka =
+            key_on ? *reinterpret_cast<const float2*>(kadd + cl) : make_float2(0.f, 0.f);
+        float bv[2][2] = {{ka.x, ka.y}, {ka.x, ka.y}};
+        if (EARLY_BIAS && bias_on && p.bias_vec2) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            bv[r][0] += bpre[EARLY_BIAS ? j : 0][r].x;
+            bv[r][1] += bpre[EARLY_BIAS ? j : 0][r].y;
+          }
+        } else if (bias_on) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (p.bias_vec2 && c0 + 1 < p.Sk) {
+              const float2 pr = __ldg(reinterpret_cast<const float2*>(bias_row[r] + c0));
+              bv[r][0] += pr.x;
+              bv[r][1] += pr.y;
+            } else {
+              bv[r][0] += __ldg(bias_row[r] + min(c0, p.Sk - 1) * p.bias_ks);
+              bv[r][1] += __ldg(bias_row[r] + min(c0 + 1, p.Sk - 1) * p.bias_ks);
+            }
+          }
+        }
+        int2 ks = make_int2(0, 0), kb = make_int2(-1, -1);
+        if (seg_on) ks = *reinterpret_cast<const int2*>(kseg + cl);
+        if (band_on && bidb != nullptr) kb = *reinterpret_cast<const int2*>(kbid + cl);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + e;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = rows[r];
+            float x = fmaf(s[4 * j + 2 * r + e], p.scale, bv[r][e]);
+            if (rel_on) x += relb[min(col, p.Sk - 1) - min(row, last_row) + last_row];
+            if (need_mask) {
+              bool keep = true;
+              if (causal_main) keep = col - shift <= row;
+              if (seg_on) keep = keep && (e ? ks.y : ks.x) == seg_row[r];
+              if (band_on) {
+                bool in = col - shift <= row &&
+                          (p.window <= 0 || col - shift > row - p.window);
+                if (!in && bidb != nullptr)
+                  in = bid_row[r] >= 0 && (e ? kb.y : kb.x) == bid_row[r];
+                keep = keep && in;
+              }
+              if (!keep) x = -INFINITY;
+            }
+            s[4 * j + 2 * r + e] = x;
+          }
+        }
+      }
+
+      // online softmax: the 4 threads of a row group share each row
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(m_run[r], row_max(s, r));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mu[r] = (mx == -INFINITY ? 0.f : mx) * LOG2E;   // all masked so far: p = 0
+        alpha[r] = exp2_approx(fmaf(m_run[r], LOG2E, -mu[r]));
+        m_run[r] = mx;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[4 * j + i] = exp2_approx(fmaf(s[4 * j + i], LOG2E, -mu[i / 2]));
+        pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float rs = row_sum(s, r);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l_run[r] = l_run[r] * alpha[r] + rs;
+      }
+
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      pend = stage;
+      ++it;
+    }
+    // the last tile's P V (with no tile: zero P over stage 0, whose O the
+    // epilogue does not read)
+    if (pingpong) sm90::bar_sync(PINGPONG_BAR + c, 256);
+    sm90::reg_fence(o);
+    sm90::reg_fence(pf);
+    sm90::wgmma_fence();
+    issue_pv(pend);
+    sm90::reg_fence(o);
+    if (pingpong) sm90::bar_arrive(PINGPONG_BAR + 1 - c, 256);
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(o);
+    if (it > 0) release(pend);
+    if (pingpong && c == 0) sm90::bar_sync(PINGPONG_BAR, 256);   // the partner's last turn
+
+    // epilogue: divide by the row sum; a fully masked row (sum 0) writes 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= p.Sq) continue;
+      const bool none = l_run[r] == 0.f;   // O may never have been written
+      const float l = none ? 1.f : l_run[r];
+      __nv_bfloat16* orow = p.o + b * p.o_bs + rows[r] * p.o_rs + h * p.o_hs;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        if (8 * j + 2 * t4 < D)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+              none ? 0u : pack_bf16(o[4 * j + 2 * r] / l, o[4 * j + 2 * r + 1] / l);
+      }
+    }
+  };
+
+  if constexpr (WG == 2) {
+    if (tid < 128) {
+      // ---------------- producer warpgroup ----------------
+      sm90::setmaxnreg_dec<40>();
+      if (tid == 0) {
+        // the Q tile, then K and V of each tile into the ring
+        sm90::tma_prefetch(&tq);
+        sm90::tma_prefetch(&tk);
+        sm90::tma_prefetch(&tv);
+        sm90::mbar_expect_tx(q_full, T::Q_BYTES);
+        load_tile(q_s, &tq, q_full, p.axis[0], T::NP, T::Q_PANEL, T::PW, h, q0, b);
+        int it = 0;
+        for (int kt = kt_begin; kt < kt_end; ++kt) {
+          if (!tile_visible(kt)) continue;
+          const int stage = it % STAGES;
+          if (it >= STAGES) sm90::mbar_wait(&empty[stage], ((it / STAGES) - 1) & 1);
+          load_kv(stage, kt);
+          ++it;
+        }
+      } else if (tid >= 32 && tid < 64) {
+        // warp 1: each tile's key terms, beside the TMA copies
+        int it = 0;
+        for (int kt = kt_begin; kt < kt_end; ++kt) {
+          if (!tile_visible(kt)) continue;
+          const int stage = it % STAGES;
+          if (it >= STAGES) sm90::mbar_wait(&empty[stage], ((it / STAGES) - 1) & 1);
+          stage_keys(stage, kt, tid - 32, 32);
+          sm90::mbar_arrive(&full[stage]);
+          ++it;
         }
       }
     } else {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const int c = kk * 16 + t4 * 2;
-        const uint32_t a[4] = {ld32(&Qs[wr + g][c]), ld32(&Qs[wr + g + 8][c]),
-                               ld32(&Qs[wr + g][c + 8]), ld32(&Qs[wr + g + 8][c + 8])};
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const __nv_bfloat16* kr = &Ks[nt * 8 + g][c];
-          mma16816(s[nt], a, ld32(kr), ld32(kr + 8));
-        }
-      }
+      sm90::setmaxnreg_inc<232>();
+      const int c = tid / 128 - 1;
+      if (c < n_wg) consume(c);
     }
-
-    // scale, bias and masks; e = 0,1 belong to rows[0], e = 2,3 to rows[1]
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = rows[e >> 1];
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        bool keep = col < p.Sk;
-        if (keep && p.kv_mask != nullptr)
-          keep = p.kv_mask[(long long)b * p.Sk + col] != 0;
-        if (keep && (BAND ? causal_main : p.causal)) keep = col - shift <= row;
-        float x = s[nt][e] * p.scale;
-        // p.bias itself (a constant-bank operand) and not a per-block
-        // pointer derived from it: a register pointer's null test is a
-        // 64-bit compare per score element, and indexing through it cost
-        // the T5 site ~8%; the flat bias has no batch term
-        if (keep && p.bias != nullptr && row < p.Sq)
-          x += p.bias[(PER_HEAD ? b * p.bias_bs : 0) + h * p.bias_hs +
-                      row * p.bias_qs + col * p.bias_ks];
-        if (rel_on && keep && row < p.Sq) x += relb[col - row + p.Sq - 1 - jmin];
-        s[nt][e] = keep ? x : -INFINITY;
-      }
+  } else {
+    // one warpgroup: thread 0 loads, every thread stages the key terms, and
+    // a stage is refilled once the warpgroup has released it
+    if (tid == 0) {
+      sm90::mbar_expect_tx(q_full, T::Q_BYTES);
+      load_tile(q_s, &tq, q_full, p.axis[0], T::NP, T::Q_PANEL, T::PW, h, q0, b);
     }
-    // segment ids in a pass of their own, compiled only into the SEG
-    // instantiations, so that the kernel without them is unchanged
-    if (seg_on) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-          if (col < p.Sk && segb[col] != seg_row[e >> 1]) s[nt][e] = -INFINITY;
-        }
-      }
-    }
-    // the causal / window band OR the bidir overlay, likewise on its own
-    if (band_on) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = rows[e >> 1];
-          const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-          bool keep = col - shift <= row &&
-                      (p.window <= 0 || col - shift > row - p.window);
-          if (!keep && bidb != nullptr && col < p.Sk)
-            keep = bid_row[e >> 1] >= 0 && bidb[col] == bid_row[e >> 1];
-          if (!keep) s[nt][e] = -INFINITY;
-        }
-      }
-    }
-
-    // online softmax: the 4 threads of a row group share each row
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float mu[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // all masked so far: p = 0
-      alpha[r] = __expf(m_run[r] - mu[r]);
-      m_run[r] = mx[r];
-    }
-
-    float rs[2] = {0.f, 0.f};
-    uint32_t pf[4][4];   // P as the A fragments of P.V, 16 keys per k-step
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = __expf(s[nt][0] - mu[0]);
-      const float p1 = __expf(s[nt][1] - mu[0]);
-      const float p2 = __expf(s[nt][2] - mu[1]);
-      const float p3 = __expf(s[nt][3] - mu[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      const int kk = nt >> 1, hi = (nt & 1) * 2;
-      pf[kk][hi] = pack_bf16(p0, p1);
-      pf[kk][hi + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + rs[r];
-    }
-
-    // O = O * alpha + P V
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* vr = &Vt[nt * 8 + g][kk * 16 + t4 * 2];
-        mma16816(acc[nt], pf[kk], ld32(vr), ld32(vr + 8));
-      }
-    }
-  }
-
-  // epilogue: divide by the row sum; a fully masked row (sum 0) writes 0
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= p.Sq) continue;
-    const float l = l_run[r] == 0.f ? 1.f : l_run[r];
-    __nv_bfloat16* orow = p.o + b * p.o_bs + rows[r] * p.o_rs + h * o_hs;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + t4 * 2) =
-          pack_bf16(acc[nt][2 * r] / l, acc[nt][2 * r + 1] / l);
-    }
+    for (int s = 0; s < STAGES; ++s) fill_next(s);
+    __syncthreads();
+    consume(0);
   }
 }
 
-// Opt in to the block's dynamic shared memory (above 48 KB a launch is
-// refused without it), launch, and return cudaGetLastError().
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int B, int smem,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---------------------------------------------------------------------------
+// Host side: the tensor maps and the launch. geo holds, for q, k and v, 16
+// int64 each as ops/attention.py tma_geometry packs them: the base address,
+// the 4 extents (head dim first), the 3 byte strides of dims 1..3, the 4 box
+// sizes, the swizzle in bytes, and the map dim (1..3) of the head, the row and
+// the batch axis. The q box's rows say the variant: 64 (one consumer
+// warpgroup, Sq <= 64) or 128.
+
+constexpr int GEO = 16;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
+// -lcuda link)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                    cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// Encode one operand's map; its box must be the kernel's panel of `rows`.
+template <int D, int WG>
+cudaError_t encode(CUtensorMap* map, int (&axis)[3], const long long* g, int rows) {
+  using T = Tile<D, WG>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const long long swizzle = T::SW128 ? 128 : 32;
+  if (g[8] != T::PW || g[9] * g[10] * g[11] != rows || g[12] != swizzle)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)g[1], (cuuint64_t)g[2], (cuuint64_t)g[3],
+                              (cuuint64_t)g[4]};
+  const cuuint64_t strides[3] = {(cuuint64_t)g[5], (cuuint64_t)g[6], (cuuint64_t)g[7]};
+  const cuuint32_t box[4] = {(cuuint32_t)g[8], (cuuint32_t)g[9], (cuuint32_t)g[10],
+                             (cuuint32_t)g[11]};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) axis[i] = static_cast<int>(g[13 + i]);
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          reinterpret_cast<void*>(g[0]), dims, strides, box, unit,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          T::SW128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int WG, bool SEG, bool BAND, bool REL>
+cudaError_t launch_variant(const long long* geo, Params p, int extra_smem,
+                           cudaStream_t stream) {
+  using T = Tile<D, WG>;
+  CUtensorMap maps[3];
+  const int rows[3] = {T::BQ, T::BK, T::BK};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = encode<D, WG>(&maps[i], p.axis[i], geo + i * GEO, rows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = attention_kernel<D, WG, SEG, BAND, REL>;
+  const int smem = T::SMEM + extra_smem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  p.q_tiles = (p.Sq + T::BQ - 1) / T::BQ;
+  const long long blocks = (long long)p.q_tiles * p.H * p.B;
+  kernel<<<static_cast<unsigned>(blocks), T::THREADS, smem, stream>>>(maps[0], maps[1],
+                                                                       maps[2], p);
   return cudaGetLastError();
+}
+
+// Launch the variant the q map's box names; extra_smem: the REL kernels'
+// staged bias. Returns cudaGetLastError() after the launch.
+template <int D, bool SEG, bool BAND, bool REL>
+cudaError_t launch(const long long* geo, const Params& p, int extra_smem, cudaStream_t stream) {
+  if (geo[9] * geo[10] * geo[11] == Tile<D, 1>::BQ)
+    return launch_variant<D, 1, SEG, BAND, REL>(geo, p, extra_smem, stream);
+  return launch_variant<D, 2, SEG, BAND, REL>(geo, p, extra_smem, stream);
+}
+
+// The arguments both C entries take, into Params (the rel pointers null for
+// the flat entry).
+inline Params make_params(void* o, const void* bias, const void* kv_mask, const void* seg,
+                          const void* bidir, const void* rel, const void* rel_bucket, int B,
+                          int H, int KVH, int Sq, int Sk, int num_buckets, long long o_bs,
+                          long long o_rs, long long o_hs, long long bias_bs, long long bias_hs,
+                          long long bias_qs, long long bias_ks, int bias_vec2, int causal,
+                          int window, int head_major, float scale) {
+  Params p = {};
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.bias = static_cast<const float*>(bias);
+  p.kv_mask = static_cast<const int*>(kv_mask);
+  p.seg = static_cast<const int*>(seg);
+  p.bidir = static_cast<const int*>(bidir);
+  p.rel = static_cast<const float*>(rel);
+  p.rel_bucket = static_cast<const int*>(rel_bucket);
+  p.o_bs = o_bs; p.o_rs = o_rs; p.o_hs = o_hs;
+  p.bias_bs = bias_bs; p.bias_hs = bias_hs; p.bias_qs = bias_qs; p.bias_ks = bias_ks;
+  p.B = B;
+  p.H = H;
+  p.kv_rep = H / KVH;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.num_buckets = num_buckets;
+  p.bias_vec2 = bias_vec2;
+  p.causal = causal;
+  p.window = window;
+  p.head_major = head_major;
+  p.scale = scale;
+  return p;
 }
 
 }  // namespace flash

@@ -11,7 +11,11 @@ Port of t2v_metrics_tpu/ops/attention.py:
     ``csrc/flash_attention.cu`` (the TPU ``_flash_kernel``), with the T5
     relative-position bias computed in the kernel;
   * ``attention_flat`` / ``attention_flat_packed`` / ``attention``: the
-    dispatchers the models call.
+    dispatchers the models call;
+  * ``tma_geometry`` (``flat_geometry`` / ``head_geometry``): each
+    operand's TMA tensor map (base, extents, byte strides, box, swizzle,
+    zero-filled pad columns), which the CUDA entries only encode, and the
+    alignment checks the TMA needs.
 
 The notes in ``csrc/`` say what each kernel replaces, what bounds it and how
 it is built. A wrapper takes the plain version for a CPU tensor; for a CUDA
@@ -30,6 +34,8 @@ per-head kernel (``models/siglip.py``), as does the T5 attention under
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -163,6 +169,129 @@ def rel_bucket_table(sq: int, sk: int, bidirectional: bool, num_buckets: int,
 
 
 # ---------------------------------------------------------------------------
+# TMA geometry
+# ---------------------------------------------------------------------------
+
+# The CUDA kernels' tiles (csrc/flash_common.cuh Tile): the head dim padded
+# to the 16-wide k-step and loaded as panels of 64 columns (128-byte swizzle)
+# where the padded dim is a multiple of 64, else of 16 columns (32-byte
+# swizzle).
+
+def padded_dim(d: int) -> int:
+    return (d + 15) // 16 * 16
+
+
+def tile_rows(d: int, sq: int, single: bool = False) -> tuple[int, int]:
+    """(q rows a block, keys a tile) of the kernel variant a call runs: one
+    consumer warpgroup of 64 rows over 64-key tiles where Sq <= 64 (many
+    blocks an SM, for the T5 decoder's 4-row attention) or ``single`` (the
+    per-head kernel's T5 bias beside segment ids, a window or bidir ids at
+    head dim 256, which needs the registers of a block without a producer
+    warpgroup), else two of 64 rows over 128-key tiles (64 at head dim
+    256)."""
+    if sq <= 64 or single:
+        return 64, 64
+    return 128, 128 if d <= 128 else 64
+
+
+def panel_width(d: int) -> int:
+    return 64 if padded_dim(d) % 64 == 0 else 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaGeometry:
+    """One operand's TMA tensor map over (head dim, heads, rows, batch).
+
+    ``offset`` is in elements from the tensor's ``data_ptr()`` to element
+    (column 0, head 0, row 0, batch 0). ``dims`` are the map's extents, the
+    head dim first and then the head, row and batch axes in the order of
+    their strides; ``strides`` the byte strides of map dims 1..3; ``axes``
+    the map dim (1..3) of the head, the row and the batch axis; ``box`` the
+    elements of one copy (a panel of ``box[0]`` columns over the tile's
+    rows); ``swizzle`` in bytes; ``pad`` the columns of the last panel past
+    the head dim, which the TMA fills with zeros (they lie outside the
+    extent ``dims[0]``)."""
+
+    offset: int
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    axes: tuple[int, int, int]
+    box: tuple[int, int, int, int]
+    swizzle: int
+    pad: int
+
+    def packed(self, x: torch.Tensor) -> list[int]:
+        """The 16 int64 the C entries read (flash_common.cuh ``GEO``)."""
+        return [x.data_ptr() + x.element_size() * self.offset, *self.dims,
+                *self.strides, *self.box, self.swizzle, *self.axes]
+
+
+def tma_geometry(x: torch.Tensor, offset: int, strides, extents, d: int,
+                 tile_rows: int, what: str = "flash_attention_flat",
+                 name: str = "x") -> TmaGeometry:
+    """The tensor map of the (head, row, batch) grid of d-column heads of
+    ``x``: ``strides`` and ``extents`` of the head, row and batch axes in
+    elements, ``offset`` in elements from ``x.data_ptr()``. Raises
+    ValueError where the TMA refuses: a base address that is not 16-byte
+    aligned, or a byte stride of an axis longer than 1 that is not a
+    multiple of 16."""
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
+    size = x.element_size()
+    if (x.data_ptr() + size * offset) % 16:
+        raise ValueError(f"{what}: {name} is not 16-byte aligned")
+    real = [i for i in range(3) if extents[i] > 1]
+    if any(strides[i] * size % 16 for i in real):
+        raise ValueError(f"{what}: {name} is not 16-byte aligned")
+    # axes longer than 1 in the order of their strides; an axis of extent 1
+    # goes last, with a stride past the others (its own is never used)
+    span = max([d] + [strides[i] * extents[i] for i in real])
+    span = (span + 7) // 8 * 8
+    order = sorted(real, key=lambda i: strides[i]) + [i for i in range(3) if i not in real]
+    byte_strides = tuple((strides[i] if i in real else span) * size for i in order)
+    axes = tuple(order.index(i) + 1 for i in range(3))
+    pw = panel_width(d)
+    box = (pw, *(tile_rows if i == 1 else 1 for i in order))
+    return TmaGeometry(offset, (d, *(int(extents[i]) for i in order)), byte_strides,
+                       axes, box, pw * size, padded_dim(d) - d)
+
+
+def flat_geometry(x, col_off, heads, rows, d, tile_rows, name="x"):
+    """Geometry of the heads at columns col_off + h*d of a flat (B, S, cols)
+    tensor, over its first ``rows`` rows."""
+    return tma_geometry(x, col_off, (d, x.stride(1), x.stride(0)),
+                        (heads, rows, x.shape[0]), d, tile_rows,
+                        "flash_attention_flat", name)
+
+
+def head_geometry(x, tile_rows, name="x"):
+    """Geometry of a (B, H, S, D) tensor (any strides, unit column stride)."""
+    b, h, s, d = x.shape
+    return tma_geometry(x, 0, (x.stride(1), x.stride(2), x.stride(0)), (h, s, b),
+                        d, tile_rows, "flash_attention", name)
+
+
+def _geo_array(pairs):
+    """The C entries' ``geo``: 16 int64 per (tensor, geometry) pair."""
+    vals = [v for x, geo in pairs for v in geo.packed(x)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _bias_args(bias, b, heads, sq, sk, what):
+    """(pointer, (batch, head, row, col) strides, 8-byte pairs, head-major
+    grid) of an fp32 bias broadcast to (B, H, Sq, Sk), or Nones."""
+    if bias is None:
+        return None, (0, 0, 0, 0), 0, 0
+    bias = bias.expand(b, heads, sq, sk)
+    st = bias.stride()
+    vec2 = int(st[3] == 1 and all(x % 2 == 0 for x in st[:3])
+               and bias.data_ptr() % 8 == 0)
+    head_major = int(st[0] == 0 and b > 1)
+    return bias.data_ptr(), tuple(st), vec2, head_major
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -172,8 +301,6 @@ def _check_operand(x, name, dims=3, what="flash_attention_flat"):
     if x.dim() != dims or x.stride(-1) != 1:
         raise ValueError(f"{what}: {name} must have {dims} dims and unit "
                          "column stride")
-    if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1]):
-        raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
 def _ids(ids, b, sk, device, name, what):
@@ -210,47 +337,48 @@ def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, d, sq,
     """
     from ..build import flash_flat_lib
 
+    what = "flash_attention_flat"
     b = q.shape[0]
     kvh = kv_heads or heads
     if heads % kvh:
-        raise ValueError(f"flash_attention_flat: {heads} heads over {kvh} kv heads")
+        raise ValueError(f"{what}: {heads} heads over {kvh} kv heads")
     for x, name, off, n in ((q, "q", q_off, heads), (k, "k", k_off, kvh),
                             (v, "v", v_off, kvh)):
         _check_operand(x, name)
         if x.device != q.device:
-            raise ValueError("flash_attention_flat: operands on different devices")
+            raise ValueError(f"{what}: operands on different devices")
         if off % 8 or off + n * d > x.shape[2]:
-            raise ValueError(f"flash_attention_flat: {name} columns out of range")
+            raise ValueError(f"{what}: {name} columns out of range")
     if k.shape[0] != b or v.shape[0] != b or k.shape[1] < sk or v.shape[1] < sk:
-        raise ValueError("flash_attention_flat: k/v batch or length mismatch")
-    causal, window, bidir_ids = _band(causal, local_window, bidir_ids, sq, sk,
-                                      "flash_attention_flat")
+        raise ValueError(f"{what}: k/v batch or length mismatch")
+    if sq == 0 or sk == 0:
+        raise ValueError(f"{what}: empty attention ({sq} rows, {sk} keys)")
+    bq, bk = tile_rows(d, sq)
+    geo = _geo_array(((q, flat_geometry(q, q_off, heads, sq, d, bq, "q")),
+                      (k, flat_geometry(k, k_off, kvh, sk, d, bk, "k")),
+                      (v, flat_geometry(v, v_off, kvh, sk, d, bk, "v"))))
+    causal, window, bidir_ids = _band(causal, local_window, bidir_ids, sq, sk, what)
     out = torch.empty((b, sq, heads * d), dtype=q.dtype, device=q.device)
-    bias_ptr, bias_strides = None, (0, 0, 0)
     if bias is not None:
         if bias.dtype != torch.float32 or bias.device != q.device:
-            raise TypeError("flash_attention_flat: bias must be fp32 on q's device")
+            raise TypeError(f"{what}: bias must be fp32 on q's device")
         if bias.dim() != 4 or bias.shape[0] != 1:
-            raise ValueError("flash_attention_flat: bias must be (1, H, Sq, Sk)")
-        bias = bias.expand(1, heads, sq, sk)
-        bias_ptr, bias_strides = bias.data_ptr(), tuple(bias.stride()[1:])
-    what = "flash_attention_flat"
+            raise ValueError(f"{what}: bias must be (1, H, Sq, Sk)")
+    bias_ptr, bias_strides, vec2, head_major = _bias_args(bias, b, heads, sq, sk, what)
     if kv_mask is not None:
         kv_mask = _ids(kv_mask, b, sk, q.device, "kv_mask", what)
     if segment_ids is not None:
         if sq != sk:
-            raise ValueError("flash_attention_flat: segment_ids need sq == sk")
+            raise ValueError(f"{what}: segment_ids need sq == sk")
         segment_ids = _ids(segment_ids, b, sk, q.device, "segment_ids", what)
     if bidir_ids is not None:
         bidir_ids = _ids(bidir_ids, b, sk, q.device, "bidir_ids", what)
     ptr = [None if t is None else t.data_ptr()
            for t in (kv_mask, segment_ids, bidir_ids)]
     rc = flash_flat_lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_ptr,
-        *ptr, b, heads, kvh, sq, sk, d,
-        q.stride(0), q.stride(1), q_off, k.stride(0), k.stride(1), k_off,
-        v.stride(0), v.stride(1), v_off, out.stride(0), out.stride(1),
-        *bias_strides, int(causal), window, float(scale),
+        geo, out.data_ptr(), bias_ptr, *ptr, None, None, b, heads, kvh, sq, sk,
+        d, 0, out.stride(0), out.stride(1), d, *bias_strides, vec2, int(causal),
+        window, head_major, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_flat_forward launch failed: CUDA error {rc}")
@@ -324,9 +452,15 @@ def flash_attention_launch(q, k, v, bias, kv_mask, causal, scale, segment_ids,
             raise ValueError(f"{what}: operands on different devices")
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
         raise ValueError(f"{what}: k and v must be ({b}, {h}, Sk, {d})")
+    if sq == 0 or sk == 0:
+        raise ValueError(f"{what}: empty attention ({sq} rows, {sk} keys)")
     causal, window, bidir_ids = _band(causal, local_window, bidir_ids, sq, sk, what)
+    single = (rel_bias is not None and d > 128
+              and (segment_ids is not None or bidir_ids is not None or window > 0))
+    bq, bk = tile_rows(d, sq, single)
+    geo = _geo_array(((q, head_geometry(q, bq, "q")),
+                      (k, head_geometry(k, bk, "k")), (v, head_geometry(v, bk, "v"))))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    bias_ptr, bias_strides = None, (0, 0, 0, 0)
     if bias is not None:
         if rel_bias is not None:
             raise ValueError(f"{what}: rel_bias and bias are exclusive")
@@ -334,8 +468,7 @@ def flash_attention_launch(q, k, v, bias, kv_mask, causal, scale, segment_ids,
             raise TypeError(f"{what}: bias must be fp32 on q's device")
         if bias.dim() != 4:
             raise ValueError(f"{what}: bias must be (B or 1, H or 1, Sq, Sk)")
-        bias = bias.expand(b, h, sq, sk)
-        bias_ptr, bias_strides = bias.data_ptr(), tuple(bias.stride())
+    bias_ptr, bias_strides, vec2, head_major = _bias_args(bias, b, h, sq, sk, what)
     rel_ptr = bucket_ptr = None
     num_buckets = 0
     if rel_bias is not None:
@@ -358,11 +491,9 @@ def flash_attention_launch(q, k, v, bias, kv_mask, causal, scale, segment_ids,
     ptr = [None if t is None else t.data_ptr()
            for t in (kv_mask, segment_ids, bidir_ids)]
     rc = flash_attention_lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_ptr,
-        *ptr, rel_ptr, bucket_ptr, b, h, sq, sk, d, int(num_buckets),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        out.stride(0), out.stride(2), out.stride(1), *bias_strides,
-        int(causal), window, float(scale),
+        geo, out.data_ptr(), bias_ptr, *ptr, rel_ptr, bucket_ptr, b, h, h, sq, sk,
+        d, int(num_buckets), out.stride(0), out.stride(1), out.stride(2),
+        *bias_strides, vec2, int(causal), window, head_major, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_forward launch failed: CUDA error {rc}")

@@ -86,6 +86,8 @@ def test_rms_norm_kernel_fp32(dev):
     (3, 4, 4, 4, 4, True, True, False),       # T5 decoder self
     (2, 4, 130, 4, 4, False, False, True),    # T5 cross
     (2, 9, 200, 8, 2, True, False, True),     # GQA, end-aligned causal
+    (3, 100, 300, 4, 4, False, True, True),   # 64 < sq < 128: second warpgroup partly used
+    (2, 40, 333, 4, 2, True, True, False),    # sq < 64: one warpgroup, ragged keys
 ])
 def test_attention_kernel(dev, b, sq, sk, h, kvh, causal, bias, mask):
     q = _randn(dev, b, sq, h * 64)
@@ -185,10 +187,11 @@ def test_attention_kernel_refuses_what_it_lacks(dev):
 
 
 def _bidir(dev, b, s, blocks):
-    """(B, S) int32 group ids: -1 on text, id i on block i = (start, len)."""
+    """(B, S) int32 group ids: -1 on text, on block i = (start, len[, id])
+    its id, else i."""
     ids = torch.full((b, s), -1, dtype=torch.int32, device=dev)
-    for i, (start, n) in enumerate(blocks):
-        ids[:, start:start + n] = i
+    for i, (start, n, *bid) in enumerate(blocks):
+        ids[:, start:start + n] = bid[0] if bid else i
     return ids
 
 
@@ -198,6 +201,11 @@ def _bidir(dev, b, s, blocks):
     (1, 330, 4, 4, 64, 40, ((5, 20), (200, 70)), False),  # two blocks, window 40
     (2, 200, 8, 2, 128, 50, (), True),               # window alone
     (2, 130, 4, 4, 80, None, ((64, 64),), False),    # a block on tile edges
+    (2, 200, 8, 4, 256, 100, ((30, 50),), True),     # GQA 8/4 at d=256
+    # one id on rows 0..19 and 800..809: a block's tile list is the band's
+    # tiles and tile 0, with a gap between them
+    (1, 900, 4, 4, 64, 64, ((0, 20, 0), (800, 10, 0)), False),
+    (1, 700, 4, 2, 256, 32, ((0, 30, 0), (600, 20, 0)), True),  # the same at d=256
 ])
 def test_attention_kernel_window_and_bidir(dev, b, s, h, kvh, d, window, blocks,
                                            mask):
@@ -226,6 +234,13 @@ def test_attention_kernel_window_and_bidir(dev, b, s, h, kvh, d, window, blocks,
     (2, 4, 150, 150, 256, dict(causal=True, bias="head")),
     (2, 5, 140, 140, 64, dict(rel=True, kv_mask=True)),       # T5 encoder
     (3, 5, 4, 4, 64, dict(rel=False, causal=True)),           # T5 decoder
+    (2, 4, 300, 300, 64, dict(rel=True)),                     # REL alone, 3 q tiles
+    (3, 4, 100, 100, 64, dict(bias="head", kv_mask="none")),  # batch stride 0, zero rows
+    (2, 4, 93, 200, 80, dict(kv_mask=True)),                  # d=80, ragged, sq < sk
+    (2, 4, 60, 333, 72, dict(causal=True)),                   # d=72, sq < 64, ragged
+    # the T5 bias beside the other terms at d=256: the one-warpgroup variant
+    (2, 4, 150, 150, 256, dict(rel=False, local_window=40, bidir=((20, 50),))),
+    (2, 3, 100, 100, 256, dict(rel=True, segment_ids=True, kv_mask=True)),
 ])
 def test_per_head_attention_kernel(dev, b, h, sq, sk, d, kw):
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -238,7 +253,10 @@ def test_per_head_attention_kernel(dev, b, h, sq, sk, d, kw):
         q = _randn(dev, b, h, sq, d, seed=13)
         k, v = _randn(dev, b, h, sk, d, seed=14), _randn(dev, b, h, sk, d, seed=15)
     args = {}
-    if kw.get("kv_mask"):
+    if kw.get("kv_mask") == "none":     # batch item 1 has no key: zero rows
+        args["kv_mask"] = torch.ones((b, sk), dtype=torch.bool, device=dev)
+        args["kv_mask"][1] = False
+    elif kw.get("kv_mask"):
         args["kv_mask"] = torch.rand((b, sk), generator=gen, device=dev) > 0.2
         args["kv_mask"][:, -1] = True
     if kw.get("bias") == "batch":
@@ -260,12 +278,16 @@ def test_per_head_attention_kernel(dev, b, h, sq, sk, d, kw):
     assert launch_counts()["flash_attention"] == before + 1
     assert out.shape == (b, h, sq, d)
     _close_attn(out, A.attention_reference(q, k, v, **args))
+    if kw.get("kv_mask") == "none":
+        assert torch.count_nonzero(out[1]) == 0
 
 
 @pytest.mark.parametrize("b,s,h,kvh,d,causal,seg", [
     (4, 300, 16, 16, 72, False, True),   # Qwen3 ViT: real rows, then -1 pads
     (2, 130, 16, 16, 72, False, False),  # d=72 without segment ids
     (2, 70, 8, 2, 72, True, False),      # d=72, GQA, causal, ragged tiles
+    (2, 93, 8, 8, 80, True, False),      # d=80, causal, Sk % 64 != 0
+    (3, 333, 4, 4, 80, False, True),     # d=80, three key tiles, the last ragged
 ])
 def test_attention_kernel_head_dim_72(dev, b, s, h, kvh, d, causal, seg):
     """72 is not a multiple of the 16-wide k-step: the kernel zero-fills Q/K
