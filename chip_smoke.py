@@ -47,8 +47,11 @@ Phases (any failure exits non-zero and prints no result line):
      ``batch_forward`` of each, and of the Qwen forwards at 1024x1024, by
      kernel family (torch.profiler) and the device's busy share.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the seven slices), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+summed over the first calls of the seven slices; a row's ``sites`` are
+further shapes of the main path, each with its times, bound and library
+time: the grouped GEMM's down projection and the int8 GEMM's split-K
+decoder shape), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
 imports nothing of JAX.
@@ -317,11 +320,13 @@ def phase_kernels() -> dict:
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def record(name, label, out, ref, ok, detail, fn, plain_fn, main, flop=None,
-               lower=None, library=None):
+               lower=None, library=None, site=False):
         """Check one launch against its plain version and time both. The
         main shape's numbers go into the kernel table: ``lower`` is (ops,
         bytes, type) for its bound; ``library`` (name, ms) of the one
-        PyTorch call that computes the same function, or None."""
+        PyTorch call that computes the same function, or None. A ``site``
+        (a second shape of the main path) goes into the row's ``sites``
+        with its own bound and library time."""
         err = float((out.float() - ref.float()).abs().max())
         ms, plain_ms = cuda_ms(fn), cuda_ms(plain_fn)
         rate = "" if flop is None else (
@@ -331,14 +336,21 @@ def phase_kernels() -> dict:
         check(ok, f"{name} {label} disagrees with its plain version: {detail}")
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:
-            r["ms"], r["plain_ms"] = ms, plain_ms
-            r["bound_ms"], r["bound_by"] = bound(*lower)
-            r["library_ms"] = None if library is None else library[1]
+        if main or site:
+            lo_ms, lo_by = bound(*lower)
+            lib_ms = None if library is None else library[1]
             lib = ("no single PyTorch call" if library is None
                    else f"{library[0]} {library[1]:.4f} ms")
-            log(f"[kernel] {name} {label} (the table's shape): bound "
-                f"{r['bound_ms']:.4f} ms by {r['bound_by']}; {lib}")
+            log(f"[kernel] {name} {label} ({'the table' if main else 'a site'}'s shape): "
+                f"bound {lo_ms:.4f} ms by {lo_by}; {lib}")
+        if main:
+            r["ms"], r["plain_ms"] = ms, plain_ms
+            r["bound_ms"], r["bound_by"], r["library_ms"] = lo_ms, lo_by, lib_ms
+        elif site:
+            r.setdefault("sites", []).append(
+                {"label": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": lo_ms,
+                 "bound_by": lo_by, "library_ms": lib_ms})
+        return ms, plain_ms
 
     # LayerNorm: ln_pre at (M*577, 1024), ln1/ln2 at (M*640, 1024), M=4;
     # Qwen3-VL ViT blocks at (M*4096, 1152) and the deepstack mergers
@@ -514,7 +526,9 @@ def phase_kernels() -> dict:
     # seeded top-8 routing of 16 x 1024 tokens over 128 experts (P = 147,456
     # buffer rows with the padding), gate_up (P, 2048) x (128, 2048, 1536)
     # and down (P, 768) x (128, 768, 2048); and a skewed routing where
-    # experts 5 and 77 take every assignment and the other 126 are empty
+    # experts 5 and 77 take every assignment and the other 126 are empty.
+    # Each with num_blocks, as the dispatch calls it (the table's row and
+    # the down site), and over every block, as the TPU kernel computes.
     from t2v_metrics_tpu_torch.ops import moe as M
 
     tokens = 16 * 1024
@@ -523,39 +537,47 @@ def phase_kernels() -> dict:
     weights = {"gate_up": randn(128, 2048, 1536, std=2048 ** -0.5),
                "down": randn(128, 768, 2048, std=768 ** -0.5)}
     for routing, ids in (("top-8", top8.reshape(-1)), ("skewed", skewed)):
-        _, _, be, p = M.plan_groups(ids, 128, M.BLOCK_M)
-        be_host = be.cpu()   # the plain version reads the block ids on the host
+        _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+        be_host, used_host = be.cpu(), used.cpu()   # the plain version reads them on the host
         # the experts' groups end at these rows of the block-aligned buffer
         counts = torch.bincount(ids, minlength=128)
         offs = torch.cumsum((counts + 127) // 128 * 128, 0).int()
         tk = ids.numel()
         for wname, w in weights.items():
             xg = randn(p, w.shape[1])
-            out = M.grouped_matmul(xg, w, be)
-            ref = M.grouped_matmul_reference(xg, w, be_host)
-            torch.cuda.synchronize()
-            bad = outside(out, ref, GMM_ATOL, GMM_RTOL)
-            main = routing == "top-8" and wname == "gate_up"
             k, n = w.shape[1], w.shape[2]
-            library = None
-            if main:
-                ms = library_ms(lambda: torch._grouped_mm(xg, w, offs=offs),
-                                "torch._grouped_mm")
-                library = None if ms is None else ("torch._grouped_mm", ms)
-            record("grouped_gemm",
-                   f"{wname} ({p}, {w.shape[1]}) x (128, {w.shape[1]}, "
-                   f"{w.shape[2]}), {routing} routing", out, ref,
-                   bad == 0 and bool(torch.isfinite(out).all()),
-                   f"{bad} outside atol {GMM_ATOL} + rtol 2^-7; max "
-                   f"{bf16_ulps(out, ref)} bf16 ulps",
-                   lambda: M.grouped_matmul(xg, w, be),
-                   lambda: M.grouped_matmul_reference(xg, w, be_host), main,
-                   flop=2 * p * k * n,
-                   # the work this routing needs: its tk assignments, not
-                   # the buffer's pad rows
-                   lower=(2 * tk * k * n, 2 * (tk * k + 128 * k * n + tk * n), "bf16"),
-                   library=library)
-            del out, ref
+            for nb, nb_host in ((used, used_host), (None, None)):
+                out = M.grouped_matmul(xg, w, be, M.BLOCK_M, nb)
+                ref = M.grouped_matmul_reference(xg, w, be_host, M.BLOCK_M, nb_host)
+                torch.cuda.synchronize()
+                bad = outside(out, ref, GMM_ATOL, GMM_RTOL)
+                table = routing == "top-8" and nb is not None
+                main, site = table and wname == "gate_up", table and wname == "down"
+                library = None
+                if main or site:
+                    ms = library_ms(lambda: torch._grouped_mm(xg, w, offs=offs),  # noqa: B023
+                                    "torch._grouped_mm")
+                    library = None if ms is None else ("torch._grouped_mm", ms)
+                rows = p if nb is None else int(used_host) * M.BLOCK_M
+                ms, plain_ms = record(
+                    "grouped_gemm",
+                    f"{wname} ({p}, {k}) x (128, {k}, {n}), {routing} routing, "
+                    + ("every block" if nb is None else f"num_blocks {rows // M.BLOCK_M}"),
+                    out, ref, bad == 0 and bool(torch.isfinite(out).all()),
+                    f"{bad} outside atol {GMM_ATOL} + rtol 2^-7; max "
+                    f"{bf16_ulps(out, ref)} bf16 ulps",
+                    lambda: M.grouped_matmul(xg, w, be, M.BLOCK_M, nb),  # noqa: B023
+                    lambda: M.grouped_matmul_reference(  # noqa: B023
+                        xg, w, be_host, M.BLOCK_M, nb_host), main,
+                    flop=2 * rows * k * n,
+                    # the work this routing needs: its tk assignments, not
+                    # the buffer's pad rows
+                    lower=(2 * tk * k * n, 2 * (tk * k + 128 * k * n + tk * n), "bf16"),
+                    library=library, site=site)
+                if routing == "skewed":
+                    log(f"[kernel] grouped_gemm {wname} skewed routing: kernel / plain "
+                        f"{ms / plain_ms:.3f}")
+                del out, ref
     del weights, xg
     free_cuda()
     quant_kernels(randn, record)
@@ -707,17 +729,18 @@ def t5_attention_yardsticks(args, kw) -> dict:
 
 # clip-flant5-xxl W8A8 shapes at 32 pairs (the slice's 4 x 8 call and its
 # batch_forward chunks; encoder rows 32 x 640, decoder rows 32 x A with A=4)
-# and 4 images (ViT rows 4 x 640): (label, M, K, N, the table's shape)
-XXL_GEMMS = (("T5 encoder q|k|v", 32 * 640, 4096, 12288, True),
-             ("T5 encoder o; cross k, v on encoder rows", 32 * 640, 4096, 4096, False),
-             ("T5 encoder wi_0|wi_1", 32 * 640, 4096, 20480, False),
-             ("T5 encoder wo", 32 * 640, 10240, 4096, False),
-             ("T5 decoder q|k|v", 32 * 4, 4096, 12288, False),
-             ("T5 decoder wo", 32 * 4, 10240, 4096, False),
-             ("T5 decoder o, 25 pairs (ragged rows)", 25 * 4, 4096, 4096, False),
-             ("ViT-L q|k|v", 4 * 640, 1024, 3072, False),
-             ("ViT-L fc1", 4 * 640, 1024, 4096, False),
-             ("ViT-L fc2", 4 * 640, 4096, 1024, False))
+# and 4 images (ViT rows 4 x 640): (label, M, K, N, the table's shape, a
+# site of the table: the decoder's split-K shape)
+XXL_GEMMS = (("T5 encoder q|k|v", 32 * 640, 4096, 12288, True, False),
+             ("T5 encoder o; cross k, v on encoder rows", 32 * 640, 4096, 4096, False, False),
+             ("T5 encoder wi_0|wi_1", 32 * 640, 4096, 20480, False, False),
+             ("T5 encoder wo", 32 * 640, 10240, 4096, False, False),
+             ("T5 decoder q|k|v", 32 * 4, 4096, 12288, False, False),
+             ("T5 decoder wo", 32 * 4, 10240, 4096, False, True),
+             ("T5 decoder o, 25 pairs (ragged rows)", 25 * 4, 4096, 4096, False, False),
+             ("ViT-L q|k|v", 4 * 640, 1024, 3072, False, False),
+             ("ViT-L fc1", 4 * 640, 1024, 4096, False, False),
+             ("ViT-L fc2", 4 * 640, 4096, 1024, False, False))
 
 
 def quant_kernels(randn, record) -> None:
@@ -727,7 +750,7 @@ def quant_kernels(randn, record) -> None:
     the same product (does int8 pay on this card at all?)."""
     from t2v_metrics_tpu_torch.ops import quant as Q
 
-    for label, m, k, n, main in XXL_GEMMS:
+    for label, m, k, n, main, site in XXL_GEMMS:
         x = randn(m, k, std=3.0)
         w = randn(k, n, std=k ** -0.5)
         leaf = Q.Linear(w.clone()).quantize_()
@@ -752,7 +775,8 @@ def quant_kernels(randn, record) -> None:
         record("quant_matmul", f"({m}, {k}) x ({k}, {n}) {label}", out, ref,
                bool(torch.equal(out, ref)), "bitwise equal required",
                fn, plain_fn, main, flop=ops, lower=lower,
-               library=None if lib is None else ("torch._int_mm + f32 epilogue", lib))
+               library=None if lib is None else ("torch._int_mm + f32 epilogue", lib),
+               site=site)
         del x, w, leaf, x_q, xs, out, ref
         free_cuda()
 
@@ -1607,7 +1631,8 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,
               "launches": sum(c[name] for c in slice_counts),
-              **{k: results[name][k] for k in keys}}
+              **{k: results[name][k] for k in keys},
+              **{k: results[name][k] for k in ("sites",) if k in results[name]}}
              for name, (route, src, rep) in KERNELS.items()]
     for row in table:
         check(row["launches"] > 0, f"{row['name']} was never launched on the main paths")

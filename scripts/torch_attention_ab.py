@@ -11,9 +11,9 @@ sources, and prints one JSON line: the label, the package's path, the
 card's name and power limit, the registers and spills ptxas reported for
 each instantiation, a digest of each instantiation's machine code (its
 instruction count, a hash of its opcode sequence, from ``cuobjdump -sass``,
-and its counts of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-instructions: two checkouts whose hashes match run the same instructions),
-and for each site the median CUDA-event milliseconds of 20 runs after 3
+and its counts of wgmma (HGMMA; IGMMA for int8), TMA load (UTMALDG) and
+mma.sync (HMMA; IMMA for int8) instructions: two checkouts whose hashes match run the same
+instructions), and for each site the median CUDA-event milliseconds of 20 runs after 3
 warm-ups with the 20th and 80th percentiles beside it (the run's own
 spread). Compare two checkouts in one call, in turns: parent, change,
 change, parent. Needs one NVIDIA GPU, nvcc and torch.
@@ -56,8 +56,8 @@ def cuda_ms(fn, warmup=3, iters=20) -> list[float]:
 
 def sass_digest(lib: Path) -> dict:
     """{"attention_kernel<D,flags...>": [instructions, opcode hash, HGMMA,
-    UTMALDG, HMMA]} of every kernel in ``lib``, from ``cuobjdump -sass``
-    (next to nvcc)."""
+    UTMALDG, HMMA, IMMA, IGMMA]} of every kernel in ``lib``, from
+    ``cuobjdump -sass`` (next to nvcc). IGMMA is the int8 wgmma."""
     from t2v_metrics_tpu_torch.build import _nvcc
 
     tool = Path(_nvcc()).with_name("cuobjdump")
@@ -71,7 +71,9 @@ def sass_digest(lib: Path) -> dict:
             mangled = line.split("Function :")[1].strip()
             m = re.search(r"([a-z_]+_kernel)I(.*?)EEv", mangled)
             args = re.findall(r"L[ib](\d+)E", (m.group(2) + "E") if m else "")
-            name = f"{m.group(1)}<{','.join(args)}>" if m else mangled
+            plain = re.search(r"\d([a-z_]*_kernel[a-z_]*)E", mangled)   # not a template
+            name = (f"{m.group(1)}<{','.join(args)}>" if m
+                    else plain.group(1) if plain else mangled)
             funcs[name] = []
             continue
         ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.+?)\s*;", line)
@@ -82,7 +84,8 @@ def sass_digest(lib: Path) -> dict:
     for k, ops in sorted(funcs.items()):
         base = Counter(op.split(".")[0] for op in ops)
         digest[k] = [len(ops), hashlib.sha1(" ".join(ops).encode()).hexdigest()[:12],
-                     base["HGMMA"], base["UTMALDG"], base["HMMA"]]
+                     base["HGMMA"], base["UTMALDG"], base["HMMA"], base["IMMA"],
+                     base["IGMMA"]]
     return digest
 
 

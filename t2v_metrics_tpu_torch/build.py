@@ -1,8 +1,9 @@
 """Build the port's Hopper kernels from the sources in this package.
 
 Each CUDA source (``csrc/flash_flat.cu`` and ``csrc/flash_attention.cu``,
-which share the body in ``csrc/flash_common.cuh`` and the Hopper primitives
-in ``csrc/sm90.cuh``; ``csrc/grouped_gemm.cu``; ``csrc/quant_matmul.cu``) is
+which share the body in ``csrc/flash_common.cuh``; ``csrc/grouped_gemm.cu``
+and ``csrc/quant_matmul.cu``, which share the GEMM mainloop in
+``csrc/gemm_sm90.cuh``; all four the Hopper primitives in ``csrc/sm90.cuh``) is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own with
 a plain C interface and loaded with ``ctypes``. The library's name carries a
 hash of its sources, of every header under ``csrc/`` and of the flags, so an
@@ -109,7 +110,8 @@ def grouped_gemm_lib():
     so = build_shared_lib("grouped_gemm", [CSRC_DIR / "grouped_gemm.cu"])
     fn = ctypes.CDLL(str(so)).grouped_gemm_forward
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [i32] * 4 + [vp]   # x, w, be, o; P, K, N, E; stream
+    # geo (xg, w maps); be, num_blocks, o; P, K, N, E, grid; stream
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + [vp] * 3 + [i32] * 5 + [vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -120,7 +122,8 @@ def quant_matmul_lib():
     so = build_shared_lib("quant_matmul", [CSRC_DIR / "quant_matmul.cu"])
     fn = ctypes.CDLL(str(so)).quant_matmul_forward
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 5 + [i32] * 3 + [vp]   # x_q, w_qt, xs, ws, o; M, N, K; stream
+    # geo (x_q, w_qt maps); xs, ws, o, part; M, N, K, splits, grid; stream
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + [vp] * 4 + [i32] * 5 + [vp]
     fn.restype = ctypes.c_int
     return fn
 

@@ -689,35 +689,11 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
 constexpr int GEO = 16;
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
-// -lcuda link)
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                    cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
 // Encode one operand's map; its box must be the kernel's panel of `rows`.
 template <int D, int WG>
 cudaError_t encode(CUtensorMap* map, int (&axis)[3], const long long* g, int rows) {
   using T = Tile<D, WG>;
-  const EncodeTiled fn = encode_tiled();
+  const sm90::EncodeTiled fn = sm90::encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const long long swizzle = T::SW128 ? 128 : 32;
   if (g[8] != T::PW || g[9] * g[10] * g[11] != rows || g[12] != swizzle)

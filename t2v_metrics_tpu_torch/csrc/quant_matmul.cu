@@ -10,10 +10,9 @@
 // row-major (the leaf's storage; w_q = w_qt^T is the JAX (K, N) layout);
 // xs (M,) and ws (N,) f32; o (M, N) bf16 row-major. The two products are
 // __fmul_rn, never contracted into anything else, so the kernel matches its
-// plain version bit for bit. The int32 accumulator lives in registers from
-// the first k to the epilogue and never reaches device memory: that is the
-// TPU kernel's reason to exist (quant_matmul.py:3-9), since an unfused
-// epilogue writes and re-reads 4 bytes per output element.
+// plain version bit for bit. Without split K the int32 accumulator lives in
+// registers from the first k to the epilogue and never reaches device
+// memory: that is the TPU kernel's reason to exist (quant_matmul.py:3-9).
 //
 // What bounds it on the H100: at the clip-flant5-xxl encoder shapes, the
 // tensor cores. Encoder q|k|v at 32 pairs, (20480, 4096) x (4096, 12288), is
@@ -22,231 +21,184 @@
 // (3.35 TB/s), are the limit. The decoder's rows (M = pairs x 4) are bound
 // by the weight bytes instead: (128, 10240) x (10240, 4096) reads 42 MB.
 //
-// What the design does about it (right and simple first): one block of 8
-// warps per 128 x 128 output tile, a 4-stage ring of cp.async copies of
-// 128 x 64-byte tiles of x_q and of w_qt through shared memory (rows padded
-// by 16 bytes, so the ldmatrix loads are free of bank conflicts), each warp
-// a 64 x 32 sub-tile by mma.sync m16n8k32 s8 x s8 -> s32. Both operands are
-// K-contiguous, so plain (non-transposed) ldmatrix gives the A fragments and
-// the "col" B fragments: sm_90 has no ldmatrix.trans for 8-bit elements,
-// which is why the weight is stored (N, K). Ragged M and N edges: copies of
-// rows past the edge are zero-filled (cp.async src-size 0) and their outputs
-// not stored; a K tail past the last 64-byte step is zero-filled the same
-// way. Tiles are rastered in groups of 8 row tiles, the row tile fastest, so
-// a group's rows of x_q stay in L2 across the column tiles. wgmma, TMA and
-// warp specialisation are later work.
+// What the design does about it: the shared Hopper mainloop of
+// gemm_sm90.cuh (a producer warp keeping TMA loads in flight through a
+// 4-stage mbarrier ring, two consumer warpgroups running wgmma
+// m64n256k32.s32.s8.s8 on 128 x 256 tiles of 128-byte k-blocks, one
+// persistent block an SM). Both operands are K-major, as 8-bit wgmma needs
+// (it has no transpose): that is why the weight is stored (N, K). Ragged M
+// and N edges and the K tail are the TMA's zero fill, with masked stores.
+// Tiles are rastered in groups of 8 row tiles, the row tile fastest, so a
+// group's rows of x_q stay in L2 across the column tiles. Split K, for the
+// decoder shapes whose 16-48 tiles would leave most of the 132 SMs idle (the
+// wrapper picks the splits, ops/gemm.py split_k): each unit writes its exact
+// int32 partial sums to a workspace (S, M, N), and a second kernel sums the
+// S partials (integer sums are exact in any order, so the result stays
+// bitwise that of one whole-K sum) and applies the same epilogue.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128;        // output rows per tile
-constexpr int BN = 128;        // output columns per tile
-constexpr int BK = 64;         // k (bytes) per pipeline stage
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns)
-constexpr int GROUP = 8;       // row tiles per raster group
-constexpr int LDS = BK + 16;   // padded smem row (80 bytes)
-constexpr int A_STAGE = BM * LDS;
-constexpr int B_STAGE = BN * LDS;
-constexpr int SMEM = STAGES * (A_STAGE + B_STAGE);
+constexpr int GROUP = 8;        // row tiles a raster group
 
 struct Params {
-  const int8_t* x;
-  const int8_t* w;    // (N, K)
   const float* xs;
   const float* ws;
   __nv_bfloat16* o;
-  int M, N, K;
+  int* part;                    // (splits, M, N) int32 partial sums, or null
+  int M, N, K, splits;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy; src_bytes 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// four 8 x 16-byte matrices; lane l gets 4 bytes (l % 4) of row l / 4 of each
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// D(16x8, s32) += A(16x32, s8, row) * B(32x8, s8, col)
-__device__ __forceinline__ void mma16832(int c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float dequant(int acc, float xs, float ws) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
 }
 
-__global__ void __launch_bounds__(THREADS)
-quant_matmul_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Bs = As + STAGES * A_STAGE;
+struct Int8 {
+  using Acc = int;
+  const CUtensorMap* ta;
+  const CUtensorMap* tb;
+  Params p;
 
-  // raster: groups of GROUP row tiles, the row tile fastest in a group
-  const int n_mt = (p.M + BM - 1) / BM;
-  const int n_nt = (p.N + BN - 1) / BN;
-  const int per_group = GROUP * n_nt;
-  const int pid = blockIdx.x;
-  const int first = (pid / per_group) * GROUP;
-  const int gsize = min(n_mt - first, GROUP);
-  const int local = pid % per_group;
-  const int m0 = (first + local % gsize) * BM;
-  const int n0 = (local / gsize) * BN;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * 64;   // the warp's first row in the tile
-  const int wn = (warp & 3) * 32;    // its first column
-
-  // one stage: 512 16-byte chunks of x_q (128 rows x 4) and 512 of w_qt,
-  // two of each per thread; rows past M or N and k past K read zeros
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    int8_t* a = As + stage * A_STAGE;
-    int8_t* b = Bs + stage * B_STAGE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c >> 2, col = (c & 3) * 16;
-      const int k = k0 + col;
-      const bool in_a = m0 + r < p.M && k < p.K;
-      cp_async16(a + r * LDS + col,
-                 in_a ? p.x + (long long)(m0 + r) * p.K + k : p.x, in_a ? 16 : 0);
-      const bool in_b = n0 + r < p.N && k < p.K;
-      cp_async16(b + r * LDS + col,
-                 in_b ? p.w + (long long)(n0 + r) * p.K + k : p.w, in_b ? 16 : 0);
-    }
-  };
-
-  int acc[4][4][4];   // [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  const int KT = (p.K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
+  __device__ void prefetch_maps() const {
+    sm90::tma_prefetch(ta);
+    sm90::tma_prefetch(tb);
   }
 
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();   // stage kt has landed
-    __syncthreads();               // and every warp is done with kt - 1
-    const int pf = kt + STAGES - 1;
-    if (pf < KT) load_stage(pf % STAGES, pf);
-    cp_async_commit();
+  __device__ void load(unsigned char* a, unsigned char* b, uint64_t* bar, const gemm::Unit& w,
+                       int kb) const {
+    sm90::tma_load_2d(a, ta, bar, kb * gemm::BK_BYTES, w.mt * gemm::BM);
+    sm90::tma_load_2d(b, tb, bar, kb * gemm::BK_BYTES, w.nt * gemm::BN);
+  }
 
-    const int8_t* a = As + (kt % STAGES) * A_STAGE;
-    const int8_t* b = Bs + (kt % STAGES) * B_STAGE;
+  // B K-major, as A: rows of 128 bytes, 8-row groups 1024 bytes apart
+  static __device__ uint64_t b_desc(uint32_t b) {
+    return sm90::make_desc(b, 16, 1024, sm90::SWIZZLE_128B);
+  }
+
+  // four k32 steps, 32 bytes apart inside the 128-byte span
+  static __device__ void mma(int (&acc)[128], uint64_t da, uint64_t db) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-      // A: matrices (rows 0-7, k 0-15), (8-15, 0-15), (0-7, 16-31),
-      // (8-15, 16-31) of each 16-row tile: a0..a3 of m16n8k32
+    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_s8_m64n256k32(acc, da + 2 * kk, db + 2 * kk);
+  }
+
+  __device__ void side_work(int, int) const {}
+
+  __device__ void epilogue(int (&acc)[128], const gemm::Unit& w, int row, int lane,
+                           uint32_t* buf) const {
+    const int g = lane >> 2, t4 = lane & 3;
+    const long long row0 = (long long)w.mt * gemm::BM + row;
+    const int col0 = w.nt * gemm::BN;
+    if (p.part != nullptr) {
+      // split K: the exact partial sums, a column pair a thread (32
+      // contiguous bytes a row for the 4 threads of a row group)
+      int* part = p.part + (long long)w.split * p.M * p.N;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], a + (wm + i * 16 + (lane & 15)) * LDS + kk
-                               + (lane >> 4) * 16);
-      // B: matrices (n 0-7, k 0-15), (0-7, 16-31), (8-15, 0-15),
-      // (8-15, 16-31) of each 16-column pair: b0, b1 of two n8 tiles
+      for (int j = 0; j < 32; ++j) {
+        const int col = col0 + 8 * j + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b + (wn + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                           + kk + ((lane >> 3) & 1) * 16);
-        bf[2 * j][0] = r[0];
-        bf[2 * j][1] = r[1];
-        bf[2 * j + 1][0] = r[2];
-        bf[2 * j + 1][1] = r[3];
+        for (int r = 0; r < 2; ++r) {
+          const long long m = row0 + g + 8 * r;
+          if (m < p.M && col < p.N)
+            *reinterpret_cast<int2*>(part + m * p.N + col) =
+                make_int2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma16832(acc[i][j], af[i], bf[j][0], bf[j][1]);
+      return;
     }
+    const float xs0 = p.xs[min(row0 + g, (long long)p.M - 1)];
+    const float xs1 = p.xs[min(row0 + g + 8, (long long)p.M - 1)];
+    auto pack = [&](int j, int r) {
+      const int col = col0 + 8 * j + 2 * t4;
+      const float2 ws = col < p.N ? __ldg(reinterpret_cast<const float2*>(p.ws + col))
+                                  : make_float2(0.f, 0.f);
+      const float xs = r ? xs1 : xs0;
+      return gemm::pack_bf16(dequant(acc[4 * j + 2 * r], xs, ws.x),
+                             dequant(acc[4 * j + 2 * r + 1], xs, ws.y));
+    };
+    gemm::store_chunk<0>(buf, lane, pack, p.o, p.N, row0, p.M, col0, p.N);
+    gemm::store_chunk<1>(buf, lane, pack, p.o, p.N, row0, p.M, col0 + 64, p.N);
+    gemm::store_chunk<2>(buf, lane, pack, p.o, p.N, row0, p.M, col0 + 128, p.N);
+    gemm::store_chunk<3>(buf, lane, pack, p.o, p.N, row0, p.M, col0 + 192, p.N);
   }
-  cp_async_wait<0>();
+};
 
-  // epilogue: each fragment row holds 2 adjacent columns; N % 8 == 0, so a
-  // pair is in or out whole
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn + j * 8 + t4 * 2;
-    if (col >= p.N) continue;
-    const float ws0 = p.ws[col], ws1 = p.ws[col + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + i * 16 + g + h * 8;
-        if (row >= p.M) continue;
-        const float xs = p.xs[row];
-        __nv_bfloat162 v = __floats2bfloat162_rn(
-            dequant(acc[i][j][2 * h], xs, ws0), dequant(acc[i][j][2 * h + 1], xs, ws1));
-        *reinterpret_cast<__nv_bfloat162*>(p.o + (long long)row * p.N + col) = v;
-      }
-    }
+__global__ void __launch_bounds__(gemm::THREADS, 1)
+quant_matmul_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb, const Params p) {
+  const Int8 op{&ta, &tb, p};
+  const gemm::Walk walk{(p.M + gemm::BM - 1) / gemm::BM, (p.N + gemm::BN - 1) / gemm::BN, GROUP,
+                        p.splits, (p.K + gemm::BK_BYTES - 1) / gemm::BK_BYTES};
+  gemm::run(op, walk);
+}
+
+// Split K's second pass: 8 outputs a thread, the S partials summed in int32
+// (exact) and dequantized as the fused epilogue does.
+__global__ void __launch_bounds__(256)
+quant_matmul_kernel_reduce(const Params p) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long mn = (long long)p.M * p.N;
+  if (i * 8 >= mn) return;
+  const long long e = i * 8;
+  const long long m = e / p.N;
+  const int n = static_cast<int>(e - m * p.N);
+  int s[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int k = 0; k < p.splits; ++k) {
+    const int4* src = reinterpret_cast<const int4*>(p.part + k * mn + e);
+    const int4 a = src[0], b = src[1];
+    s[0] += a.x; s[1] += a.y; s[2] += a.z; s[3] += a.w;
+    s[4] += b.x; s[5] += b.y; s[6] += b.z; s[7] += b.w;
   }
+  const float xs = p.xs[m];
+  const float4 w0 = *reinterpret_cast<const float4*>(p.ws + n);
+  const float4 w1 = *reinterpret_cast<const float4*>(p.ws + n + 4);
+  uint4 v;
+  v.x = gemm::pack_bf16(dequant(s[0], xs, w0.x), dequant(s[1], xs, w0.y));
+  v.y = gemm::pack_bf16(dequant(s[2], xs, w0.z), dequant(s[3], xs, w0.w));
+  v.z = gemm::pack_bf16(dequant(s[4], xs, w1.x), dequant(s[5], xs, w1.y));
+  v.w = gemm::pack_bf16(dequant(s[6], xs, w1.z), dequant(s[7], xs, w1.w));
+  *reinterpret_cast<uint4*>(p.o + e) = v;
 }
 
 }  // namespace
 
-// x_q (M, K), w_qt (N, K) int8; xs (M,), ws (N,) f32; o (M, N) bf16; all
-// contiguous and 16-byte aligned (the wrapper checks). K must be a multiple
-// of 32 and N of 8. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for shapes the kernel does not take).
-extern "C" int quant_matmul_forward(const void* x_q, const void* w_qt,
-                                    const void* xs, const void* ws, void* o,
-                                    int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || N % 8)
+// geo: the tensor maps of x_q (M, K) and w_qt (N, K), gemm::GEO int64 each
+// (ops/gemm.py); xs (M,), ws (N,) f32; o (M, N) bf16; part: with splits > 1
+// an int32 workspace of splits x M x N, else null; all contiguous and
+// 16-byte aligned (the wrapper checks). K must be a multiple of 32 and N of
+// 8, splits at most K / 128 rounded up; grid: the persistent blocks (at most
+// one an SM). Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for shapes or maps the kernel does not take).
+extern "C" int quant_matmul_forward(const long long* geo, const void* xs, const void* ws,
+                                    void* o, void* part, int M, int N, int K, int splits,
+                                    int grid, void* stream) {
+  const int kb = (K + gemm::BK_BYTES - 1) / gemm::BK_BYTES;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 32 || N % 8 || grid <= 0 || splits < 1 || splits > kb ||
+      (splits > 1) != (part != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  cudaError_t err = gemm::encode(&ta, geo, 2, {gemm::BK_BYTES, gemm::BM, 1}, 1);
+  if (err == cudaSuccess)
+    err = gemm::encode(&tb, geo + gemm::GEO, 2, {gemm::BK_BYTES, gemm::BN, 1}, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
-  p.x = static_cast<const int8_t*>(x_q);
-  p.w = static_cast<const int8_t*>(w_qt);
   p.xs = static_cast<const float*>(xs);
   p.ws = static_cast<const float*>(ws);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.part = static_cast<int*>(part);
   p.M = M;
   p.N = N;
   p.K = K;
+  p.splits = splits;
   // above 48 KB a block gets dynamic shared memory only after this opt-in
-  cudaError_t err = cudaFuncSetAttribute(
-      quant_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  err = cudaFuncSetAttribute(quant_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             gemm::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  quant_matmul_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  quant_matmul_kernel<<<grid, gemm::THREADS, gemm::SMEM, st>>>(ta, tb, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long blocks = ((long long)M * N / 8 + 255) / 256;
+  quant_matmul_kernel_reduce<<<static_cast<unsigned>(blocks), 256, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

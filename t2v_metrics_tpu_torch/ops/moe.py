@@ -8,11 +8,14 @@
      (``plan_groups``), built as one row gather; no token is dropped;
   3. ``grouped_matmul``: each row block times its expert's weight matrix,
      the CUDA kernel of ``csrc/grouped_gemm.cu`` on the card (see the note
-     there for what it replaces, what bounds it and its design);
+     there for what it replaces, what bounds it and its design); the
+     dispatch passes ``num_blocks``, the row blocks that belong to an
+     expert, so the E pad blocks past them are not computed (their rows are
+     zeros; the JAX kernel computes them, and no token reads them);
   4. combine: each token's k outputs gathered back and summed with the
      router weights, in the activation dtype.
 
-Expert FLOPs: ~(T*k + E*block_m) * H * I against the dense path's T*E*H*I
+Expert FLOPs: ~(T*k + E*block_m/2) * H * I against the dense path's T*E*H*I
 (``models/decoder.py:_moe_mlp``, the numerics oracle). Everything here runs
 on the device with static shapes and no host sync: the counts are a
 ``scatter_add_`` into zeros(E) (``torch.bincount`` on CUDA reads its maximum
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from . import gemm as G
 from . import layers as L
 from . import quant as Q
 
@@ -48,6 +52,14 @@ def plan_groups(expert_ids: torch.Tensor, num_experts: int, block_m: int):
     row block (0 for the pad blocks that belong to no expert), and the
     static buffer length P = round_up(Tk, block_m) + E * block_m.
     """
+    return _plan(expert_ids, num_experts, block_m)[:4]
+
+
+def _plan(expert_ids: torch.Tensor, num_experts: int, block_m: int):
+    """``plan_groups``'s four results and ``num_blocks``: a (1,) int32
+    device tensor, the leading row blocks that belong to an expert (the
+    rest are pad blocks no token reads), from the counts, with no host
+    sync."""
     tk = expert_ids.shape[0]
     dev = expert_ids.device
     p_rows = _round_up(tk, block_m) + num_experts * block_m
@@ -66,7 +78,8 @@ def plan_groups(expert_ids: torch.Tensor, num_experts: int, block_m: int):
     block_row = torch.arange(p_rows // block_m, device=dev)[:, None] * block_m
     in_e = (block_row >= starts[None]) & (block_row < (starts + padded)[None])
     block_expert = in_e.int().argmax(dim=1).to(torch.int32)
-    return order, dest, block_expert, p_rows
+    num_blocks = (padded.sum() // block_m).to(torch.int32).reshape(1)
+    return order, dest, block_expert, p_rows, num_blocks
 
 
 # ---------------------------------------------------------------------------
@@ -75,13 +88,17 @@ def plan_groups(expert_ids: torch.Tensor, num_experts: int, block_m: int):
 
 def grouped_matmul_reference(xg: torch.Tensor, w: torch.Tensor,
                              block_expert: torch.Tensor,
-                             block_m: int = BLOCK_M) -> torch.Tensor:
+                             block_m: int = BLOCK_M,
+                             num_blocks: torch.Tensor | None = None) -> torch.Tensor:
     """Each row block of xg (P, H) times its expert's w (E, H, I) -> (P, I).
 
     One ``torch.matmul`` per contiguous run of row blocks with the same
     expert, in the input dtype (fp32 accumulation in cuBLAS and in the CPU
-    BLAS, one rounding to the output dtype). ``block_expert`` is read on the
-    host (a sync when it lies on a GPU; a CPU copy avoids it).
+    BLAS, one rounding to the output dtype). With ``num_blocks`` (a
+    1-element int tensor) only the leading ``num_blocks`` row blocks are
+    computed and the rows past them are zeros, as the kernel does.
+    ``block_expert`` and ``num_blocks`` are read on the host (a sync when
+    they lie on a GPU; a CPU copy avoids it).
     """
     p = xg.shape[0]
     if p % block_m:
@@ -89,10 +106,14 @@ def grouped_matmul_reference(xg: torch.Tensor, w: torch.Tensor,
     be = block_expert.tolist()
     if len(be) != p // block_m:
         raise ValueError(f"grouped_matmul: {len(be)} block ids for {p // block_m} blocks")
+    used = len(be)
+    if num_blocks is not None:
+        used = min(max(int(num_blocks.reshape(-1)[0]), 0), len(be))
     out = torch.empty((p, w.shape[2]), dtype=xg.dtype, device=xg.device)
+    out[used * block_m:] = 0
     start = 0
-    for b in range(1, len(be) + 1):
-        if b == len(be) or be[b] != be[start]:
+    for b in range(1, used + 1):
+        if b == used or be[b] != be[start]:
             rows = slice(start * block_m, b * block_m)
             out[rows] = torch.matmul(xg[rows], w[be[start]])
             start = b
@@ -105,7 +126,8 @@ def grouped_matmul_reference(xg: torch.Tensor, w: torch.Tensor,
 
 def grouped_gemm_launch(xg: torch.Tensor, w: torch.Tensor,
                         block_expert: torch.Tensor,
-                        block_m: int = BLOCK_M) -> torch.Tensor:
+                        block_m: int = BLOCK_M,
+                        num_blocks: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; raise on what it does not take."""
     from ..build import grouped_gemm_lib
 
@@ -121,14 +143,23 @@ def grouped_gemm_launch(xg: torch.Tensor, w: torch.Tensor,
                          f"P {p}, K {k}, N {n}")
     if block_expert.dtype != torch.int32 or block_expert.shape != (p // BLOCK_M,):
         raise ValueError(f"grouped_gemm: block_expert must be int32 ({p // BLOCK_M},)")
-    for t, name in ((xg, "xg"), (w, "w"), (block_expert, "block_expert")):
+    if num_blocks is not None and (num_blocks.dtype != torch.int32 or num_blocks.numel() != 1):
+        raise ValueError("grouped_gemm: num_blocks must be a 1-element int32 tensor")
+    for t, name in ((xg, "xg"), (w, "w"), (block_expert, "block_expert"),
+                    (num_blocks, "num_blocks")):
+        if t is None:
+            continue
         if t.device != xg.device:
             raise ValueError("grouped_gemm: operands on different devices")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"grouped_gemm: {name} must be contiguous and 16-byte aligned")
+    geo = G.geo_array(((xg, G.kmajor_map(xg, BLOCK_M, "grouped_gemm", "xg")),
+                       (w, G.expert_map(w))))
     out = torch.empty((p, n), dtype=xg.dtype, device=xg.device)
-    rc = grouped_gemm_lib()(xg.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
-                            out.data_ptr(), p, k, n, e,
+    tiles = (p // BLOCK_M) * -(-n // G.BN)
+    rc = grouped_gemm_lib()(geo, block_expert.data_ptr(),
+                            None if num_blocks is None else num_blocks.data_ptr(),
+                            out.data_ptr(), p, k, n, e, min(tiles, G.sm_count(xg.device)),
                             torch.cuda.current_stream(xg.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"grouped_gemm_forward launch failed: CUDA error {rc}")
@@ -141,14 +172,16 @@ grouped_gemm_launch.launches = 0
 
 def grouped_matmul(xg: torch.Tensor, w: torch.Tensor,
                    block_expert: torch.Tensor,
-                   block_m: int = BLOCK_M) -> torch.Tensor:
+                   block_m: int = BLOCK_M,
+                   num_blocks: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped GEMM: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. ``num_blocks`` (optional, a 1-element int32 tensor): only
+    the leading row blocks are computed and the rows past them are zeros."""
     if xg.device.type == "cpu":
-        return grouped_matmul_reference(xg, w, block_expert, block_m)
+        return grouped_matmul_reference(xg, w, block_expert, block_m, num_blocks)
     if xg.device.type != "cuda":
         raise ValueError(f"grouped_matmul: no kernel for device {xg.device}")
-    return grouped_gemm_launch(xg, w, block_expert, block_m)
+    return grouped_gemm_launch(xg, w, block_expert, block_m, num_blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -171,17 +204,18 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
     probs = torch.softmax(Q.mm(xt, p.router).float(), dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)
     topv = topv / topv.sum(-1, keepdim=True)                     # (T, k)
-    order, dest, block_expert, p_rows = plan_groups(topi.reshape(-1),
+    order, dest, block_expert, p_rows, used = _plan(topi.reshape(-1),
                                                     cfg.num_experts, block_m)
     # the grouped buffer as a row gather: each slot's source token; pad
     # slots read token row 0, a finite row whose outputs are never read
     token_of = torch.arange(t, device=dev).repeat_interleave(k)[order]
     src = torch.zeros(p_rows, dtype=torch.long, device=dev).scatter_(0, dest, token_of)
     xg = xt.index_select(0, src)
-    gu = grouped_matmul(xg, p.gate_up, block_expert, block_m)     # (P, 2I)
+    # the pad blocks past `used` are not computed (their rows are zeros)
+    gu = grouped_matmul(xg, p.gate_up, block_expert, block_m, used)   # (P, 2I)
     g, u = gu.chunk(2, dim=-1)
     act = (L.ACT_FNS[cfg.act](g) * u).to(x.dtype).contiguous()
-    y = grouped_matmul(act, p.down, block_expert, block_m)        # (P, H)
+    y = grouped_matmul(act, p.down, block_expert, block_m, used)  # (P, H)
     # combine: token t's k outputs sit at the dest rows of its assignments
     inv = torch.zeros(t * k, dtype=torch.long, device=dev).scatter_(0, order, dest)
     yk = y.index_select(0, inv).reshape(t, k, h)

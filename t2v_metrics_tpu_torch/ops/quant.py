@@ -18,8 +18,8 @@ projector stay in the working dtype.
 The int8 weight is stored transposed, ``w_qt`` (out, in) contiguous, and
 read as ``w_q = w_qt.t()``, a (in, out) view: the JAX (K, N) layout at every
 function's signature, and, for the kernel, each output column's K values
-contiguous, the "col" B operand of the int8 ``mma`` (sm_90 has no
-``ldmatrix.trans`` for 8-bit elements). It costs no extra memory.
+contiguous, the K-major B operand of the int8 ``wgmma`` (8-bit wgmma has no
+transpose). It costs no extra memory.
 
 The two kernels of the mode, each with its plain PyTorch version (the CPU
 route and the oracle on the card) and a launch counter:
@@ -38,7 +38,9 @@ scale. One read, one write.
 ``quant_matmul`` (CUDA C++, ``csrc/quant_matmul.cu``; its note there says
 what bounds it and its design) replaces the TPU kernel
 t2v_metrics_tpu/ops/quant_matmul.py:_kernel: s8 x s8 -> s32 over the whole
-K, the dequant epilogue fused, the int32 accumulator never in device memory.
+K, the dequant epilogue fused, the int32 accumulator never in device memory
+except where few tiles make the wrapper split K (``ops/gemm.py split_k``:
+the T5 decoder's rows), whose exact partial sums a second pass adds.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise.
@@ -50,6 +52,8 @@ import functools
 
 import torch
 from torch import nn
+
+from . import gemm as G
 
 
 class Linear(nn.Module):
@@ -236,9 +240,18 @@ def quant_matmul_launch(x_q: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
     if m == 0:
         return out
-    rc = quant_matmul_lib()(x_q.data_ptr(), w_qt.data_ptr(), x_scale.data_ptr(),
-                            w_scale.data_ptr(), out.data_ptr(), m, n, k,
-                            torch.cuda.current_stream(x_q.device).cuda_stream)
+    geo = G.geo_array(((x_q, G.kmajor_map(x_q, G.BM, "quant_matmul", "x_q")),
+                       (w_qt, G.kmajor_map(w_qt, G.BN, "quant_matmul", "w_q.t()"))))
+    sms = G.sm_count(x_q.device)
+    splits = G.split_k(m, n, k, sms)
+    # split K: the exact int32 partial sums of each split, summed by the
+    # kernel's second pass (allocated here; the kernel allocates nothing)
+    part = (torch.empty((splits, m, n), dtype=torch.int32, device=x_q.device)
+            if splits > 1 else None)
+    units = -(-m // G.BM) * -(-n // G.BN) * splits
+    rc = quant_matmul_lib()(geo, x_scale.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+                            None if part is None else part.data_ptr(), m, n, k, splits,
+                            min(units, sms), torch.cuda.current_stream(x_q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul_forward launch failed: CUDA error {rc}")
     quant_matmul_launch.launches += 1

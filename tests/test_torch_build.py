@@ -1,6 +1,7 @@
 """The port's kernel build, on the CPU: a library's name carries a hash of
 its sources and of every header under ``csrc/``, so editing a header that a
-source includes rebuilds the library (nothing is compiled here)."""
+source includes (the attention body, the GEMM mainloop, the PTX wrappers)
+rebuilds the library (nothing is compiled here)."""
 
 import shutil
 
@@ -11,18 +12,22 @@ pytest.importorskip("torch")
 from t2v_metrics_tpu_torch import build  # noqa: E402
 
 
-@pytest.mark.parametrize("header", ["flash_common.cuh", "sm90.cuh"])
-def test_editing_a_header_renames_the_library(tmp_path, header):
+@pytest.mark.parametrize("lib,header", [
+    ("flash_flat", "flash_common.cuh"), ("flash_flat", "sm90.cuh"),
+    ("grouped_gemm", "gemm_sm90.cuh"), ("grouped_gemm", "sm90.cuh"),
+    ("quant_matmul", "gemm_sm90.cuh"), ("quant_matmul", "sm90.cuh"),
+])
+def test_editing_a_header_renames_the_library(tmp_path, lib, header):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
-    src = [csrc / "flash_flat.cu"]
-    before = build.library_path("flash_flat", src, csrc)
-    assert before == build.library_path("flash_flat", src, csrc)
+    src = [csrc / f"{lib}.cu"]
+    before = build.library_path(lib, src, csrc)
+    assert before == build.library_path(lib, src, csrc)
     (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
-    after = build.library_path("flash_flat", src, csrc)
+    after = build.library_path(lib, src, csrc)
     assert after != before and after.parent == before.parent
     (csrc / "new_header.cuh").write_text("#pragma once\n")
-    assert build.library_path("flash_flat", src, csrc) != after
+    assert build.library_path(lib, src, csrc) != after
 
 
 def test_every_attention_header_is_hashed():
@@ -32,3 +37,11 @@ def test_every_attention_header_is_hashed():
         text = (build.CSRC_DIR / cu).read_text()
         assert '#include "flash_common.cuh"' in text
     assert '#include "sm90.cuh"' in (build.CSRC_DIR / "flash_common.cuh").read_text()
+
+
+def test_every_gemm_header_is_hashed():
+    headers = {p.name for p in build.CSRC_DIR.glob("*.cuh")}
+    assert {"gemm_sm90.cuh", "sm90.cuh"} <= headers
+    for cu in ("grouped_gemm.cu", "quant_matmul.cu"):
+        assert '#include "gemm_sm90.cuh"' in (build.CSRC_DIR / cu).read_text()
+    assert '#include "sm90.cuh"' in (build.CSRC_DIR / "gemm_sm90.cuh").read_text()

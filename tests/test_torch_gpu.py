@@ -344,6 +344,34 @@ def test_grouped_gemm_kernel(dev, e, k, n, routing):
     _close(out, M.grouped_matmul_reference(xg, w, be.cpu()), 1e-4, 2 ** -7)
 
 
+@pytest.mark.parametrize("e,k,n,routing", [
+    (3, 64, 128, "random"),
+    (4, 768, 256, "random"),    # the down projection's K
+    (5, 768, 384, "skewed"),    # two experts take every row; N past one 256 tile
+    (8, 2048, 512, "top-k"),    # gate_up's K, 4 of 8 experts a token
+])
+def test_grouped_gemm_kernel_num_blocks(dev, e, k, n, routing):
+    """With num_blocks the kernel computes the blocks of the plan's experts
+    and writes zeros past them, as the plain version does."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tk = 1200
+    if routing == "skewed":
+        ids = torch.tensor([1, 3], device=dev).repeat(tk // 2)
+    elif routing == "top-k":
+        ids = torch.rand((tk // 4, e), generator=gen, device=dev).topk(4).indices.reshape(-1)
+    else:
+        ids = torch.randint(0, e, (tk,), generator=gen, device=dev)
+    _, _, be, p, used = M._plan(ids, e, M.BLOCK_M)
+    xg = _randn(dev, p, k, seed=12)
+    w = _randn(dev, e, k, n, seed=13, std=k ** -0.5)
+    out = M.grouped_matmul(xg, w, be, M.BLOCK_M, used)
+    ref = M.grouped_matmul_reference(xg, w, be.cpu(), M.BLOCK_M, used.cpu())
+    rows = int(used) * M.BLOCK_M
+    assert rows < p and torch.equal(out[rows:], torch.zeros_like(out[rows:]))
+    _close(out, ref, 1e-4, 2 ** -7)
+    _close(out[:rows], M.grouped_matmul(xg, w, be)[:rows], 1e-4, 2 ** -7)
+
+
 def test_grouped_gemm_refuses_what_it_lacks(dev):
     be = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):                             # N % 128
@@ -383,6 +411,28 @@ def test_quant_matmul_kernel(dev, m, k, n):
     assert launch_counts()["quant_matmul"] == before + 1
     ref = TQ.quant_matmul_plain(x_q, w_qt.t(), xs, ws)
     assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,n", [(1, 4096), (100, 4096), (128, 4096), (128, 1000)])
+def test_quant_matmul_kernel_split_k(dev, m, n):
+    """The T5 decoder's rows at K = 10240: split K, the int32 partials
+    summed by the second pass, still bitwise."""
+    from t2v_metrics_tpu_torch.ops import gemm as G
+
+    k = 10240
+    assert G.split_k(m, n, k, G.sm_count(dev)) > 1
+    x_q = _int8(dev, m, k, seed=1)
+    x_q[0] = 127
+    w_qt = _int8(dev, n, k, seed=2)
+    w_qt[0] = 127                # |acc| = 127^2 x 10240, past 2^24
+    xs = torch.rand((m, 1), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev) * 1e-2 + 1e-3
+    ws = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev) * 1e-2 + 1e-3
+    before = launch_counts()["quant_matmul"]
+    out = TQ.quant_matmul(x_q, w_qt.t(), xs, ws)
+    assert launch_counts()["quant_matmul"] == before + 1
+    assert torch.equal(out, TQ.quant_matmul_plain(x_q, w_qt.t(), xs, ws))
 
 
 @pytest.mark.parametrize("shape", [(7, 96), (3, 5, 1024), (33, 4096), (2, 10240)])
