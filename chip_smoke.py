@@ -8,8 +8,8 @@ Phases (any failure exits non-zero and prints no result line):
      clip-flant5 (bf16 and W8A8), Qwen2.5-VL, Qwen3-VL and Gemma 3 paths from
      the sources in this checkout (one nvcc per CUDA source, started
      together: the flat flash attention and the per-head flash attention at
-     head dims 64/72/80/128/256, the MoE grouped GEMM and the int8 GEMM;
-     Triton for LayerNorm, RMSNorm, the rotary embedding and the per-row int8
+     head dims 64/72/80/128/256, the MoE grouped GEMM, the int8 GEMM and
+     LayerNorm; Triton for RMSNorm, the rotary embedding and the per-row int8
      quant) and time the build;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the clip-flant5-xl/xxl, Qwen2.5-VL-7B, Qwen3-VL-30B-A3B and
@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result line):
      T5 bias at the clip-flant5-xl shapes), with its tolerance, CUDA-event
      times, its bound (the least time the card could take: bytes over 3.35
      TB/s or operations over the peak rate of their type) and, where one
-     PyTorch call computes the same function, that call's time
+     PyTorch call computes the same function, that call's time; LayerNorm
+     also with the residual add folded in, at each of its four sites
      (``--kernels-only`` stops here, with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
@@ -49,8 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
 summed over the first calls of the seven slices; a row's ``sites`` are
 further shapes of the main path, each with its times, bound and library
-time: the grouped GEMM's down projection and the int8 GEMM's split-K
-decoder shape), the card's name and power limit, and ``{"ok": true,
+time: the grouped GEMM's down projection, the int8 GEMM's split-K decoder
+shape, LayerNorm's other shapes and its add + LayerNorm entry), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -159,7 +160,7 @@ KERNELS = {
                              "t2v_metrics_tpu/ops/attention.py:565"),
     "flash_attention": ("cuda", "t2v_metrics_tpu_torch/csrc/flash_attention.cu",
                         "t2v_metrics_tpu/ops/attention.py:151"),
-    "layer_norm": ("triton", "t2v_metrics_tpu_torch/ops/norms.py",
+    "layer_norm": ("cuda", "t2v_metrics_tpu_torch/csrc/layer_norm.cu",
                    "t2v_metrics_tpu/ops/norms.py:65"),
     "rms_norm": ("triton", "t2v_metrics_tpu_torch/ops/norms.py",
                  "t2v_metrics_tpu/ops/norms.py:113"),
@@ -276,8 +277,6 @@ def phase_build() -> None:
     def ones(*shape, dtype=torch.bfloat16):
         return torch.ones(shape, device=dev, dtype=dtype)
 
-    for d in (1024, 1152, 4608):
-        norms.layer_norm_fused(ones(8, d), ones(d), ones(d))
     for d in (2048, 1280, 3584):
         norms.rms_norm_fused(ones(8, d), ones(d))
     for d in (2560, 1152):     # Gemma: (1 + w), multiplied in fp32
@@ -293,13 +292,20 @@ def phase_build() -> None:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     log(f"[build] nvcc flash_flat.cu and flash_attention.cu (head dims "
-        f"64/72/80/128/256), grouped_gemm.cu and quant_matmul.cu in parallel: "
-        f"{t_nvcc:.2f} s; with the Triton norms, rotary embedding and row "
-        f"quant: {total:.2f} s")
+        f"64/72/80/128/256), grouped_gemm.cu, quant_matmul.cu and layer_norm.cu "
+        f"in parallel: {t_nvcc:.2f} s; with the Triton RMSNorm, rotary embedding "
+        f"and row quant: {total:.2f} s")
     for lib in ("flash_flat", "flash_attention", "grouped_gemm", "quant_matmul"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] ptxas {lib}: {line.strip()}")
+    # layer_norm.cu's 100 small instantiations, summed up
+    usage = build.ptxas_usage("layer_norm")
+    regs = [u[0] for u in usage.values()]
+    check(usage, "layer_norm.cu: no ptxas lines in its build log")
+    log(f"[build] ptxas layer_norm: {len(usage)} kernels, {min(regs)}-{max(regs)} "
+        f"registers; spill stores {sum(u[1] for u in usage.values())} bytes, spill "
+        f"loads {sum(u[2] for u in usage.values())} bytes in all")
 
 
 # ---------------------------------------------------------------------------
@@ -352,22 +358,42 @@ def phase_kernels() -> dict:
                  "bound_by": lo_by, "library_ms": lib_ms})
         return ms, plain_ms
 
-    # LayerNorm: ln_pre at (M*577, 1024), ln1/ln2 at (M*640, 1024), M=4;
-    # Qwen3-VL ViT blocks at (M*4096, 1152) and the deepstack mergers
-    # (post-shuffle) at (M*1024, 4608), one row per program
+    # LayerNorm: the CLIP ViT-L ln_pre at (M*577, 1024) and ln1/ln2 at
+    # (M*640, 1024), M=4 (the table's shape); the Qwen3-VL ViT (and
+    # SigLIP-896) blocks at (M*4096, 1152); the Qwen3-VL deepstack mergers
+    # (post-shuffle) at (M*1024, 4608). Each also with the residual add
+    # folded in (add_layer_norm: s bitwise the eager x + r, y against the
+    # plain LayerNorm of it), whose library yardstick is two calls, x + r
+    # then F.layer_norm. Bounds: bf16 in and out, weights once; the add
+    # reads x and r and writes s and y.
     for rows, d, main in ((4 * 577, 1024, False), (4 * 640, 1024, True),
                           (4 * 4096, 1152, False), (4 * 1024, 4608, False)):
         x, w, b = randn(rows, d, std=3.0), randn(d), randn(d)
+        r = randn(rows, d, std=3.0)
         out, ref = N.layer_norm_fused(x, w, b), N.layer_norm_plain(x, w, b)
         bad = outside(out, ref, NORM_ATOL, LN_RTOL)
         record("layer_norm", f"({rows}, {d})", out, ref, bad == 0,
                f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; "
                f"max {bf16_ulps(out, ref)} bf16 ulps",
-               lambda: N.layer_norm_fused(x, w, b),
-               lambda: N.layer_norm_plain(x, w, b), main,
+               lambda: N.layer_norm_fused(x, w, b),  # noqa: B023
+               lambda: N.layer_norm_plain(x, w, b), main,  # noqa: B023
                lower=(8 * rows * d, 4 * rows * d + 4 * d, "fp32"),
-               library=main and ("F.layer_norm", cuda_ms(
-                   lambda: F.layer_norm(x, (d,), w, b, 1e-5))) or None)
+               library=("F.layer_norm", cuda_ms(
+                   lambda: F.layer_norm(x, (d,), w, b, 1e-5))),  # noqa: B023
+               site=not main)
+        (s, out), s_ref = N.add_layer_norm_fused(x, r, w, b), x + r
+        ref = N.layer_norm_plain(s_ref, w, b)
+        bad, same = outside(out, ref, NORM_ATOL, LN_RTOL), bool(torch.equal(s, s_ref))
+        record("layer_norm", f"add + LN ({rows}, {d})", out, ref, bad == 0 and same,
+               f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; max "
+               f"{bf16_ulps(out, ref)} bf16 ulps; s bitwise x + r: {same}",
+               lambda: N.add_layer_norm_fused(x, r, w, b),  # noqa: B023
+               lambda: N.add_layer_norm_plain(x, r, w, b), False,  # noqa: B023
+               lower=(9 * rows * d, 8 * rows * d + 4 * d, "fp32"),
+               library=("x + r, then F.layer_norm (two calls)", cuda_ms(
+                   lambda: F.layer_norm(x + r, (d,), w, b, 1e-5))),  # noqa: B023
+               site=True)
+        del x, r, s, out, ref, s_ref
 
     # RMSNorm: T5 encoder at (P*640, 2048), decoder at (P*4, 2048), P=32;
     # Qwen2.5-VL-7B ViT at (M*5120, 1280), M=4, decoder at (P*1280, 3584), P=16
@@ -1543,7 +1569,7 @@ KERNEL_FAMILIES = (("quant_matmul", ("quant_matmul_kernel",)),
                    ("attention", ("attention_kernel",)),
                    ("rope", ("rope_kernel",)),
                    ("rms_norm", ("rms_kernel",)),
-                   ("layer_norm", ("ln_kernel",)),
+                   ("layer_norm", ("layer_norm_kernel",)),
                    ("gemm", ("gemm", "nvjet", "cutlass", "xmma")))
 
 

@@ -34,8 +34,9 @@ from pathlib import Path
 import torch
 
 
-def cuda_ms(fn, warmup=3, iters=20) -> list[float]:
-    """[median, 20th percentile, 80th percentile] of ``iters`` timed runs."""
+def cuda_ms(fn, warmup=3, iters=20, digits=5) -> list[float]:
+    """[median, 20th percentile, 80th percentile] of ``iters`` timed runs,
+    rounded to ``digits`` decimals."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -50,8 +51,8 @@ def cuda_ms(fn, warmup=3, iters=20) -> list[float]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     times.sort()
-    return [round(statistics.median(times), 5), round(times[iters // 5], 5),
-            round(times[(4 * iters) // 5], 5)]
+    return [round(statistics.median(times), digits), round(times[iters // 5], digits),
+            round(times[(4 * iters) // 5], digits)]
 
 
 def sass_digest(lib: Path) -> dict:

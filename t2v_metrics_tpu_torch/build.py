@@ -3,7 +3,8 @@
 Each CUDA source (``csrc/flash_flat.cu`` and ``csrc/flash_attention.cu``,
 which share the body in ``csrc/flash_common.cuh``; ``csrc/grouped_gemm.cu``
 and ``csrc/quant_matmul.cu``, which share the GEMM mainloop in
-``csrc/gemm_sm90.cuh``; all four the Hopper primitives in ``csrc/sm90.cuh``) is
+``csrc/gemm_sm90.cuh``; all four the Hopper primitives in ``csrc/sm90.cuh``;
+``csrc/layer_norm.cu``, which includes none of them) is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own with
 a plain C interface and loaded with ``ctypes``. The library's name carries a
 hash of its sources, of every header under ``csrc/`` and of the flags, so an
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -128,7 +130,24 @@ def quant_matmul_lib():
     return fn
 
 
-CUDA_LIBS = (flash_flat_lib, flash_attention_lib, grouped_gemm_lib, quant_matmul_lib)
+@functools.cache
+def layer_norm_lib():
+    """The library of csrc/layer_norm.cu, built on first use: its C entries
+    ``layer_norm_forward`` and ``layer_norm_blocks_per_sm``."""
+    lib = ctypes.CDLL(str(build_shared_lib("layer_norm", [CSRC_DIR / "layer_norm.cu"])))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # x, r, scale, bias, s, y; x and r row strides; rows, d, dtype, vec,
+    # nv_cap, nv, warps_per_row, block_warps, grid; eps; stream
+    lib.layer_norm_forward.argtypes = [vp] * 6 + [i64] * 2 + [i32] * 9 + [ctypes.c_float, vp]
+    lib.layer_norm_forward.restype = i32
+    # dtype, vec, nv_cap, add, d, has_bias, block_warps; out: resident blocks an SM
+    lib.layer_norm_blocks_per_sm.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
+    lib.layer_norm_blocks_per_sm.restype = i32
+    return lib
+
+
+CUDA_LIBS = (flash_flat_lib, flash_attention_lib, grouped_gemm_lib, quant_matmul_lib,
+             layer_norm_lib)
 
 
 def build_all() -> None:
@@ -146,3 +165,18 @@ def build_log(name: str) -> str:
     logs = sorted(BUILD_DIR.glob(f"lib{name}_*.log"),
                   key=lambda p: p.stat().st_mtime)
     return logs[-1].read_text() if logs else ""
+
+
+def ptxas_usage(name: str) -> dict[str, tuple[int, int, int]]:
+    """{kernel's mangled name: (registers, spill store bytes, spill load
+    bytes)} from the ``-Xptxas -v`` lines of the newest build of ``name``."""
+    usage, fn = {}, None
+    for line in build_log(name).splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn = m.group(1)
+            usage[fn] = [0, 0, 0]
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[fn][1:] = int(m.group(1)), int(m.group(2))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            usage[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}

@@ -121,15 +121,19 @@ def init_norm_(norm: Norm) -> None:
         norm.bias.zero_()
 
 
-def _block(p: VisionBlock, x: torch.Tensor, heads: int, eps: float, act: str,
-           causal: bool = False, kv_mask=None) -> torch.Tensor:
-    h = L.layer_norm(x, p.ln1.scale, p.ln1.bias, eps)
+def _block(p: VisionBlock, x: torch.Tensor, branch: torch.Tensor | None, heads: int,
+           eps: float, act: str, causal: bool = False,
+           kv_mask=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pre-LN block on the residual stream ``x + branch`` (``branch``:
+    the previous block's MLP output, not yet added, or None). Each residual
+    add is folded into the LayerNorm that reads its sum. Returns (the stream
+    after the attention half, this block's MLP output, not yet added)."""
+    x, h = L.add_layer_norm(x, branch, p.ln1.scale, p.ln1.bias, eps)
     a = attention_flat_packed(Q.linear(h, p.qkv), heads, causal=causal,
                               kv_mask=kv_mask)
-    x = x + Q.linear(a, p.o)
-    h = L.layer_norm(x, p.ln2.scale, p.ln2.bias, eps)
+    x, h = L.add_layer_norm(x, Q.linear(a, p.o), p.ln2.scale, p.ln2.bias, eps)
     h = L.ACT_FNS[act](Q.linear(h, p.fc1))
-    return x + Q.linear(h, p.fc2)
+    return x, Q.linear(h, p.fc2)
 
 
 def vision_tower(p: VisionTower, cfg: CLIPVisionConfig, pixels: torch.Tensor,
@@ -161,10 +165,16 @@ def vision_tower(p: VisionTower, cfg: CLIPVisionConfig, pixels: torch.Tensor,
 
     n_blocks = (len(p.blocks) if feature_layer is None
                 else len(p.blocks) + 1 + feature_layer)
+    branch = None
     for blk in p.blocks[:n_blocks]:
-        x = _block(blk, x, cfg.heads, cfg.ln_eps, cfg.act, kv_mask=kv_mask)
+        x, branch = _block(blk, x, branch, cfg.heads, cfg.ln_eps, cfg.act,
+                           kv_mask=kv_mask)
 
     if feature_layer is not None:
-        return x[:, 1:t, :]
-    cls_out = L.layer_norm(x[:, 0], p.ln_post.scale, p.ln_post.bias, cfg.ln_eps)
+        # no LayerNorm reads the last block's sum: a plain add of the rows kept
+        feats = x[:, 1:t, :]
+        return feats if branch is None else feats + branch[:, 1:t, :]
+    # ln_post reads only the CLS row of the sum
+    cls_out = L.add_layer_norm(x[:, 0], None if branch is None else branch[:, 0],
+                               p.ln_post.scale, p.ln_post.bias, cfg.ln_eps)[1]
     return cls_out @ p.proj

@@ -304,18 +304,19 @@ def init_qwen3vl(cfg: Qwen3VLConfig, seed: int, device,
 # Device: vision tower
 # ---------------------------------------------------------------------------
 
-def _merger(p: Merger, cfg: Qwen3VisionConfig, x: torch.Tensor,
-            postshuffle: bool) -> torch.Tensor:
-    """(B, S, hidden) -> (B, S/merge_unit, out_hidden)."""
+def _merger(p: Merger, h: torch.Tensor) -> torch.Tensor:
+    """The merger's MLP on normed rows (B, S/merge_unit, merge_unit * hidden)
+    -> (B, S/merge_unit, out_hidden)."""
+    return Q.linear(L.ACT_FNS["gelu"](Q.linear(h, p.fc1)), p.fc2)
+
+
+def _deepstack_merger(p: Merger, cfg: Qwen3VisionConfig, x: torch.Tensor) -> torch.Tensor:
+    """The post-shuffle merger of a deepstack level: (B, S, hidden) -> (B,
+    S/merge_unit, out_hidden), the norm over each merge unit's rows."""
     b, s, _ = x.shape
     mu = cfg.merge_unit
-    if postshuffle:
-        x = L.layer_norm(x.reshape(b, s // mu, mu * cfg.hidden), p.norm.scale,
-                         p.norm.bias, cfg.ln_eps)
-    else:
-        x = L.layer_norm(x, p.norm.scale, p.norm.bias, cfg.ln_eps)
-        x = x.reshape(b, s // mu, mu * cfg.hidden)
-    return Q.linear(L.ACT_FNS["gelu"](Q.linear(x, p.fc1)), p.fc2)
+    return _merger(p, L.layer_norm(x.reshape(b, s // mu, mu * cfg.hidden),
+                                   p.norm.scale, p.norm.bias, cfg.ln_eps))
 
 
 def vision_tower(params: VisionTower, cfg: Qwen3VisionConfig,
@@ -339,19 +340,32 @@ def vision_tower(params: VisionTower, cfg: Qwen3VisionConfig,
     x = x + pe.to(x.dtype)
     cos, sin = q2._vision_rope(cfg, pos_hw)                # (B, S, head_dim)
 
+    # Each residual add is folded into the LayerNorm that reads its sum
+    # (L.add_layer_norm): ``branch`` is the last block's MLP output, not yet
+    # added; block i's output is the sum that block i + 1's ln1 (after the
+    # last block, the merger's norm) writes, and its deepstack level reads it.
     deepstack = []
+
+    def tap(i):
+        if i in cfg.deepstack_indexes:
+            di = cfg.deepstack_indexes.index(i)
+            deepstack.append(_deepstack_merger(params.deepstack[di], cfg, x))
+
+    branch = None
     for i, blk in enumerate(params.blocks):
-        h = L.layer_norm(x, blk.ln1.scale, blk.ln1.bias, cfg.ln_eps)
+        x, h = L.add_layer_norm(x, branch, blk.ln1.scale, blk.ln1.bias, cfg.ln_eps)
+        tap(i - 1)
         pk = rope_pack(Q.linear(h, blk.qkv), cos, sin, 2 * cfg.heads,
                        cfg.head_dim)
         a = attention_flat_packed(pk, cfg.heads, segment_ids=seg)
-        x = x + Q.linear(a, blk.o)
-        h = L.layer_norm(x, blk.ln2.scale, blk.ln2.bias, cfg.ln_eps)
-        x = x + Q.linear(L.ACT_FNS[cfg.act](Q.linear(h, blk.fc1)), blk.fc2)
-        if i in cfg.deepstack_indexes:
-            di = cfg.deepstack_indexes.index(i)
-            deepstack.append(_merger(params.deepstack[di], cfg, x, True))
-    return _merger(params.merger, cfg, x, False), deepstack
+        x, h = L.add_layer_norm(x, Q.linear(a, blk.o), blk.ln2.scale, blk.ln2.bias,
+                                cfg.ln_eps)
+        branch = Q.linear(L.ACT_FNS[cfg.act](Q.linear(h, blk.fc1)), blk.fc2)
+    norm = params.merger.norm
+    x, h = L.add_layer_norm(x, branch, norm.scale, norm.bias, cfg.ln_eps)
+    tap(len(params.blocks) - 1)
+    mu = cfg.merge_unit
+    return _merger(params.merger, h.reshape(b, s // mu, mu * cfg.hidden)), deepstack
 
 
 def splice_and_score(params: Qwen3VLModel, cfg: Qwen3VLConfig, ids,

@@ -120,9 +120,12 @@ def vision_tower(p: SiglipVisionTower, cfg: SiglipVisionConfig,
     perm = torch.from_numpy(patch_perm(cfg.patch_size, 3)).to(pixels.device)
     x = patchify_flat(pixels, cfg.patch_size, 3) @ p.patch_w[perm] + p.patch_b
     x = x + p.pos_emb
+    # each residual add is folded into the LayerNorm that reads its sum
+    # (L.add_layer_norm); ``branch`` is the last block's MLP output, not yet added
+    branch = None
     for blk in p.blocks:
-        h = L.layer_norm(x, blk.ln1.scale, blk.ln1.bias, cfg.ln_eps)
-        x = x + Q.linear(_self_attention(Q.linear(h, blk.qkv), cfg.heads), blk.o)
-        h = L.layer_norm(x, blk.ln2.scale, blk.ln2.bias, cfg.ln_eps)
-        x = x + Q.linear(L.ACT_FNS[cfg.act](Q.linear(h, blk.fc1)), blk.fc2)
-    return L.layer_norm(x, p.ln_post.scale, p.ln_post.bias, cfg.ln_eps)
+        x, h = L.add_layer_norm(x, branch, blk.ln1.scale, blk.ln1.bias, cfg.ln_eps)
+        a = Q.linear(_self_attention(Q.linear(h, blk.qkv), cfg.heads), blk.o)
+        x, h = L.add_layer_norm(x, a, blk.ln2.scale, blk.ln2.bias, cfg.ln_eps)
+        branch = Q.linear(L.ACT_FNS[cfg.act](Q.linear(h, blk.fc1)), blk.fc2)
+    return L.add_layer_norm(x, branch, p.ln_post.scale, p.ln_post.bias, cfg.ln_eps)[1]

@@ -2,7 +2,8 @@
 
 Norm statistics and softmax run in fp32 regardless of activation dtype. The
 norms dispatch through the wrappers in ``ops/norms.py``: a CUDA tensor runs
-the Triton kernel, a CPU tensor the plain PyTorch version.
+the kernel (LayerNorm in CUDA, RMSNorm in Triton), a CPU tensor the plain
+PyTorch version.
 """
 
 from __future__ import annotations
@@ -17,6 +18,18 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics."""
     return norms.layer_norm_fused(x, scale, bias, eps)
+
+
+def add_layer_norm(x: torch.Tensor, r: torch.Tensor | None, scale: torch.Tensor,
+                   bias: torch.Tensor | None,
+                   eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the LayerNorm that reads its sum: (s, LayerNorm(s))
+    for s = x + r, rounded once to x's dtype as the eager add (one kernel
+    pass on CUDA; on CPU the add, then the plain LayerNorm). ``r=None``:
+    no add, (x, LayerNorm(x))."""
+    if r is None:
+        return x, layer_norm(x, scale, bias, eps)
+    return norms.add_layer_norm_fused(x, r, scale, bias, eps)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,

@@ -16,6 +16,7 @@ from t2v_metrics_tpu_torch import build  # noqa: E402
     ("flash_flat", "flash_common.cuh"), ("flash_flat", "sm90.cuh"),
     ("grouped_gemm", "gemm_sm90.cuh"), ("grouped_gemm", "sm90.cuh"),
     ("quant_matmul", "gemm_sm90.cuh"), ("quant_matmul", "sm90.cuh"),
+    ("layer_norm", "sm90.cuh"),
 ])
 def test_editing_a_header_renames_the_library(tmp_path, lib, header):
     csrc = tmp_path / "csrc"
@@ -45,3 +46,16 @@ def test_every_gemm_header_is_hashed():
     for cu in ("grouped_gemm.cu", "quant_matmul.cu"):
         assert '#include "gemm_sm90.cuh"' in (build.CSRC_DIR / cu).read_text()
     assert '#include "sm90.cuh"' in (build.CSRC_DIR / "gemm_sm90.cuh").read_text()
+
+
+def test_layer_norm_is_built_with_the_others(tmp_path):
+    """csrc/layer_norm.cu is one of build_all's libraries, and its source is
+    in its library's hash."""
+    assert build.layer_norm_lib in build.CUDA_LIBS
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    src = [csrc / "layer_norm.cu"]
+    before = build.library_path("layer_norm", src, csrc)
+    assert before.name.startswith("liblayer_norm_")
+    src[0].write_text(src[0].read_text() + "\n// edited\n")
+    assert build.library_path("layer_norm", src, csrc) != before

@@ -67,6 +67,57 @@ def test_layer_norm_kernel(dev, shape):
     assert launch_counts()["layer_norm"] == before + 2
 
 
+@pytest.mark.parametrize("shape", [(7, 1024), (3, 5, 1000), (16, 64), (5, 4608),
+                                   (2560, 1024), (16384, 1152)])
+def test_add_layer_norm_kernel(dev, shape):
+    """The residual add folded in: s bitwise the eager x + r, y the plain
+    LayerNorm of it; one launch a call."""
+    x, r = _randn(dev, *shape, std=3.0), _randn(dev, *shape, seed=3, std=3.0)
+    w, b = _randn(dev, shape[-1], seed=1), _randn(dev, shape[-1], seed=2)
+    for bias in (b, None):
+        before = launch_counts()["layer_norm"]
+        s, y = N.add_layer_norm_fused(x, r, w, bias)
+        assert launch_counts()["layer_norm"] == before + 1
+        assert s.shape == y.shape == x.shape and torch.equal(s, x + r)
+        _close(y, N.layer_norm_plain(x + r, w, bias), 1e-5, 8e-3)
+
+
+@pytest.mark.parametrize("d", [1024, 1152, 4608])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=str)
+def test_layer_norm_kernel_dtypes(dev, d, dtype):
+    x, r = _randn(dev, 33, d, std=3.0, dtype=dtype), _randn(dev, 33, d, seed=3, dtype=dtype)
+    w, b = _randn(dev, d, seed=1, dtype=dtype), _randn(dev, d, seed=2, dtype=dtype)
+    rtol = 8e-3 if dtype == torch.float16 else 2e-5
+    _close(N.layer_norm_fused(x, w, b), N.layer_norm_plain(x, w, b), 1e-5, rtol)
+    s, y = N.add_layer_norm_fused(x, r, w, b)
+    assert torch.equal(s, x + r)
+    _close(y, N.layer_norm_plain(x + r, w, b), 1e-5, rtol)
+
+
+@pytest.mark.parametrize("d,off", [(1024, 8), (1024, 2), (1152, 4), (1001, 1), (4608, 6)])
+def test_layer_norm_kernel_row_stride(dev, d, off):
+    """Rows of a wider tensor: a row stride that is not d, the first column
+    ``off`` elements in (16-, 8-, 4- or 2-byte aligned vectors)."""
+    x = _randn(dev, 9, d + 24, std=3.0)[:, off:off + d]
+    r = _randn(dev, 9, d + 40, seed=3, std=3.0)[:, :d]
+    w, b = _randn(dev, d, seed=1), _randn(dev, d, seed=2)
+    assert x.stride(0) != d and r.stride(0) != d
+    _close(N.layer_norm_fused(x, w, b), N.layer_norm_plain(x, w, b), 1e-5, 8e-3)
+    s, y = N.add_layer_norm_fused(x, r, w, b)
+    assert torch.equal(s, x + r)
+    _close(y, N.layer_norm_plain(x + r, w, b), 1e-5, 8e-3)
+
+
+def test_layer_norm_refuses_what_it_lacks(dev):
+    x, w = _randn(dev, 4, 1024), _randn(dev, 1024)
+    with pytest.raises(ValueError):
+        N.add_layer_norm_fused(x, _randn(dev, 4, 512), w, None)        # r's shape
+    with pytest.raises(TypeError):
+        N.layer_norm_fused(x, w.float(), None)                          # weight dtype
+    with pytest.raises(ValueError):
+        N.layer_norm_fused(_randn(dev, 2, 16385), _randn(dev, 16385), None)
+
+
 @pytest.mark.parametrize("cast_wd,offset", [(True, 0.0), (False, 0.0), (True, 1.0)])
 def test_rms_norm_kernel(dev, cast_wd, offset):
     x = _randn(dev, 9, 2048, std=3.0)

@@ -84,3 +84,52 @@ def test_rms_norm_bf16_cast_before_scale(cast_wd):
         # the rounding is really there: scaling the unrounded value differs
         unrounded = TL.rms_norm(xt, wt, 1e-6, 0.0, False)
         assert not torch.equal(got, unrounded)
+
+
+def _add_inputs(d, seed):
+    x, w, b = _inputs((2, 8, d), seed)
+    r = np.random.default_rng(seed + 100).normal(size=x.shape).astype(np.float32) * 2.0
+    return x, r, w, b
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("d", [1024, 1152, 4608])
+def test_add_layer_norm_fp32(d, with_bias):
+    """The residual add folded into the LayerNorm: (x + r, LN(x + r)) against
+    the JAX package's add and its Pallas LayerNorm."""
+    x, r, w, b = _add_inputs(d, 4)
+    s, y = TL.add_layer_norm(torch.from_numpy(x), torch.from_numpy(r), torch.from_numpy(w),
+                             torch.from_numpy(b) if with_bias else None)
+    js = jnp.asarray(x) + jnp.asarray(r)
+    jy = layer_norm_fused(js, jnp.asarray(w), jnp.asarray(b) if with_bias else None,
+                          interpret=True)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("d", [1024, 1152, 4608])
+def test_add_layer_norm_bf16(d, with_bias):
+    """bf16: the sum rounded once, bitwise the JAX add; the LayerNorm of it
+    within one bf16 ulp."""
+    x, r, w, b = _add_inputs(d, 5)
+    xt, rt = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, r))
+    wt, bt = (torch.from_numpy(a).to(torch.bfloat16) for a in (w, b))
+    s, y = TL.add_layer_norm(xt, rt, wt, bt if with_bias else None)
+    assert s.dtype == y.dtype == torch.bfloat16
+
+    def jbf(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+    js = jbf(xt) + jbf(rt)
+    jy = layer_norm_fused(js, jbf(wt), jbf(bt) if with_bias else None, interpret=True)
+    np.testing.assert_array_equal(s.float().numpy(), np.asarray(js, np.float32))
+    assert _bf16_ulps(y.float().numpy(), np.asarray(jy, np.float32)) <= 1
+
+
+def test_add_layer_norm_without_r_is_the_layer_norm():
+    x, _, w, b = _add_inputs(1152, 6)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    s, y = TL.add_layer_norm(xt, None, wt, bt)
+    assert s is xt
+    assert torch.equal(y, TL.layer_norm(xt, wt, bt))
