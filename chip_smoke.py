@@ -11,6 +11,14 @@ Phases (any failure exits non-zero and prints no result line):
      head dims 64/72/80/128/256, the MoE grouped GEMM, the int8 GEMM and
      LayerNorm; Triton for RMSNorm, the rotary embedding and the per-row int8
      quant) and time the build;
+  checkpoint: the whole clip-flant5-xl (random bf16 weights from a seed, the
+     T5 scale folded into W_q) written by this script's own HF key map and
+     safetensors writer as 4 shards and ``model.safetensors.index.json`` in
+     a temporary directory (free disk checked first, removed after), loaded
+     with ``VQAScore("clip-flant5-xl", checkpoint=dir)`` on the card, and a
+     seeded 4 x 8 set scored bitwise equal to the same weights passed as
+     ``params=``, with its launch counts; prints load seconds and GB/s, host
+     RSS growth and the device peak at load against the weights' bytes;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the clip-flant5-xl/xxl, Qwen2.5-VL-7B, Qwen3-VL-30B-A3B and
      Gemma-3-4B paths give it (the per-head kernel also with the in-kernel
@@ -48,7 +56,7 @@ Phases (any failure exits non-zero and prints no result line):
      ``batch_forward`` of each, and of the Qwen forwards at 1024x1024, by
      kernel family (torch.profiler) and the device's busy share.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the seven slices; a row's ``sites`` are
+summed over the first calls of the checkpoint-loaded xl and the seven slices; a row's ``sites`` are
 further shapes of the main path, each with its times, bound and library
 time: the grouped GEMM's down projection, the int8 GEMM's split-K decoder
 shape, LayerNorm's other shapes and its add + LayerNorm entry), the card's name and power limit, and ``{"ok": true,
@@ -66,6 +74,7 @@ import gc
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -890,6 +899,240 @@ def fold_t5_attention_scale(params, cfg) -> None:
         fold(blk.cross.q, slice(None))
 
 
+# ---------------------------------------------------------------------------
+# Phase: clip-flant5-xl loaded from a staged checkpoint
+# ---------------------------------------------------------------------------
+
+# this script's own HF key map and safetensors writer: the card machine has
+# neither transformers nor safetensors
+_VT = "encoder.vision_tower.vision_tower.vision_model"
+_ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int64: "I64", torch.int32: "I32", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def hf_clip_t5_tensors(model, cfg) -> dict:
+    """The HF CLIP-FlanT5 (LLaVA layout) state dict of a port ``CLIPT5Model``:
+    key -> tensor view on the model's device, linear weights (out, in), the
+    patch embedding as the conv weight; the T5 embedding under its three
+    tied names, as ``T5ForConditionalGeneration.state_dict()`` lists it."""
+    sd = {}
+    v, w, p = model.vision, cfg.vision.width, cfg.vision.patch_size
+
+    def lin(prefix, leaf, bias=True):
+        sd[f"{prefix}.weight"] = leaf.w.t()
+        if bias:
+            sd[f"{prefix}.bias"] = leaf.b
+
+    def norm(prefix, n):
+        sd[f"{prefix}.weight"] = n.scale
+        if n.bias is not None:
+            sd[f"{prefix}.bias"] = n.bias
+
+    sd[f"{_VT}.embeddings.class_embedding"] = v.class_emb
+    sd[f"{_VT}.embeddings.patch_embedding.weight"] = v.patch_w.t().reshape(w, 3, p, p)
+    sd[f"{_VT}.embeddings.position_embedding.weight"] = v.pos_emb
+    norm(f"{_VT}.pre_layrnorm", v.ln_pre)
+    norm(f"{_VT}.post_layernorm", v.ln_post)
+    for i, b in enumerate(v.blocks):
+        pre = f"{_VT}.encoder.layers.{i}"
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            sd[f"{pre}.self_attn.{name}.weight"] = b.qkv.w[:, j * w:(j + 1) * w].t()
+            sd[f"{pre}.self_attn.{name}.bias"] = b.qkv.b[j * w:(j + 1) * w]
+        lin(f"{pre}.self_attn.out_proj", b.o)
+        norm(f"{pre}.layer_norm1", b.ln1)
+        norm(f"{pre}.layer_norm2", b.ln2)
+        lin(f"{pre}.mlp.fc1", b.fc1)
+        lin(f"{pre}.mlp.fc2", b.fc2)
+    lin("encoder.mm_projector.0", model.projector.fc1)
+    lin("encoder.mm_projector.2", model.projector.fc2)
+    t5 = model.t5
+    for name in ("shared", "encoder.embed_tokens", "decoder.embed_tokens"):
+        sd[f"{name}.weight"] = t5.shared_emb
+    if t5.lm_head is not None:
+        sd["lm_head.weight"] = t5.lm_head.t()
+    inner = cfg.t5.num_heads * cfg.t5.d_kv
+    for side in ("encoder", "decoder"):
+        stack = getattr(t5, side)
+        norm(f"{side}.final_layer_norm", stack.ln_final)
+        for i, b in enumerate(stack.blocks):
+            pre = f"{side}.block.{i}.layer"
+            attn = f"{pre}.0.SelfAttention"
+            for j, name in enumerate("qkv"):
+                sd[f"{attn}.{name}.weight"] = b.attn.qkv.w[:, j * inner:(j + 1) * inner].t()
+            lin(f"{attn}.o", b.attn.o, bias=False)
+            if b.attn.rel_bias is not None:
+                sd[f"{attn}.relative_attention_bias.weight"] = b.attn.rel_bias
+            norm(f"{pre}.0.layer_norm", b.ln1)
+            mlp = f"{pre}.{2 if side == 'decoder' else 1}"
+            if side == "decoder":
+                for name in "qkvo":
+                    lin(f"{pre}.1.EncDecAttention.{name}", getattr(b.cross, name), bias=False)
+                norm(f"{pre}.1.layer_norm", b.ln_cross)
+            for name, leaf in b.mlp.named_children():
+                lin(f"{mlp}.DenseReluDense.{name}", leaf, bias=False)
+            norm(f"{mlp}.layer_norm", b.ln2)
+    return sd
+
+
+def write_safetensors(tensors: dict, path: str) -> int:
+    """One safetensors file: the 8-byte little-endian header length, the
+    JSON header (padded to 8 bytes), the raw bytes in key order; each tensor
+    copied to the host once. Returns the bytes written."""
+    header, offset = {}, 0
+    for k in sorted(tensors):
+        t = tensors[k]
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for k in sorted(tensors):
+            f.write(tensors[k].contiguous().view(torch.uint8).reshape(-1).cpu().numpy())
+        f.flush()
+        os.fsync(f.fileno())
+    return 8 + len(head) + offset
+
+
+def write_checkpoint(tensors: dict, path: str, shards: int) -> int:
+    """``tensors`` as ``shards`` safetensors files of about equal bytes, with
+    ``model.safetensors.index.json``; the files' pages are then dropped from
+    the page cache where the OS allows, so the load reads the disk."""
+    os.makedirs(path, exist_ok=True)
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    groups, acc = [[] for _ in range(shards)], 0
+    for k in sorted(tensors):
+        t = tensors[k]
+        groups[min(shards - 1, acc * shards // max(total, 1))].append(k)
+        acc += t.numel() * t.element_size()
+    weight_map, written = {}, 0
+    for i, keys in enumerate(groups):
+        name = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        file = os.path.join(path, name)
+        written += write_safetensors({k: tensors[k] for k in keys}, file)
+        weight_map.update(dict.fromkeys(keys, name))
+        if hasattr(os, "posix_fadvise"):
+            fd = os.open(file, os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return written
+
+
+def staging_dir(need: int) -> str:
+    """A fresh temporary directory, after checking its filesystem has
+    ``need`` bytes free."""
+    import shutil
+    import tempfile
+
+    base = tempfile.gettempdir()
+    free = shutil.disk_usage(base).free
+    if free < need:
+        raise SmokeFailure(f"checkpoint: staging needs {need / 1e9:.1f} GB of free disk "
+                           f"(twice the checkpoint); {base} has {free / 1e9:.1f} GB")
+    return tempfile.mkdtemp(prefix="ckpt_", dir=base)
+
+
+def _vm_rss() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def phase_checkpoint(model: str = "clip-flant5-xl", shards: int = 4) -> dict:
+    """The whole clip-flant5-xl staged as an HF checkpoint and loaded through
+    ``VQAScore(model, checkpoint=dir)`` on the card: random bf16 weights from
+    a seed with the T5 scale folded into W_q, written by this script's key
+    map and writer as ``shards`` safetensors files and the index json; a
+    seeded 4 x 8 set scored bitwise equal to the same weights passed as
+    ``params=``. Prints load seconds and GB/s, the host RSS growth
+    (``resource.getrusage`` peak against the RSS at the start of the load)
+    and the device peak against the weights' bytes. Returns the launch counts
+    of the loaded model's first call (the slice's main path)."""
+    import resource
+    import shutil
+
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch import SimpleT5Tokenizer
+    from t2v_metrics_tpu_torch.models.clip_flant5 import CLIP_T5_CONFIGS, init_clip_t5
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = CLIP_T5_CONFIGS[model]
+    rss_start = _vm_rss()
+    weights = init_clip_t5(cfg, SEED + 5, "cuda", torch.bfloat16)
+    fold_t5_attention_scale(weights, cfg)
+    tensors = hf_clip_t5_tensors(weights, cfg)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    stage = staging_dir(2 * nbytes)
+    try:
+        t0 = time.perf_counter()
+        written = write_checkpoint(tensors, stage, shards)
+        t_write = time.perf_counter() - t0
+        del tensors
+        log(f"[checkpoint] {model}: {len(os.listdir(stage)) - 1} safetensors shards + "
+            f"index, {written / 1e9:.3f} GB in {t_write:.2f} s (with fsync) under {stage}; "
+            f"host RSS {rss_start / 2**30:.2f} GiB before the phase, "
+            f"{_vm_rss() / 2**30:.2f} GiB after writing")
+        tok = SimpleT5Tokenizer(cfg.t5.vocab_size)
+        images, texts = seeded_images(4, 31), seeded_texts(8, 32)
+        want = t2v.VQAScore(model=model, params=weights, tokenizer=tok,
+                            device="cuda")(images=images, texts=texts)
+        weight_bytes = sum(t.numel() * t.element_size() for t in weights.parameters())
+        del weights
+        free_cuda()
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rss0, maxrss0 = _vm_rss(), resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        t0 = time.perf_counter()
+        scorer = t2v.VQAScore(model=model, checkpoint=stage, tokenizer=tok, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        maxrss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        held = torch.cuda.memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - base
+
+        reset_launch_counts()
+        got = scorer(images=images, texts=texts)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+    vit, enc, dec = cfg.vision.layers - 1, cfg.t5.enc_layers, cfg.t5.dec_layers
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(flash_attention_flat=vit + enc + 2 * dec, layer_norm=1 + 2 * vit,
+                  rms_norm=2 * enc + 1 + 3 * dec + 1)
+    growth = maxrss1 - rss0
+    log(f"[checkpoint] {model} loaded: {t_load:.2f} s, {written / 1e9 / t_load:.2f} GB/s "
+        f"({written / 1e9:.3f} GB from disk to the card, bf16 to bf16); host RSS "
+        f"{rss0 / 2**30:.2f} GiB at the start, peak {maxrss1 / 2**30:.2f} GiB after "
+        f"(getrusage; {maxrss0 / 2**30:.2f} GiB before): growth {growth / 2**30:.3f} GiB, "
+        f"{100 * growth / written:.1f}% of the checkpoint; device {held / 2**30:.3f} GiB "
+        f"held, peak {peak / 2**30:.3f} GiB at load against {weight_bytes / 2**30:.3f} GiB "
+        f"of weights ({peak / weight_bytes:.3f}x); card {card_line()}")
+    log(f"[checkpoint] first call launches {json.dumps(counts)}; from the code "
+        f"{json.dumps(expect)}")
+    same = np.array_equal(got, want)
+    log(f"[checkpoint] 4 x 8 scores from the checkpoint {'bitwise equal to' if same else 'DIFFER from'}"
+        f" params= (max |diff| {float(np.abs(got - want).max()):.3e}); log row 0 "
+        f"{np.log(got[0]).round(4).tolist()}")
+    check(got.shape == (4, 8) and np.isfinite(got).all(), "checkpoint: scores not finite")
+    check(same, "checkpoint: scores differ from the same weights passed as params=")
+    check(counts == expect, f"checkpoint: launch counts {counts} != {expect}")
+    check(growth < written / 4, f"checkpoint: host RSS grew by {growth} bytes while "
+                                f"loading {written}")
+    del scorer
+    return counts
+
+
 def phase_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
     from t2v_metrics_tpu_torch import SimpleT5Tokenizer
     from t2v_metrics_tpu_torch.engine.scoring import CLIPT5Engine
@@ -1629,6 +1872,10 @@ def main() -> int:
     log(f"[env] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
+    if not args.kernels_only:
+        # first, while the host holds nothing large: its RSS growth is the load's
+        checkpoint_counts = phase_checkpoint()
+        free_cuda()
     results = phase_kernels()
     if args.kernels_only:
         return 0
@@ -1642,7 +1889,7 @@ def main() -> int:
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
-    slice_counts = [phase_slice(profile=args.profile)[0]]
+    slice_counts = [checkpoint_counts, phase_slice(profile=args.profile)[0]]
     free_cuda()
     for run in (phase_qwen_slice, phase_qwen3_slice, phase_gemma_slice):
         slice_counts.append(run(profile=args.profile))

@@ -1,18 +1,31 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry parameter trees into the port, and out of it.
 
-Input: a parameter pytree in t2v_metrics_tpu's layout (nested dicts and
-lists) with numpy arrays as leaves, e.g. ``jax.tree.map(np.asarray,
-params)``. Output: the port's modules on ``device`` in ``dtype``, computing
-the same function. Int8 leaves of the JAX W8A8 mode (``{"w_q": int8 (K, N),
-"scale": f32 (N,)}``, plus ``"b"``) become the port's int8 leaves, with the
-gated T5 MLP's wi_0|wi_1 packed into ``wi_01``. The self-attention q|k|v
-weights (and biases) are packed once here, in the order ``ops/quant.pack``
-and the JAX package's ``mm_packed`` use, so no forward pass concatenates weights (the JAX Qwen
-code concatenates them on every call; eagerly that would copy ~50 MB per
-Qwen2.5-VL-7B decoder layer per forward).
+Input: a parameter tree in t2v_metrics_tpu's layout (nested dicts and
+lists) whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray,
+params)``, bf16 as ml_dtypes or as raw 2-byte records) or CPU tensors (the
+views ``models/convert.py`` makes of a checkpoint, or a native tree from
+``checkpoint.load_params``). Output: the port's modules on ``device`` in
+``dtype``, computing the same function. Each leaf goes to the device in its
+own dtype and is cast there: no host copy of a tensor leaf (a transposed
+view travels as its dense bytes and is transposed on the device), and bf16
+stays bitwise bf16. Views of a mapped checkpoint shard give their pages
+back once copied (``checkpoint.release_pages``). Int8 leaves of the JAX
+W8A8 mode (``{"w_q": int8 (K, N), "scale": f32 (N,)}``, plus ``"b"``)
+become the port's int8 leaves, with the gated T5 MLP's wi_0|wi_1 packed
+into ``wi_01``. The self-attention q|k|v weights (and biases) are written
+side by side into the packed leaf, in the order ``ops/quant.pack`` and the
+JAX package's ``mm_packed`` use, so no forward pass concatenates weights.
+
+``shape_problems`` runs a loader over a tree onto a model built on
+``torch.device("meta")`` with every check collected instead of raised: each
+leaf that is missing, does not fit, or is never read, by its path in the
+tree. That is the checkpoint shape check (``checkpoint.validate_params_dims``);
+the loaders are the one statement of each family's layout.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -26,29 +39,57 @@ from .models import qwen2vl as tqwen
 from .models import qwen3vl as tqwen3
 from .models import siglip as tsiglip
 from .models import t5 as tt5
+from .models.checkpoint import _flatten, release_pages
 from .ops import quant as Q
 
 
+def _as_tensor(src) -> torch.Tensor:
+    """A leaf as a CPU tensor without a copy where one is not needed: bf16
+    numpy bits through an int16 view, float64 as float32 (as the JAX
+    package holds it)."""
+    if isinstance(src, torch.Tensor):
+        return src.detach()
+    a = np.asarray(src)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    with warnings.catch_warnings():  # read-only arrays: the tensor is only read
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+
 def _copy(dst: torch.Tensor, src) -> None:
-    src = np.asarray(src)
-    if tuple(src.shape) != tuple(dst.shape):
-        raise ValueError(f"shape {src.shape} does not fit {tuple(dst.shape)}")
-    dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+    if _AUDIT is not None:
+        _AUDIT.fit(dst.shape, src)
+        return
+    t = _as_tensor(src)
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(t.shape)} does not fit {tuple(dst.shape)}")
+    if t.dtype == dst.dtype and t.stride() == dst.stride():
+        dst.copy_(t)                 # one host-to-device copy into place
+    else:
+        dst.copy_(t.to(dst.device))  # the leaf's bytes as they are, then cast/transpose
+    release_pages(t)
 
 
 def _copy_int8(dst: Q.Linear, w_q, scale) -> None:
     """Make ``dst`` an int8 leaf holding the JAX leaf's (K, N) ``w_q`` and
     (N,) ``scale``, stored as the port's (N, K) ``w_qt``."""
-    w_q, scale = np.asarray(w_q), np.array(scale, np.float32)
     dense = dst.w if dst.w is not None else dst.w_q
-    if w_q.dtype != np.int8 or w_q.shape != tuple(dense.shape) or scale.shape != w_q.shape[1:]:
-        raise ValueError(f"int8 leaf {w_q.dtype} {w_q.shape} / {scale.shape} does not "
-                         f"fit {tuple(dense.shape)}")
+    if _AUDIT is not None:
+        _AUDIT.fit(dense.shape, w_q)
+        _AUDIT.fit(dense.shape[1:], scale)
+        return
+    w_q, scale = _as_tensor(w_q), _as_tensor(scale).float()
+    if (w_q.dtype != torch.int8 or tuple(w_q.shape) != tuple(dense.shape)
+            or tuple(scale.shape) != tuple(w_q.shape[1:])):
+        raise ValueError(f"int8 leaf {w_q.dtype} {tuple(w_q.shape)} / {tuple(scale.shape)} "
+                         f"does not fit {tuple(dense.shape)}")
     dev = dense.device
     dst.w = None
-    dst.w_qt = nn.Parameter(torch.from_numpy(np.ascontiguousarray(w_q.T)).to(dev),
-                            requires_grad=False)
-    dst.scale = nn.Parameter(torch.from_numpy(scale).to(dev), requires_grad=False)
+    dst.w_qt = nn.Parameter(w_q.t().contiguous().to(dev), requires_grad=False)
+    dst.scale = nn.Parameter(scale.contiguous().to(dev), requires_grad=False)
 
 
 def _leaf(dst: Q.Linear, src: dict) -> None:
@@ -61,13 +102,27 @@ def _leaf(dst: Q.Linear, src: dict) -> None:
 
 
 def _packed_leaf(dst: Q.Linear, srcs: list[dict]) -> None:
+    """Write the leaves' columns side by side into the packed ``dst``."""
+    if _AUDIT is not None:
+        _AUDIT.packed(dst, srcs)
+        return
     if "w_q" in srcs[0]:
-        _copy_int8(dst, np.concatenate([s["w_q"] for s in srcs], axis=1),
-                   np.concatenate([s["scale"] for s in srcs]))
+        _copy_int8(dst, torch.cat([_as_tensor(s["w_q"]) for s in srcs], dim=1),
+                   torch.cat([_as_tensor(s["scale"]) for s in srcs]))
     else:
-        _copy(dst.w, np.concatenate([s["w"] for s in srcs], axis=1))
+        widths = [_as_tensor(s["w"]).shape[-1] for s in srcs]
+        if sum(widths) != dst.w.shape[1]:
+            raise ValueError(f"packed leaf: widths {widths} do not fill {tuple(dst.w.shape)}")
+        off = 0
+        for s, n in zip(srcs, widths):
+            _copy(dst.w[:, off:off + n], s["w"])
+            off += n
     if dst.b is not None:
-        _copy(dst.b, np.concatenate([s["b"] for s in srcs]))
+        off = 0
+        for s in srcs:
+            n = _as_tensor(s["b"]).shape[0]
+            _copy(dst.b[off:off + n], s["b"])
+            off += n
     elif any(s.get("b") is not None for s in srcs):
         raise ValueError("packed leaf: the source has biases, the model none")
 
@@ -85,11 +140,15 @@ def vision_from_numpy(tree: dict, cfg: tclip.CLIPVisionConfig, device,
 
 
 def _load_vision(p: tclip.VisionTower, tree: dict) -> tclip.VisionTower:
-    for name in ("class_emb", "patch_w", "pos_emb", "proj"):
+    for name in ("class_emb", "patch_w", "pos_emb"):
         _copy(getattr(p, name), tree[name])
+    if tree.get("proj") is None:
+        p.proj = None  # a LLaVA tower has no projection (feature_layer=-2 reads none)
+    else:
+        _copy(p.proj, tree["proj"])
     _norm(p.ln_pre, tree["ln_pre"])
     _norm(p.ln_post, tree["ln_post"])
-    for dst, src in zip(p.blocks, tree["blocks"], strict=True):
+    for dst, src in _pairs(p.blocks, tree["blocks"]):
         _norm(dst.ln1, src["ln1"])
         _norm(dst.ln2, src["ln2"])
         attn = src["attn"]
@@ -112,7 +171,7 @@ def _load_t5(p: tt5.T5Model, tree: dict) -> tt5.T5Model:
     for side in ("encoder", "decoder"):
         stack, src_stack = getattr(p, side), tree[side]
         _norm(stack.ln_final, src_stack["ln_final"])
-        for dst, src in zip(stack.blocks, src_stack["blocks"], strict=True):
+        for dst, src in _pairs(stack.blocks, src_stack["blocks"]):
             _norm(dst.ln1, src["ln1"])
             _norm(dst.ln2, src["ln2"])
             attn = src["attn"]
@@ -146,7 +205,7 @@ def _load_decoder(p: tdec.Decoder, tree: dict) -> tdec.Decoder:
     if p.lm_head is not None:
         _copy(p.lm_head, tree["lm_head"])
     _norm(p.ln_final, tree["ln_final"])
-    for dst, src in zip(p.blocks, tree["blocks"], strict=True):
+    for dst, src in _pairs(p.blocks, tree["blocks"]):
         _norm(dst.ln1, src["ln1"])
         _norm(dst.ln2, src["ln2"])
         attn = src["attn"]
@@ -175,7 +234,7 @@ def qwen2vl_from_numpy(tree: dict, cfg: tqwen.Qwen2VLConfig, device,
     model = tqwen.Qwen2VLModel(cfg, device, dtype)
     v, src = model.vision, tree["vision"]
     _copy(v.patch_w, src["patch_w"])
-    for dst, blk in zip(v.blocks, src["blocks"], strict=True):
+    for dst, blk in _pairs(v.blocks, src["blocks"]):
         _norm(dst.ln1, blk["ln1"])
         _norm(dst.ln2, blk["ln2"])
         attn = blk["attn"]
@@ -197,7 +256,7 @@ def qwen3vl_from_numpy(tree: dict, cfg: tqwen3.Qwen3VLConfig, device,
     v, src = model.vision, tree["vision"]
     for name in ("patch_w", "patch_b", "pos_emb"):
         _copy(getattr(v, name), src[name])
-    for dst, blk in zip(v.blocks, src["blocks"], strict=True):
+    for dst, blk in _pairs(v.blocks, src["blocks"]):
         _norm(dst.ln1, blk["ln1"])
         _norm(dst.ln2, blk["ln2"])
         attn = blk["attn"]
@@ -205,8 +264,7 @@ def qwen3vl_from_numpy(tree: dict, cfg: tqwen3.Qwen3VLConfig, device,
         _leaf(dst.o, attn["o"])
         _leaf(dst.fc1, blk["mlp"]["fc1"])
         _leaf(dst.fc2, blk["mlp"]["fc2"])
-    for dst, m in zip([v.merger, *v.deepstack], [src["merger"], *src["deepstack"]],
-                      strict=True):
+    for dst, m in [(v.merger, src["merger"]), *_pairs(v.deepstack, src["deepstack"])]:
         _norm(dst.norm, m["norm"])
         _leaf(dst.fc1, m["fc1"])
         _leaf(dst.fc2, m["fc2"])
@@ -218,7 +276,7 @@ def _load_siglip(p: tsiglip.SiglipVisionTower, tree: dict) -> tsiglip.SiglipVisi
     for name in ("patch_w", "patch_b", "pos_emb"):
         _copy(getattr(p, name), tree[name])
     _norm(p.ln_post, tree["ln_post"])
-    for dst, src in zip(p.blocks, tree["blocks"], strict=True):
+    for dst, src in _pairs(p.blocks, tree["blocks"]):
         _norm(dst.ln1, src["ln1"])
         _norm(dst.ln2, src["ln2"])
         attn = src["attn"]
@@ -238,3 +296,134 @@ def gemma3_from_numpy(tree: dict, cfg: tgemma3.Gemma3Config, device,
     _copy(model.projector.proj, tree["projector"]["proj"])
     _load_decoder(model.decoder, tree["decoder"])
     return model
+
+
+# ---------------------------------------------------------------------------
+# Shape checks: a loader run onto the meta device, every problem collected
+# ---------------------------------------------------------------------------
+
+class _Missing:
+    """A key the tree lacks (or holds as None), as an audited loader sees it:
+    every key below it is missing too."""
+
+    shape = None
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __getitem__(self, key):
+        return _Missing(f"{self.path}/{key}")
+
+    def __contains__(self, key) -> bool:
+        return False
+
+    def __len__(self) -> int:
+        return 0
+
+    def get(self, key, default=None):
+        return default
+
+
+class _Tree(dict):
+    """A dict node of an audited tree: a key read is recorded, a key it lacks
+    reads as a ``_Missing`` naming its path (``get`` still gives None)."""
+
+    def __init__(self, node: dict, path: str):
+        super().__init__(node)
+        self.path = path
+
+    def __getitem__(self, key):
+        path = f"{self.path}{key}"
+        v = dict.get(self, key)
+        if v is None:
+            return _Missing(path)
+        _AUDIT.read.add(path)
+        _AUDIT.paths[id(v)] = path
+        return _wrap(v, path)
+
+    def get(self, key, default=None):
+        return self[key] if dict.get(self, key) is not None else default
+
+
+class _Seq(list):
+    """A list node of an audited tree; its path names a block it lacks."""
+
+    def __init__(self, items, path: str):
+        super().__init__(items)
+        self.path = path
+
+
+def _wrap(node, path: str):
+    if isinstance(node, dict):
+        return _Tree(node, f"{path}/" if path else "")
+    if isinstance(node, (list, tuple)):
+        return _Seq([_wrap(v, f"{path}/{i}") for i, v in enumerate(node)], path)
+    return node
+
+
+def _pairs(dsts, srcs):
+    """(module, source) pairs of a stack: the lengths must agree, except in
+    an audit, where a source the stack lacks reads as missing and one past
+    the stack stays unread."""
+    if _AUDIT is None:
+        return zip(dsts, srcs, strict=True)
+    return [(d, srcs[i] if i < len(srcs) else _Missing(f"{srcs.path}/{i}"))
+            for i, d in enumerate(dsts)]
+
+
+class _Audit:
+    """What a loader run under ``shape_problems`` found: the paths it read
+    and (path, message) for each leaf missing or misshapen."""
+
+    def __init__(self):
+        self.read, self.paths, self.problems = set(), {}, []
+
+    def fit(self, shape, src) -> None:
+        shape = tuple(shape)
+        if isinstance(src, _Missing):
+            self.problems.append((src.path, f"missing: {src.path} (expected {shape})"))
+        elif tuple(src.shape) != shape:
+            path = self.paths[id(src)]
+            self.problems.append((path, f"shape mismatch: {path} checkpoint "
+                                        f"{tuple(src.shape)} != config {shape}"))
+
+    def packed(self, dst: Q.Linear, srcs: list) -> None:
+        """The parts of a packed leaf: their rows fit, their columns fill it."""
+        for key, full in (("w", dst.w), ("b", dst.b)):
+            if full is None:
+                continue
+            parts = [s["w_q"] if key == "w" and "w_q" in s else s[key] for s in srcs]
+            for s, q in zip(srcs, parts):
+                if key == "w" and "w_q" in s and not isinstance(q, _Missing):
+                    self.fit(q.shape[1:], s["scale"])
+            missing = [q for q in parts if isinstance(q, _Missing)]
+            for q in missing:
+                self.problems.append((q.path, f"missing: {q.path} (expected columns of "
+                                              f"{tuple(full.shape)})"))
+            got = [tuple(q.shape) for q in parts if not isinstance(q, _Missing)]
+            if (not missing and sum(g[-1] for g in got) != full.shape[-1]) \
+                    or any(g[:-1] != tuple(full.shape[:-1]) for g in got):
+                paths = [self.paths[id(q)] for q in parts if not isinstance(q, _Missing)]
+                self.problems.append((paths[0], f"shape mismatch: {' | '.join(paths)} "
+                                                f"checkpoint {got} do not pack into config "
+                                                f"{tuple(full.shape)}"))
+
+
+_AUDIT: _Audit | None = None
+
+
+def shape_problems(load, tree) -> list[str]:
+    """Every way ``tree`` does not fit the model ``load`` builds, one line a
+    leaf in path order: ``load(tree)`` (a family's ``*_from_numpy`` onto
+    ``torch.device("meta")``) runs once, reading no leaf's data, with each
+    check collected instead of raised; a leaf it never read is unexpected."""
+    global _AUDIT
+    audit = _AUDIT = _Audit()
+    try:
+        load(_wrap(tree, ""))
+    finally:
+        _AUDIT = None
+    flat = _flatten(tree)
+    unread = [(k, f"unexpected: {k} {tuple(v.shape)}") for k, v in flat.items()
+              if v is not None and k not in audit.read]
+    return ["  " + msg for _, msg in sorted(audit.problems + unread)]

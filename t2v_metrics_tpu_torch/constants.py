@@ -6,6 +6,12 @@ prompts are spliced on DEFAULT_IMAGE_TOKEN and image placeholder positions
 use IMAGE_TOKEN_INDEX.
 """
 
+import os
+
+# the last local cache searched for pretrained snapshots
+# (models/checkpoint.py:hub_cache_dirs); nothing is ever downloaded into it
+HF_CACHE_DIR = os.environ.get("T2V_TPU_CACHE", "./hf_cache/")
+
 SYSTEM_MSG = (
     "A chat between a curious human and an artificial intelligence assistant. "
     "The assistant gives helpful, detailed, and polite answers to the human's questions."

@@ -19,6 +19,7 @@ from ..constants import DEFAULT_ANSWER_TEMPLATE, DEFAULT_QUESTION_TEMPLATE
 from ..engine.scoring import CLIPT5Engine
 from ..ops import quant as Q
 from ..tokenization import SimpleT5Tokenizer, load_hf_tokenizer
+from . import checkpoint as ckpt
 from . import clip as tclip
 from . import clip_flant5 as tcft5
 from . import t5 as tt5
@@ -54,6 +55,27 @@ def default_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def load_checkpoint_tree(path: str, convert, from_numpy, cfg, model_name: str, dtype):
+    """A checkpoint directory as a tree in the JAX layout (CPU tensor leaves):
+    a native tree (``manifest.json``) as it is, HF shards (safetensors or
+    ``*.bin``) through ``convert(sd, cfg)``; then checked by running the
+    family's loader ``from_numpy`` over it onto the meta device. Raises
+    ``CheckpointError`` naming ``path`` and what is missing, misshapen or
+    unexpected; never falls back to other weights."""
+    if not os.path.isdir(path):
+        raise ckpt.CheckpointError(f"checkpoint {path!r} is not a directory")
+    if ckpt.is_native_tree(path):
+        tree = ckpt.load_params(path)
+    else:
+        tree = ckpt.convert_checked(convert, ckpt.load_hf_state_dict(path), path, cfg)
+    try:
+        ckpt.validate_params_dims(tree, lambda t: from_numpy(t, cfg, "meta", dtype),
+                                  model_name)
+    except ValueError as e:
+        raise ckpt.CheckpointError(f"{path!r}: {e}") from None
+    return tree
+
+
 class ScoreModel:
     """Abstract adapter."""
 
@@ -61,9 +83,11 @@ class ScoreModel:
 
     def __init__(self, model_name: str, device=None, cache_dir: str | None = None,
                  **kwargs):
-        # cache_dir is part of the facade's call; nothing is loaded from disk yet
+        # cache_dir: searched first for pretrained snapshots
+        # (checkpoint.hub_cache_dirs); nothing is ever downloaded
         self.model_name = model_name
         self.device = resolve_device(device)
+        self.cache_dir = cache_dir
         self.kwargs = kwargs
         self.load_model()
 
@@ -133,43 +157,52 @@ CLIP_T5_MODELS = {
 class CLIPT5Adapter(VQAScoreModel):
     """CLIP-FlanT5 VQAScore adapter.
 
+    Weights, in this order: ``params``; ``checkpoint``; random with
+    ``init='random'`` (or a model without a hub repo); else the pretrained
+    ``hf_repo`` from the local Hugging Face cache (never downloaded).
+
     kwargs:
+      checkpoint: a local directory: HF shards (safetensors or ``*.bin``) in
+        the LLaVA key layout, or a native tree (``manifest.json``). A
+        checkpoint without the CLIP tower takes it from the local snapshot
+        of the repo its config.json names in ``mm_vision_tower``.
       init: 'random' builds random weights on the device from ``seed``
-      params: a ``CLIPT5Model``, or a numpy pytree in the JAX package's
-        layout (carried over by ``bridge.py``)
+      params: a ``CLIPT5Model``, or a pytree in the JAX package's layout with
+        numpy or CPU tensor leaves (carried over by ``bridge.py``)
+      config: a ``CLIPT5Config`` that replaces the registry's
       seed: random-init seed (default 0)
       dtype: parameter dtype (default bf16 on CUDA, fp32 on CPU)
       tokenizer: a tokenizer object or a local tokenizer directory
       quant: None, "int8" (W8A8 T5 linears) or "int8+vit" (and the ViT
         linears); the environment's ``T2V_QUANT`` when not given. A
-        ``CLIPT5Model`` passed as ``params`` is quantized in place.
-    Checkpoint loading is not ported yet and raises.
+        ``CLIPT5Model`` passed as ``params`` is quantized in place; loaded
+        weights are quantized after the load.
     """
 
     video_mode = "concat"
 
     def load_model(self):
         spec = CLIP_T5_MODELS[self.model_name]
-        cfg: tcft5.CLIPT5Config = spec["config"]
+        cfg: tcft5.CLIPT5Config = self.kwargs.get("config") or spec["config"]
         self.config = cfg
         device = self.device
         dtype = self.kwargs.get("dtype") or default_dtype(device)
         quant = self.kwargs.get("quant") or os.environ.get("T2V_QUANT")
         if quant not in (None, "", "int8", "int8+vit"):
             raise ValueError(f"unknown quant mode {quant!r} ('int8' or 'int8+vit')")
-        if self.kwargs.get("checkpoint"):
-            raise NotImplementedError("checkpoint loading is not ported yet; "
-                                      "pass init='random' or params=")
 
         params = self.kwargs.get("params")
         if params is None:
-            if self.kwargs.get("init") != "random" and spec["hf_repo"] is not None:
-                raise NotImplementedError(
-                    f"pretrained weights for {self.model_name} are not ported "
-                    "yet; pass init='random' or params=")
-            params = tcft5.init_clip_t5(cfg, self.kwargs.get("seed", 0), device,
-                                        dtype)
-        elif not isinstance(params, tcft5.CLIPT5Model):
+            path = self.kwargs.get("checkpoint")
+            if path is None and self.kwargs.get("init") != "random" \
+                    and spec["hf_repo"] is not None:
+                path = ckpt.resolve_snapshot(spec["hf_repo"], self.cache_dir)
+            if path is not None:
+                params = self._load_checkpoint(path, cfg, dtype)
+            else:
+                params = tcft5.init_clip_t5(cfg, self.kwargs.get("seed", 0), device,
+                                            dtype)
+        if not isinstance(params, tcft5.CLIPT5Model):
             from ..bridge import clip_t5_from_numpy
 
             params = clip_t5_from_numpy(params, cfg, device, dtype)
@@ -181,6 +214,43 @@ class CLIPT5Adapter(VQAScoreModel):
 
         tokenizer = self._load_tokenizer(spec["tokenizer"], cfg.t5.vocab_size)
         self.engine = CLIPT5Engine(params, cfg, tokenizer, device)
+
+    def _load_checkpoint(self, path: str, cfg: tcft5.CLIPT5Config, dtype) -> dict:
+        """The tree of a checkpoint directory (see ``load_checkpoint_tree``),
+        the CLIP tower from ``mm_vision_tower``'s snapshot where the
+        checkpoint has none."""
+        from ..bridge import clip_t5_from_numpy
+
+        def convert_clip_t5(sd, cfg):
+            tower_sd = (None if tcft5.tower_prefix(sd) is not None
+                        else self._tower_state_dict(path, cfg))
+            return tcft5.convert_clip_t5(sd, cfg, tower_sd)
+
+        return load_checkpoint_tree(path, convert_clip_t5, clip_t5_from_numpy, cfg,
+                                    self.model_name, dtype)
+
+    def _tower_state_dict(self, path: str, cfg: tcft5.CLIPT5Config):
+        """The state dict of the CLIP repo a tower-less checkpoint names in
+        its config.json's ``mm_vision_tower``, from the local cache; its
+        ``vision_model.*`` keys checked."""
+        from .convert import convert_clip_vision
+
+        cj = ckpt.read_hf_config(path) or {}
+        repo = cj.get("mm_vision_tower")
+        if not repo:
+            raise ckpt.CheckpointError(
+                f"checkpoint {path!r} holds no CLIP tower keys (none of "
+                f"{', '.join(tcft5._TOWER_PREFIXES)}) and its config.json names "
+                "no mm_vision_tower")
+        try:
+            tower_dir = ckpt.resolve_snapshot(repo, self.cache_dir)
+        except ckpt.CheckpointError as e:
+            raise ckpt.CheckpointError(
+                f"checkpoint {path!r} holds no CLIP tower keys and its "
+                f"mm_vision_tower {repo!r} is not local: {e}") from None
+        tower_sd = ckpt.load_hf_state_dict(tower_dir)
+        ckpt.convert_checked(convert_clip_vision, tower_sd, tower_dir, cfg.vision.layers)
+        return tower_sd
 
     def load_images(self, images):
         return images  # the engine decodes and preprocesses in batches

@@ -95,6 +95,52 @@ def init_clip_t5(cfg: CLIPT5Config, seed: int, device,
     return model
 
 
+_TOWER_PREFIXES = ("encoder.vision_tower.vision_tower.vision_model",
+                   "vision_tower.vision_tower.vision_model",
+                   "model.vision_tower.vision_tower.vision_model")
+_PROJECTOR_PREFIXES = ("encoder.mm_projector", "mm_projector", "model.mm_projector")
+
+
+def tower_prefix(sd) -> str | None:
+    """The CLIP tower's key prefix in a CLIP-FlanT5 state dict, or None when
+    the checkpoint carries no tower."""
+    return next((c for c in _TOWER_PREFIXES
+                 if any(k.startswith(c + ".") for k in sd)), None)
+
+
+def convert_clip_t5(sd, cfg: CLIPT5Config, tower_sd=None):
+    """HF CLIP-FlanT5 checkpoint (LLaVA-style key layout) -> tree of CPU
+    tensor views in the JAX layout.
+
+    Keys: ``encoder.* / decoder.* / shared.* / lm_head.*`` (T5), the CLIP
+    tower under one of ``_TOWER_PREFIXES``, and the 2-layer projector
+    ``{encoder.,,model.}mm_projector.{0,2}.*``. A checkpoint without the
+    tower takes it from ``tower_sd``, the state dict of the CLIP repo its
+    config names in ``mm_vision_tower`` (``vision_model.*``).
+    """
+    from .convert import convert_clip_vision, convert_t5, t2np
+
+    vt_prefix = tower_prefix(sd)
+    if vt_prefix is None and tower_sd is None:
+        raise KeyError("no vision tower found in the state dict "
+                       f"(none of {', '.join(_TOWER_PREFIXES)})")
+    vision = (convert_clip_vision(sd, cfg.vision.layers, prefix=vt_prefix)
+              if vt_prefix is not None else
+              convert_clip_vision(tower_sd, cfg.vision.layers))
+    if vt_prefix is None:
+        vision["proj"] = None  # the LLaVA tower reads no projection
+    pp = next((c for c in _PROJECTOR_PREFIXES
+               if any(k.startswith(c + ".") for k in sd)), _PROJECTOR_PREFIXES[0])
+    return {
+        "vision": vision,
+        "projector": {
+            "fc1": {"w": t2np(sd[f"{pp}.0.weight"]).t(), "b": t2np(sd[f"{pp}.0.bias"])},
+            "fc2": {"w": t2np(sd[f"{pp}.2.weight"]).t(), "b": t2np(sd[f"{pp}.2.bias"])},
+        },
+        "t5": convert_t5(sd, cfg.t5.enc_layers, cfg.t5.dec_layers, gated=cfg.t5.gated),
+    }
+
+
 def image_features(params: CLIPT5Model, cfg: CLIPT5Config,
                    pixels: torch.Tensor) -> torch.Tensor:
     """(M, H, W*3) normalized pixels -> (M, num_image_tokens, d_model)."""

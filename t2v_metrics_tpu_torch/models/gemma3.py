@@ -185,3 +185,54 @@ def splice_and_score(params: Gemma3Model, cfg: Gemma3Config, ids, vis_feats,
     ans = ans_ids.long().clamp(0, logp.shape[-1] - 1)
     tok_logp = torch.gather(logp, -1, ans[..., None])[..., 0] * ans_mask
     return tok_logp.sum(-1) / ans_mask.sum(-1).clamp(min=1)
+
+
+def hf_prefixes(sd) -> tuple[str, str, str]:
+    """(vision, text, projector) key prefixes of a Gemma 3 state dict: the
+    ``model.*`` layout of transformers 4.52+ or the older one."""
+    vp = ("model.vision_tower.vision_model"
+          if any(k.startswith("model.vision_tower.") for k in sd)
+          else "vision_tower.vision_model")
+    tp = ("model.language_model"
+          if any(k.startswith("model.language_model.layers.") for k in sd)
+          else "language_model.model")
+    mp = ("model.multi_modal_projector"
+          if any(k.startswith("model.multi_modal_projector.") for k in sd)
+          else "multi_modal_projector")
+    return vp, tp, mp
+
+
+def convert_gemma3(sd, cfg: Gemma3Config):
+    """HF Gemma3ForConditionalGeneration state dict -> tree of CPU tensor
+    views in the JAX layout (port of the JAX ``convert_gemma3``; ``ln2``
+    repeats ``post_attention_layernorm`` as there, and is not read)."""
+    from .convert import t2np
+
+    def lin(name):
+        return {"w": t2np(sd[f"{name}.weight"]).t(), "b": None}
+
+    def rms(name):
+        return {"scale": t2np(sd[f"{name}.weight"])}
+
+    vp, tp, mp = hf_prefixes(sd)
+    blocks = []
+    for i in range(cfg.text.layers):
+        b = f"{tp}.layers.{i}"
+        blocks.append({
+            "ln1": rms(f"{b}.input_layernorm"),
+            "ln1_post": rms(f"{b}.post_attention_layernorm"),
+            "ln_ff_pre": rms(f"{b}.pre_feedforward_layernorm"),
+            "ln_ff_post": rms(f"{b}.post_feedforward_layernorm"),
+            "ln2": rms(f"{b}.post_attention_layernorm"),
+            "attn": {**{k: lin(f"{b}.self_attn.{k}_proj") for k in "qkvo"},
+                     "q_norm": rms(f"{b}.self_attn.q_norm"),
+                     "k_norm": rms(f"{b}.self_attn.k_norm")},
+            "mlp": {k: lin(f"{b}.mlp.{k}_proj") for k in ("gate", "up", "down")},
+        })
+    return {
+        "vision": siglip.convert_siglip(sd, cfg.vision.layers, prefix=vp),
+        "projector": {"norm": rms(f"{mp}.mm_soft_emb_norm"),
+                      "proj": t2np(sd[f"{mp}.mm_input_projection_weight"])},
+        "decoder": {"embed": t2np(sd[f"{tp}.embed_tokens.weight"]), "blocks": blocks,
+                    "ln_final": rms(f"{tp}.norm")},
+    }

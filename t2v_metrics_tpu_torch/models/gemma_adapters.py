@@ -31,7 +31,9 @@ from ..constants import SIGLIP_MEAN, SIGLIP_STD, VIDEO_EXTENSIONS
 from ..engine.scoring import _HostScores, _load_uint8
 from ..ops.image import normalize_flat, resize_uint8_levels_flat
 from . import gemma3 as g3
-from .adapters import VQAScoreModel, default_dtype, unique_visuals
+from . import checkpoint as ckpt
+from .adapters import (VQAScoreModel, default_dtype, load_checkpoint_tree,
+                       unique_visuals)
 
 DEFAULT_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
 DEFAULT_ANSWER = "Yes"
@@ -71,12 +73,17 @@ class _GemmaBase(VQAScoreModel):
 class Gemma3Adapter(_GemmaBase):
     """Gemma 3 VQAScore adapter (images).
 
-    kwargs: init='random' (random weights on the device from ``seed``),
-    params (a ``Gemma3Model``, or a numpy pytree in the JAX package's layout
-    carried over by ``bridge.py``), config (a ``Gemma3Config``), seed,
-    dtype (default bf16 on CUDA, fp32 on CPU), tokenizer (an object or a
-    local directory). Checkpoint loading raises: pretrained weights are not
-    ported yet.
+    Weights: ``params``; else random with ``init='random'`` (or a model
+    without a hub repo); else the pretrained ``hf`` repo's snapshot from the
+    local Hugging Face cache, as the JAX adapter loads it (never
+    downloaded), or the directory given as ``checkpoint`` (an HF model
+    directory or a native tree).
+
+    kwargs: checkpoint, init='random' (random weights on the device from
+    ``seed``), params (a ``Gemma3Model``, or a pytree in the JAX package's
+    layout with numpy or CPU tensor leaves, carried over by ``bridge.py``),
+    config (a ``Gemma3Config``), seed, dtype (default bf16 on CUDA, fp32 on
+    CPU), tokenizer (an object or a local directory).
     """
 
     video_mode = "direct"
@@ -87,22 +94,28 @@ class Gemma3Adapter(_GemmaBase):
         self.config = cfg
         device = self.device
         dtype = self.kwargs.get("dtype") or default_dtype(device)
-        if self.kwargs.get("checkpoint"):
-            raise NotImplementedError("checkpoint loading is not ported yet; "
-                                      "pass init='random' or params=")
         params = self.kwargs.get("params")
         if params is None:
-            if self.kwargs.get("init") != "random" and spec["hf"] is not None:
-                raise NotImplementedError(
-                    f"pretrained weights for {self.model_name} are not ported "
-                    "yet; pass init='random' or params=")
-            params = g3.init_gemma3(cfg, self.kwargs.get("seed", 0), device, dtype)
-        elif not isinstance(params, g3.Gemma3Model):
+            path = self.kwargs.get("checkpoint")
+            if path is None and self.kwargs.get("init") != "random" \
+                    and spec["hf"] is not None:
+                path = ckpt.resolve_snapshot(spec["hf"], self.cache_dir)
+            if path is not None:
+                params = self._load_checkpoint(path, cfg, dtype)
+            else:
+                params = g3.init_gemma3(cfg, self.kwargs.get("seed", 0), device, dtype)
+        if not isinstance(params, g3.Gemma3Model):
             from ..bridge import gemma3_from_numpy
 
             params = gemma3_from_numpy(params, cfg, device, dtype)
         self.params = params
         self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
+
+    def _load_checkpoint(self, path: str, cfg, dtype) -> dict:
+        from ..bridge import gemma3_from_numpy
+
+        return load_checkpoint_tree(path, g3.convert_gemma3, gemma3_from_numpy, cfg,
+                                    self.model_name, dtype)
 
     def load_images(self, images):
         return images  # decoded and preprocessed in batches

@@ -464,3 +464,69 @@ def splice_and_score(params: Qwen2VLModel, cfg: Qwen2VLConfig,
     ans = ans_ids.long().clamp(0, logp.shape[-1] - 1)
     tok_logp = torch.gather(logp, -1, ans[..., None])[..., 0] * ans_mask
     return tok_logp.sum(-1) / ans_mask.sum(-1).clamp(min=1)
+
+
+def hf_prefixes(sd) -> tuple[str, str]:
+    """(vision, text) key prefixes: ``visual.*`` / ``model.*`` on disk,
+    ``model.visual.*`` / ``model.language_model.*`` in transformers 4.57's
+    state dicts."""
+    vp = "model.visual" if any(k.startswith("model.visual.") for k in sd) else "visual"
+    tp = ("model.language_model"
+          if any(k.startswith("model.language_model.") for k in sd) else "model")
+    return vp, tp
+
+
+def split_qkv(sd, prefix: str) -> dict:
+    """A fused ``{prefix}.qkv`` Linear (3*h, h) as the q, k, v leaves of the
+    tree: (h, h) views and their bias views."""
+    from .convert import t2np
+
+    ws = t2np(sd[f"{prefix}.qkv.weight"]).chunk(3, dim=0)
+    bs = t2np(sd[f"{prefix}.qkv.bias"]).chunk(3, dim=0)
+    return {name: {"w": w.t(), "b": b} for name, w, b in zip("qkv", ws, bs)}
+
+
+def convert_qwen2vl(sd, cfg: Qwen2VLConfig):
+    """HF Qwen2_5_VLForConditionalGeneration state dict -> tree of CPU
+    tensor views in the JAX layout (port of the JAX ``convert_qwen2vl``)."""
+    from .convert import _lin, patch_matrix, t2np
+
+    def lin(name, bias=True):
+        leaf = _lin(sd, name)
+        return leaf if bias else {"w": leaf["w"], "b": None}
+
+    def rms(name):
+        return {"scale": t2np(sd[f"{name}.weight"])}
+
+    vp, tp = hf_prefixes(sd)
+    vision = {
+        "patch_w": patch_matrix(sd[f"{vp}.patch_embed.proj.weight"]),
+        "blocks": [],
+        "merger": {"ln_q": rms(f"{vp}.merger.ln_q"),
+                   "fc1": lin(f"{vp}.merger.mlp.0"),
+                   "fc2": lin(f"{vp}.merger.mlp.2")},
+    }
+    for i in range(cfg.vision.depth):
+        b = f"{vp}.blocks.{i}"
+        vision["blocks"].append({
+            "ln1": rms(f"{b}.norm1"),
+            "attn": {**split_qkv(sd, f"{b}.attn"), "o": lin(f"{b}.attn.proj")},
+            "ln2": rms(f"{b}.norm2"),
+            "mlp": {k: lin(f"{b}.mlp.{k}_proj") for k in ("gate", "up", "down")},
+        })
+    blocks = []
+    for i in range(cfg.text.layers):
+        b = f"{tp}.layers.{i}"
+        blocks.append({
+            "ln1": rms(f"{b}.input_layernorm"),
+            "attn": {**{k: lin(f"{b}.self_attn.{k}_proj") for k in "qkv"},
+                     "o": lin(f"{b}.self_attn.o_proj", bias=False)},
+            "ln2": rms(f"{b}.post_attention_layernorm"),
+            "mlp": {k: lin(f"{b}.mlp.{k}_proj", bias=False)
+                    for k in ("gate", "up", "down")},
+        })
+    decoder = {"embed": t2np(sd[f"{tp}.embed_tokens.weight"]), "blocks": blocks,
+               "ln_final": rms(f"{tp}.norm")}
+    if not cfg.text.tie_embeddings:
+        decoder["lm_head"] = t2np(sd["lm_head.weight"]).t()
+    return {"vision": vision, "decoder": decoder}

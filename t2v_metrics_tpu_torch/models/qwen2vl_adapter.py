@@ -24,7 +24,9 @@ from ..constants import VIDEO_EXTENSIONS
 from ..engine.scoring import _HostScores, _load_uint8
 from ..ops.image import smart_resize
 from . import qwen2vl as q
-from .adapters import VQAScoreModel, default_dtype, unique_visuals
+from . import checkpoint as ckpt
+from .adapters import (VQAScoreModel, default_dtype, load_checkpoint_tree,
+                       unique_visuals)
 
 DEFAULT_QWEN_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
 DEFAULT_QWEN_ANSWER = "Yes"
@@ -90,15 +92,20 @@ def _padded_geometry(cfg_vision, grid, s, sb):
 class Qwen2VLAdapter(VQAScoreModel):
     """Qwen2.5-VL VQAScore adapter (images).
 
+    Weights, in this order: ``params``; ``checkpoint``; random with
+    ``init='random'`` (or a model without a hub repo); else the pretrained
+    ``hf`` repo from the local Hugging Face cache (never downloaded).
+
     kwargs:
+      checkpoint: a local directory: an HF model directory (safetensors or
+        ``*.bin`` shards, either prefix layout) or a native tree
       init: 'random' builds random weights on the device from ``seed``
-      params: a ``Qwen2VLModel``, or a numpy pytree in the JAX package's
-        layout (carried over by ``bridge.py``)
+      params: a ``Qwen2VLModel``, or a pytree in the JAX package's layout
+        with numpy or CPU tensor leaves (carried over by ``bridge.py``)
       config: a ``Qwen2VLConfig`` that replaces the registry's
       seed: random-init seed (default 0)
       dtype: parameter dtype (default bf16 on CUDA, fp32 on CPU)
       tokenizer: a tokenizer object or a local tokenizer directory
-    Checkpoint loading raises: pretrained weights are not ported yet.
     """
 
     video_mode = "direct"
@@ -112,23 +119,34 @@ class Qwen2VLAdapter(VQAScoreModel):
         self.config = cfg
         device = self.device
         dtype = self.kwargs.get("dtype") or default_dtype(device)
-        if self.kwargs.get("checkpoint"):
-            raise NotImplementedError("checkpoint loading is not ported yet; "
-                                      "pass init='random' or params=")
         params = self.kwargs.get("params")
         if params is None:
-            if self.kwargs.get("init") != "random" and spec["hf"] is not None:
-                raise NotImplementedError(
-                    f"pretrained weights for {self.model_name} are not ported "
-                    "yet; pass init='random' or params=")
-            params = q.init_qwen2vl(cfg, self.kwargs.get("seed", 0), device, dtype)
-        elif not isinstance(params, q.Qwen2VLModel):
+            path = self.checkpoint_path(spec)
+            if path is not None:
+                params = self._load_checkpoint(path, cfg, dtype)
+            else:
+                params = q.init_qwen2vl(cfg, self.kwargs.get("seed", 0), device, dtype)
+        if not isinstance(params, q.Qwen2VLModel):
             from ..bridge import qwen2vl_from_numpy
 
             params = qwen2vl_from_numpy(params, cfg, device, dtype)
         self.params = params
         self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
         self._geometry = {}
+
+    def checkpoint_path(self, spec) -> str | None:
+        """The directory to load: ``checkpoint``, else the local snapshot of
+        the pretrained repo unless ``init='random'`` (None: random init)."""
+        path = self.kwargs.get("checkpoint")
+        if path is None and self.kwargs.get("init") != "random" and spec["hf"] is not None:
+            path = ckpt.resolve_snapshot(spec["hf"], self.cache_dir)
+        return path
+
+    def _load_checkpoint(self, path: str, cfg, dtype) -> dict:
+        from ..bridge import qwen2vl_from_numpy
+
+        return load_checkpoint_tree(path, q.convert_qwen2vl, qwen2vl_from_numpy, cfg,
+                                    self.model_name, dtype)
 
     def load_images(self, images):
         return images  # decoded and preprocessed in batches

@@ -379,3 +379,65 @@ def splice_and_score(params: Qwen3VLModel, cfg: Qwen3VLConfig, ids,
                                vis_slot, position_ids, attn_mask, ans_ids,
                                ans_pos, ans_mask, temperature=temperature,
                                deepstack_feats=deepstack_feats)
+
+
+def convert_qwen3vl(sd, cfg: Qwen3VLConfig):
+    """HF Qwen3VL(Moe)ForConditionalGeneration state dict -> tree of CPU
+    tensor views in the JAX layout (port of the JAX ``convert_qwen3vl``):
+    dense or MoE per layer, the MoE experts' fused ``gate_up_proj`` (E, H,
+    2I) and ``down_proj`` (E, I, H) passed through as they are, the layout
+    the grouped GEMM reads."""
+    from .convert import _lin, _ln, patch_matrix, t2np
+
+    def lin(name, bias=True):
+        leaf = _lin(sd, name)
+        return leaf if bias else {"w": leaf["w"], "b": None}
+
+    def rms(name):
+        return {"scale": t2np(sd[f"{name}.weight"])}
+
+    def merger(prefix):
+        return {"norm": _ln(sd, f"{prefix}.norm"),
+                "fc1": lin(f"{prefix}.linear_fc1"),
+                "fc2": lin(f"{prefix}.linear_fc2")}
+
+    vp, tp = q2.hf_prefixes(sd)
+    vision = {
+        "patch_w": patch_matrix(sd[f"{vp}.patch_embed.proj.weight"]),
+        "patch_b": t2np(sd[f"{vp}.patch_embed.proj.bias"]),
+        "pos_emb": t2np(sd[f"{vp}.pos_embed.weight"]),
+        "blocks": [],
+        "merger": merger(f"{vp}.merger"),
+        "deepstack": [merger(f"{vp}.deepstack_merger_list.{i}")
+                      for i in range(len(cfg.vision.deepstack_indexes))],
+    }
+    for i in range(cfg.vision.depth):
+        b = f"{vp}.blocks.{i}"
+        vision["blocks"].append({
+            "ln1": _ln(sd, f"{b}.norm1"),
+            "attn": {**q2.split_qkv(sd, f"{b}.attn"), "o": lin(f"{b}.attn.proj")},
+            "ln2": _ln(sd, f"{b}.norm2"),
+            "mlp": {"fc1": lin(f"{b}.mlp.linear_fc1"), "fc2": lin(f"{b}.mlp.linear_fc2")},
+        })
+    blocks = []
+    for i in range(cfg.text.layers):
+        b = f"{tp}.layers.{i}"
+        if f"{b}.mlp.experts.gate_up_proj" in sd:
+            mlp = {"moe": {"router": {"w": t2np(sd[f"{b}.mlp.gate.weight"]).t()},
+                           "gate_up": t2np(sd[f"{b}.mlp.experts.gate_up_proj"]),
+                           "down": t2np(sd[f"{b}.mlp.experts.down_proj"])}}
+        else:
+            mlp = {k: lin(f"{b}.mlp.{k}_proj", bias=False) for k in ("gate", "up", "down")}
+        blocks.append({
+            "ln1": rms(f"{b}.input_layernorm"),
+            "attn": {**{k: lin(f"{b}.self_attn.{k}_proj", bias=False) for k in "qkvo"},
+                     "q_norm": rms(f"{b}.self_attn.q_norm"),
+                     "k_norm": rms(f"{b}.self_attn.k_norm")},
+            "ln2": rms(f"{b}.post_attention_layernorm"),
+            "mlp": mlp,
+        })
+    decoder = {"embed": t2np(sd[f"{tp}.embed_tokens.weight"]), "blocks": blocks,
+               "ln_final": rms(f"{tp}.norm")}
+    if not cfg.text.tie_embeddings:
+        decoder["lm_head"] = t2np(sd["lm_head.weight"]).t()
+    return {"vision": vision, "decoder": decoder}

@@ -15,6 +15,10 @@ scoring, generation and traces are not ported yet and raise.
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import warnings
+
 import numpy as np
 import torch
 
@@ -22,21 +26,30 @@ from ..constants import VIDEO_EXTENSIONS
 from ..engine.scoring import _load_uint8
 from ..ops.image import smart_resize
 from . import qwen2vl as q2
+from . import checkpoint as ckpt
 from . import qwen3vl as q3
-from .adapters import default_dtype
+from .adapters import default_dtype, load_checkpoint_tree
 from .qwen2vl_adapter import (IMAGE_MAX_PIXELS, IMAGE_MIN_PIXELS,
                               PATCH_BUCKETS, Qwen2VLAdapter, _bucket)
 
 THINKING_OFF_SUFFIX = "<think>\n\n</think>\n\n"
 
+# the config.json fields the qwen3.5 dims adoption takes (the JAX adapter's
+# list, read there from hf.config.text_config)
+_QWEN35_TEXT_KEYS = {k: ckpt._HF_DECODER_KEYS[k] for k in (
+    "hidden_size", "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
+    "intermediate_size", "vocab_size", "head_dim", "rope_theta")}
+
 
 class Qwen3VLAdapter(Qwen2VLAdapter):
     """Qwen3-VL VQAScore adapter (images), dense and MoE.
 
-    kwargs as ``Qwen2VLAdapter``'s: init='random', params (a
-    ``Qwen3VLModel`` or a numpy pytree in the JAX package's layout), config
-    (a ``Qwen3VLConfig``), seed, dtype, tokenizer. Checkpoint loading
-    raises: pretrained weights are not ported yet.
+    kwargs as ``Qwen2VLAdapter``'s: checkpoint (an HF directory, dense or
+    MoE, or a native tree), init='random', params (a ``Qwen3VLModel`` or a
+    pytree in the JAX package's layout), config (a ``Qwen3VLConfig``),
+    seed, dtype, tokenizer; the pretrained repo from the local cache
+    otherwise. qwen3.5's dims are provisional: its checkpoint's config.json
+    replaces them, with a warning naming each field.
     """
 
     seq_extra = 8
@@ -50,23 +63,45 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
                                   if spec.get("enable_thinking") is False else "")
         device = self.device
         dtype = self.kwargs.get("dtype") or default_dtype(device)
-        if self.kwargs.get("checkpoint"):
-            raise NotImplementedError("checkpoint loading is not ported yet; "
-                                      "pass init='random' or params=")
         params = self.kwargs.get("params")
         if params is None:
-            if self.kwargs.get("init") != "random" and spec["hf"] is not None:
-                raise NotImplementedError(
-                    f"pretrained weights for {self.model_name} are not ported "
-                    "yet; pass init='random' or params=")
-            params = q3.init_qwen3vl(cfg, self.kwargs.get("seed", 0), device, dtype)
-        elif not isinstance(params, q3.Qwen3VLModel):
+            path = self.checkpoint_path(spec)
+            if path is not None:
+                cfg = self.config = self._adopt_config_json(path, cfg)
+                params = self._load_checkpoint(path, cfg, dtype)
+            else:
+                params = q3.init_qwen3vl(cfg, self.kwargs.get("seed", 0), device, dtype)
+        if not isinstance(params, q3.Qwen3VLModel):
             from ..bridge import qwen3vl_from_numpy
 
             params = qwen3vl_from_numpy(params, cfg, device, dtype)
         self.params = params
         self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
         self._geometry = {}
+
+    def _adopt_config_json(self, path: str, cfg: q3.Qwen3VLConfig) -> q3.Qwen3VLConfig:
+        """qwen3.5: the checkpoint's config.json text dims over the
+        provisional registry values (the JAX adapter's adoption)."""
+        cj = ckpt.read_hf_config(path) if os.path.isdir(path) else None
+        if not self.model_name.startswith("qwen3.5") or cj is None:
+            return cfg
+        tc = cj.get("text_config", cj)
+        if "head_dim" not in tc and "hidden_size" in tc and "num_attention_heads" in tc:
+            tc = {**tc, "head_dim": tc["hidden_size"] // tc["num_attention_heads"]}
+        text, diff = ckpt.adopt_config_json(tc, cfg.text, _QWEN35_TEXT_KEYS)
+        if not diff:
+            return cfg
+        warnings.warn(
+            f"{self.model_name}: adopted checkpoint dims over "
+            f"the provisional registry values: "
+            + ", ".join(f"text.{k} {o} -> {n}" for k, (o, n) in sorted(diff.items())))
+        return dataclasses.replace(cfg, text=text)
+
+    def _load_checkpoint(self, path: str, cfg, dtype) -> dict:
+        from ..bridge import qwen3vl_from_numpy
+
+        return load_checkpoint_tree(path, q3.convert_qwen3vl, qwen3vl_from_numpy, cfg,
+                                    self.model_name, dtype)
 
     def _build_ids(self, question, n_vis):
         ids = super()._build_ids(question, n_vis)

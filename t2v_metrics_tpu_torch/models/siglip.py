@@ -129,3 +129,18 @@ def vision_tower(p: SiglipVisionTower, cfg: SiglipVisionConfig,
         x, h = L.add_layer_norm(x, a, blk.ln2.scale, blk.ln2.bias, cfg.ln_eps)
         branch = Q.linear(L.ACT_FNS[cfg.act](Q.linear(h, blk.fc1)), blk.fc2)
     return L.add_layer_norm(x, branch, p.ln_post.scale, p.ln_post.bias, cfg.ln_eps)[1]
+
+
+def convert_siglip(sd, num_layers: int, prefix="vision_model"):
+    """HF SiglipVisionModel state dict -> tree of CPU tensor views in the
+    JAX layout (port of the JAX ``convert_siglip``)."""
+    from .convert import _clip_block, _ln, patch_matrix, t2np
+
+    return {
+        "patch_w": patch_matrix(sd[f"{prefix}.embeddings.patch_embedding.weight"]),
+        "patch_b": t2np(sd[f"{prefix}.embeddings.patch_embedding.bias"]),
+        "pos_emb": t2np(sd[f"{prefix}.embeddings.position_embedding.weight"]),
+        "blocks": [_clip_block(sd, f"{prefix}.encoder.layers.{i}")
+                   for i in range(num_layers)],
+        "ln_post": _ln(sd, f"{prefix}.post_layernorm"),
+    }

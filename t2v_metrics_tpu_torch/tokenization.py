@@ -29,10 +29,18 @@ def splice_image_tokens_t5(prompt: str, tokenizer,
 
 def load_hf_tokenizer(path: str, **kwargs):
     """Load a fast tokenizer from a local directory or the local HF cache;
-    never from the network."""
+    never from the network. Needs ``transformers``, which the GPU machine
+    lacks: there it raises ImportError saying so."""
     import os
 
-    from transformers import AutoTokenizer
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            f"loading the tokenizer {path!r} needs the transformers package, "
+            "which is not installed; pass a tokenizer object, or leave tokenizer "
+            "out to use SimpleT5Tokenizer (scores then do not match pretrained "
+            "weights)") from e
 
     if not os.path.isdir(path):
         kwargs.setdefault("local_files_only", True)

@@ -178,14 +178,18 @@ def test_pairwise_forward_and_batch_forward():
                                    atol=1e-6, rtol=1e-5)
 
 
-def test_registry_matches_jax_and_unported_paths_raise():
+def test_registry_matches_jax_and_unported_paths_raise(tmp_path, monkeypatch):
+    from t2v_metrics_tpu_torch.models.checkpoint import CheckpointError
+
     assert set(jg3.GEMMA3_MODELS) <= set(tt2v.list_all_vqascore_models())
     assert list(tg3.GEMMA3_MODELS) == list(jg3.GEMMA3_MODELS)
     for name, spec in jg3.GEMMA3_MODELS.items():
         got = tg3.GEMMA3_MODELS[name]
         assert got["hf"] == spec["hf"]
         assert dataclasses.asdict(got["config"]) == dataclasses.asdict(spec["config"]), name
-    with pytest.raises(NotImplementedError):
+    for var in ("HF_HUB_CACHE", "HF_HOME", "HOME", "T2V_TPU_CACHE"):
+        monkeypatch.setenv(var, str(tmp_path / var))         # empty local caches
+    with pytest.raises(CheckpointError, match="never downloads"):
         tt2v.VQAScore("gemma-3-4b-it", device="cpu")          # pretrained weights
     s = tt2v.VQAScore(NAME, device="cpu")
     with pytest.raises(NotImplementedError):

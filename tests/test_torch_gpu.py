@@ -529,3 +529,29 @@ def test_quant_matmul_refuses_what_it_lacks(dev):
         TQ.quant_matmul(x_q.float(), w_q, xs, ws)
     with pytest.raises(TypeError):                              # the kernel writes bf16
         TQ.quant_matmul(x_q, _int8(dev, 16, 64).t(), xs, ws, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_checkpoint_loads_on_the_card_as_on_the_cpu(dev, tmp_path, src_dtype):
+    """A staged checkpoint (chip_smoke.py's own key map and writer: the card
+    machine has no safetensors) goes to the card leaf by leaf in its own
+    dtype and is cast and transposed there: the parameters equal those the
+    CPU casts, bitwise, and bf16 stays bf16."""
+    import chip_smoke
+    from t2v_metrics_tpu_torch import bridge
+    from t2v_metrics_tpu_torch.models import checkpoint as ckpt
+    from t2v_metrics_tpu_torch.models import clip_flant5 as tcft5
+    from t2v_metrics_tpu_torch.models.adapters import CLIP_T5_MODELS
+
+    cfg = CLIP_T5_MODELS["clip-flant5-test"]["config"]
+    model = tcft5.init_clip_t5(cfg, 0, "cpu", src_dtype)
+    chip_smoke.write_checkpoint(chip_smoke.hf_clip_t5_tensors(model, cfg), str(tmp_path), 2)
+
+    def load(device):
+        tree = tcft5.convert_clip_t5(ckpt.load_safetensors_dict(str(tmp_path)), cfg)
+        return bridge.clip_t5_from_numpy(tree, cfg, device, torch.bfloat16).state_dict()
+
+    on_card, on_cpu = load(dev), load("cpu")
+    assert on_card.keys() == on_cpu.keys()
+    for k, v in on_cpu.items():
+        assert on_card[k].is_cuda and torch.equal(on_card[k].cpu(), v), k

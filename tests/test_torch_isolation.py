@@ -45,6 +45,41 @@ def test_port_and_chip_smoke_load_no_jax_package():
     assert res.stdout.strip().endswith("ok")
 
 
+_HUB_PACKAGES = ("safetensors", "transformers", "huggingface_hub")
+
+
+@pytest.mark.parametrize("with_tokenizer", [False, True], ids=["no_tokenizer", "tokenizer_dir"])
+def test_loading_a_checkpoint_pulls_no_hub_package(tmp_path, with_tokenizer):
+    """Importing the port and loading a staged HF checkpoint (safetensors
+    shards + index) leaves no safetensors, transformers or huggingface_hub
+    in sys.modules: the GPU machine has none of them. A tokenizer directory
+    is read through transformers, so with tokenizer=<dir> it appears."""
+    from test_torch_hf_parity import clip_t5_hf, stage_safetensors, stage_tokenizer
+
+    path = stage_safetensors(clip_t5_hf()[3], str(tmp_path / "ckpt"))
+    tok = stage_tokenizer(str(tmp_path / "tok"), "a photo of cat Yes", t5=True)
+    code = (
+        "import sys, numpy as np, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import t2v_metrics_tpu_torch as t\n"
+        "from test_torch_hf_parity import CLIP_T5_CFG\n"
+        f"kw = dict(tokenizer={tok!r}) if {with_tokenizer} else {{}}\n"
+        f"s = t.VQAScore('clip-flant5-xl', config=CLIP_T5_CFG, checkpoint={path!r},\n"
+        "               device='cpu', dtype=torch.float32, **kw)\n"
+        "img = np.zeros((28, 28, 3), np.uint8)\n"
+        "assert np.isfinite(s(images=[img], texts=['a photo of cat'])).all()\n"
+        f"hub = {_HUB_PACKAGES!r}\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in hub))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    loaded = res.stdout.strip().splitlines()[-1]
+    if with_tokenizer:
+        assert "'transformers'" in loaded
+    else:
+        assert loaded == "[]", loaded
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -15,8 +15,8 @@ Tolerances:
     this seeded model (measured 1.6e-3 at most). So at least 3/4 of the
     pairs must agree to 1e-4 and every pair to 5e-3;
   * int8 against f32 scores at true xl widths (2+2 layers) and at one
-    xxl-width layer (1+1): the measured error with ~1.5x room (see the
-    test: the BASELINE bar of 1e-3 is not met on random weights).
+    xxl-width layer (1+1) on HF-initialised weights: the measured error with
+    ~1.5x room (1.04e-3 at xl, just over the BASELINE bar of 1e-3).
 """
 
 import dataclasses
@@ -332,38 +332,48 @@ def test_quant_mode_from_the_environment(slice_inputs, monkeypatch):
 # (e) int8 against f32 at true xl widths and at one xxl-width layer
 # ---------------------------------------------------------------------------
 
-# measured on this seed: max |dp| 1.79e-3 / 3.52e-3, max |d log p| 0.139 /
-# 0.220 nats (xl 2+2 / xxl 1+1); the limits are ~1.5x that
-TRUE_WIDTH_LIMITS = {"flan-t5-xl": (3e-3, 0.21), "flan-t5-xxl": (5e-3, 0.33)}
+# measured on HF-initialised weights, these seeds: max |dp| 1.04e-3 / 6.73e-4,
+# max |d log p| 9.50e-2 / 6.67e-2 nats (xl 2+2 / xxl 1+1); the limits are ~1.5x
+TRUE_WIDTH_LIMITS = {"flan-t5-xl": (1.6e-3, 0.14), "flan-t5-xxl": (1.0e-3, 0.10)}
 
 
 @pytest.mark.parametrize("size,layers", [("flan-t5-xl", 2), ("flan-t5-xxl", 1)])
 def test_int8_scores_near_f32_at_true_widths(size, layers):
     """Scores of a T5 at the published widths, int8 against f32 on the same
-    random weights: P(answer) of every one-token answer (the softmax of the
-    first decoder position) for 4 encoder inputs. The lm_head is not
-    quantized, so the vocabulary is cut to 512; the attention scale is
-    folded into W_q, as T5 checkpoints carry it.
+    HF-initialised weights: P(answer) of every one-token answer (the softmax
+    of the first decoder position) for 4 encoder inputs. HF's T5 init draws
+    W_q with std (d_model * d_kv)^-1/2, the attention scale checkpoints
+    carry. The lm_head is not quantized, so the vocabulary is cut to 512,
+    and it is scaled to std d_model^-1/2 (HF draws an untied head with std
+    1, which puts P(answer) below float32's range).
 
-    The BASELINE bar of 1e-3 on the scores is NOT met here: W8A8 moves these
-    random-weight scores by up to ~3.5e-3 (0.14-0.22 nats of log-prob), as
-    it moves the JAX package's own (0.49 nats at xl widths, 2+2 layers, on
-    its unfolded init). The per-row activation quant of the heavy-tailed
-    gated-MLP product, whose absmax sets the step, is the largest term. The
-    test pins the error at its measured size so that a regression shows;
-    whether real checkpoints meet 1e-3 waits for checkpoint loading.
+    The max over every one-token answer is 1.04e-3 at xl widths (0.095
+    nats) and 6.7e-4 for the xxl layer (0.067): the BASELINE bar of 1e-3 is
+    just missed at xl, where the port's plain random init missed it by more
+    (1.8e-3 / 3.5e-3, 0.14-0.22 nats). The VQAScore answer "Yes" moves far
+    less (tests/test_torch_real_dims.py: |dP| <= 3.1e-5). The test pins the
+    error at its measured size so that a regression shows. Real checkpoints
+    are not in the repository.
     """
+    from transformers import T5Config, T5ForConditionalGeneration
+
+    from t2v_metrics_tpu_torch.models.convert import convert_t5
+
     dp_max, dlogp_max = TRUE_WIDTH_LIMITS[size]
     cfg = dataclasses.replace(tt5.T5_CONFIGS[size], vocab_size=512,
                               enc_layers=layers, dec_layers=layers)
-    model = tt5.init_t5(tt5.T5Model(cfg, "cpu", torch.float32),
-                        torch.Generator().manual_seed(14))
-    inner = cfg.num_heads * cfg.d_kv
+    torch.manual_seed(14)
+    hf = T5ForConditionalGeneration(T5Config(
+        vocab_size=512, d_model=cfg.d_model, d_kv=cfg.d_kv, d_ff=cfg.d_ff,
+        num_layers=layers, num_decoder_layers=layers, num_heads=cfg.num_heads,
+        relative_attention_num_buckets=32, relative_attention_max_distance=128,
+        dropout_rate=0.0, feed_forward_proj="gated-gelu", tie_word_embeddings=False,
+        decoder_start_token_id=0, pad_token_id=0, eos_token_id=1))
     with torch.no_grad():
-        for blk in [*model.encoder.blocks, *model.decoder.blocks]:
-            blk.attn.qkv.w[:, :inner] *= cfg.d_kv ** -0.5
-        for blk in model.decoder.blocks:
-            blk.cross.q.w *= cfg.d_kv ** -0.5
+        hf.lm_head.weight.mul_(cfg.d_model ** -0.5)
+    model = bridge.t5_from_numpy(convert_t5(hf.state_dict(), layers, layers), cfg, "cpu",
+                                 torch.float32)
+    del hf
     rng = np.random.default_rng(15)
     b, s = 4, 24
     emb = torch.from_numpy(rng.normal(size=(b, s, cfg.d_model)).astype(np.float32))

@@ -172,11 +172,15 @@ def test_resized_image_scores_near_jax(scorers):
     np.testing.assert_allclose(np.log(got), np.log(want), atol=2e-2, rtol=0)
 
 
-def test_registry_and_unported_paths_raise():
+def test_registry_and_unported_paths_raise(tmp_path, monkeypatch):
+    from t2v_metrics_tpu_torch.models.checkpoint import CheckpointError
+
     assert {"qwen2.5-vl-7b", NAME} <= set(tt2v.list_all_vqascore_models())
-    with pytest.raises(NotImplementedError):
+    for var in ("HF_HUB_CACHE", "HF_HOME", "HOME", "T2V_TPU_CACHE"):
+        monkeypatch.setenv(var, str(tmp_path / var))         # empty local caches
+    with pytest.raises(CheckpointError, match="never downloads"):
         tt2v.VQAScore("qwen2.5-vl-7b", device="cpu")          # pretrained weights
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(CheckpointError, match="some/dir"):
         tt2v.VQAScore(NAME, device="cpu", checkpoint="some/dir")
     s = tt2v.VQAScore(NAME, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -196,7 +196,9 @@ def test_qwen35_assistant_suffix_matches_jax():
                                atol=TOL, rtol=0)
 
 
-def test_registry_matches_jax_and_unported_paths_raise():
+def test_registry_matches_jax_and_unported_paths_raise(tmp_path, monkeypatch):
+    from t2v_metrics_tpu_torch.models.checkpoint import CheckpointError
+
     names = set(tt2v.list_all_vqascore_models())
     assert set(jq3.QWEN3_VL_MODELS) <= names
     assert list(tq3.QWEN3_VL_MODELS) == list(jq3.QWEN3_VL_MODELS)
@@ -204,7 +206,9 @@ def test_registry_matches_jax_and_unported_paths_raise():
         got, want = tq3.resolve_config(name), jq3.resolve_config(name)
         assert dataclasses.asdict(got) == dataclasses.asdict(want), name
         assert tq3.QWEN3_VL_MODELS[name] == jq3.QWEN3_VL_MODELS[name], name
-    with pytest.raises(NotImplementedError):
+    for var in ("HF_HUB_CACHE", "HF_HOME", "HOME", "T2V_TPU_CACHE"):
+        monkeypatch.setenv(var, str(tmp_path / var))         # empty local caches
+    with pytest.raises(CheckpointError, match="never downloads"):
         tt2v.VQAScore("qwen3-vl-30b-a3b", device="cpu")      # pretrained weights
     s = tt2v.VQAScore("qwen3-vl-test", device="cpu")
     with pytest.raises(NotImplementedError):

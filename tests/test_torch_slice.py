@@ -109,10 +109,14 @@ def test_path_input_scores(scorers, tmp_path):
     np.testing.assert_allclose(np.log(got), np.log(ref), atol=5e-2, rtol=0)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path, monkeypatch):
+    from t2v_metrics_tpu_torch.models.checkpoint import CheckpointError
+
     with pytest.raises(ValueError):   # int8 and int8+vit are ported; no other mode
         tt2v.VQAScore("clip-flant5-test", device="cpu", quant="int4")
-    with pytest.raises(NotImplementedError):
+    for var in ("HF_HUB_CACHE", "HF_HOME", "HOME", "T2V_TPU_CACHE"):
+        monkeypatch.setenv(var, str(tmp_path / var))    # empty local caches
+    with pytest.raises(CheckpointError, match="never downloads"):
         tt2v.VQAScore("clip-flant5-xl", device="cpu")  # pretrained weights
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
