@@ -5,10 +5,11 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. environment: the card's name and power limit; build every kernel of the
-     clip-flant5 (bf16 and W8A8), Qwen2.5-VL, Qwen3-VL and Gemma 3 paths from
-     the sources in this checkout (one nvcc per CUDA source, started
-     together: the flat flash attention and the per-head flash attention at
-     head dims 64/72/80/128/256, the MoE grouped GEMM, the int8 GEMM and
+     clip-flant5 (bf16 and W8A8), Qwen2.5-VL, Qwen3-VL, Gemma 3, CLIPScore
+     and ITMScore paths from the sources in this checkout (one nvcc per CUDA
+     source, started together: the flat flash attention at head dims
+     64/72/80/88/128/256 and the per-head one at 64/72/80/128/256, the MoE
+     grouped GEMM, the int8 GEMM and
      LayerNorm; Triton for RMSNorm, the rotary embedding and the per-row int8
      quant) and time the build;
   checkpoint: the whole clip-flant5-xl (random bf16 weights from a seed, the
@@ -26,7 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
      times, its bound (the least time the card could take: bytes over 3.35
      TB/s or operations over the peak rate of their type) and, where one
      PyTorch call computes the same function, that call's time; LayerNorm
-     also with the residual add folded in, at each of its four sites
+     also with the residual add folded in, at each of its four sites; and
+     at the CLIPScore / ITMScore shapes: the flat kernel at the EVA ViT-g
+     site (head dim 88, with two wrong plain versions that must fail), the
+     Q-Former's cross- and self-attention and the CLIP text tower's causal
+     attention, LayerNorm at d 1408 and add + LN at d 768, eps 1e-12
      (``--kernels-only`` stops here, with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
@@ -39,7 +44,9 @@ Phases (any failure exits non-zero and prints no result line):
      plain versions, on one set of random parameters each; and the
      clip-flant5-xl chain under ``INKERNEL_REL_BIAS`` (the per-head kernel
      with the T5 bias in the kernel) against its dense-bias path on the same
-     parameters, both on the card;
+     parameters, both on the card; CLIPScore at ViT-B/32 widths (2 vision +
+     2 text layers) and ITMScore at blip2-itm widths (2 EVA + 2 Q-Former
+     layers, one with cross-attention), card bf16 against CPU fp32;
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -52,14 +59,18 @@ Phases (any failure exits non-zero and prints no result line):
      ``VQAScore("gemma-3-4b-it", init="random")`` (1024x1024 images) and
      ``VQAScore("clip-flant5-xxl", init="random", quant=q)`` for q in None,
      "int8", "int8+vit", with each int8 mode's score gap from bf16 on the
-     same rows; with ``--profile``, the device time of one
+     same rows; ``CLIPScore("openai:ViT-B-32", init="random")`` (8 x 32,
+     ``batch_forward`` of 64 x (1, 4)) and ``ITMScore("blip2-itm",
+     init="random")`` (39 EVA + 12 Q-Former layers, 1.17 B parameters; 4 x 8,
+     ``batch_forward`` of 16 x (1, 4)); with ``--profile``, the device time of one
      ``batch_forward`` of each, and of the Qwen forwards at 1024x1024, by
      kernel family (torch.profiler) and the device's busy share.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the checkpoint-loaded xl and the seven slices; a row's ``sites`` are
+summed over the first calls of the checkpoint-loaded xl and the nine slices; a row's ``sites`` are
 further shapes of the main path, each with its times, bound and library
 time: the grouped GEMM's down projection, the int8 GEMM's split-K decoder
-shape, LayerNorm's other shapes and its add + LayerNorm entry), the card's name and power limit, and ``{"ok": true,
+shape, LayerNorm's other shapes and its add + LayerNorm entry, the flat
+kernel's CLIPScore / ITMScore sites), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -300,14 +311,27 @@ def phase_build() -> None:
         quant.quantize_rows(ones(8, d))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    log(f"[build] nvcc flash_flat.cu and flash_attention.cu (head dims "
-        f"64/72/80/128/256), grouped_gemm.cu, quant_matmul.cu and layer_norm.cu "
+    log(f"[build] nvcc flash_flat.cu (head dims 64/72/80/88/128/256) and "
+        f"flash_attention.cu (64/72/80/128/256), grouped_gemm.cu, quant_matmul.cu and layer_norm.cu "
         f"in parallel: {t_nvcc:.2f} s; with the Triton RMSNorm, rotary embedding "
         f"and row quant: {total:.2f} s")
     for lib in ("flash_flat", "flash_attention", "grouped_gemm", "quant_matmul"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] ptxas {lib}: {line.strip()}")
+    # the flat kernel at head dim 88 (DP 96) and every attention instantiation:
+    # no spills, and no wgmma serialized by ptxas (warnings C7513 / C7515)
+    d88 = {k: u for k, u in build.ptxas_usage("flash_flat").items() if "ILi88E" in k}
+    check(d88, "flash_flat.cu: no head-dim-88 instantiation in its build log")
+    log(f"[build] ptxas flash_flat d=88: {len(d88)} kernels, registers "
+        f"{sorted(u[0] for u in d88.values())}, spill bytes "
+        f"{sum(u[1] + u[2] for u in d88.values())}")
+    check(not any(u[1] or u[2] for u in d88.values()), "flash_flat.cu d=88 spills")
+    for lib in ("flash_flat", "flash_attention"):
+        serial = [ln for ln in build.build_log(lib).splitlines()
+                  if "C7513" in ln or "C7515" in ln]
+        log(f"[build] ptxas {lib}: {len(serial)} wgmma serialization warnings")
+        check(not serial, f"{lib}: ptxas serializes wgmma: {serial[:2]}")
     # layer_norm.cu's 100 small instantiations, summed up
     usage = build.ptxas_usage("layer_norm")
     regs = [u[0] for u in usage.values()]
@@ -616,6 +640,8 @@ def phase_kernels() -> dict:
     del weights, xg
     free_cuda()
     quant_kernels(randn, record)
+    free_cuda()
+    scorer_kernels(randn, record)
     return results
 
 
@@ -1801,6 +1827,316 @@ def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024
 
 
 # ---------------------------------------------------------------------------
+# CLIPScore and ITMScore: kernel sites (phase 2), chains (phase 3) and
+# slices (phase 4)
+# ---------------------------------------------------------------------------
+
+CLIP = "openai:ViT-B-32"
+ITM = "blip2-itm"
+# Chains: ViT-B/32 at 2 vision + 2 text layers, BLIP-2 at 2 EVA + 2 Q-Former
+# layers, bf16 on the card against fp32 on the CPU: the same chains in bf16
+# on the CPU (plain versions) differ from fp32 by 6.1e-4-1.0e-3 in cosine and
+# 8.8e-4-1.3e-3 in P(match) over two seeds, so 1e-2 is ~8x that.
+SCORER_CHAIN_TOL = 1e-2
+# Slices: batch_forward rows against per-sample forward calls at full depth
+# (12 + 12 CLIP layers; 39 EVA + 12 Q-Former), other GEMM shapes and so other
+# bf16 roundings (~1e-3 per 2+2-layer chain, growing with depth): 2e-2.
+SCORER_ROWS_TOL = 2e-2
+
+
+def attention_site(record, label, fn, plain_fn, ops, nbytes, library) -> None:
+    """Check one flat-attention site of the CLIPScore / ITMScore paths
+    against its plain version and record it as a site of the table's row:
+    ``ops`` the operations its masks keep, ``nbytes`` its inputs and output
+    once, ``library`` (name, fn) of SDPA on the same inputs."""
+    out, ref = fn(), plain_fn()
+    torch.cuda.synchronize()
+    ok, detail = attention_agrees(out, ref)
+    ms = library_ms(library[1], library[0])
+    record("flash_attention_flat", label, out, ref, ok, detail, fn, plain_fn, False,
+           flop=ops, lower=(ops, nbytes, "bf16"),
+           library=None if ms is None else (library[0], ms), site=True)
+
+
+def scorer_kernels(randn, record) -> None:
+    """The flat kernel and LayerNorm at the CLIPScore and ITMScore shapes
+    (16 images, 16 pairs of 32 queries + 9 text tokens, 64 texts): the EVA
+    ViT-g attention at head dim 88 (with two wrong plain versions that must
+    fail the tolerance: scale 1/8 for 1/sqrt(88), and the last key tile,
+    key 256 alone in a tile of 128, dropped), the Q-Former's cross- and
+    self-attention, the CLIP text tower's causal attention; LayerNorm at
+    EVA's width and the Q-Former's add + LN at eps 1e-12."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+    from t2v_metrics_tpu_torch.ops import norms as N
+
+    dev = torch.device("cuda")
+    sdpa = F.scaled_dot_product_attention
+    b, s, h, d = 16, 257, 16, 88
+    qkv = randn(b, s, 3 * h * d)
+    q, k, v, _ = A._split_packed(qkv, h, None)
+    ref = A.attention_flat_reference(q, k, v, h)
+    cut = (torch.arange(s, device=dev) < s - 1).expand(b, s)
+    for wrong, kw in (("scale 1/8", dict(scale=0.125)),
+                      ("the last key tile (key 256) dropped", dict(kv_mask=cut))):
+        caught, why = attention_agrees(A.attention_flat_reference(q, k, v, h, **kw), ref)
+        log(f"[kernel] flash_attention_flat EVA d=88 negative control, plain version with "
+            f"{wrong}: {why}")
+        check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    del ref
+    qh, kh, vh = A.packed_heads(qkv, h)
+    attention_site(
+        record, f"EVA ViT-g ({b}, {s}, 3x1408) d=88 packed, no mask",
+        lambda: A.flash_attention_flat_packed(qkv, h),
+        lambda: A.attention_flat_reference(q, k, v, h), 4 * b * h * s * s * d,
+        2 * b * s * 4 * h * d, ("F.scaled_dot_product_attention (no mask)",
+                                lambda: sdpa(qh, kh, vh)))
+    # Q-Former cross-attention: 32 queries over the 257 image rows, k and v
+    # column views of the packed k|v projection
+    qc, kv = randn(b, 32, 768), randn(b, s, 2 * 768)
+    kc, vc = kv[..., :768], kv[..., 768:]
+    heads = [t.unflatten(-1, (12, 64)).transpose(1, 2) for t in (qc, kc, vc)]
+    attention_site(
+        record, f"Q-Former cross q ({b}, 32, 768) k|v ({b}, {s}, 2x768) d=64",
+        lambda: A.flash_attention_flat(qc, kc, vc, 12),
+        lambda: A.attention_flat_reference(qc, kc, vc, 12), 4 * b * 12 * 32 * s * 64,
+        2 * (2 * b * 32 * 768 + b * s * 2 * 768),
+        ("F.scaled_dot_product_attention (no mask)", lambda: sdpa(*heads)))
+    # Q-Former self-attention: 32 queries + 9 text tokens, the text padded
+    sq = 41
+    qkv_s = randn(b, sq, 3 * 768)
+    lens = torch.randint(36, sq + 1, (b,), device=dev)
+    mask = torch.arange(sq, device=dev)[None] < lens[:, None]
+    qs, ks, vs, _ = A._split_packed(qkv_s, 12, None)
+    hs = A.packed_heads(qkv_s, 12)
+    attention_site(
+        record, f"Q-Former self ({b}, {sq}, 3x768) d=64, kv_mask",
+        lambda: A.flash_attention_flat_packed(qkv_s, 12, kv_mask=mask),
+        lambda: A.attention_flat_reference(qs, ks, vs, 12, kv_mask=mask),
+        4 * 12 * 64 * sq * int(lens.sum()), 2 * b * sq * 4 * 768 + b * sq,
+        ("F.scaled_dot_product_attention (bool mask)",
+         lambda: sdpa(*hs, attn_mask=mask[:, None, None, :])))
+    # CLIP ViT-B/32 text tower: 64 texts of 77 tokens, causal
+    bt, st = 64, 77
+    qkv_t = randn(bt, st, 3 * 512)
+    qt, kt, vt, _ = A._split_packed(qkv_t, 8, None)
+    ht = A.packed_heads(qkv_t, 8)
+    attention_site(
+        record, f"CLIP text ({bt}, {st}, 3x512) d=64, causal",
+        lambda: A.flash_attention_flat_packed(qkv_t, 8, causal=True),
+        lambda: A.attention_flat_reference(qt, kt, vt, 8, causal=True),
+        4 * bt * 8 * 64 * (st * (st + 1) // 2), 2 * bt * st * 4 * 512,
+        ("F.scaled_dot_product_attention (is_causal)", lambda: sdpa(*ht, is_causal=True)))
+    del qkv, q, k, v, qh, kh, vh, kv, heads, qkv_s, hs, qkv_t, ht
+    free_cuda()
+
+    # LayerNorm: EVA's ln1 of block 0 and its add + LN (16 images x 257
+    # rows, d 1408, eps 1e-6), the Q-Former's post-LN add + LN (16 pairs x
+    # 41 rows, d 768, eps 1e-12)
+    for rows, dd, eps, add in ((16 * 257, 1408, 1e-6, False), (16 * 257, 1408, 1e-6, True),
+                               (16 * 41, 768, 1e-12, True)):
+        x, r, w, bias = randn(rows, dd, std=3.0), randn(rows, dd, std=3.0), randn(dd), randn(dd)
+        if add:
+            (sm, out), ref = N.add_layer_norm_fused(x, r, w, bias, eps), \
+                N.layer_norm_plain(x + r, w, bias, eps)
+            same = bool(torch.equal(sm, x + r))
+            fn = lambda: N.add_layer_norm_fused(x, r, w, bias, eps)  # noqa: E731
+            plain_fn = lambda: N.add_layer_norm_plain(x, r, w, bias, eps)  # noqa: E731
+            lib = ("x + r, then F.layer_norm (two calls)",
+                   lambda: F.layer_norm(x + r, (dd,), w, bias, eps))
+            lower = (9 * rows * dd, 8 * rows * dd + 4 * dd, "fp32")
+        else:
+            out, ref, same = N.layer_norm_fused(x, w, bias, eps), \
+                N.layer_norm_plain(x, w, bias, eps), True
+            fn = lambda: N.layer_norm_fused(x, w, bias, eps)  # noqa: E731
+            plain_fn = lambda: N.layer_norm_plain(x, w, bias, eps)  # noqa: E731
+            lib = ("F.layer_norm", lambda: F.layer_norm(x, (dd,), w, bias, eps))
+            lower = (8 * rows * dd, 4 * rows * dd + 4 * dd, "fp32")
+        bad = outside(out, ref, NORM_ATOL, LN_RTOL)
+        record("layer_norm", f"{'add + LN' if add else 'LN'} ({rows}, {dd}) eps {eps:g}",
+               out, ref, bad == 0 and same,
+               f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; max "
+               f"{bf16_ulps(out, ref)} bf16 ulps; s bitwise x + r: {same}",
+               fn, plain_fn, False, lower=lower, library=(lib[0], cuda_ms(lib[1])), site=True)
+        del x, r, out, ref
+    free_cuda()
+
+
+def clip_chain_config(layers: int = 2):
+    from t2v_metrics_tpu_torch.models.clip import CLIP_ARCHS
+
+    v, t = CLIP_ARCHS["ViT-B-32"]
+    return dataclasses.replace(v, layers=layers), dataclasses.replace(t, layers=layers)
+
+
+def itm_chain_config(layers: int = 2):
+    from t2v_metrics_tpu_torch.models.blip2_itm import BLIP2_ITM_MODELS
+
+    cfg = BLIP2_ITM_MODELS[ITM]["config"]
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, layers=layers),
+        qformer=dataclasses.replace(cfg.qformer, layers=layers))
+
+
+def scorer_launches(kind: str, cfg, encodes: int = 1) -> dict:
+    """Flat attention and LayerNorm launches of one ``score_matrix`` /
+    pairwise call as the code gives them. CLIPScore: one image and one text
+    tower pass, attention once a layer; LayerNorm ln_pre, twice a vision
+    layer, ln_post, twice a text layer, ln_final. ITMScore: ``encodes``
+    tower calls (one a same-shape image group), each attention once a layer
+    and LayerNorm twice a layer and its post-LN; one Q-Former pass, attention
+    once a layer and once a cross layer, LayerNorm ln_emb, three times a layer
+    (self, query FFN, text FFN) and once a cross layer."""
+    want = dict.fromkeys(KERNELS, 0)
+    if kind == "clip":
+        v, t = cfg
+        want.update(flash_attention_flat=v.layers + t.layers,
+                    layer_norm=2 * v.layers + 2 + 2 * t.layers + 1)
+    else:
+        v, qf = cfg.vision, cfg.qformer
+        cross = -(-qf.layers // qf.cross_attention_frequency)
+        want.update(flash_attention_flat=encodes * v.layers + qf.layers + cross,
+                     layer_norm=encodes * (2 * v.layers + 1) + 1 + 3 * qf.layers + cross)
+    return want
+
+
+@torch.no_grad()
+def phase_scorer_chains(device: str = "cuda", m: int = 2, n: int = 4) -> None:
+    """CLIPScore at ViT-B/32 widths (2 vision + 2 text layers) and ITMScore at
+    blip2-itm widths (2 EVA layers at 224 px, 2 Q-Former layers, layer 0 with
+    cross-attention) on seeded 300x380 images: the card in bf16 with the
+    kernels against the CPU in fp32 with the plain versions, on one set of
+    random parameters each, with the card's launch counts."""
+    from t2v_metrics_tpu_torch import SimpleT5Tokenizer
+    from t2v_metrics_tpu_torch.engine.scoring import CLIPEngine
+    from t2v_metrics_tpu_torch.models import blip2_itm as tbitm
+    from t2v_metrics_tpu_torch.models import clip as tclip
+    from t2v_metrics_tpu_torch.models.itm_adapter import Blip2ITMAdapter
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    images, texts = seeded_images(m, 31), seeded_texts(n, 32)
+    v, t = clip_chain_config()
+    card = tclip.init_clip(v, t, SEED + 3, device, torch.bfloat16)
+    host = tclip.CLIPModel(v, t, "cpu", torch.float32)
+    host.load_state_dict({k: x.float().cpu() for k, x in card.state_dict().items()})
+    cfg = itm_chain_config()
+    icard = tbitm.init_blip2_itm(cfg, SEED + 4, device, torch.bfloat16)
+    ihost = tbitm.Blip2ITMModel(cfg, "cpu", torch.float32)
+    ihost.load_state_dict({k: x.float().cpu() for k, x in icard.state_dict().items()})
+    runs = (
+        ("clip", f"[clip chain] {CLIP} widths, 2 vision + 2 text layers", (v, t),
+         lambda model, dev, tok: CLIPEngine(model, v, t, tok, dev).score_matrix(images, texts),
+         (card, host), t.vocab_size),
+        ("itm", f"[itm chain] {ITM} widths, 2 EVA + 2 Q-Former layers", cfg,
+         lambda model, dev, tok: Blip2ITMAdapter(
+             ITM, dev, params=model, config=cfg, tokenizer=tok).score_matrix(images, texts),
+         (icard, ihost), cfg.qformer.vocab_size))
+    for kind, label, kcfg, score, (on_dev, on_host), vocab in runs:
+        tok = SimpleT5Tokenizer(vocab)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = score(on_dev, device, tok)
+        t1 = time.perf_counter()
+        counts = launch_counts()
+        want = score(on_host, "cpu", tok)
+        t2 = time.perf_counter()
+        diff = float(np.abs(got - want).max())
+        log(f"{label}, M={m} N={n}: card bf16 {t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; "
+            f"card launches flat attention {counts['flash_attention_flat']}, LayerNorm "
+            f"{counts['layer_norm']}")
+        log(f"{label}: card {got.ravel().round(5).tolist()}")
+        log(f"{label}: cpu  {want.ravel().round(5).tolist()}")
+        log(f"{label}: max |card - cpu| {diff:.4e} (limit {SCORER_CHAIN_TOL}); spread "
+            f"over pairs {float(np.ptp(want)):.4e}")
+        check(np.isfinite(got).all() and got.shape == (m, n),
+              f"{kind} chain: card scores not finite or wrong shape")
+        check(counts == scorer_launches(kind, kcfg),
+              f"{kind} chain: launches {counts} != {scorer_launches(kind, kcfg)}")
+        check(diff <= SCORER_CHAIN_TOL, f"{kind} chain: card and CPU differ by {diff}")
+
+
+def phase_scorer_slice(kind: str, device: str = "cuda", profile: bool = False) -> dict:
+    """``CLIPScore("openai:ViT-B-32", init="random")`` (8 images x 32 texts,
+    then ``batch_forward`` of 64 x (1 image, 4 texts) in chunks of 16
+    samples) or ``ITMScore("blip2-itm", init="random")`` (39 EVA layers, 12
+    Q-Former layers; 4 x 8, then 16 x (1, 4) in one chunk), on seeded
+    300x380 images: launch counts of the first call against the code's,
+    scores in range and repeatable, the batch_forward rows equal to the
+    pairwise forward of the same chunk and near per-sample calls, pairs/s,
+    peak memory. Returns the first call's launch counts."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    clip = kind == "clip"
+    name, tag = (CLIP, "[clip slice]") if clip else (ITM, "[itm slice]")
+    m, n, samples, chunk = (8, 32, 64, 16) if clip else (4, 8, 16, 16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer = (t2v.CLIPScore if clip else t2v.ITMScore)(name, init="random", seed=SEED,
+                                                       device=device)
+    torch.cuda.synchronize()
+    model = scorer.model.engine.params if clip else scorer.model.params
+    params = sum(p.numel() for p in model.parameters())
+    log(f"{tag} {name} random init on {device}: {time.perf_counter() - t0:.2f} s; "
+        f"{params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    images, texts = seeded_images(m, 41), seeded_texts(n, 42)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = launch_counts()
+    cfg = (scorer.model.vcfg, scorer.model.tcfg) if clip else scorer.model.config
+    want = scorer_launches(kind, cfg)
+    log(f"{tag} first forward ({m} images x {n} texts): {t_first:.3f} s; launches "
+        f"{json.dumps(counts)}; from the code {json.dumps(want)}")
+    lo = -1.0 if clip else 0.0
+    check(scores.shape == (m, n), f"{kind} slice: shape {scores.shape}")
+    check(np.isfinite(scores).all() and ((scores >= lo) & (scores <= 1)).all(),
+          f"{kind} slice: scores not finite in [{lo}, 1]")
+    check(counts == want, f"{kind} slice: launch counts {counts} != {want}")
+    check(np.array_equal(scores, scorer(images=images, texts=texts)),
+          f"{kind} slice: second call differs")
+    log(f"{tag} scores row 0: {scores[0].round(5).tolist()}; spread "
+        f"{float(np.ptp(scores)):.4e}")
+
+    pool_images, pool_texts = seeded_images(samples, 43), seeded_texts(4 * samples, 44)
+    data = [{"images": [pool_images[i]], "texts": pool_texts[4 * i:4 * i + 4]}
+            for i in range(samples)]
+    rows = scorer.batch_forward(data, batch_size=chunk)
+    check(rows.shape == (samples, 1, 4), f"{kind} batch_forward shape {rows.shape}")
+    media, texts_ = scorer._flatten_pairs(data[:chunk], "images", 8)
+    check(np.array_equal(rows[:chunk].ravel(), scorer.model.forward(media, texts_)),
+          f"{kind} batch_forward rows differ from the pairwise forward of the same chunk")
+    worst = max(float(np.abs(rows[i, 0] - scorer(images=data[i]["images"],
+                                                  texts=data[i]["texts"])[0]).max())
+                for i in range(16))
+    log(f"{tag} batch_forward rows equal the pairwise forward of the same chunk; rows vs "
+        f"per-sample forward (16 samples) max {worst:.4e} (limit {SCORER_ROWS_TOL})")
+    check(worst <= SCORER_ROWS_TOL, f"{kind} batch_forward rows differ by {worst}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer.batch_forward(data, batch_size=chunk)
+    torch.cuda.synchronize()
+    pairs_s = 4 * samples / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    fwd_s = m * n / (time.perf_counter() - t0)
+    log(f"{tag} {name} pairs/s after warm-up: batch_forward ({4 * samples} pairs, "
+        f"batch {chunk}) {pairs_s:.2f}; forward ({m} x {n}) {fwd_s:.2f}")
+    log(f"{tag} {name} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"allocated; card {card_line()}")
+    if profile:
+        phase_profile(lambda: scorer.batch_forward(data, batch_size=chunk),
+                      f"{name} batch_forward")
+    del scorer, model
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Optional phase (--profile): where the device time of batch_forward goes
 # ---------------------------------------------------------------------------
 
@@ -1885,7 +2221,8 @@ def main() -> int:
                   lambda: phase_qwen_chain(qwen_chain_config()),
                   lambda: phase_qwen3_chain(qwen3_chain_config()),
                   lambda: phase_gemma_chain(gemma_chain_config()),
-                  lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl"))):
+                  lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl")),
+                  phase_scorer_chains):
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
@@ -1900,6 +2237,9 @@ def main() -> int:
                                    bf16_rows=bf16_rows)
         slice_counts.append(counts)
         bf16_rows = rows if quant is None else bf16_rows
+        free_cuda()
+    for kind in ("clip", "itm"):
+        slice_counts.append(phase_scorer_slice(kind, profile=args.profile))
         free_cuda()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models import blip2_itm as tbitm
 from .models import clip as tclip
 from .models import clip_flant5 as tcft5
 from .models import decoder as tdec
@@ -56,7 +57,8 @@ def _as_tensor(src) -> torch.Tensor:
         a = a.astype(np.float32)
     with warnings.catch_warnings():  # read-only arrays: the tensor is only read
         warnings.simplefilter("ignore", UserWarning)
-        return torch.from_numpy(np.ascontiguousarray(a))
+        # (ascontiguousarray makes a 0-d array 1-d: logit_scale keeps its shape)
+        return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -139,6 +141,19 @@ def vision_from_numpy(tree: dict, cfg: tclip.CLIPVisionConfig, device,
     return _load_vision(tclip.VisionTower(cfg, device, dtype), tree)
 
 
+def _load_vit_blocks(blocks, tree_blocks) -> None:
+    """Pre-LN ViT blocks (CLIP's both towers, SigLIP, EVA): ln1, the packed
+    q|k|v, o, ln2, fc1, fc2."""
+    for dst, src in _pairs(blocks, tree_blocks):
+        _norm(dst.ln1, src["ln1"])
+        _norm(dst.ln2, src["ln2"])
+        attn = src["attn"]
+        _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
+        _leaf(dst.o, attn["o"])
+        _leaf(dst.fc1, src["mlp"]["fc1"])
+        _leaf(dst.fc2, src["mlp"]["fc2"])
+
+
 def _load_vision(p: tclip.VisionTower, tree: dict) -> tclip.VisionTower:
     for name in ("class_emb", "patch_w", "pos_emb"):
         _copy(getattr(p, name), tree[name])
@@ -148,15 +163,23 @@ def _load_vision(p: tclip.VisionTower, tree: dict) -> tclip.VisionTower:
         _copy(p.proj, tree["proj"])
     _norm(p.ln_pre, tree["ln_pre"])
     _norm(p.ln_post, tree["ln_post"])
-    for dst, src in _pairs(p.blocks, tree["blocks"]):
-        _norm(dst.ln1, src["ln1"])
-        _norm(dst.ln2, src["ln2"])
-        attn = src["attn"]
-        _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
-        _leaf(dst.o, attn["o"])
-        _leaf(dst.fc1, src["mlp"]["fc1"])
-        _leaf(dst.fc2, src["mlp"]["fc2"])
+    _load_vit_blocks(p.blocks, tree["blocks"])
     return p
+
+
+@torch.no_grad()
+def clip_from_numpy(tree: dict, cfg: tuple, device, dtype) -> tclip.CLIPModel:
+    """CLIPScore's tree ({vision, text, logit_scale}); ``cfg`` is the
+    (vision, text) config pair."""
+    model = tclip.CLIPModel(*cfg, device, dtype)
+    _load_vision(model.vision, tree["vision"])
+    t, src = model.text, tree["text"]
+    for name in ("tok_emb", "pos_emb", "proj"):
+        _copy(getattr(t, name), src[name])
+    _norm(t.ln_final, src["ln_final"])
+    _load_vit_blocks(t.blocks, src["blocks"])
+    _copy(model.logit_scale, tree["logit_scale"])
+    return model
 
 
 @torch.no_grad()
@@ -276,14 +299,7 @@ def _load_siglip(p: tsiglip.SiglipVisionTower, tree: dict) -> tsiglip.SiglipVisi
     for name in ("patch_w", "patch_b", "pos_emb"):
         _copy(getattr(p, name), tree[name])
     _norm(p.ln_post, tree["ln_post"])
-    for dst, src in _pairs(p.blocks, tree["blocks"]):
-        _norm(dst.ln1, src["ln1"])
-        _norm(dst.ln2, src["ln2"])
-        attn = src["attn"]
-        _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
-        _leaf(dst.o, attn["o"])
-        _leaf(dst.fc1, src["mlp"]["fc1"])
-        _leaf(dst.fc2, src["mlp"]["fc2"])
+    _load_vit_blocks(p.blocks, tree["blocks"])
     return p
 
 
@@ -295,6 +311,46 @@ def gemma3_from_numpy(tree: dict, cfg: tgemma3.Gemma3Config, device,
     _norm(model.projector.norm, tree["projector"]["norm"])
     _copy(model.projector.proj, tree["projector"]["proj"])
     _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+def _load_bert_attn(dst: tbitm.BertAttention, src: dict) -> None:
+    if dst.qkv is not None:
+        _packed_leaf(dst.qkv, [src["q"], src["k"], src["v"]])
+    else:
+        _leaf(dst.q, src["q"])
+        _packed_leaf(dst.kv, [src["k"], src["v"]])
+    _leaf(dst.o, src["o"])
+    _norm(dst.ln, src["ln"])
+
+
+def _load_bert_ffn(dst: tbitm.BertFFN, src: dict) -> None:
+    _leaf(dst.fc1, src["fc1"])
+    _leaf(dst.fc2, src["fc2"])
+    _norm(dst.ln, src["ln"])
+
+
+@torch.no_grad()
+def blip2_itm_from_numpy(tree: dict, cfg: tbitm.Blip2ITMConfig, device,
+                         dtype) -> tbitm.Blip2ITMModel:
+    model = tbitm.Blip2ITMModel(cfg, device, dtype)
+    v, src = model.vision, tree["vision"]
+    for name in ("class_emb", "patch_w", "patch_b", "pos_emb"):
+        _copy(getattr(v, name), src[name])
+    _norm(v.ln_post, src["ln_post"])
+    _load_vit_blocks(v.blocks, src["blocks"])
+    qf, src = model.qformer, tree["qformer"]
+    for name in ("word_emb", "pos_emb"):
+        _copy(getattr(qf, name), src[name])
+    _norm(qf.ln_emb, src["ln_emb"])
+    for dst, layer in _pairs(qf.layers, src["layers"]):
+        _load_bert_attn(dst.self_attn, layer["self"])
+        if dst.cross is not None:
+            _load_bert_attn(dst.cross, layer["cross"])
+        _load_bert_ffn(dst.ffn_query, layer["ffn_query"])
+        _load_bert_ffn(dst.ffn_text, layer["ffn_text"])
+    _copy(model.query_tokens, tree["query_tokens"])
+    _leaf(model.itm_head, tree["itm_head"])
     return model
 
 

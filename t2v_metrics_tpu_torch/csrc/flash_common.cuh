@@ -60,15 +60,16 @@
 //   DP a multiple of 64 (d = 64, 128, 256): 64-column panels, 128-byte
 //     swizzle; a Q.K^T k-step advances the start address 32 bytes inside a
 //     panel, and 4 k-steps later moves to the next panel;
-//   DP = 80 (d = 72, 80): 16-column panels, 32-byte swizzle (rows of 144 or
-//     160 bytes are not a multiple of the 128-byte swizzle span); a k-step
-//     is one panel. At d = 72 the last panel's box of 16 columns lies over an
-//     extent of 72, so the TMA fills columns 72..79 with zeros (in a packed
-//     row they would be the next head's lanes).
+//   DP = 80 (d = 72, 80) and DP = 96 (d = 88, EVA ViT-g): 16-column panels,
+//     32-byte swizzle (rows of 144, 160 or 192 bytes are not a multiple of
+//     the 128-byte swizzle span); a k-step is one panel. At d = 72 and 88 the
+//     last panel's box of 16 columns lies over an extent of 72 or 88, so the
+//     TMA fills columns 72..79 or 88..95 with zeros (in a packed row they
+//     would be the next head's lanes), and those columns add 0 to Q.K^T.
 //   V as the MN-major B operand of P.V: the 8-key groups of a panel are
 //     SBO = 8 x 2 PW bytes apart and the panels (the next PW output columns)
-//     LBO = one panel apart; N = DP (80 at d = 72: the zero columns are
-//     computed and not stored).
+//     LBO = one panel apart; N = DP (80 at d = 72, 96 at d = 88: the zero
+//     columns are computed and not stored).
 // The ragged key edge (rows k0 + r >= Sk) is the TMA's zero fill too, and is
 // masked as col >= Sk.
 //
@@ -143,7 +144,7 @@ struct Tile {
   static constexpr int SWIZZLE = SW128 ? sm90::SWIZZLE_128B : sm90::SWIZZLE_32B;
   static constexpr int BQ = 64 * WG;                    // q rows a block
   static constexpr int BK = WG == 1 || D > 128 ? 64 : 128;   // keys a tile
-  static constexpr int STAGES = WG == 1 ? (D <= 128 ? 3 : 2) : (D <= 80 ? 3 : 2);
+  static constexpr int STAGES = WG == 1 ? (D <= 128 ? 3 : 2) : (D <= 96 ? 3 : 2);
   static constexpr int THREADS = WG == 1 ? 128 : 384;
   static constexpr int MIN_BLOCKS = WG == 2 ? 1 : D <= 80 ? 3 : D <= 128 ? 2 : 1;
   static constexpr int Q_PANEL = BQ * ROWB, KV_PANEL = BK * ROWB;

@@ -1,5 +1,5 @@
-// Flat flash attention for Hopper (sm_90a), head dim 64, 72, 80, 128 or
-// 256, bf16 in and out.
+// Flat flash attention for Hopper (sm_90a), head dim 64, 72, 80, 88, 128
+// or 256, bf16 in and out.
 //
 // Replaces the TPU kernel t2v_metrics_tpu/ops/attention.py:_flash_flat_kernel
 // (entered through flash_attention_flat / flash_attention_flat_packed).
@@ -23,7 +23,8 @@
 // (52 MB per call, read by every batch item's blocks from L2, which the
 // head-major grid keeps it in) bound it, not the tensor cores; at the T5
 // encoder site it runs ~0.8 ms on an H100 80GB HBM3 at 700 W, ~130 TFLOP/s.
-// At the Qwen ViT shapes (d=80/72 over up to 5120 keys) and the decoder
+// At the Qwen ViT shapes (d=80/72 over up to 5120 keys), the EVA ViT-g of
+// BLIP-2 (d=88 over 257 keys, padded to 96 columns) and the decoder
 // prefills (d=128, d=256) the products weigh more per score element; a
 // warpgroup still waits for its own products before its softmax (the other
 // warpgroup's turn fills that gap), so neither the tensor cores nor the
@@ -62,7 +63,7 @@ cudaError_t launch(const long long* geo, const flash::Params& p, cudaStream_t st
 // arrays or null, and need Sq == Sk; window > 0 is a local window (with
 // causal); rel and rel_bucket must be null. Returns cudaGetLastError() after
 // the launch (cudaErrorInvalidValue for a head dim other than 64, 72, 80,
-// 128 or 256, or a geometry the kernel does not take).
+// 88, 128 or 256, or a geometry the kernel does not take).
 extern "C" int flash_flat_forward(
     const long long* geo, void* o, const void* bias, const void* kv_mask, const void* seg,
     const void* bidir, const void* rel, const void* rel_bucket, int B, int H, int KVH,
@@ -80,6 +81,7 @@ extern "C" int flash_flat_forward(
     case 64: return static_cast<int>(launch<64>(geo, p, s));
     case 72: return static_cast<int>(launch<72>(geo, p, s));
     case 80: return static_cast<int>(launch<80>(geo, p, s));
+    case 88: return static_cast<int>(launch<88>(geo, p, s));
     case 128: return static_cast<int>(launch<128>(geo, p, s));
     case 256: return static_cast<int>(launch<256>(geo, p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -1,15 +1,23 @@
-"""CLIP-FlanT5 scoring engine: host batch assembly + device passes (port of
-t2v_metrics_tpu/engine/scoring.py:CLIPT5Engine, without generation).
+"""Scoring engines: host batch assembly + device passes (port of
+t2v_metrics_tpu/engine/scoring.py: ``CLIPT5Engine`` without generation, and
+``CLIPEngine``).
 
+CLIP-FlanT5 (VQAScore):
   1. one vision-tower pass per unique image (M), kept as (M, T, D) features;
   2. one teacher-forced encoder+decoder pass per chunk of pairs, with shapes
      padded to the same buckets as the JAX package;
   3. fp32 log-softmax on the device; only the (P,) scores return to the host.
 
+CLIPScore: one image-tower pass over the M images and one text-tower pass
+over the N texts (each padded to the JAX package's buckets), the fp32
+cosine matrix on the device; pairwise scoring encodes each distinct image
+and text once.
+
 Images: same-shape uint8 HWC arrays no larger than 384 px ship at source
-resolution and the whole preprocess (pad to square, Pillow-parity bicubic
-resize, normalize) runs on the device. Anything else is loaded and resized
-on the host (Pillow-parity numpy resize; paths decode with PIL).
+resolution and the whole preprocess (CLIP-FlanT5: pad to square; CLIPScore:
+shortest side and centre crop; a float bicubic resize, normalize) runs on
+the device, as the JAX engines' device path. Anything else is loaded and
+resized on the host (Pillow-parity numpy resize; paths decode with PIL).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 
 from ..constants import (CLIP_MEAN, CLIP_STD, DEFAULT_ANSWER_TEMPLATE,
                          DEFAULT_QUESTION_TEMPLATE, IMAGE_TOKEN_INDEX)
+from ..models import clip as tclip
 from ..models import clip_flant5 as tcft5
 from ..ops import image as timage
 from ..tokenization import splice_image_tokens_t5
@@ -72,6 +81,24 @@ def _load_uint8(image) -> np.ndarray:
     return arr
 
 
+def encode_by_shape(visuals, device, encode) -> list:
+    """Each visual's features on ``device``: the visuals decoded to uint8
+    HWC and grouped by shape; each group stacked to (n, H, W*3) uint8 on the
+    device goes through ``encode`` in one call (one preprocess and tower call
+    a group), and each visual gets its row of the result."""
+    hosts = [_load_uint8(v) for v in visuals]
+    groups = {}
+    for i, img in enumerate(hosts):
+        groups.setdefault(img.shape, []).append(i)
+    out = [None] * len(hosts)
+    for (h, w, _), idxs in groups.items():
+        stack = np.stack([hosts[i] for i in idxs]).reshape(len(idxs), h, w * 3)
+        feats = encode(torch.from_numpy(stack).to(device))
+        for row, i in enumerate(idxs):
+            out[i] = feats[row]
+    return out
+
+
 def _expand2square(img: np.ndarray, fill_rgb) -> np.ndarray:
     h, w, c = img.shape
     if h == w:
@@ -106,6 +133,37 @@ def _host_resize_batch(images, size: int, pad_square: bool) -> np.ndarray:
     return np.stack(out)
 
 
+def clip_pixels(pixels: np.ndarray, device, size: int, pad_square: bool) -> torch.Tensor:
+    """(M, H, W*3) uint8 -> (M, size, size*3) normalized fp32 on ``device``:
+    /255, and where the image is not size x size, padded to square with the
+    CLIP-mean fill (``pad_square``) or resized to the shortest side and
+    centre-cropped, bicubic in fp32, then clipped to [0, 1] (PIL clamps each
+    resize pass); then the CLIP mean and std."""
+    x = torch.from_numpy(pixels).to(device).float() / 255.0
+    h, w = x.shape[-2], x.shape[-1] // 3
+    if h != size or w != size:
+        if pad_square:
+            # PIL fills with tuple(int(m*255)): match exactly
+            fill = [int(m * 255) / 255.0 for m in CLIP_MEAN]
+            x = timage.pad_square_flat(x, 3, fill)
+            x = timage.resize_flat(x, size, size, 3)
+        else:
+            rh, rw = timage.resize_shortest_side((h, w), size)
+            x = timage.resize_flat(x, rh, rw, 3)
+            x = timage.center_crop_flat(x, size, size, 3)
+        x = torch.clamp(x, 0.0, 1.0)
+    return timage.normalize_flat(x, CLIP_MEAN, CLIP_STD)
+
+
+def _pixels_bucketed(images, size: int, pad_square: bool) -> np.ndarray:
+    """(bucket, size-or-source H, W*3) uint8: the device path's stack or the
+    host preprocess, its rows padded to ``IMG_BUCKETS`` with the last."""
+    pixels = _device_resize_batch(images)
+    if pixels is None:
+        pixels = _host_resize_batch(images, size, pad_square)
+    return _pad_rows((pixels,), _bucket(len(images), IMG_BUCKETS))[0]
+
+
 class _HostScores:
     """Scores still on the device. ``np.asarray`` on it copies them to the
     host (waiting for the device), so a caller can queue further chunks
@@ -137,21 +195,8 @@ class CLIPT5Engine:
     def _encode(self, pixels: np.ndarray) -> torch.Tensor:
         """(M, H, W*3) uint8 -> (M, T, D) image features on the device."""
         cfg = self.cfg
-        x = torch.from_numpy(pixels).to(self.device).float() / 255.0
-        s = cfg.vision.image_size
-        h, w = x.shape[-2], x.shape[-1] // 3
-        if h != s or w != s:
-            if cfg.image_aspect_ratio == "pad":
-                # PIL fills with tuple(int(m*255)): match exactly
-                fill = [int(m * 255) / 255.0 for m in CLIP_MEAN]
-                x = timage.pad_square_flat(x, 3, fill)
-                x = timage.resize_flat(x, s, s, 3)
-            else:
-                rh, rw = timage.resize_shortest_side((h, w), s)
-                x = timage.resize_flat(x, rh, rw, 3)
-                x = timage.center_crop_flat(x, s, s, 3)
-            x = torch.clamp(x, 0.0, 1.0)  # PIL clamps each resize pass
-        x = timage.normalize_flat(x, CLIP_MEAN, CLIP_STD)
+        x = clip_pixels(pixels, self.device, cfg.vision.image_size,
+                        cfg.image_aspect_ratio == "pad")
         return tcft5.image_features(self.params, cfg, x)
 
     @torch.inference_mode()
@@ -198,15 +243,8 @@ class CLIPT5Engine:
         return ids, img_mask, img_slot, enc_mask, ans_ids, ans_mask
 
     def _pixels(self, images) -> np.ndarray:
-        pixels = _device_resize_batch(images)
-        if pixels is None:
-            pixels = _host_resize_batch(images, self.cfg.vision.image_size,
-                                        self.cfg.image_aspect_ratio == "pad")
-        m = len(images)
-        mb = _bucket(m, IMG_BUCKETS)
-        if mb > m:
-            pixels = np.concatenate([pixels, np.repeat(pixels[-1:], mb - m, axis=0)])
-        return pixels
+        return _pixels_bucketed(images, self.cfg.vision.image_size,
+                                self.cfg.image_aspect_ratio == "pad")
 
     def _prompts(self, texts, question_template, answer_template):
         qt = question_template or DEFAULT_QUESTION_TEMPLATE
@@ -263,13 +301,7 @@ class CLIPT5Engine:
         splice texts, bucket-pad; no device work."""
         if len(images) != len(texts):
             raise ValueError("prepare_pairs: one image per text")
-        uniq, inv, seen = [], [], {}
-        for im in images:  # repeated [img]*N calls still encode once
-            key = id(im) if not isinstance(im, (str, bytes)) else im
-            if key not in seen:
-                seen[key] = len(uniq)
-                uniq.append(im)
-            inv.append(seen[key])
+        uniq, inv = unique_visuals(images)  # repeated [img]*N calls still encode once
         questions, answers = self._prompts(texts, question_template,
                                            answer_template)
         n = len(texts)
@@ -286,6 +318,62 @@ class CLIPT5Engine:
         logp = self._score(feats, prep["arrays"], prep["pair_image"],
                            prep["pair_text"])
         return _HostScores(torch.exp(logp)), prep["n"]
+
+
+class CLIPEngine:
+    """CLIPScore engine: batched dual-encoder cosine similarity. Parameters
+    live on ``device``; public methods take host data and return numpy."""
+
+    def __init__(self, params: tclip.CLIPModel, vcfg: tclip.CLIPVisionConfig,
+                 tcfg: tclip.CLIPTextConfig, tokenizer, device):
+        self.params = params
+        self.vcfg, self.tcfg = vcfg, tcfg
+        self.tokenizer = tokenizer
+        self.device = torch.device(device)
+
+    def _tokenize(self, texts) -> np.ndarray:
+        """(N, context_length) int32 ids, cut to the context, zero-padded."""
+        ctx = self.tcfg.context_length
+        out = np.zeros((len(texts), ctx), np.int32)
+        for i, t in enumerate(texts):
+            ids = self.tokenizer(t).input_ids[:ctx]
+            out[i, : len(ids)] = ids
+        return out
+
+    @torch.inference_mode()
+    def score_matrix(self, images, texts, **_) -> np.ndarray:
+        """(M images) x (N texts) -> (M, N) float32 cosine similarities."""
+        m, n = len(images), len(texts)
+        pixels = clip_pixels(_pixels_bucketed(images, self.vcfg.image_size, False),
+                             self.device, self.vcfg.image_size, False)
+        ids = _pad_rows((self._tokenize(texts),), _bucket(n, TXT_BUCKETS))[0]
+        imf = tclip.encode_image(self.params, self.vcfg, pixels)[:m]
+        txf = tclip.encode_text(self.params, self.tcfg,
+                                torch.from_numpy(ids).to(self.device).long())[:n]
+        return (imf.float() @ txf.float().T).cpu().numpy()
+
+    def forward_pairwise(self, images, texts, **_) -> np.ndarray:
+        """len(images) == len(texts) paired scoring -> (P,): each distinct
+        image and text is encoded once (a batch_forward chunk repeats each
+        image over its texts)."""
+        if len(images) != len(texts):
+            raise ValueError("forward_pairwise: one image per text")
+        uimg, iinv = unique_visuals(images)
+        utxt, tinv = unique_visuals(texts)
+        return self.score_matrix(uimg, utxt)[iinv, tinv].copy()
+
+
+def unique_visuals(visuals):
+    """(distinct items, index of each among them): a path or text counts as
+    itself, an array or image object by identity."""
+    uniq, inv, seen = [], [], {}
+    for v in visuals:
+        key = v if isinstance(v, (str, bytes)) else id(v)
+        if key not in seen:
+            seen[key] = len(uniq)
+            uniq.append(v)
+        inv.append(seen[key])
+    return uniq, inv
 
 
 def _pad_rows(arrays, nb: int):

@@ -1,5 +1,5 @@
-"""Model adapters behind VQAScore (port of the CLIP-FlanT5 part of
-t2v_metrics_tpu/models/adapters.py).
+"""Model adapters behind VQAScore and CLIPScore (port of the CLIP-FlanT5
+and CLIPScore parts of t2v_metrics_tpu/models/adapters.py).
 
 The adapter contract is the JAX package's: ``load_model`` builds the engine,
 ``forward`` scores pairs, ``score_matrix`` scores M images x N texts, and
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..constants import DEFAULT_ANSWER_TEMPLATE, DEFAULT_QUESTION_TEMPLATE
-from ..engine.scoring import CLIPT5Engine
+from ..engine.scoring import CLIPEngine, CLIPT5Engine
 from ..ops import quant as Q
 from ..tokenization import SimpleT5Tokenizer, load_hf_tokenizer
 from . import checkpoint as ckpt
@@ -35,19 +35,6 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
-
-
-def unique_visuals(visuals):
-    """(distinct visuals, index of each visual among them): a path counts as
-    itself, an array or image object by identity."""
-    uniq, inv, seen = [], [], {}
-    for v in visuals:
-        key = v if isinstance(v, (str, bytes)) else id(v)
-        if key not in seen:
-            seen[key] = len(uniq)
-            uniq.append(v)
-        inv.append(seen[key])
-    return uniq, inv
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -101,6 +88,35 @@ class ScoreModel:
         raise NotImplementedError
 
 
+def tokenizer_arg(tok):
+    """The ``tokenizer`` kwarg: an object, or a local directory loaded with
+    ``load_hf_tokenizer``."""
+    if isinstance(tok, str):
+        if not os.path.isdir(tok):
+            raise ValueError(f"tokenizer {tok!r} is not a local directory")
+        tok = load_hf_tokenizer(tok)
+    return tok
+
+
+def cached_tokenizer(kwargs, hf_repo, vocab_size: int, cache_dir=None):
+    """CLIPScore's and ITMScore's tokenizer, as the JAX adapters choose it:
+    the ``tokenizer`` kwarg, else the registry repo's tokenizer from its
+    local snapshot (never downloaded), else SimpleT5Tokenizer (with a
+    warning when the model has a repo: its scores will not match the
+    pretrained weights)."""
+    tok = tokenizer_arg(kwargs.get("tokenizer"))
+    if tok is not None:
+        return tok
+    if hf_repo is not None:
+        try:
+            return load_hf_tokenizer(ckpt.resolve_snapshot(hf_repo, cache_dir))
+        except (ckpt.CheckpointError, ImportError, OSError, ValueError) as e:
+            warnings.warn(f"tokenizer of {hf_repo} unavailable ({type(e).__name__}); "
+                          "using SimpleT5Tokenizer, so scores will NOT match "
+                          "pretrained weights (pass tokenizer=<local dir>)")
+    return SimpleT5Tokenizer(vocab_size)
+
+
 class VQAScoreModel(ScoreModel):
     """Adds the question/answer template contract."""
 
@@ -113,11 +129,7 @@ class VQAScoreModel(ScoreModel):
         """The ``tokenizer`` kwarg (an object or a local directory), else
         SimpleT5Tokenizer (with a warning when the model has a hub
         tokenizer, which is never fetched)."""
-        tok = self.kwargs.get("tokenizer")
-        if isinstance(tok, str):
-            if not os.path.isdir(tok):
-                raise ValueError(f"tokenizer {tok!r} is not a local directory")
-            tok = load_hf_tokenizer(tok)
+        tok = tokenizer_arg(self.kwargs.get("tokenizer"))
         if tok is None:
             if hf_name is not None:
                 warnings.warn(
@@ -284,3 +296,106 @@ class CLIPT5Adapter(VQAScoreModel):
         """(M, N) matrix with one vision encode per image."""
         return self.engine.score_matrix(images, texts, question_template,
                                         answer_template)
+
+
+# ---------------------------------------------------------------------------
+# CLIPScore (OpenCLIP cosine similarity)
+# ---------------------------------------------------------------------------
+
+_TEST_CLIP_V = tclip.CLIPVisionConfig(image_size=32, patch_size=8, width=32,
+                                      layers=2, heads=4, mlp_dim=64, proj_dim=24)
+_TEST_CLIP_T = tclip.CLIPTextConfig(vocab_size=256, context_length=16, width=32,
+                                    layers=2, heads=4, mlp_dim=64, proj_dim=24)
+
+CLIP_SCORE_MODELS = {
+    # OpenCLIP names: "pretrain_tag:Arch"
+    "openai:ViT-B-32": {"arch": "ViT-B-32", "hf_repo": "openai/clip-vit-base-patch32"},
+    "openai:ViT-B-16": {"arch": "ViT-B-16", "hf_repo": "openai/clip-vit-base-patch16"},
+    "openai:ViT-L-14": {"arch": "ViT-L-14", "hf_repo": "openai/clip-vit-large-patch14"},
+    "openai:ViT-L-14-336": {"arch": "ViT-L-14-336",
+                            "hf_repo": "openai/clip-vit-large-patch14-336"},
+    "clipscore-test": {"arch": None, "hf_repo": None},
+}
+
+
+def resolve_clipscore_name(name: str):
+    """The registry entry of a CLIPScore name: any ``pretrain_tag:Arch``
+    whose Arch is a known architecture (only ``openai:`` names have a repo),
+    else None."""
+    if name in CLIP_SCORE_MODELS:
+        return CLIP_SCORE_MODELS[name]
+    if ":" in name:
+        tag, arch = name.split(":", 1)
+        if arch in tclip.CLIP_ARCHS:
+            return {"arch": arch, "hf_repo": None if tag != "openai" else
+                    CLIP_SCORE_MODELS.get(f"openai:{arch}", {}).get("hf_repo")}
+    return None
+
+
+class CLIPScoreAdapter(ScoreModel):
+    """CLIPScore: the cosine similarity of CLIP's image and text embeddings.
+
+    Weights, in this order: ``params``; ``checkpoint``; random with
+    ``init='random'`` (or a name without a repo); else the ``hf_repo``
+    snapshot from the local Hugging Face cache (never downloaded).
+
+    kwargs: checkpoint (a local directory: HF CLIPModel shards, safetensors
+    or ``*.bin``, or a native tree), init='random', params (a ``CLIPModel``,
+    or a pytree in the JAX package's layout with numpy or CPU tensor leaves),
+    vision_config / text_config (replace the registry's), seed (default 0),
+    dtype (default bf16 on CUDA, fp32 on CPU), tokenizer (an object or a
+    local directory; else the snapshot's, else SimpleT5Tokenizer).
+    """
+
+    video_mode = "concat"
+
+    def load_model(self):
+        spec = resolve_clipscore_name(self.model_name)
+        if spec is None:
+            raise ValueError(f"unknown CLIPScore model {self.model_name!r}")
+        vcfg, tcfg = (tclip.CLIP_ARCHS[spec["arch"]] if spec["arch"]
+                      else (_TEST_CLIP_V, _TEST_CLIP_T))
+        vcfg = self.kwargs.get("vision_config") or vcfg
+        tcfg = self.kwargs.get("text_config") or tcfg
+        self.vcfg, self.tcfg = vcfg, tcfg
+        device = self.device
+        dtype = self.kwargs.get("dtype") or default_dtype(device)
+
+        params = self.kwargs.get("params")
+        if params is None:
+            path = self.kwargs.get("checkpoint")
+            if path is None and self.kwargs.get("init") != "random" \
+                    and spec["hf_repo"] is not None:
+                path = ckpt.resolve_snapshot(spec["hf_repo"], self.cache_dir)
+            if path is not None:
+                params = self._load_checkpoint(path, (vcfg, tcfg), dtype)
+            else:
+                params = tclip.init_clip(vcfg, tcfg, self.kwargs.get("seed", 0), device,
+                                         dtype)
+        if not isinstance(params, tclip.CLIPModel):
+            from ..bridge import clip_from_numpy
+
+            params = clip_from_numpy(params, (vcfg, tcfg), device, dtype)
+        tokenizer = cached_tokenizer(self.kwargs, spec["hf_repo"], tcfg.vocab_size,
+                                     self.cache_dir)
+        self.engine = CLIPEngine(params, vcfg, tcfg, tokenizer, device)
+
+    def _load_checkpoint(self, path: str, cfg: tuple, dtype) -> dict:
+        from ..bridge import clip_from_numpy
+        from . import convert
+
+        def convert_clip(sd, cfg):
+            return convert.convert_clip(sd, cfg[0].layers, cfg[1].layers)
+
+        return load_checkpoint_tree(path, convert_clip, clip_from_numpy, cfg,
+                                    self.model_name, dtype)
+
+    def load_images(self, images):
+        return images  # the engine decodes and preprocesses in batches
+
+    def forward(self, images, texts, **kwargs) -> np.ndarray:
+        """Pairwise cosine scores, len(images) == len(texts) -> (P,)."""
+        return self.engine.forward_pairwise(images, texts)
+
+    def score_matrix(self, images, texts, **kwargs) -> np.ndarray:
+        return self.engine.score_matrix(images, texts)

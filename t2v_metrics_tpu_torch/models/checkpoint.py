@@ -140,7 +140,9 @@ def save_params(params, path: str):
 
 def _numpy_leaf_tensor(a: np.ndarray, key: str) -> torch.Tensor:
     if _is_bf16_numpy(a):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+        # (ascontiguousarray makes a 0-d leaf, CLIP's logit_scale, 1-d)
+        bits = np.ascontiguousarray(a).view(np.int16).reshape(a.shape)
+        return torch.from_numpy(bits).view(torch.bfloat16)
     if a.dtype.kind == "V":
         raise CheckpointError(f"leaf {key!r}: raw {a.dtype.itemsize}-byte records "
                               f"({a.dtype.str}) are not a dtype the port reads")

@@ -1,18 +1,24 @@
-"""CLIP vision tower in PyTorch (port of t2v_metrics_tpu/models/clip.py).
+"""CLIP in PyTorch (port of t2v_metrics_tpu/models/clip.py): the vision
+tower (CLIP-FlanT5's and CLIPScore's) and the text tower (CLIPScore's).
 
-The tower is an ``nn.Module`` holding its parameters in the JAX package's
-layouts (linear weights (in, out), the patch embedding as a
-(3*p*p, width) matrix in conv (c, ph, pw) row order); ``vision_tower`` is
-the forward. The q|k|v projection of each block is packed into one
-(width, 3*width) leaf at load, so attention reads it in place; under
-``int8+vit`` (``ops/quant.quantize_clip_vision_``) the q|k|v, o, fc1 and fc2
-leaves are int8 and their biases carried through. The text tower comes with
-the CLIPScore slice.
+Each tower is an ``nn.Module`` holding its parameters in the JAX package's
+layouts (linear weights (in, out), the patch embedding as a (3*p*p, width)
+matrix in conv (c, ph, pw) row order); ``vision_tower`` and ``text_tower``
+are the forwards, ``encode_image`` / ``encode_text`` normalise their
+embeddings in fp32 and ``clip_scores`` is the raw cosine matrix (no
+``logit_scale``), as the reference's CLIPScore returns it. The q|k|v
+projection of each block is packed into one (width, 3*width) leaf at load,
+so attention reads it in place; under ``int8+vit``
+(``ops/quant.quantize_clip_vision_``) the vision q|k|v, o, fc1 and fc2
+leaves are int8 and their biases carried through. The text tower's causal
+attention over its 77 tokens runs in the flat kernel (the JAX package sends
+it to XLA: 77 rows are under its flat kernel's 128-row gate).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -41,12 +47,31 @@ class CLIPVisionConfig:
         return (self.image_size // self.patch_size) ** 2
 
 
-# Vision configs of the OpenCLIP architectures the JAX package registers.
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    layers: int = 12
+    heads: int = 8
+    mlp_dim: int = 2048
+    proj_dim: int = 512
+    act: str = "quick_gelu"
+    ln_eps: float = 1e-5
+
+
+# (vision, text) configs of the OpenCLIP architectures the JAX package
+# registers (``openai:ViT-B-32`` is CLIPScore's default; ViT-L-14-336 is the
+# CLIP-FlanT5 tower)
 CLIP_ARCHS = {
-    "ViT-B-32": CLIPVisionConfig(224, 32, 768, 12, 12, 3072, 512),
-    "ViT-B-16": CLIPVisionConfig(224, 16, 768, 12, 12, 3072, 512),
-    "ViT-L-14": CLIPVisionConfig(224, 14, 1024, 24, 16, 4096, 768),
-    "ViT-L-14-336": CLIPVisionConfig(336, 14, 1024, 24, 16, 4096, 768),
+    "ViT-B-32": (CLIPVisionConfig(224, 32, 768, 12, 12, 3072, 512),
+                 CLIPTextConfig(49408, 77, 512, 12, 8, 2048, 512)),
+    "ViT-B-16": (CLIPVisionConfig(224, 16, 768, 12, 12, 3072, 512),
+                 CLIPTextConfig(49408, 77, 512, 12, 8, 2048, 512)),
+    "ViT-L-14": (CLIPVisionConfig(224, 14, 1024, 24, 16, 4096, 768),
+                 CLIPTextConfig(49408, 77, 768, 12, 12, 3072, 768)),
+    "ViT-L-14-336": (CLIPVisionConfig(336, 14, 1024, 24, 16, 4096, 768),
+                     CLIPTextConfig(49408, 77, 768, 12, 12, 3072, 768)),
 }
 
 
@@ -61,7 +86,9 @@ class Norm(nn.Module):
                                   requires_grad=False) if bias else None)
 
 
-class VisionBlock(nn.Module):
+class Block(nn.Module):
+    """A pre-LN transformer block of either tower."""
+
     def __init__(self, width: int, mlp_dim: int, device, dtype):
         super().__init__()
         self.ln1 = Norm(width, True, device, dtype)
@@ -85,10 +112,49 @@ class VisionTower(nn.Module):
         self.patch_w = param(3 * cfg.patch_size ** 2, w)
         self.pos_emb = param(cfg.num_patches + 1, w)
         self.ln_pre = Norm(w, True, device, dtype)
-        self.blocks = nn.ModuleList(VisionBlock(w, cfg.mlp_dim, device, dtype)
+        self.blocks = nn.ModuleList(Block(w, cfg.mlp_dim, device, dtype)
                                     for _ in range(cfg.layers))
         self.ln_post = Norm(w, True, device, dtype)
         self.proj = param(w, cfg.proj_dim)
+
+
+class TextTower(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device, dtype):
+        super().__init__()
+        w = cfg.width
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                                requires_grad=False)
+
+        self.tok_emb = param(cfg.vocab_size, w)
+        self.pos_emb = param(cfg.context_length, w)
+        self.blocks = nn.ModuleList(Block(w, cfg.mlp_dim, device, dtype)
+                                    for _ in range(cfg.layers))
+        self.ln_final = Norm(w, True, device, dtype)
+        self.proj = param(w, cfg.proj_dim)
+
+
+class CLIPModel(nn.Module):
+    """CLIPScore's parameters: ``vision``, ``text`` and the fp32
+    ``logit_scale`` (kept from the checkpoint; the score does not use it)."""
+
+    def __init__(self, vcfg: CLIPVisionConfig, tcfg: CLIPTextConfig, device, dtype):
+        super().__init__()
+        self.vision = VisionTower(vcfg, device, dtype)
+        self.text = TextTower(tcfg, device, dtype)
+        self.logit_scale = nn.Parameter(torch.empty((), device=device,
+                                                    dtype=torch.float32),
+                                        requires_grad=False)
+
+
+def init_blocks_(blocks, gen: torch.Generator) -> None:
+    for blk in blocks:
+        init_norm_(blk.ln1)
+        init_norm_(blk.ln2)
+        for leaf in (blk.qkv, blk.o, blk.fc1, blk.fc2):
+            normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
+            leaf.b.zero_()
 
 
 @torch.no_grad()
@@ -101,13 +167,36 @@ def init_vision(p: VisionTower, gen: torch.Generator) -> VisionTower:
     normal_(p.proj, p.proj.shape[0] ** -0.5, gen)
     for norm in (p.ln_pre, p.ln_post):
         init_norm_(norm)
-    for blk in p.blocks:
-        init_norm_(blk.ln1)
-        init_norm_(blk.ln2)
-        for leaf in (blk.qkv, blk.o, blk.fc1, blk.fc2):
-            normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
-            leaf.b.zero_()
+    init_blocks_(p.blocks, gen)
     return p
+
+
+@torch.no_grad()
+def init_text(p: TextTower, gen: torch.Generator) -> TextTower:
+    """Fill a text tower in place with init_text's distributions: token
+    embedding N(0, 0.02^2), positions N(0, 0.01^2), linears N(0, 1/d_in)."""
+    normal_(p.tok_emb, 0.02, gen)
+    normal_(p.pos_emb, 0.01, gen)
+    normal_(p.proj, p.proj.shape[0] ** -0.5, gen)
+    init_norm_(p.ln_final)
+    init_blocks_(p.blocks, gen)
+    return p
+
+
+@torch.no_grad()
+def init_clip(vcfg: CLIPVisionConfig, tcfg: CLIPTextConfig, seed: int, device,
+              dtype=torch.float32) -> CLIPModel:
+    """Random parameters made on ``device`` in ``dtype`` from a
+    ``torch.Generator`` seeded with ``seed``, with init_clip's distributions
+    and ``logit_scale`` log(1/0.07) (the numbers differ from the JAX
+    package's)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = CLIPModel(vcfg, tcfg, device, dtype)
+    init_vision(model.vision, gen)
+    init_text(model.text, gen)
+    model.logit_scale.fill_(math.log(1 / 0.07))
+    return model
 
 
 def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
@@ -121,7 +210,7 @@ def init_norm_(norm: Norm) -> None:
         norm.bias.zero_()
 
 
-def _block(p: VisionBlock, x: torch.Tensor, branch: torch.Tensor | None, heads: int,
+def pre_ln_block(p: Block, x: torch.Tensor, branch: torch.Tensor | None, heads: int,
            eps: float, act: str, causal: bool = False,
            kv_mask=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN block on the residual stream ``x + branch`` (``branch``:
@@ -167,7 +256,7 @@ def vision_tower(p: VisionTower, cfg: CLIPVisionConfig, pixels: torch.Tensor,
                 else len(p.blocks) + 1 + feature_layer)
     branch = None
     for blk in p.blocks[:n_blocks]:
-        x, branch = _block(blk, x, branch, cfg.heads, cfg.ln_eps, cfg.act,
+        x, branch = pre_ln_block(blk, x, branch, cfg.heads, cfg.ln_eps, cfg.act,
                            kv_mask=kv_mask)
 
     if feature_layer is not None:
@@ -178,3 +267,47 @@ def vision_tower(p: VisionTower, cfg: CLIPVisionConfig, pixels: torch.Tensor,
     cls_out = L.add_layer_norm(x[:, 0], None if branch is None else branch[:, 0],
                                p.ln_post.scale, p.ln_post.bias, cfg.ln_eps)[1]
     return cls_out @ p.proj
+
+
+def text_tower(p: TextTower, cfg: CLIPTextConfig, ids: torch.Tensor) -> torch.Tensor:
+    """ids: (B, S) integer, padded with zeros after EOT. Returns the projected
+    EOT embedding (B, proj_dim); the EOT position is argmax of the ids (CLIP
+    BPE's EOT has the highest id), as open_clip and HF CLIPTextModel pool.
+    The blocks run causally; ln_final reads only the EOT row of the last
+    residual sum (a LayerNorm is per row, so the numbers are those of the
+    whole sequence's)."""
+    x = p.tok_emb[ids] + p.pos_emb[: ids.shape[1]]
+    branch = None
+    for blk in p.blocks:
+        x, branch = pre_ln_block(blk, x, branch, cfg.heads, cfg.ln_eps, cfg.act, causal=True)
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    eot = ids.argmax(dim=-1)
+    pooled = L.add_layer_norm(x[rows, eot], None if branch is None else branch[rows, eot],
+                              p.ln_final.scale, p.ln_final.bias, cfg.ln_eps)[1]
+    return pooled @ p.proj
+
+
+def _unit(f: torch.Tensor) -> torch.Tensor:
+    """Rows over their fp32 norms (fp32 out, as the JAX division promotes)."""
+    return f / torch.linalg.vector_norm(f.float(), dim=-1, keepdim=True)
+
+
+def encode_image(params: CLIPModel, vcfg: CLIPVisionConfig, pixels: torch.Tensor,
+                 normalize: bool = True) -> torch.Tensor:
+    f = vision_tower(params.vision, vcfg, pixels)
+    return _unit(f) if normalize else f
+
+
+def encode_text(params: CLIPModel, tcfg: CLIPTextConfig, ids: torch.Tensor,
+                normalize: bool = True) -> torch.Tensor:
+    f = text_tower(params.text, tcfg, ids)
+    return _unit(f) if normalize else f
+
+
+def clip_scores(params: CLIPModel, vcfg: CLIPVisionConfig, tcfg: CLIPTextConfig,
+                pixels: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(M images, N texts) -> (M, N) cosine-similarity matrix in fp32 (the
+    reference's CLIPScore returns the raw cosine of each pair)."""
+    img = encode_image(params, vcfg, pixels).float()
+    txt = encode_text(params, tcfg, ids).float()
+    return img @ txt.T

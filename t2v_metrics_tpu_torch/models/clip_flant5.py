@@ -37,9 +37,9 @@ class CLIPT5Config:
 
 CLIP_T5_CONFIGS = {
     "clip-flant5-xxl": CLIPT5Config(t5=tt5.T5_CONFIGS["flan-t5-xxl"],
-                                    vision=tclip.CLIP_ARCHS["ViT-L-14-336"]),
+                                    vision=tclip.CLIP_ARCHS["ViT-L-14-336"][0]),
     "clip-flant5-xl": CLIPT5Config(t5=tt5.T5_CONFIGS["flan-t5-xl"],
-                                   vision=tclip.CLIP_ARCHS["ViT-L-14-336"]),
+                                   vision=tclip.CLIP_ARCHS["ViT-L-14-336"][0]),
 }
 
 

@@ -9,7 +9,7 @@ matrix) whose leaves are CPU tensor views: a transpose is a view, not a
 copy, and no dtype is cast here. ``bridge.py`` copies each leaf to the
 device in its own dtype and casts it there.
 
-``convert_clip_text`` / ``convert_clip`` come with the CLIPScore slice.
+The BLIP-2 ITM converter is ``models/blip2_itm.py:convert_blip2_itm``.
 """
 
 from __future__ import annotations
@@ -77,6 +77,29 @@ def convert_clip_vision(sd, num_layers: int, prefix="vision_model"):
         "ln_post": _ln(sd, f"{prefix}.post_layernorm"),
         "proj": (t2np(sd["visual_projection.weight"]).t()
                  if "visual_projection.weight" in sd else None),
+    }
+
+
+def convert_clip_text(sd, num_layers: int, prefix="text_model"):
+    """HF CLIPTextModel(+projection) state dict -> the text tree. ``proj`` is
+    None without ``text_projection.weight``."""
+    return {
+        "tok_emb": t2np(sd[f"{prefix}.embeddings.token_embedding.weight"]),
+        "pos_emb": t2np(sd[f"{prefix}.embeddings.position_embedding.weight"]),
+        "blocks": [_clip_block(sd, f"{prefix}.encoder.layers.{i}")
+                   for i in range(num_layers)],
+        "ln_final": _ln(sd, f"{prefix}.final_layer_norm"),
+        "proj": (t2np(sd["text_projection.weight"]).t()
+                 if "text_projection.weight" in sd else None),
+    }
+
+
+def convert_clip(sd, vision_layers: int, text_layers: int):
+    """HF CLIPModel state dict -> {vision, text, logit_scale}."""
+    return {
+        "vision": convert_clip_vision(sd, vision_layers),
+        "text": convert_clip_text(sd, text_layers),
+        "logit_scale": t2np(sd["logit_scale"]),
     }
 
 

@@ -28,12 +28,11 @@ import numpy as np
 import torch
 
 from ..constants import SIGLIP_MEAN, SIGLIP_STD, VIDEO_EXTENSIONS
-from ..engine.scoring import _HostScores, _load_uint8
+from ..engine.scoring import _HostScores, encode_by_shape, unique_visuals
 from ..ops.image import normalize_flat, resize_uint8_levels_flat
 from . import gemma3 as g3
 from . import checkpoint as ckpt
-from .adapters import (VQAScoreModel, default_dtype, load_checkpoint_tree,
-                       unique_visuals)
+from .adapters import VQAScoreModel, default_dtype, load_checkpoint_tree
 
 DEFAULT_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
 DEFAULT_ANSWER = "Yes"
@@ -138,19 +137,8 @@ class Gemma3Adapter(_GemmaBase):
         device: one preprocess and tower call per group of same-shape
         images."""
         cfg = self.config
-        hosts = [_load_uint8(v) for v in visuals]
-        groups = {}
-        for i, img in enumerate(hosts):
-            groups.setdefault(img.shape, []).append(i)
-        out = [None] * len(hosts)
-        for (h0, w0, _), idxs in groups.items():
-            stack = np.stack([hosts[i] for i in idxs]).reshape(len(idxs), h0, w0 * 3)
-            pixels = siglip_preprocess(torch.from_numpy(stack).to(self.device),
-                                       cfg.vision.image_size)
-            feats = g3.image_features(self.params, cfg, pixels)
-            for row, i in enumerate(idxs):
-                out[i] = feats[row]
-        return out
+        return encode_by_shape(visuals, self.device, lambda px: g3.image_features(
+            self.params, cfg, siglip_preprocess(px, cfg.vision.image_size)))
 
     def forward(self, images, texts, **kw) -> np.ndarray:
         dev, n = self.forward_device(images, texts, **kw)

@@ -25,8 +25,8 @@ from ..engine.scoring import _HostScores, _load_uint8
 from ..ops.image import smart_resize
 from . import qwen2vl as q
 from . import checkpoint as ckpt
-from .adapters import (VQAScoreModel, default_dtype, load_checkpoint_tree,
-                       unique_visuals)
+from ..engine.scoring import unique_visuals
+from .adapters import VQAScoreModel, default_dtype, load_checkpoint_tree
 
 DEFAULT_QWEN_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
 DEFAULT_QWEN_ANSWER = "Yes"

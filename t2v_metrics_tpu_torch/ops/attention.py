@@ -26,9 +26,12 @@ The TPU package reaches its flat kernel only for sq >= 128 and sk <= 2048
 (sq = 4) ran the XLA reference, and the ViT layers over 4096 or more rows
 (Qwen2.5-VL, Qwen3-VL, SigLIP at 896 px) ran the per-head ``_flash_kernel``.
 The CUDA flat kernel masks its own ragged edge and streams the keys, so here
-every attention site of clip-flant5, Qwen2.5-VL, Qwen3-VL and the Gemma 3
-decoder goes through it; the SigLIP-896 tower follows the JAX routing to the
-per-head kernel (``models/siglip.py``), as does the T5 attention under
+every attention site of clip-flant5, Qwen2.5-VL, Qwen3-VL, the Gemma 3
+decoder, CLIPScore's two towers and BLIP-2 ITM (the EVA tower at head dim
+88, the Q-Former's self- and cross-attention) goes through it, where the JAX
+package sends the CLIP text tower (77 rows), the EVA tower and the Q-Former
+to XLA; the SigLIP-896 tower follows the JAX routing to the per-head kernel
+(``models/siglip.py``), as does the T5 attention under
 ``models/t5.py:INKERNEL_REL_BIAS``.
 """
 
@@ -42,7 +45,10 @@ import torch
 
 from .position import compute_position_bias, relative_position_bucket
 
-HEAD_DIMS = (64, 72, 80, 128, 256)   # the head dims the CUDA kernels are built for
+# the head dims each CUDA kernel is built for (88: BLIP-2's EVA ViT-g, in the
+# flat kernel only)
+HEAD_DIMS = {"flash_attention_flat": (64, 72, 80, 88, 128, 256),
+             "flash_attention": (64, 72, 80, 128, 256)}
 
 
 # ---------------------------------------------------------------------------
@@ -235,9 +241,9 @@ def tma_geometry(x: torch.Tensor, offset: int, strides, extents, d: int,
     ValueError where the TMA refuses: a base address that is not 16-byte
     aligned, or a byte stride of an axis longer than 1 that is not a
     multiple of 16."""
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS[what]:
         raise NotImplementedError(
-            f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
+            f"{what}: the CUDA kernel takes head dims {HEAD_DIMS[what]}, got {d}")
     size = x.element_size()
     if (x.data_ptr() + size * offset) % 16:
         raise ValueError(f"{what}: {name} is not 16-byte aligned")
@@ -394,9 +400,9 @@ def _kernel_device(x, d, what="flash_attention_flat"):
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS[what]:
         raise NotImplementedError(
-            f"{what}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
+            f"{what}: the CUDA kernel takes head dims {HEAD_DIMS[what]}, got {d}")
     return True
 
 

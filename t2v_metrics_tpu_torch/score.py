@@ -1,5 +1,6 @@
-"""The port's scoring facade (a copy of ``Score`` from
-t2v_metrics_tpu/score.py:27-307, bound to the port's registry).
+"""The port's scoring facades (a copy of ``Score``, ``VQAScore``,
+``CLIPScore`` and ``ITMScore`` from t2v_metrics_tpu/score.py, bound to the
+port's registry).
 
   * ``forward(images, texts, **kwargs) -> (M, N)`` score matrix; singletons
     are promoted to lists;
@@ -23,7 +24,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .media.video import concatenate_horizontal, extract_frames, is_video_path
-from .registry import get_vqascore_model, list_all_vqascore_models
+from .registry import (get_clipscore_model, get_itmscore_model, get_vqascore_model,
+                       list_all_clipscore_models, list_all_itmscore_models,
+                       list_all_vqascore_models)
 
 
 class Score:
@@ -35,10 +38,13 @@ class Score:
 
     def __init__(self, model: str, device: str | None = None,
                  cache_dir: str | None = None, **kwargs):
-        assert model in self.list_all_models(), \
+        assert model in self.list_all_models() or self._accepts_dynamic(model), \
             f"model {model!r} not found; available: {self.list_all_models()}"
         self.device = device
         self.model = self.prepare_scoremodel(model, device, cache_dir, **kwargs)
+
+    def _accepts_dynamic(self, model: str) -> bool:
+        return False
 
     def prepare_scoremodel(self, model, device, cache_dir, **kwargs):
         raise NotImplementedError
@@ -283,3 +289,29 @@ class VQAScore(Score):
 
     def list_all_models(self) -> list[str]:
         return list_all_vqascore_models()
+
+
+class CLIPScore(Score):
+    """CLIP cosine-similarity scoring."""
+
+    def prepare_scoremodel(self, model, device, cache_dir, **kwargs):
+        return get_clipscore_model(model, device, cache_dir, **kwargs)
+
+    def _accepts_dynamic(self, model: str) -> bool:
+        # any OpenCLIP-style "pretrain_tag:Arch" with a known architecture
+        from .models.adapters import resolve_clipscore_name
+
+        return resolve_clipscore_name(model) is not None
+
+    def list_all_models(self) -> list[str]:
+        return list_all_clipscore_models()
+
+
+class ITMScore(Score):
+    """Image-text-matching scoring (BLIP-2's ITM head)."""
+
+    def prepare_scoremodel(self, model, device, cache_dir, **kwargs):
+        return get_itmscore_model(model, device, cache_dir, **kwargs)
+
+    def list_all_models(self) -> list[str]:
+        return list_all_itmscore_models()

@@ -14,7 +14,10 @@
     config: the HF state dict's exact keys and shapes, loaded back bitwise;
   * the bridge: tensor leaves, bf16 kept bitwise; the shape check, the
     family's loader run onto the meta device, against JAX-made trees of
-    every family, and a JAX-written clip-flant5 tree scored as in JAX.
+    every family, and a JAX-written clip-flant5 tree scored as in JAX;
+  * CLIPScore and ITMScore: JAX-made trees through the shape check, native
+    trees against the HF directories they came from, the pretrained
+    default (weights and tokenizer) from a local snapshot, missing keys.
 """
 
 import copy
@@ -37,7 +40,8 @@ from t2v_metrics_tpu_torch.models import clip_flant5 as tcft5
 from t2v_metrics_tpu_torch.models import decoder as tdec
 from t2v_metrics_tpu_torch.models import qwen3vl as tq3
 
-from test_torch_hf_parity import (CLIP_T5_CFG, JAX_ATOL, JAX_RTOL, clip_t5_hf, stage_bin,
+from test_torch_hf_parity import (CLIP_T5_CFG, CLIP_VCFG, JAX_ATOL, JAX_RTOL,  # noqa: F401
+                                  clip_dirs, clip_t5_hf, itm_dirs, stage_bin,
                                   stage_safetensors, stage_snapshot)
 
 ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -639,3 +643,143 @@ def test_jax_written_clip_flant5_tree_scores_as_jax(tmp_path, dtype):
     texts = ["a red cube on a table", "two dogs"]
     np.testing.assert_allclose(t(images=imgs, texts=texts), np.asarray(j(images=imgs, texts=texts)),
                                rtol=JAX_RTOL, atol=JAX_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# CLIPScore and ITMScore
+# ---------------------------------------------------------------------------
+
+def _jax_scorer_tree(family: str):
+    """(numpy tree made by the JAX package's init, the port's config, the
+    port's loader onto the meta device, the path of the stack to cut)."""
+    import jax
+
+    if family == "clipscore":
+        from t2v_metrics_tpu.models import adapters as jad
+        from t2v_metrics_tpu.models import clip as jclip
+        from t2v_metrics_tpu_torch.models import adapters as tad
+
+        tree = jclip.init_clip(jax.random.PRNGKey(0), jad._TEST_CLIP_V, jad._TEST_CLIP_T)
+        cfg, load = (tad._TEST_CLIP_V, tad._TEST_CLIP_T), bridge.clip_from_numpy
+        path = "text/blocks"
+    else:
+        from t2v_metrics_tpu.models import blip2_itm as jbitm
+        from t2v_metrics_tpu_torch.models import blip2_itm as tbitm
+
+        tree = jbitm.init_blip2_itm(jax.random.PRNGKey(0),
+                                    jbitm.BLIP2_ITM_MODELS["blip2-itm-test"]["config"])
+        cfg = tbitm.BLIP2_ITM_MODELS["blip2-itm-test"]["config"]
+        load, path = bridge.blip2_itm_from_numpy, "vision/blocks"
+    tree = jax.tree.map(np.asarray, tree)
+    return tree, (lambda t: load(t, cfg, "meta", torch.float32)), path
+
+
+@pytest.mark.parametrize("family", ["clipscore", "blip2_itm"])
+def test_validate_params_dims_takes_jax_scorer_trees(family):
+    """The JAX package's CLIPScore and BLIP-2 ITM trees (with the Q-Former's
+    ``cross: None`` layers) pass the port's loaders onto the meta device;
+    one block short, each of its leaves is named missing."""
+    tree, load, path = _jax_scorer_tree(family)
+    ckpt.validate_params_dims(tree, load, family)
+    short = copy.deepcopy(tree)
+    top, stack = path.split("/")
+    gone = short[top][stack].pop()
+    with pytest.raises(ValueError) as ei:
+        ckpt.validate_params_dims(short, load, family)
+    n = len(tree[top][stack]) - 1
+    want = sorted(f"  missing: {path}/{n}/{k}" for k, v in ckpt._flatten(gone).items()
+                  if v is not None)
+    got = sorted(line.split(" (expected")[0] for line in str(ei.value).splitlines()[1:])
+    assert got == want
+
+
+def _scorer(family, fx, **kw):
+    """(facade, its name, its config kwargs) of a staged HF family."""
+    if family == "clipscore":
+        hf, path, tok, tcfg = fx
+        return tt2v.CLIPScore, "openai:ViT-B-32", dict(vision_config=CLIP_VCFG,
+                                                      text_config=tcfg)
+    hf, path, tok, cfg = fx
+    return tt2v.ITMScore, "blip2-itm", dict(config=cfg)
+
+
+@pytest.mark.parametrize("family", ["clipscore", "blip2_itm"])
+def test_scorer_native_tree_equals_hf_directory(tmp_path, clip_dirs, itm_dirs, family):
+    """A native tree written by the port's save_params (bf16 as ``|V2``)
+    from the family's converter loads to the same parameters as the HF
+    directory it came from, cast to bf16 there."""
+    from t2v_metrics_tpu_torch.models import blip2_itm as tbitm
+    from t2v_metrics_tpu_torch.models.convert import convert_clip
+
+    fx = clip_dirs if family == "clipscore" else itm_dirs
+    facade, name, cfg_kw = _scorer(family, fx)
+    path = fx[1]
+    kw = dict(device="cpu", dtype=torch.bfloat16, tokenizer=tt2v.SimpleT5Tokenizer(), **cfg_kw)
+    from_hf = facade(name, checkpoint=path, **kw).model
+    # (CLIP's 0-d logit_scale stays fp32, as the model keeps it)
+    sd = {k: v.to(torch.bfloat16) if v.dim() else v
+          for k, v in ckpt.load_hf_state_dict(path).items()}
+    tree = (convert_clip(sd, 2, 2) if family == "clipscore"
+            else tbitm.convert_blip2_itm(sd, fx[3]))
+    ckpt.save_params(tree, str(tmp_path / "native"))
+    from_native = facade(name, checkpoint=str(tmp_path / "native"), **kw).model
+    params = (lambda m: m.engine.params) if family == "clipscore" else (lambda m: m.params)
+    want, got = params(from_hf).state_dict(), params(from_native).state_dict()
+    assert want.keys() == got.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("family", ["clipscore", "blip2_itm"])
+def test_scorer_pretrained_default_from_local_snapshot(caches, clip_dirs, itm_dirs, family):
+    """Without ``init``, ``params`` or ``checkpoint`` the scorer reads the
+    registry repo's snapshot from the local cache, weights and tokenizer;
+    without a snapshot it names the places it searched."""
+    import shutil
+
+    fx = clip_dirs if family == "clipscore" else itm_dirs
+    facade, name, cfg_kw = _scorer(family, fx)
+    kw = dict(device="cpu", dtype=torch.float32, **cfg_kw)
+    repo = "openai/clip-vit-base-patch32" if family == "clipscore" \
+        else "Salesforce/blip2-itm-vit-g"
+    with pytest.raises(ckpt.CheckpointError, match="never downloads"):
+        facade(name, **kw)
+    snap = stage_snapshot(str(caches["hub_cache"]), repo)
+    for src in (fx[1], fx[2]):
+        for f in os.listdir(src):
+            shutil.copy(os.path.join(src, f), snap)
+    s = facade(name, **kw)
+    ref = facade(name, checkpoint=fx[1], tokenizer=fx[2], **kw)
+    tok = s.model.engine.tokenizer if family == "clipscore" else s.model.tokenizer
+    assert tok.__class__.__name__ == "PreTrainedTokenizerFast"
+    rng = np.random.default_rng(10)
+    side = 32 if family == "clipscore" else 28
+    imgs = [rng.integers(0, 256, (side, side, 3), dtype=np.uint8)]
+    texts = ["a photo of cat", "two dogs on grass"]
+    np.testing.assert_array_equal(s(images=imgs, texts=texts), ref(images=imgs, texts=texts))
+
+
+@pytest.mark.parametrize("family", ["clipscore", "blip2_itm"])
+def test_scorer_missing_keys_are_named_with_the_path(tmp_path, clip_dirs, itm_dirs, family):
+    fx = clip_dirs if family == "clipscore" else itm_dirs
+    facade, name, cfg_kw = _scorer(family, fx)
+    sd = ckpt.load_hf_state_dict(fx[1])
+    cut = ".layers.1." if family == "clipscore" else ".layer.1."
+    path = stage_safetensors({k: sd[k] for k in sd if cut not in k}, str(tmp_path / "part"))
+    with pytest.raises(ckpt.CheckpointError) as ei:
+        facade(name, checkpoint=path, device="cpu", **cfg_kw)
+    msg = str(ei.value)
+    want = ("text_model.encoder.layers.1.self_attn.q_proj.weight" if family == "clipscore"
+            else "qformer.encoder.layer.1.attention.attention.query.weight")
+    assert path in msg and want in msg
+
+
+def test_zero_dim_bf16_leaf_round_trips(tmp_path):
+    """A 0-d leaf (CLIP's logit_scale) keeps its shape through a native tree,
+    in bf16 (``|V2`` bits) and in f32."""
+    tree = {"logit_scale": torch.tensor(2.6592, dtype=torch.bfloat16),
+            "f32": torch.tensor(-1.5)}
+    ckpt.save_params(tree, str(tmp_path))
+    back = ckpt.load_params(str(tmp_path))
+    for k, v in tree.items():
+        assert back[k].shape == () and back[k].dtype == v.dtype and torch.equal(back[k], v)

@@ -57,7 +57,8 @@ def _close_attn(out, ref):
     assert float((out - ref).square().mean().sqrt()) <= 1e-2 * rms
 
 
-@pytest.mark.parametrize("shape", [(7, 1024), (3, 5, 1000), (16, 64), (5, 4608)])
+@pytest.mark.parametrize("shape", [(7, 1024), (3, 5, 1000), (16, 64), (5, 4608),
+                                   (3, 257, 1408), (9, 512), (9, 768)])
 def test_layer_norm_kernel(dev, shape):
     x = _randn(dev, *shape, std=3.0)
     w, b = _randn(dev, shape[-1], seed=1), _randn(dev, shape[-1], seed=2)
@@ -68,7 +69,8 @@ def test_layer_norm_kernel(dev, shape):
 
 
 @pytest.mark.parametrize("shape", [(7, 1024), (3, 5, 1000), (16, 64), (5, 4608),
-                                   (2560, 1024), (16384, 1152)])
+                                   (2560, 1024), (16384, 1152), (16 * 257, 1408),
+                                   (16 * 41, 768)])
 def test_add_layer_norm_kernel(dev, shape):
     """The residual add folded in: s bitwise the eager x + r, y the plain
     LayerNorm of it; one launch a call."""
@@ -221,6 +223,9 @@ def test_attention_kernel_refuses_what_it_lacks(dev):
         A.flash_attention_flat(q, q, q, 4)                      # head dim 32
     with pytest.raises(NotImplementedError):
         A.attention(*(q.view(1, 8, 4, 32).transpose(1, 2),) * 3)
+    q88 = _randn(dev, 1, 8, 4 * 88)
+    with pytest.raises(NotImplementedError):                    # d=88: flat kernel only
+        A.attention(*(q88.view(1, 8, 4, 88).transpose(1, 2),) * 3)
     q = _randn(dev, 1, 8, 4 * 64)
     with pytest.raises(ValueError):                             # not square
         A.attention_flat(q[:, :4], q, q, 4, causal=True,
@@ -555,3 +560,55 @@ def test_checkpoint_loads_on_the_card_as_on_the_cpu(dev, tmp_path, src_dtype):
     assert on_card.keys() == on_cpu.keys()
     for k, v in on_cpu.items():
         assert on_card[k].is_cuda and torch.equal(on_card[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("shape,eps", [((16 * 41, 768), 1e-12), ((4 * 257, 1408), 1e-6)])
+def test_add_layer_norm_kernel_blip2_eps(dev, shape, eps):
+    """The Q-Former's post-LN (eps 1e-12) and EVA's (eps 1e-6)."""
+    x, r = _randn(dev, *shape, std=3.0), _randn(dev, *shape, seed=3, std=3.0)
+    w, b = _randn(dev, shape[-1], seed=1), _randn(dev, shape[-1], seed=2)
+    s, y = N.add_layer_norm_fused(x, r, w, b, eps)
+    assert torch.equal(s, x + r)
+    _close(y, N.layer_norm_plain(x + r, w, b, eps), 1e-5, 8e-3)
+
+
+@pytest.mark.parametrize("b,s,h,causal,mask", [
+    (2, 257, 16, False, False),   # EVA ViT-g: 257 unmasked keys, ragged last tile
+    (3, 70, 4, True, False),      # causal, ragged tiles
+    (2, 300, 4, False, True),     # key mask over three 128-key tiles
+    (2, 40, 16, False, False),    # Sq <= 64: the one-warpgroup variant
+])
+def test_attention_kernel_head_dim_88(dev, b, s, h, causal, mask):
+    """88 pads to 96 (six 16-column panels): the TMA zero-fills columns
+    88..95 (the next head's lanes in the packed row), P.V runs with N = 96,
+    and 88 output columns are stored."""
+    qkv = _randn(dev, b, s, 3 * h * 88, seed=7)
+    kw = dict(causal=causal)
+    if mask:
+        lens = torch.tensor([s, s // 2 + 3], device=dev)
+        kw["kv_mask"] = torch.arange(s, device=dev)[None] < lens[:, None]
+    before = launch_counts()["flash_attention_flat"]
+    out = A.attention_flat_packed(qkv, h, **kw)
+    assert launch_counts()["flash_attention_flat"] == before + 1
+    q, k, v, _ = A._split_packed(qkv, h, None)
+    _close_attn(out, A.attention_flat_reference(q, k, v, h, **kw))
+
+
+def test_attention_kernel_qformer_and_clip_text_sites(dev):
+    """The Q-Former's cross-attention (32 queries over 257 image rows, k and
+    v column views of one packed projection) and self-attention (32 queries
+    + 9 text tokens under the text's key mask), and the CLIP text tower's
+    causal attention over 77 tokens."""
+    q, kv = _randn(dev, 4, 32, 768, seed=8), _randn(dev, 4, 257, 2 * 768, seed=9)
+    out = A.attention_flat(q, kv[..., :768], kv[..., 768:], 12)
+    _close_attn(out, A.attention_flat_reference(q, kv[..., :768], kv[..., 768:], 12))
+    qkv = _randn(dev, 4, 41, 3 * 768, seed=10)
+    m = torch.ones((4, 41), dtype=torch.bool, device=dev)
+    m[1, 36:] = m[3, 33:] = False
+    out = A.attention_flat_packed(qkv, 12, kv_mask=m)
+    q, k, v, _ = A._split_packed(qkv, 12, None)
+    _close_attn(out, A.attention_flat_reference(q, k, v, 12, kv_mask=m))
+    qkv = _randn(dev, 8, 77, 3 * 512, seed=11)
+    out = A.attention_flat_packed(qkv, 8, causal=True)
+    q, k, v, _ = A._split_packed(qkv, 8, None)
+    _close_attn(out, A.attention_flat_reference(q, k, v, 8, causal=True))

@@ -668,3 +668,151 @@ def test_missing_keys_are_named_with_the_path(tmp_path, family):
         tt2v.VQAScore(name, config=cfg, checkpoint=path, device="cpu")
     msg = str(ei.value)
     assert path in msg and ".layers.1.self_attn.q_proj.weight" in msg
+
+
+# ---------------------------------------------------------------------------
+# CLIPScore and ITMScore (bars: tests/test_clip_parity.py and
+# tests/test_blip2_itm_parity.py: towers 2e-5 / 3e-5, CLIP's cosine matrix
+# 1e-3, P(match) 1e-5)
+# ---------------------------------------------------------------------------
+
+CLIP_WORDS = "a photo of cat two dogs on grass red cube"
+CLIP_VCFG = tclip.CLIPVisionConfig(image_size=32, patch_size=8, width=32, layers=2,
+                                   heads=4, mlp_dim=64, proj_dim=24)
+
+
+def stage_clip_tokenizer(path: str, words: str) -> tuple[str, int]:
+    """A word-level tokenizer.json in CLIP's layout: ``<|startoftext|>``
+    before and ``<|endoftext|>`` (the highest id, where CLIP pools) after
+    every text. Returns (path, vocabulary size)."""
+    from tokenizers import AddedToken, Tokenizer, models, pre_tokenizers, processors
+
+    os.makedirs(path, exist_ok=True)
+    vocab = {"<pad>": 0, "<unk>": 1}
+    for w in words.split():
+        vocab.setdefault(w, len(vocab))
+    sot, eot = len(vocab), len(vocab) + 1
+    vocab.update({"<|startoftext|>": sot, "<|endoftext|>": eot})
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.add_special_tokens([AddedToken(s, special=True)
+                            for s in ("<|startoftext|>", "<|endoftext|>")])
+    tok.post_processor = processors.TemplateProcessing(
+        single="<|startoftext|> $A <|endoftext|>",
+        special_tokens=[("<|startoftext|>", sot), ("<|endoftext|>", eot)])
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>",
+                   "unk_token": "<unk>", "model_max_length": 77}, f)
+    return path, len(vocab)
+
+
+@pytest.fixture(scope="module")
+def clip_dirs(tmp_path_factory):
+    from transformers import CLIPConfig, CLIPModel
+
+    root = tmp_path_factory.mktemp("clipscore")
+    tok, vocab = stage_clip_tokenizer(str(root / "tok"), CLIP_WORDS)
+    torch.manual_seed(3)
+    hf = CLIPModel(CLIPConfig(
+        text_config=dict(vocab_size=vocab, hidden_size=32, intermediate_size=64,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         max_position_embeddings=16, hidden_act="quick_gelu",
+                         eos_token_id=vocab - 1),
+        vision_config=dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                           num_attention_heads=4, image_size=32, patch_size=8,
+                           hidden_act="quick_gelu"),
+        projection_dim=24)).eval()
+    tcfg = tclip.CLIPTextConfig(vocab_size=vocab, context_length=16, width=32, layers=2,
+                                heads=4, mlp_dim=64, proj_dim=24)
+    path = stage_safetensors(hf.state_dict(), str(root / "ckpt"))
+    return hf, path, tok, tcfg
+
+
+def _clip_pixels(imgs):
+    """The CLIP normalisation of size-matched uint8 images, NCHW for HF."""
+    px = (np.stack(imgs).astype(np.float32) / 255.0 - np.asarray(CLIP_MEAN, np.float32)) \
+        / np.asarray(CLIP_STD, np.float32)
+    return torch.from_numpy(px.transpose(0, 3, 1, 2).copy())
+
+
+def test_clipscore_checkpoint_matches_hf(clip_dirs):
+    hf, path, tok, tcfg = clip_dirs
+    s = tt2v.CLIPScore("openai:ViT-B-32", checkpoint=path, tokenizer=tok,
+                       vision_config=CLIP_VCFG, text_config=tcfg, device="cpu",
+                       dtype=torch.float32)
+    eng = s.model.engine
+    assert eng.tokenizer.__class__.__name__ == "PreTrainedTokenizerFast"
+    rng = np.random.default_rng(8)
+    imgs = [rng.integers(0, 256, (32, 32, 3), dtype=np.uint8) for _ in range(2)]
+    texts = ["a photo of cat", "two dogs on grass", "red cube"]
+    got = s(images=imgs, texts=texts)
+    ids = torch.from_numpy(eng._tokenize(texts)).long()
+    with torch.no_grad():
+        imf = hf.get_image_features(pixel_values=_clip_pixels(imgs))
+        txf = hf.get_text_features(input_ids=ids)
+        ref = ((imf / imf.norm(dim=-1, keepdim=True))
+               @ (txf / txf.norm(dim=-1, keepdim=True)).T).numpy()
+        ours_i = tclip.vision_tower(eng.params.vision, CLIP_VCFG,
+                                    _clip_pixels(imgs).permute(0, 2, 3, 1).reshape(2, 32, 96))
+        ours_t = tclip.text_tower(eng.params.text, tcfg, ids)
+    np.testing.assert_allclose(ours_i.numpy(), imf.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(ours_t.numpy(), txf.numpy(), atol=2e-5, rtol=0)
+    assert got.shape == (2, 3)
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+    assert abs(s.model.engine.params.logit_scale.item() - hf.logit_scale.item()) == 0
+
+
+ITM_WORDS = "a photo of cat two dogs on grass red cube [CLS] [SEP]"
+
+
+@pytest.fixture(scope="module")
+def itm_dirs(tmp_path_factory):
+    from transformers import Blip2ForImageTextRetrieval
+    from transformers.models.blip_2.configuration_blip_2 import Blip2Config
+
+    from t2v_metrics_tpu_torch.models import blip2_itm as tbitm
+
+    root = tmp_path_factory.mktemp("itm")
+    tok = stage_tokenizer(str(root / "tok"), ITM_WORDS, t5=True)
+    torch.manual_seed(4)
+    hf = Blip2ForImageTextRetrieval(Blip2Config(
+        vision_config=dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                           num_attention_heads=4, image_size=28, patch_size=14,
+                           hidden_act="gelu"),
+        qformer_config=dict(vocab_size=256, hidden_size=32, intermediate_size=64,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            cross_attention_frequency=2, max_position_embeddings=64,
+                            hidden_act="gelu", use_qformer_text_input=True),
+        num_query_tokens=4, image_token_index=None)).eval()
+    cfg = tbitm.BLIP2_ITM_MODELS["blip2-itm-test"]["config"]
+    path = stage_safetensors(hf.state_dict(), str(root / "ckpt"))
+    return hf, path, tok, cfg
+
+
+def test_itmscore_checkpoint_matches_hf(itm_dirs):
+    from t2v_metrics_tpu_torch.models import blip2_itm as tbitm
+
+    hf, path, tok, cfg = itm_dirs
+    s = tt2v.ITMScore("blip2-itm", config=cfg, checkpoint=path, tokenizer=tok,
+                      device="cpu", dtype=torch.float32)
+    assert s.model.tokenizer.__class__.__name__ == "PreTrainedTokenizerFast"
+    rng = np.random.default_rng(9)
+    imgs = [rng.integers(0, 256, (28, 28, 3), dtype=np.uint8) for _ in range(2)]
+    texts = ["a photo of cat", "two dogs on grass red cube"]
+    got = s(images=imgs, texts=texts)
+    px = _clip_pixels(imgs)
+    ids, mask = s.model._tokenize(texts * 2)
+    with torch.no_grad():
+        ref_tower = hf.vision_model(px).last_hidden_state.numpy()
+        ours_tower = tbitm.vision_tower(s.model.params.vision, cfg.vision,
+                                        px.permute(0, 2, 3, 1).reshape(2, 28, 84)).numpy()
+        out = hf(pixel_values=px.repeat_interleave(2, dim=0), input_ids=torch.from_numpy(ids),
+                 attention_mask=torch.from_numpy(mask).long(),
+                 use_image_text_matching_head=True)
+        ref = torch.softmax(out.logits_per_image.float(), dim=1)[:, 1].numpy()
+    np.testing.assert_allclose(ours_tower, ref_tower, atol=3e-5, rtol=0)
+    assert got.shape == (2, 2)
+    # pairs in score_matrix order: image 0 with both texts, then image 1;
+    # the reference rows pair image i // 2 with text (i % 2) of texts * 2
+    np.testing.assert_allclose(got.ravel(), ref, atol=SCORE_ATOL, rtol=0)

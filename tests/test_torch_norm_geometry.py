@@ -23,7 +23,7 @@ from t2v_metrics_tpu_torch.ops import norms as N  # noqa: E402
 
 SMS = 132
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
-WIDTHS = [16, 64, 1000, 1001, 1024, 1152, 4608, 16384]
+WIDTHS = [16, 64, 512, 768, 1000, 1001, 1024, 1152, 1408, 4608, 16384]
 
 
 def _occupancy(vec, nv_cap, block_warps):
@@ -92,6 +92,9 @@ def test_every_row_once_in_one_wave(rows, d, dtype):
     (1001, torch.bfloat16, 1, 1, 32),    # odd: single values, 32 a lane
     (16384, torch.bfloat16, 16, 8, 4),   # the widest row: 16 warps, one a block
     (1152, torch.float32, 1, 4, 9),
+    (1408, torch.bfloat16, 2, 2, 11),    # BLIP-2 EVA ViT-g: past one warp's 40 values
+    (768, torch.bfloat16, 1, 8, 3),      # Q-Former, CLIP ViT-B / L-14 text
+    (512, torch.bfloat16, 1, 8, 2),      # CLIP ViT-B text
 ])
 def test_the_main_path_shapes(d, dtype, wpr, vec, nv):
     plan, _ = _plan(2560, d, dtype)

@@ -60,6 +60,7 @@ def _check_box(geo, d, tile_rows):
     (2, 150, 8, 4, 256),     # Gemma decoder: packed, GQA 8/4, d=256
     (3, 70, 16, 16, 72),     # Qwen3 ViT: d=72, ragged tiles
     (2, 200, 16, 16, 80),    # Qwen2.5 ViT: d=80
+    (3, 257, 16, 16, 88),    # BLIP-2 EVA ViT-g: d=88, 257 rows, ragged tiles
     (4, 9, 4, 4, 64),        # T5 decoder self: sq < one tile
 ])
 def test_packed_flat_geometry(b, s, h, kvh, d):
@@ -162,3 +163,48 @@ def test_alignment_refusals():
     with pytest.raises(ValueError, match="16-byte aligned"):
         A.flash_attention_launch(shifted, v[:, :, :15], v[:, :, :15], None, None,
                                  False, 1.0, None, None, None, None, None)
+
+
+def test_head_dim_88_pads_to_96_outside_the_extent():
+    """d=88 (BLIP-2's EVA ViT-g, 16 heads over width 1408): six 16-column
+    panels (96 columns, 32-byte swizzle) over an extent of 88, so columns
+    88..95, the next head's lanes in the packed (B, S, 3*1408) row, are
+    zero-filled; every head's offset in the packed row is 16-byte aligned
+    (176 bytes a head), so each q, k and v map's base is too."""
+    assert A.padded_dim(88) == 96 and A.panel_width(88) == 16
+    assert 88 in A.HEAD_DIMS["flash_attention_flat"]
+    assert 88 not in A.HEAD_DIMS["flash_attention"]       # the per-head kernel lacks it
+    qkv = torch.zeros((2, 257, 3 * 1408), dtype=torch.bfloat16)
+    bq, bk = A.tile_rows(88, 257)
+    assert (bq, bk) == (128, 128)
+    for off, tile in ((0, bq), (1408, bk), (2816, bk)):
+        geo = A.flat_geometry(qkv, off, 16, 257, 88, tile)
+        _check_box(geo, 88, tile)
+        assert geo.dims[0] == 88 and geo.box[0] == 16 and geo.pad == 8 and geo.swizzle == 32
+        assert geo.dims[0] + geo.pad == 6 * geo.box[0]
+        assert geo.strides[geo.axes[0] - 1] == 88 * 2       # heads 176 bytes apart
+        assert geo.dims[geo.axes[1]] == 257                  # the last key tile is ragged
+        assert torch.equal(_read_by_map(qkv, geo), _flat_heads(qkv, off, 16, 257, 88))
+        for h in range(16):
+            assert (geo.packed(qkv)[0] + 2 * 88 * h) % 16 == 0
+    with pytest.raises(NotImplementedError):
+        A.head_geometry(qkv.view(2, 257, 3, 16, 88)[:, :, 0].transpose(1, 2), 128)
+
+
+def test_qformer_cross_attention_geometry():
+    """The Q-Former's cross-attention: 32 query rows (the one-warpgroup
+    variant: 64-row q tiles, 64-key tiles) over the 257 image rows of a
+    packed k|v projection (B, 257, 2*768), k and v read as column views of
+    it at offsets 0 and 768."""
+    q = torch.zeros((4, 32, 768), dtype=torch.bfloat16)
+    kv = torch.zeros((4, 257, 2 * 768), dtype=torch.bfloat16)
+    bq, bk = A.tile_rows(64, 32)
+    assert (bq, bk) == (64, 64)
+    gq = A.flat_geometry(q, 0, 12, 32, 64, bq)
+    assert torch.equal(_read_by_map(q, gq), _flat_heads(q, 0, 12, 32, 64))
+    for name, view in (("k", kv[..., :768]), ("v", kv[..., 768:])):
+        geo = A.flat_geometry(view, 0, 12, 257, 64, bk, name)
+        _check_box(geo, 64, bk)
+        assert geo.dims[geo.axes[1]] == 257 and -(-257 // bk) == 5
+        assert torch.equal(_read_by_map(view, geo), _flat_heads(view, 0, 12, 257, 64))
+        assert geo.packed(view)[0] == kv.data_ptr() + (0 if name == "k" else 2 * 768)
