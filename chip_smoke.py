@@ -31,7 +31,13 @@ Phases (any failure exits non-zero and prints no result line):
      at the CLIPScore / ITMScore shapes: the flat kernel at the EVA ViT-g
      site (head dim 88, with two wrong plain versions that must fail), the
      Q-Former's cross- and self-attention and the CLIP text tower's causal
-     attention, LayerNorm at d 1408 and add + LN at d 768, eps 1e-12
+     attention, LayerNorm at d 1408 and add + LN at d 768, eps 1e-12; and
+     at the video shapes: the flat kernel at the Qwen2.5-VL-7B ViT's full
+     layers over a 40-frame clip (1, 16384) and at the Qwen3-VL ViT (1,
+     12288), both with the pads under segment -1, and at Gemma-3-4B's
+     10-frame prefill in bucket 4096 (the 1024 window and ten image blocks
+     both live, with two wrong plain versions that must fail: no window, no
+     overlay), the per-head kernel at SigLIP-896 over 10 frames
      (``--kernels-only`` stops here, with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
@@ -46,7 +52,9 @@ Phases (any failure exits non-zero and prints no result line):
      with the T5 bias in the kernel) against its dense-bias path on the same
      parameters, both on the card; CLIPScore at ViT-B/32 widths (2 vision +
      2 text layers) and ITMScore at blip2-itm widths (2 EVA + 2 Q-Former
-     layers, one with cross-attention), card bf16 against CPU fp32;
+     layers, one with cross-attention), card bf16 against CPU fp32; the
+     Qwen2.5-VL, Qwen3-VL and Gemma chains again on seeded clips decoded in
+     memory (8 frames of 480x640; Gemma takes 4), card bf16 against CPU fp32;
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -62,15 +70,22 @@ Phases (any failure exits non-zero and prints no result line):
      same rows; ``CLIPScore("openai:ViT-B-32", init="random")`` (8 x 32,
      ``batch_forward`` of 64 x (1, 4)) and ``ITMScore("blip2-itm",
      init="random")`` (39 EVA + 12 Q-Former layers, 1.17 B parameters; 4 x 8,
-     ``batch_forward`` of 16 x (1, 4)); with ``--profile``, the device time of one
-     ``batch_forward`` of each, and of the Qwen forwards at 1024x1024, by
-     kernel family (torch.profiler) and the device's busy share.
+     ``batch_forward`` of 16 x (1, 4)); each Qwen and Gemma slice then scores
+     video on the same model: seeded clips of 5 s at 30 fps, 480x640, decoded
+     in memory (``media.video.DecodedVideo``, the way in where no video
+     reader is installed), 2 clips x 4 texts and ``batch_forward`` of 4 x (1 clip, 4
+     texts) (Qwen2.5-VL-7B at fps 8: 40 frames, ViT bucket 16384, prompts in
+     4096; Qwen3-VL: 12288 and 3072; Gemma: 10 frames, 4096); with
+     ``--profile``, the device time of one ``batch_forward`` of each, and of
+     the Qwen forwards at 1024x1024, by kernel family (torch.profiler) and
+     the device's busy share.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the checkpoint-loaded xl and the nine slices; a row's ``sites`` are
+summed over the first calls of the checkpoint-loaded xl, the nine slices and
+the three video slices; a row's ``sites`` are
 further shapes of the main path, each with its times, bound and library
 time: the grouped GEMM's down projection, the int8 GEMM's split-K decoder
 shape, LayerNorm's other shapes and its add + LayerNorm entry, the flat
-kernel's CLIPScore / ITMScore sites), the card's name and power limit, and ``{"ok": true,
+kernel's CLIPScore / ITMScore and video sites), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -572,7 +587,7 @@ def phase_kernels() -> dict:
         ok, detail = attention_agrees(out, ref)
         extra = t5_attention_yardsticks(args, kw) if main else {}
         if "bidir_ids" in kw:
-            extra["flop"] = masked_attention_yardsticks(label, *args, kw)
+            extra["flop"] = masked_attention_yardsticks(label, *args, kw)[0]
         record("flash_attention_flat", label, out, ref, ok, detail, fn, plain_fn, main,
                **extra)
         del out, ref, extra
@@ -642,6 +657,8 @@ def phase_kernels() -> dict:
     quant_kernels(randn, record)
     free_cuda()
     scorer_kernels(randn, record)
+    free_cuda()
+    video_kernels(randn, record, lengths_mask)
     return results
 
 
@@ -724,7 +741,7 @@ def per_head_kernels(randn, record, lengths_mask) -> None:
         del q, k, v, out, ref
 
 
-def masked_attention_yardsticks(label, packed, heads, kw) -> int:
+def masked_attention_yardsticks(label, packed, heads, kw) -> tuple:
     """Log the bound of a Gemma flat attention site, from the (row, col)
     pairs its masks keep (causal / window band OR the overlay, AND the key
     mask), and the time of ``F.scaled_dot_product_attention`` on the same
@@ -743,14 +760,15 @@ def masked_attention_yardsticks(label, packed, heads, kw) -> int:
     same = (ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0)
     keep = (band[None] | same) & kw["kv_mask"][:, None, :]          # (B, S, S)
     ops = 4 * d * heads * int(keep.sum())
-    lo = bound(ops, 2 * b * s * (2 * heads + 2 * kvh) * d + 5 * b * s, "bf16")
+    lower = (ops, 2 * b * s * (2 * heads + 2 * kvh) * d + 5 * b * s, "bf16")
+    lo = bound(*lower)
     name = "F.scaled_dot_product_attention (bool mask, enable_gqa)"
     ms = library_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=keep[:, None], scale=kw["scale"], enable_gqa=True), name)
     log(f"[kernel] flash_attention_flat {label}: bound {lo[0]:.4f} ms by {lo[1]} "
         f"({ops / 1e9:.2f} GFLOP kept by the masks); {name} "
         + ("refused" if ms is None else f"{ms:.4f} ms"))
-    return ops
+    return ops, lower, None if ms is None else (name, ms)
 
 
 def library_ms(fn, name: str) -> float | None:
@@ -869,6 +887,130 @@ def qwen_vit_segments(dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (tile_seg, bucket_seg, full_seg))
 
 
+def plain_by_kv_heads(q, k, v, heads, kv_heads=None, **kw):
+    """``attention_flat_reference`` over one kv head (and its query heads)
+    at a time: bounds the plain version's (B, H, S, S) fp32 scores at the
+    video sites (16 x 16384^2 x 4 B = 17 GB at once for the Qwen ViT)."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    kvh = kv_heads or heads
+    rep, d = heads // kvh, q.shape[-1] // heads
+    return torch.cat([A.attention_flat_reference(
+        q[..., g * rep * d:(g + 1) * rep * d], k[..., g * d:(g + 1) * d],
+        v[..., g * d:(g + 1) * d], rep, 1 if rep > 1 else None, **kw)
+        for g in range(kvh)], dim=-1)
+
+
+def video_blocks(b: int, s: int):
+    """Gemma's image-block ids of a 10-frame prompt in a (b, s) bucket, as
+    the adapter lays it out: after 5 tokens, per frame 3 tokens of "Frame at
+    {t}s:", begin-of-image, 256 image tokens (block id = the frame),
+    end-of-image; -1 elsewhere. Returns (ids, prompt rows)."""
+    ids = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+    row = 5
+    for f in range(10):
+        row += 4
+        ids[:, row:row + 256] = f
+        row += 257
+    return ids, row + 20
+
+
+def video_kernels(randn, record, lengths_mask) -> None:
+    """The kernel sites of video scoring, each against its plain version
+    with its bound and SDPA on the same inputs: the flat kernel at the
+    Qwen2.5-VL-7B ViT's full layers over a 40-frame 480x640 clip (grid (20,
+    24, 32), 15,360 patches in bucket 16,384 in the tile order, pads under
+    segment -1), at the Qwen3-VL-30B-A3B ViT (grid (20, 20, 28), 11,200
+    patches in 12,288), at the Gemma-3-4B decoder prefill of 10 frames (8
+    pairs in bucket 4,096, window 1,024 and ten 256-token image blocks both
+    live, with two wrong plain versions that must fail: no window, no
+    overlay); the per-head kernel at SigLIP-896 over one video's 10 frames.
+    The plain versions run one kv head at a time."""
+    from t2v_metrics_tpu_torch.models.qwen2vl import QWEN2_VL_MODELS
+    from t2v_metrics_tpu_torch.models.qwen2vl_adapter import _padded_geometry
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    sdpa = F.scaled_dot_product_attention
+
+    def seg_site(label, b, s, heads, d, seg):
+        packed = randn(b, s, 3 * heads * d)
+        q, k, v, _ = A._split_packed(packed, heads, None)
+        kw = dict(segment_ids=seg)
+        same = seg[:, :, None] == seg[:, None, :]
+        pairs = int(same.sum())
+        qh, kh, vh = A.packed_heads(packed, heads)
+        attention_site(
+            record, label, lambda: A.flash_attention_flat_packed(packed, heads, **kw),
+            lambda: plain_by_kv_heads(q, k, v, heads, **kw), 4 * d * heads * pairs,
+            2 * b * s * 4 * heads * d + 4 * b * s,
+            ("F.scaled_dot_product_attention (bool mask)",
+             lambda: sdpa(qh, kh, vh, attn_mask=same[:, None])))
+
+    vis = QWEN2_VL_MODELS["qwen2.5-vl-7b"]["config"].vision
+    *_, full_seg, _, tiled = _padded_geometry(vis, (20, 24, 32), 15360, 16384)
+    check(tiled, "the 40-frame 336x448 grid should take the tiled window layout")
+    seg_site("Qwen ViT full, video (1, 16384, 3x1280) d=80, 15360 rows, -1 pads",
+             1, 16384, 16, 80, torch.from_numpy(full_seg).to(dev)[None])
+    free_cuda()
+    seg3 = torch.where(torch.arange(12288, device=dev) < 11200, 0, -1).int()[None]
+    seg_site("Qwen3 ViT, video (1, 12288, 3x1152) d=72, 11200 rows, -1 pads",
+             1, 12288, 16, 72, seg3)
+    free_cuda()
+
+    # Gemma 3 decoder prefill of a 10-frame prompt: the window's lower edge
+    # (kt_lo from each q tile's first row) and the overlay's block range both
+    # move the tiles a q tile visits
+    p, s = 8, 4096
+    ids, rows = video_blocks(p, s)
+    packed = randn(p, s, 16 * 256)
+    kw = dict(kv_heads=4, causal=True, scale=256 ** -0.5, local_window=1024,
+              bidir_ids=ids, kv_mask=lengths_mask(p, s, rows - 8, rows))
+    q, k, v, _ = A._split_packed(packed, 8, 4)
+    ref = plain_by_kv_heads(q, k, v, 8, **kw)
+    for wrong, drop in (("no window", "local_window"), ("no overlay", "bidir_ids")):
+        caught, why = attention_agrees(
+            plain_by_kv_heads(q, k, v, 8, **{**kw, drop: None}), ref)
+        log(f"[kernel] flash_attention_flat Gemma video prefill negative control, plain "
+            f"version with {wrong}: {why}")
+        check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    del ref
+    label = (f"Gemma video prefill ({p}, {s}, 16x256) d=256, GQA 8/4, window 1024 and "
+             "ten 256-row image blocks, kv_mask")
+    ops, lower, library = masked_attention_yardsticks(label, packed, 8, kw)
+    out, ref = A.flash_attention_flat_packed(packed, 8, **kw), plain_by_kv_heads(q, k, v, 8, **kw)
+    torch.cuda.synchronize()
+    ok, detail = attention_agrees(out, ref)
+    record("flash_attention_flat", label, out, ref, ok, detail,
+           lambda: A.flash_attention_flat_packed(packed, 8, **kw),
+           lambda: plain_by_kv_heads(q, k, v, 8, **kw), False, flop=ops, lower=lower,
+           library=library, site=True)
+    del packed, q, k, v, out, ref, ids
+    free_cuda()
+
+    # SigLIP-896 over one video's 10 frames, the per-head kernel
+    b, h, sq, d = 10, 16, 4096, 72
+    q, k, v = A.packed_heads(randn(b, sq, 3 * h * d), h)
+
+    def plain():
+        return torch.cat([A.attention_reference(q[i:i + 2], k[i:i + 2], v[i:i + 2])
+                          for i in range(0, b, 2)])
+
+    fn = lambda: A.flash_attention(q, k, v)  # noqa: E731
+    out, ref = fn(), plain()
+    torch.cuda.synchronize()
+    ok, detail = attention_agrees(out, ref)
+    name = "F.scaled_dot_product_attention (no mask)"
+    ms = library_ms(lambda: sdpa(q, k, v), name)
+    flop = 4 * b * h * sq * sq * d
+    record("flash_attention", f"SigLIP-896, one video's frames ({b}, {h}, {sq}, {d})", out,
+           ref, ok, detail, fn, plain, False, flop=flop,
+           lower=(flop, 2 * 4 * b * sq * h * d, "bf16"),
+           library=None if ms is None else (name, ms), site=True)
+    del q, k, v, out, ref
+    free_cuda()
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the full-width chain, card (bf16, kernels) against CPU (fp32, plain)
 # ---------------------------------------------------------------------------
@@ -884,6 +1026,17 @@ def seeded_texts(n: int, seed: int) -> list[str]:
              "at night").split()
     rng = np.random.default_rng(seed)
     return [" ".join(rng.choice(words, size=rng.integers(3, 8))) for _ in range(n)]
+
+
+def seeded_clip(seed: int, frames: int = 150, fps: float = 30.0, h: int = 480,
+                w: int = 640):
+    """A seeded clip already decoded (``media.video.DecodedVideo``: every
+    frame, RGB uint8, and its frame rate), the way in below the file reader:
+    a GPU host needs no cv2. Default: 5 s at 30 fps, 480x640."""
+    from t2v_metrics_tpu_torch.media.video import DecodedVideo
+
+    rng = np.random.default_rng(seed)
+    return DecodedVideo(rng.integers(0, 256, (frames, h, w, 3), dtype=np.uint8), fps)
 
 
 def chain_config(layers_vit: int = 2, layers_t5: int = 2,
@@ -1387,6 +1540,80 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     return counts, rows
 
 
+def phase_video_slice(scorer, tag: str, want: dict, seed: int,
+                      profile: bool = False) -> dict:
+    """The video half of a family's slice, on its image slice's model (not
+    a second copy): seeded clips of 5 s at 30 fps, 480x640, decoded in
+    memory (no video reader needed); ``VQAScore`` samples
+    them as it samples a file. 2 clips x 4 texts through the public call
+    (launch counts of the first call against ``want``, the code's counts;
+    scores in range and repeatable), ``batch_forward`` of 4 x (1 clip, 4
+    texts) in one chunk against the pairwise forward of the same pairs,
+    pairs/s of both, the peak memory while scoring and, with ``profile``,
+    the device time of the batch_forward by kernel family. Returns the first
+    call's launch counts."""
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    clips = [seeded_clip(seed + i) for i in range(4)]
+    texts = seeded_texts(16, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = scorer(images=clips[:2], texts=texts[:4])
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"{tag} first forward (2 clips of 150 480x640 frames at 30 fps x 4 texts): "
+        f"{t_first:.3f} s; launches {json.dumps(counts)}; from the code {json.dumps(want)}")
+    check(scores.shape == (2, 4), f"{tag} shape {scores.shape}")
+    check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
+          f"{tag} scores not finite in [0, 1]")
+    check(counts == want, f"{tag} launch counts {counts} != {want}")
+    check(np.array_equal(scores, scorer(images=clips[:2], texts=texts[:4])),
+          f"{tag} second call differs")
+    log(f"{tag} log scores: {np.log(scores).round(4).tolist()}")
+
+    data = [{"videos": [clips[i]], "texts": texts[4 * i:4 * i + 4]} for i in range(4)]
+    rows = scorer.batch_forward(data, batch_size=4)
+    media, texts_ = scorer._flatten_pairs(data, "videos", 8)
+    check(rows.shape == (4, 1, 4) and np.isfinite(rows).all()
+          and np.array_equal(rows.ravel(), scorer.model.forward(media, texts_)),
+          f"{tag} batch_forward rows differ from the pairwise forward of the same pairs")
+    log(f"{tag} batch_forward rows equal the pairwise forward of the same pairs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer.batch_forward(data, batch_size=4)
+    torch.cuda.synchronize()
+    pairs_s = 16 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    scorer(images=clips[:2], texts=texts[:4])
+    torch.cuda.synchronize()
+    fwd_s = 8 / (time.perf_counter() - t0)
+    log(f"{tag} pairs/s after warm-up: batch_forward (16 pairs, 4 clips, batch 4) "
+        f"{pairs_s:.2f}; forward (2 clips x 4 texts) {fwd_s:.2f}")
+    log(f"{tag} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated while "
+        f"scoring video; card {card_line()}")
+    if profile:
+        phase_profile(lambda: scorer.batch_forward(data, batch_size=4),
+                      f"{tag} batch_forward 4 x (1 clip, 4 texts)")
+    return counts
+
+
+def qwen_video_buckets(adapter) -> tuple:
+    """(grid, patch bucket, sequence bucket) of a Qwen adapter's prompt for
+    one 40-frame 480x640 clip (fps 8 of 5 s at 30 fps), from the adapter's
+    own geometry and prompt."""
+    from t2v_metrics_tpu_torch.models import qwen2vl_adapter as qa
+
+    _, _, grid = adapter._visual_grid("vid", (40, 480, 640, 3))
+    s = int(np.prod(grid))
+    ids = adapter._build_ids('Does this figure show "a b c d e f g"? Please answer Yes or No.',
+                             s // adapter.config.vision.merge_unit, True)
+    return grid, qa._bucket(s, qa.PATCH_BUCKETS), qa._bucket(len(ids) + adapter.seq_extra,
+                                                             qa.SEQ_BUCKETS)
+
+
 # ---------------------------------------------------------------------------
 # Qwen2.5-VL-7B: chain (phase 3) and slice (phase 4)
 # ---------------------------------------------------------------------------
@@ -1406,7 +1633,18 @@ def qwen_chain_config(vit_layers: int = 2, dec_layers: int = 2):
         text=dataclasses.replace(cfg.text, layers=dec_layers))
 
 
-def phase_qwen_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
+def chain_media(video: bool, m: int, seed: int, num_frames: int = 8):
+    """The chain's visuals and what the adapter's score_matrix takes with
+    them: ``m`` seeded 300x380 images, or ``m`` seeded clips of
+    ``num_frames`` 480x640 frames at 8 fps (fps 8 samples every frame)."""
+    if not video:
+        return seeded_images(m, seed), "300x380 images"
+    return ([seeded_clip(seed + i, frames=num_frames, fps=8.0) for i in range(m)],
+            f"clips of {num_frames} 480x640 frames")
+
+
+def phase_qwen_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2,
+                     video: bool = False) -> None:
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch.models.qwen2vl import Qwen2VLModel, init_qwen2vl
 
@@ -1414,7 +1652,7 @@ def phase_qwen_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
     host = Qwen2VLModel(cfg, "cpu", torch.float32)
     host.load_state_dict({k: t.float().cpu() for k, t in card.state_dict().items()})
     tok = t2v.SimpleT5Tokenizer(cfg.text.vocab_size)
-    images, texts = seeded_images(m, 31), seeded_texts(n, 32)
+    (images, what), texts = chain_media(video, m, 31), seeded_texts(n, 32)
     scorers = [t2v.VQAScore(QWEN, params=p, config=cfg, tokenizer=tok, device=d)
                for p, d in ((card, device), (host, "cpu"))]
     t0 = time.perf_counter()
@@ -1423,16 +1661,17 @@ def phase_qwen_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
     on_cpu = np.log(scorers[1](images=images, texts=texts))
     t2 = time.perf_counter()
     diff = float(np.abs(on_card - on_cpu).max())
-    log(f"[qwen chain] 7B widths, {cfg.vision.depth} ViT layers (full at "
+    tag = "[qwen video chain]" if video else "[qwen chain]"
+    log(f"{tag} 7B widths, {cfg.vision.depth} ViT layers (full at "
         f"{cfg.vision.fullatt_block_indexes}) + {cfg.text.layers} decoder layers, "
-        f"M={m} N={n} 300x380 images: card bf16 {t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s")
-    log(f"[qwen chain] mean answer log-probs card {on_card.ravel().round(4).tolist()}")
-    log(f"[qwen chain] mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
-    log(f"[qwen chain] max |card - cpu| {diff:.4e} nats (limit {QWEN_CHAIN_TOL_NATS}); "
+        f"M={m} N={n} {what}: card bf16 {t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s")
+    log(f"{tag} mean answer log-probs card {on_card.ravel().round(4).tolist()}")
+    log(f"{tag} mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
+    log(f"{tag} max |card - cpu| {diff:.4e} nats (limit {QWEN_CHAIN_TOL_NATS}); "
         f"spread over pairs {float(np.ptp(on_cpu)):.4e} nats")
     check(np.isfinite(on_card).all() and on_card.shape == (m, n),
-          "qwen chain: card scores not finite or wrong shape")
-    check(diff <= QWEN_CHAIN_TOL_NATS, f"qwen chain: card and CPU differ by {diff} nats")
+          f"{tag} card scores not finite or wrong shape")
+    check(diff <= QWEN_CHAIN_TOL_NATS, f"{tag} card and CPU differ by {diff} nats")
 
 
 def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
@@ -1518,8 +1757,14 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
                       f"{model} batch_forward 300x380")
         phase_profile(lambda: scorer(images=images, texts=texts),
                       f"{model} forward 4 x 4 at {side}x{side}")
+    # video: one tower call (2 clips of grid (20, 24, 32), tiled windows) and
+    # one prefill, so the image call's counts
+    grid, patch_b, seq_b = qwen_video_buckets(scorer.model)
+    log(f"[qwen video slice] grid {grid}: ViT bucket {patch_b}, prompt bucket {seq_b}")
+    check((patch_b, seq_b) == (16384, 4096), f"qwen video buckets {patch_b}, {seq_b}")
+    video_counts = phase_video_slice(scorer, "[qwen video slice]", want, 101, profile)
     del scorer
-    return counts
+    return [counts, video_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -1542,7 +1787,8 @@ def qwen3_chain_config(vit_layers: int = 2, dec_layers: int = 2):
         text=dataclasses.replace(cfg.text, layers=dec_layers))
 
 
-def phase_qwen3_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
+def phase_qwen3_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2,
+                      video: bool = False) -> None:
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch.models.qwen3vl import Qwen3VLModel, init_qwen3vl
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1554,7 +1800,7 @@ def phase_qwen3_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None
         for name, t in card.state_dict().items():
             dst[name].copy_(t.float().cpu())
     tok = t2v.SimpleT5Tokenizer(cfg.text.vocab_size)
-    images, texts = seeded_images(m, 51), seeded_texts(n, 52)
+    (images, what), texts = chain_media(video, m, 51), seeded_texts(n, 52)
     scorers = [t2v.VQAScore(QWEN3, params=p, config=cfg, tokenizer=tok, device=d)
                for p, d in ((card, device), (host, "cpu"))]
     reset_launch_counts()
@@ -1565,19 +1811,20 @@ def phase_qwen3_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None
     on_cpu = np.log(scorers[1](images=images, texts=texts))
     t2 = time.perf_counter()
     diff = float(np.abs(on_card - on_cpu).max())
-    log(f"[qwen3 chain] 30b-a3b widths, {cfg.vision.depth} ViT layers (deepstack "
+    tag = "[qwen3 video chain]" if video else "[qwen3 chain]"
+    log(f"{tag} 30b-a3b widths, {cfg.vision.depth} ViT layers (deepstack "
         f"at {cfg.vision.deepstack_indexes}) + {cfg.text.layers} decoder layers of "
-        f"{cfg.text.num_experts} experts, M={m} N={n} 300x380 images: card bf16 "
+        f"{cfg.text.num_experts} experts, M={m} N={n} {what}: card bf16 "
         f"{t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; card launches {json.dumps(counts)}")
-    log(f"[qwen3 chain] mean answer log-probs card {on_card.ravel().round(4).tolist()}")
-    log(f"[qwen3 chain] mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
-    log(f"[qwen3 chain] max |card - cpu| {diff:.4e} nats (limit {QWEN3_CHAIN_TOL_NATS}); "
+    log(f"{tag} mean answer log-probs card {on_card.ravel().round(4).tolist()}")
+    log(f"{tag} mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
+    log(f"{tag} max |card - cpu| {diff:.4e} nats (limit {QWEN3_CHAIN_TOL_NATS}); "
         f"spread over pairs {float(np.ptp(on_cpu)):.4e} nats")
     check(np.isfinite(on_card).all() and on_card.shape == (m, n),
-          "qwen3 chain: card scores not finite or wrong shape")
+          f"{tag} card scores not finite or wrong shape")
     check(counts["grouped_gemm"] == 2 * cfg.text.layers,
-          f"qwen3 chain: {counts['grouped_gemm']} grouped GEMM launches")
-    check(diff <= QWEN3_CHAIN_TOL_NATS, f"qwen3 chain: card and CPU differ by {diff} nats")
+          f"{tag} {counts['grouped_gemm']} grouped GEMM launches")
+    check(diff <= QWEN3_CHAIN_TOL_NATS, f"{tag} card and CPU differ by {diff} nats")
 
 
 def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024,
@@ -1650,8 +1897,14 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
     if profile:
         phase_profile(lambda: scorer(images=images, texts=texts),
                       f"{model} forward 4 x 4 at {side}x{side}")
+    # video: one tower call (2 clips of grid (20, 20, 28)) and one prefill,
+    # so the image call's counts
+    grid, patch_b, seq_b = qwen_video_buckets(scorer.model)
+    log(f"[qwen3 video slice] grid {grid}: ViT bucket {patch_b}, prompt bucket {seq_b}")
+    check((patch_b, seq_b) == (12288, 3072), f"qwen3 video buckets {patch_b}, {seq_b}")
+    video_counts = phase_video_slice(scorer, "[qwen3 video slice]", want, 111, profile)
     del scorer
-    return counts
+    return [counts, video_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -1662,20 +1915,34 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
 GEMMA = "gemma-3-4b-it"
 
 
-def gemma_chain_config(vit_layers: int = 2):
+def gemma_chain_config(vit_layers: int = 2, untied_head: bool = False):
     """Gemma-3-4B widths cut to ``vit_layers`` SigLIP layers at 896 px and
     two decoder layers, one sliding (window 1024, the local RoPE table) and
-    one full (the scaled global table)."""
+    one full (the scaled global table).
+
+    ``untied_head``: a seeded lm head of its own. With the tied head at
+    random init the residual stream of two layers is still the token
+    embedding times sqrt(d_model), so the last prompt token predicts itself
+    at a logit of ~23 (the rest ~N(0, 1)) and the bf16 rounding of that one
+    logit moves every answer log-prob by 0.05-0.1 nats whatever the kernels
+    do: on an H100, the video chain with the plain versions in bf16 on the
+    card differed from the CPU's fp32 by 0.094 nats, and in fp32 on the card
+    by 7.6e-6 (the tied head's bf16 gap on the CPU, with other weights,
+    0.028; untied, 4.9e-3)."""
     from t2v_metrics_tpu_torch.models.gemma3 import GEMMA3_MODELS
 
     cfg = GEMMA3_MODELS[GEMMA]["config"]
     return dataclasses.replace(
         cfg, vision=dataclasses.replace(cfg.vision, layers=vit_layers),
-        text=dataclasses.replace(cfg.text, layers=2,
+        text=dataclasses.replace(cfg.text, layers=2, tie_embeddings=not untied_head,
                                  layer_types=("sliding_attention", "full_attention")))
 
 
-def phase_gemma_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
+def phase_gemma_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2,
+                      video: bool = False) -> None:
+    """The Gemma chain on 1024x1024 images, or (``video``) on clips of 8
+    frames of which the adapter takes 4 (``num_frames=4``), each its own
+    tower call: 4 x 256 soft tokens, a prompt past the 1024 window."""
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch.models.gemma3 import Gemma3Model, init_gemma3
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1687,31 +1954,39 @@ def phase_gemma_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None
         for name, t in card.state_dict().items():
             dst[name].copy_(t.float().cpu())
     tok = t2v.SimpleT5Tokenizer(cfg.text.vocab_size)
-    images, texts = seeded_images(m, 71, 1024, 1024), seeded_texts(n, 72)
+    if video:
+        (images, what), kw = chain_media(True, m, 71), {"num_frames": 4}
+        what += ", 4 taken"
+    else:
+        images, what, kw = seeded_images(m, 71, 1024, 1024), "1024x1024 images", {}
+    texts = seeded_texts(n, 72)
     scorers = [t2v.VQAScore(GEMMA, params=p, config=cfg, tokenizer=tok, device=d)
                for p, d in ((card, device), (host, "cpu"))]
     reset_launch_counts()
     t0 = time.perf_counter()
-    on_card = np.log(scorers[0](images=images, texts=texts))
+    on_card = np.log(scorers[0].model.score_matrix(images, texts, **kw))
     t1 = time.perf_counter()
     counts = launch_counts()
-    on_cpu = np.log(scorers[1](images=images, texts=texts))
+    on_cpu = np.log(scorers[1].model.score_matrix(images, texts, **kw))
     t2 = time.perf_counter()
     diff = float(np.abs(on_card - on_cpu).max())
-    log(f"[gemma chain] 4b widths, {cfg.vision.layers} SigLIP layers at "
+    tag = "[gemma video chain]" if video else "[gemma chain]"
+    log(f"{tag} 4b widths, {cfg.vision.layers} SigLIP layers at "
         f"{cfg.vision.image_size} px + {cfg.text.layers} decoder layers "
-        f"{cfg.text.layer_types}, M={m} N={n} 1024x1024 images: card bf16 "
+        f"{cfg.text.layer_types}, M={m} N={n} {what}: card bf16 "
         f"{t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; card launches {json.dumps(counts)}")
-    log(f"[gemma chain] mean answer log-probs card {on_card.ravel().round(4).tolist()}")
-    log(f"[gemma chain] mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
-    log(f"[gemma chain] max |card - cpu| {diff:.4e} nats (limit {GEMMA_CHAIN_TOL_NATS}); "
+    log(f"{tag} mean answer log-probs card {on_card.ravel().round(4).tolist()}")
+    log(f"{tag} mean answer log-probs cpu  {on_cpu.ravel().round(4).tolist()}")
+    log(f"{tag} max |card - cpu| {diff:.4e} nats (limit {GEMMA_CHAIN_TOL_NATS}); "
         f"spread over pairs {float(np.ptp(on_cpu)):.4e} nats")
     check(np.isfinite(on_card).all() and on_card.shape == (m, n),
-          "gemma chain: card scores not finite or wrong shape")
-    check(counts["flash_attention"] == cfg.vision.layers
+          f"{tag} card scores not finite or wrong shape")
+    # one tower call per distinct video (per same-shape image group)
+    calls = m if video else 1
+    check(counts["flash_attention"] == calls * cfg.vision.layers
           and counts["flash_attention_flat"] == cfg.text.layers,
-          f"gemma chain: attention launches {counts}")
-    check(diff <= GEMMA_CHAIN_TOL_NATS, f"gemma chain: card and CPU differ by {diff} nats")
+          f"{tag} attention launches {counts}")
+    check(diff <= GEMMA_CHAIN_TOL_NATS, f"{tag} card and CPU differ by {diff} nats")
 
 
 def phase_inkernel_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
@@ -1822,8 +2097,25 @@ def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024
     if profile:
         phase_profile(lambda: scorer(images=images, texts=texts),
                       f"{model} forward 4 x 4 at {side}x{side}")
+    # video: 10 frames a clip (the default), one tower call per distinct
+    # clip, each frame's image block behind its "Frame at {t}s:" text; one
+    # prefill in bucket 4096, where the window bites (2 clips: 54 / 34 /
+    # 110 / 173 / 34)
+    from t2v_metrics_tpu_torch.models.gemma_adapters import _bucket
+
+    stamps = [round(i / 30.0, 2) for i in np.linspace(0, 149, 10, dtype=int)]
+    ids = scorer.model._assemble('Does this figure show "a b c d e f g"? Please answer '
+                                 'Yes or No.', stamps)
+    log(f"[gemma video slice] 10 frames at {[float(t) for t in stamps]} s: prompt of "
+        f"{len(ids)} tokens, "
+        f"bucket {_bucket(len(ids) + 1)}")
+    check(_bucket(len(ids) + 1) == 4096, "gemma video prompt outside bucket 4096")
+    video_want = dict(want, flash_attention=2 * v.layers, layer_norm=2 * (2 * v.layers + 1),
+                      rms_norm=2 + 5 * text.layers + 1)
+    video_counts = phase_video_slice(scorer, "[gemma video slice]", video_want, 121,
+                                     profile)
     del scorer
-    return counts
+    return [counts, video_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -2219,8 +2511,12 @@ def main() -> int:
     for chain in (lambda: phase_chain(chain_config()),
                   lambda: phase_inkernel_chain(chain_config()),
                   lambda: phase_qwen_chain(qwen_chain_config()),
+                  lambda: phase_qwen_chain(qwen_chain_config(), video=True),
                   lambda: phase_qwen3_chain(qwen3_chain_config()),
+                  lambda: phase_qwen3_chain(qwen3_chain_config(), video=True),
                   lambda: phase_gemma_chain(gemma_chain_config()),
+                  lambda: phase_gemma_chain(gemma_chain_config(untied_head=True), m=1,
+                                            video=True),
                   lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl")),
                   phase_scorer_chains):
         chain()
@@ -2229,7 +2525,7 @@ def main() -> int:
     slice_counts = [checkpoint_counts, phase_slice(profile=args.profile)[0]]
     free_cuda()
     for run in (phase_qwen_slice, phase_qwen3_slice, phase_gemma_slice):
-        slice_counts.append(run(profile=args.profile))
+        slice_counts.extend(run(profile=args.profile))   # the image and the video half
         free_cuda()
     bf16_rows = None
     for quant in (None, "int8", "int8+vit"):

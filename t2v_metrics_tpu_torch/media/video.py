@@ -1,9 +1,12 @@
-"""Host-side video frames for the ``concat`` route of ``Score`` (a copy of
-``is_video_path``, ``extract_frames`` and ``concatenate_horizontal`` from
+"""Host-side video frames (a copy of ``_open_capture``, ``is_video_path``,
+``extract_frames`` and ``concatenate_horizontal`` from
 t2v_metrics_tpu/media/video.py, without its native libav reader).
 
-Frames are decoded with OpenCV, imported only when a video is read; where
-cv2 is missing, a video path raises ImportError.
+Frames are decoded with OpenCV's position seek, imported only when a video
+file is read; where cv2 is missing, a video path raises ImportError. The
+direct video models (Qwen2.5-VL, Qwen3-VL, Gemma 3) sample frames through
+``open_video``, which also takes a ``DecodedVideo``: a clip decoded
+elsewhere, the way in for a machine without a video reader.
 
 Frame index selection: ``step`` mode ``i * (total // n)``; ``linspace``
 mode ``round(linspace(0, total-1, n))``.
@@ -11,11 +14,56 @@ mode ``round(linspace(0, total-1, n))``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 
 import numpy as np
 
 from ..constants import VIDEO_EXTENSIONS
+
+
+def _open_capture(video_path: str):
+    import cv2
+
+    cap = cv2.VideoCapture(str(video_path))
+    if not cap.isOpened():
+        raise IOError(f"cannot open video {video_path}")
+    return cap, cv2
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DecodedVideo:
+    """Every frame of a clip, decoded: RGB uint8 (N, H, W, 3), and its frame
+    rate. The video models sample it as they sample a video file."""
+
+    frames: np.ndarray
+    fps: float
+
+
+@contextlib.contextmanager
+def open_video(video):
+    """Frame access to a video path or a ``DecodedVideo``: yields (total
+    frames, frames per second (30.0 where the file gives 0), read), where
+    read(i) is RGB uint8 frame i, or None if it cannot be read."""
+    if isinstance(video, DecodedVideo):
+        frames = video.frames
+
+        def read_decoded(i):
+            return frames[i] if 0 <= i < len(frames) else None
+        yield len(frames), float(video.fps) or 30.0, read_decoded
+        return
+    cap, cv2 = _open_capture(video)
+
+    def read(i):
+        cap.set(cv2.CAP_PROP_POS_FRAMES, int(i))
+        ok, frame = cap.read()
+        return frame[:, :, ::-1] if ok else None  # BGR -> RGB
+    try:
+        yield int(cap.get(cv2.CAP_PROP_FRAME_COUNT)), \
+            float(cap.get(cv2.CAP_PROP_FPS)) or 30.0, read
+    finally:
+        cap.release()
 
 
 def frame_indices(total: int, num_frames: int, mode: str = "linspace") -> np.ndarray:
@@ -33,29 +81,13 @@ def extract_frames(video_path: str, num_frames: int, mode: str = "step",
     fps: if given, overrides num_frames with time-uniform sampling at that
     rate.
     """
-    import cv2
-
-    cap = cv2.VideoCapture(str(video_path))
-    if not cap.isOpened():
-        raise IOError(f"cannot open video {video_path}")
-    try:
-        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-        native_fps = float(cap.get(cv2.CAP_PROP_FPS)) or 30.0
+    with open_video(video_path) as (total, native_fps, read):
         if fps is not None:
             n = max(int(total / native_fps * fps), 1)
             idx = frame_indices(total, n, "linspace")
         else:
             idx = frame_indices(total, num_frames, mode)
-        frames = []
-        for i in idx:
-            cap.set(cv2.CAP_PROP_POS_FRAMES, int(i))
-            ok, frame = cap.read()
-            if not ok:
-                continue
-            frames.append(frame[:, :, ::-1].copy())  # BGR -> RGB
-        return frames
-    finally:
-        cap.release()
+        return [f.copy() for f in map(read, idx) if f is not None]
 
 
 def concatenate_horizontal(frames: list[np.ndarray], dist: int = 10) -> np.ndarray:
@@ -73,3 +105,8 @@ def concatenate_horizontal(frames: list[np.ndarray], dist: int = 10) -> np.ndarr
 
 def is_video_path(path) -> bool:
     return isinstance(path, str) and os.path.splitext(path)[1].lower() in VIDEO_EXTENSIONS
+
+
+def is_video(visual) -> bool:
+    """A video path or a ``DecodedVideo``."""
+    return isinstance(visual, DecodedVideo) or is_video_path(visual)

@@ -1,5 +1,5 @@
-"""Gemma 3 VQAScore adapter, image scoring (port of the Gemma 3 image half
-of t2v_metrics_tpu/models/gemma_adapters.py).
+"""Gemma 3 VQAScore adapter, image and video scoring (port of the Gemma 3
+scoring half of t2v_metrics_tpu/models/gemma_adapters.py).
 
 Contract as the JAX adapter's: the prompt ``<start_of_turn>user\\n`` + the
 image block (begin-of-image, 256 image tokens, end-of-image) + the question
@@ -17,9 +17,12 @@ exact where the image already has the tower's size); the JAX adapter
 resizes with Pillow on the host. The tower encodes each distinct image once,
 one batched call per group of same-shape images, where the JAX adapter
 calls it once per pair (the tower is per image, so the numbers are the
-same). Video scoring needs a frame reader (the JAX adapter uses cv2, which
-the card machine lacks) and raises; generation waits for the cached
-decode path; PaliGemma and Gemma 4 are later slices.
+same). A video (a path, read with cv2, or a ``media.video.DecodedVideo``)
+gives ``num_frames`` frames (default 10) at truncated linspace indices, each
+an image block behind its "Frame at {t}s:" text, as in the JAX adapter; each
+distinct video's frames go through the tower in one call, and each frame's
+block attends bidirectionally within itself. Generation waits for the
+cached decode path; PaliGemma and Gemma 4 are later slices.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import SIGLIP_MEAN, SIGLIP_STD, VIDEO_EXTENSIONS
+from ..constants import SIGLIP_MEAN, SIGLIP_STD
 from ..engine.scoring import _HostScores, encode_by_shape, unique_visuals
+from ..media.video import is_video, open_video
 from ..ops.image import normalize_flat, resize_uint8_levels_flat
 from . import gemma3 as g3
 from . import checkpoint as ckpt
@@ -55,22 +59,31 @@ def siglip_preprocess(pixels: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class _GemmaBase(VQAScoreModel):
-    """What the Gemma family's adapters share: text encoding and the
-    refusal of video, which needs a frame reader."""
+    """What the Gemma family's adapters share: text encoding and frame
+    extraction."""
 
     def _encode_text(self, text):
         return self.tokenizer.encode(text, add_special_tokens=False)
 
     @staticmethod
-    def _check_image(visual):
-        if isinstance(visual, str) and visual.lower().endswith(VIDEO_EXTENSIONS):
-            raise NotImplementedError(
-                "Gemma video scoring needs a video frame reader (the JAX "
-                "adapter reads frames with cv2); it is not ported yet")
+    def _extract_frames(video, num_frames=10):
+        """(timestamp in seconds, RGB uint8 frame) pairs of a video path or
+        ``DecodedVideo`` at ``linspace(0, total - 1, num_frames)`` truncated
+        to int (the JAX adapter's indices); unreadable frames are left
+        out."""
+        with open_video(video) as (total, fps, read):
+            frames = []
+            for i in np.linspace(0, total - 1, num_frames, dtype=int):
+                frame = read(i)
+                if frame is not None:
+                    frames.append((round(i / fps, 2), np.ascontiguousarray(frame)))
+        if not frames:
+            raise ValueError(f"no readable frame in video {video}")
+        return frames
 
 
 class Gemma3Adapter(_GemmaBase):
-    """Gemma 3 VQAScore adapter (images).
+    """Gemma 3 VQAScore adapter (images and videos).
 
     Weights: ``params``; else random with ``init='random'`` (or a model
     without a hub repo); else the pretrained ``hf`` repo's snapshot from the
@@ -124,45 +137,76 @@ class Gemma3Adapter(_GemmaBase):
         return ([cfg.boi_token_id] + [cfg.image_token_id] * cfg.mm_tokens_per_image
                 + [cfg.eoi_token_id])
 
-    def _assemble(self, question):
-        """Prompt ids of one (image, question) pair (the JAX adapter's
-        ``_assemble`` for an image)."""
-        return (self._encode_text("<start_of_turn>user\n") + self._image_block_ids()
-                + self._encode_text(question + "<end_of_turn>\n"
-                                    "<start_of_turn>model\n"))
+    def _assemble(self, question, timestamps=None):
+        """Prompt ids of one (visual, question) pair (the JAX adapter's
+        ``_assemble``): one image block, or for a video each frame's
+        "Frame at {t}s:" and image block."""
+        ids = self._encode_text("<start_of_turn>user\n")
+        if timestamps is None:
+            ids += self._image_block_ids()
+        for ts in timestamps or ():
+            ids += self._encode_text(f"Frame at {ts}s:") + self._image_block_ids()
+        return ids + self._encode_text(question + "<end_of_turn>\n"
+                                       "<start_of_turn>model\n")
+
+    def _features(self, px):
+        """(N, H, W*3) uint8 pixels on the device -> (N, mm_tokens_per_image,
+        d_model) soft tokens."""
+        cfg = self.config
+        return g3.image_features(self.params, cfg,
+                                 siglip_preprocess(px, cfg.vision.image_size))
 
     @torch.inference_mode()
     def _encode_images(self, visuals):
         """Soft tokens of each image, (mm_tokens_per_image, d_model) on the
         device: one preprocess and tower call per group of same-shape
         images."""
-        cfg = self.config
-        return encode_by_shape(visuals, self.device, lambda px: g3.image_features(
-            self.params, cfg, siglip_preprocess(px, cfg.vision.image_size)))
+        return encode_by_shape(visuals, self.device, self._features)
+
+    @torch.inference_mode()
+    def _encode_visuals(self, visuals, num_frames=10):
+        """Soft tokens of each image or video on the device, (frames x
+        mm_tokens_per_image, d_model), and its frame timestamps (None for
+        an image): each video's frames in one tower call."""
+        videos = {i: self._extract_frames(v, num_frames)
+                  for i, v in enumerate(visuals) if is_video(v)}
+        images = [i for i in range(len(visuals)) if i not in videos]
+        out = [None] * len(visuals)
+        for i, f in zip(images, self._encode_images([visuals[i] for i in images])):
+            out[i] = (f, None)
+        for i, frames in videos.items():
+            stack = np.stack([f for _, f in frames])
+            px = torch.from_numpy(stack.reshape(*stack.shape[:2], -1)).to(self.device)
+            out[i] = (self._features(px).flatten(0, 1), [ts for ts, _ in frames])
+        return out
 
     def forward(self, images, texts, **kw) -> np.ndarray:
         dev, n = self.forward_device(images, texts, **kw)
         return np.asarray(dev, np.float32)[:n]
 
     @torch.inference_mode()
-    def forward_device(self, images, texts,
+    def forward_device(self, images, texts, num_frames: int = 10,
                        question_template: str = DEFAULT_QUESTION,
                        answer_template: str = DEFAULT_ANSWER,
                        temperature: float = 1.0, **kw):
-        """Pairwise scoring -> (scores, count). The scores stay on the
-        device until ``np.asarray`` copies them to the host, so a caller can
-        queue the next chunk first (``Score.batch_forward``)."""
+        """Pairwise scoring -> (scores, count); ``images`` may hold videos,
+        ``num_frames`` frames each. The scores stay on the device until
+        ``np.asarray`` copies them to the host, so a caller can queue the
+        next chunk first (``Score.batch_forward``)."""
         if len(images) != len(texts):
             raise ValueError("forward_device: one image per text")
         cfg = self.config
-        for v in images:
-            self._check_image(v)
         uniq, inv = unique_visuals(images)
-        encoded = torch.stack(self._encode_images(uniq))           # (U, T, D)
-        feats = encoded[torch.as_tensor(inv, device=encoded.device)]
+        encoded = self._encode_visuals(uniq, num_frames)
+        # each visual's soft tokens padded to the longest, gathered per pair
+        t_max = max(f.shape[0] for f, _ in encoded)
+        padded = torch.stack([torch.nn.functional.pad(f, (0, 0, 0, t_max - f.shape[0]))
+                              for f, _ in encoded])
+        feats = padded[torch.as_tensor(inv, device=padded.device)]
 
-        per_pair = [(self._assemble(question_template.format(t)),
-                     self._encode_text(answer_template.format(t))) for t in texts]
+        per_pair = [(self._assemble(question_template.format(t), encoded[inv[j]][1]),
+                     self._encode_text(answer_template.format(t)))
+                    for j, t in enumerate(texts)]
         p = len(per_pair)
         s = _bucket(max(len(i) + len(a) for i, a in per_pair))
         a_max = max(len(a) for _, a in per_pair)

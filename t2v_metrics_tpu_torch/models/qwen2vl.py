@@ -1,4 +1,4 @@
-"""Qwen2.5-VL in PyTorch (port of t2v_metrics_tpu/models/qwen2vl.py, images).
+"""Qwen2.5-VL in PyTorch (port of t2v_metrics_tpu/models/qwen2vl.py).
 
   * vision: the (C*2*14*14)-wide patch embedding as a matmul, 2-D rotary
     embeddings, window attention (8x8 merged-patch windows) with full
@@ -269,8 +269,19 @@ def build_rope_index(input_ids: np.ndarray, grids: list, cfg: Qwen2VLConfig,
 
 
 # ---------------------------------------------------------------------------
-# Device: image preprocessing
+# Device: image and video preprocessing
 # ---------------------------------------------------------------------------
+
+def _patchify(x: torch.Tensor, cfg: QwenVisionConfig) -> torch.Tensor:
+    """(n, T, 3, H, W) normalized frames, T a multiple of the temporal patch
+    -> (n, S, patch_dim) patch rows in ``frames_to_patches`` order."""
+    p, m, tp = cfg.patch_size, cfg.merge_size, cfg.temporal_patch_size
+    n, t, _, h, w = x.shape
+    gt, gh, gw = t // tp, h // p, w // p
+    x = x.reshape(n, gt, tp, 3, gh // m, m, p, gw // m, m, p)
+    x = x.permute(0, 1, 4, 7, 5, 8, 3, 2, 6, 9)
+    return x.reshape(n, gt * gh * gw, 3 * tp * p * p)
+
 
 def image_patches(pixels_u8: torch.Tensor, cfg: QwenVisionConfig,
                   out_h: int, out_w: int) -> torch.Tensor:
@@ -281,16 +292,33 @@ def image_patches(pixels_u8: torch.Tensor, cfg: QwenVisionConfig,
     to uint8 levels as Pillow's uint8 resize does), /255, CLIP normalize,
     temporal tile x2, patchify.
     """
-    p, m, tp = cfg.patch_size, cfg.merge_size, cfg.temporal_patch_size
     x = timage.resize_uint8_levels_flat(pixels_u8.float(), out_h, out_w, 3)
     x = timage.normalize_flat(x / 255.0, CLIP_MEAN, CLIP_STD)
     n = x.shape[0]
-    gh, gw = out_h // p, out_w // p
     x = x.reshape(n, 1, out_h, out_w, 3).permute(0, 1, 4, 2, 3)
-    x = x.expand(n, tp, 3, out_h, out_w)               # an image is tiled in T
-    x = x.reshape(n, 1, tp, 3, gh // m, m, p, gw // m, m, p)
-    x = x.permute(0, 1, 4, 7, 5, 8, 3, 2, 6, 9)
-    return x.reshape(n, gh * gw, 3 * tp * p * p)
+    return _patchify(x.expand(n, cfg.temporal_patch_size, 3, out_h, out_w), cfg)
+
+
+def video_patches(frames_u8: torch.Tensor, cfg: QwenVisionConfig,
+                  out_h: int, out_w: int, pillow: bool = False) -> torch.Tensor:
+    """(n, T, H0, W0*3) uint8 frames on the device, T a multiple of the
+    temporal patch -> (n, S, patch_dim) fp32 patch rows in
+    ``frames_to_patches`` order, S = T/tp * (out_h/p) * (out_w/p).
+
+    The JAX adapter's device preprocess of Qwen2.5-VL video
+    (``_video_feats_jit``): one float bicubic pass, rounded and clipped to
+    uint8 levels once, /255, CLIP normalize, patchify. ``pillow``: the
+    two-pass Pillow-style resize of ``image_patches`` instead, for
+    Qwen3-VL, whose JAX adapter resizes video frames with Pillow.
+    """
+    x = frames_u8.float()
+    if pillow:
+        x = timage.resize_uint8_levels_flat(x, out_h, out_w, 3)
+    else:
+        x = torch.clamp(torch.round(timage.resize_flat(x, out_h, out_w, 3)), 0.0, 255.0)
+    x = timage.normalize_flat(x / 255.0, CLIP_MEAN, CLIP_STD)
+    n, t = x.shape[:2]
+    return _patchify(x.reshape(n, t, out_h, out_w, 3).permute(0, 1, 4, 2, 3), cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Qwen2.5-VL VQAScore adapter, image scoring (port of the image half of
-t2v_metrics_tpu/models/qwen2vl_adapter.py).
+"""Qwen2.5-VL VQAScore adapter, image and video scoring (port of the
+scoring half of t2v_metrics_tpu/models/qwen2vl_adapter.py).
 
 Contract as the JAX adapter's: P(answer tokens) with the temperature applied
 before an fp32 log-softmax, geometric mean over the answer tokens, default
 question 'Does this figure show "{}"? Please answer Yes or No.' and answer
-"Yes". Engine: one vision-tower call per group of same-shape images (patch
+"Yes". Engine: one vision-tower call per group of same-shape visuals (patch
 count bucketed), one teacher-forced decoder prefill over the padded pair
 sequences, the lm head at the answer rows only.
 
@@ -12,7 +12,14 @@ Images arrive as uint8 HWC arrays (paths and PIL images decode with PIL,
 imported only for them). The whole preprocess (bicubic resize to the
 smart-resize size, rounding to uint8 levels, normalize, patchify, window
 layout) runs on the device; the JAX adapter resizes images with PIL on the
-host. Video scoring, generation and traces are not ported yet and raise.
+host. Videos (a path, or a ``media.video.DecodedVideo``) are sampled at
+``fps`` frames a second (default 8.0, ``"dynamic"`` 2.0) on the host, as
+the JAX adapter's ``_decode_video_raw`` samples them, and the frames go to
+the device as uint8, where ``qwen2vl.video_patches`` resizes them in one
+float pass (max 360*420 pixels) as the JAX adapter does on its device. The
+JAX adapter decodes with its native libav reader where built, else with
+cv2's position seek; the port reads with cv2 only (``media/video.py``).
+Generation and traces are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,12 +27,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import VIDEO_EXTENSIONS
-from ..engine.scoring import _HostScores, _load_uint8
+from ..engine.scoring import _HostScores, _load_uint8, unique_visuals
+from ..media.video import is_video, open_video
 from ..ops.image import smart_resize
 from . import qwen2vl as q
 from . import checkpoint as ckpt
-from ..engine.scoring import unique_visuals
 from .adapters import VQAScoreModel, default_dtype, load_checkpoint_tree
 
 DEFAULT_QWEN_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
@@ -40,9 +46,11 @@ PATCH_BUCKETS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048, 2304, 2560,
                  2816, 3072, 3328, 3584, 4096, 4608, 5120, 6144, 7168, 8192,
                  10240, 12288, 14336, 16384)
 
-# qwen_vl_utils image defaults
+# qwen_vl_utils image defaults; video frames are capped at 360*420 pixels
 IMAGE_MIN_PIXELS = 56 * 56
 IMAGE_MAX_PIXELS = 28 * 28 * 1280
+VIDEO_MIN_PIXELS = 56 * 56
+VIDEO_MAX_PIXELS = 360 * 420
 
 
 def _bucket(n, buckets):
@@ -90,7 +98,7 @@ def _padded_geometry(cfg_vision, grid, s, sb):
 
 
 class Qwen2VLAdapter(VQAScoreModel):
-    """Qwen2.5-VL VQAScore adapter (images).
+    """Qwen2.5-VL VQAScore adapter (images and videos).
 
     Weights, in this order: ``params``; ``checkpoint``; random with
     ``init='random'`` (or a model without a hub repo); else the pretrained
@@ -132,6 +140,7 @@ class Qwen2VLAdapter(VQAScoreModel):
             params = qwen2vl_from_numpy(params, cfg, device, dtype)
         self.params = params
         self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
+        self.fps_default = spec.get("fps", 8.0)
         self._geometry = {}
 
     def checkpoint_path(self, spec) -> str | None:
@@ -152,7 +161,7 @@ class Qwen2VLAdapter(VQAScoreModel):
         return images  # decoded and preprocessed in batches
 
     # ------------------------------------------------------------------
-    # images -> vision features
+    # media -> vision features
     # ------------------------------------------------------------------
 
     def _device_geometry(self, grid, s, sb):
@@ -168,34 +177,83 @@ class Qwen2VLAdapter(VQAScoreModel):
             self._geometry[key] = (*dev, tiled)
         return self._geometry[key]
 
-    @torch.inference_mode()
-    def _encode_visuals(self, visuals):
-        """Encode unique images, one batched tower call per group of
-        same-shape images -> [(feats (T, D) on the device, grid_thw)]."""
+    def _decode_video_raw(self, video, fps):
+        """fps-based sampling (qwen_vl_utils smart_nframes semantics) of a
+        video path or ``DecodedVideo``: raw (T, H0, W0, 3) uint8 frames, T
+        padded to the temporal patch by repeating the last frame, and the
+        seconds per temporal grid step."""
+        if fps == "dynamic":
+            fps = 2.0
+        with open_video(video) as (total, native, read):
+            n = total / native * float(fps)
+            n = max(4, min(768, total, int(round(n / 2) * 2)))  # FRAME_FACTOR=2
+            idx = np.round(np.linspace(0, max(total - 1, 0), n)).astype(np.int64)
+            frames = np.stack([f for f in map(read, idx) if f is not None])
+        tp = self.config.vision.temporal_patch_size
+        if frames.shape[0] % tp:  # repeat the last frame to the temporal grid
+            reps = np.repeat(frames[-1:], tp - frames.shape[0] % tp, axis=0)
+            frames = np.concatenate([frames, reps], axis=0)
+        sample_fps = len(frames) / max(total / native, 1e-6)
+        spg_t = tp / max(sample_fps, 1e-6)
+        return np.ascontiguousarray(frames), spg_t
+
+    def _host_visual(self, v, fps):
+        """A visual decoded on the host: ("vid", (T, H0, W0, 3) uint8 frames,
+        seconds per temporal grid step) or ("img", (H0, W0, 3) uint8, 0.0)."""
+        if is_video(v):
+            return ("vid", *self._decode_video_raw(v, fps))
+        return "img", _load_uint8(v), 0.0
+
+    def _visual_grid(self, kind, shape):
+        """(resized height, width, grid_thw) of a decoded visual's shape."""
         cfg = self.config.vision
-        hosts = []
-        for v in visuals:
-            if isinstance(v, str) and v.lower().endswith(VIDEO_EXTENSIONS):
-                raise NotImplementedError("Qwen2.5-VL video scoring is not "
-                                          "ported yet")
-            hosts.append(_load_uint8(v))
+        if kind == "vid":
+            t, h0, w0 = shape[:3]
+            hb, wb = smart_resize(h0, w0, cfg.patch_size * cfg.merge_size,
+                                  VIDEO_MIN_PIXELS, VIDEO_MAX_PIXELS)
+            return hb, wb, (t // cfg.temporal_patch_size, hb // cfg.patch_size,
+                            wb // cfg.patch_size)
+        h0, w0 = shape[:2]
+        hb, wb = smart_resize(h0, w0, cfg.patch_size * cfg.merge_size,
+                              IMAGE_MIN_PIXELS, IMAGE_MAX_PIXELS)
+        return hb, wb, (1, hb // cfg.patch_size, wb // cfg.patch_size)
+
+    def _patch_rows(self, kind, pixels, hb, wb):
+        """(n, S, patch_dim) patch rows of n same-shape decoded visuals on
+        the device: images (n, H0, W0*3), videos (n, T, H0, W0*3)."""
+        if kind == "vid":
+            return q.video_patches(pixels, self.config.vision, hb, wb)
+        return q.image_patches(pixels, self.config.vision, hb, wb)
+
+    def _decoded_groups(self, visuals, fps):
+        """Decode the visuals on the host and group them by (kind, shape):
+        (decoded list, {(kind, shape): [index, ...]})."""
+        fps = fps if fps is not None else self.fps_default
+        hosts = [self._host_visual(v, fps) for v in visuals]
         groups = {}
-        for i, img in enumerate(hosts):
-            groups.setdefault(img.shape, []).append(i)
+        for i, (kind, arr, _) in enumerate(hosts):
+            groups.setdefault((kind, arr.shape), []).append(i)
+        return hosts, groups
+
+    @torch.inference_mode()
+    def _encode_visuals(self, visuals, fps=None):
+        """Encode unique visuals, one batched tower call per group of
+        same-shape images or videos -> [(feats (T, D) on the device,
+        grid_thw, is_video, seconds per temporal grid step)]."""
+        cfg = self.config.vision
+        hosts, groups = self._decoded_groups(visuals, fps)
         mu = cfg.merge_unit
         out = [None] * len(hosts)
-        for (h0, w0, _), idxs in groups.items():
-            hb, wb = smart_resize(h0, w0, cfg.patch_size * cfg.merge_size,
-                                  IMAGE_MIN_PIXELS, IMAGE_MAX_PIXELS)
-            grid = (1, hb // cfg.patch_size, wb // cfg.patch_size)
-            s = grid[1] * grid[2]
+        for (kind, shape), idxs in groups.items():
+            hb, wb, grid = self._visual_grid(kind, shape)
+            s = int(np.prod(grid))
             sb = _bucket(s, PATCH_BUCKETS)
             perm, pos_hw, win_seg, full_seg, reverse, tiled = \
                 self._device_geometry(grid, s, sb)
             n = len(idxs)
-            stack = np.stack([hosts[i] for i in idxs]).reshape(n, h0, w0 * 3)
-            pixels = torch.from_numpy(stack).to(self.device)
-            rows = q.image_patches(pixels, cfg, hb, wb)[:, perm]
+            stack = np.stack([hosts[i][1] for i in idxs])
+            pixels = torch.from_numpy(stack.reshape(*stack.shape[:-2], -1)).to(self.device)
+            rows = self._patch_rows(kind, pixels, hb, wb)[:, perm]
             if rows.shape[1] < sb:
                 rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
             feats = q.vision_tower_batch(
@@ -203,7 +261,7 @@ class Qwen2VLAdapter(VQAScoreModel):
                 win_seg.expand(n, -1), full_seg.expand(n, -1),
                 reverse.expand(n, -1), tiled=tiled)
             for row, i in enumerate(idxs):
-                out[i] = (feats[row, : s // mu], grid)
+                out[i] = (feats[row, : s // mu], grid, kind == "vid", hosts[i][2])
         return out
 
     # ------------------------------------------------------------------
@@ -213,25 +271,26 @@ class Qwen2VLAdapter(VQAScoreModel):
     def _encode_text(self, text):
         return self.tokenizer.encode(text, add_special_tokens=False)
 
-    def _build_ids(self, question, n_vis):
+    def _build_ids(self, question, n_vis, is_video=False):
         cfg = self.config
         pre = self._encode_text(_CHAT_PRE)
         post = self._encode_text(_CHAT_POST.format(question=question))
-        return (pre + [cfg.vision_start_token_id] + [cfg.image_token_id] * n_vis
+        vis_tok = cfg.video_token_id if is_video else cfg.image_token_id
+        return (pre + [cfg.vision_start_token_id] + [vis_tok] * n_vis
                 + [cfg.vision_end_token_id] + post)
 
-    def _prepare_pairs(self, visuals, questions):
-        """visuals: list of images (len P, may repeat); questions len P ->
-        host arrays of the batched prefill, the per-pair features on the
-        device, and the prompt lengths."""
+    def _prepare_pairs(self, visuals, questions, fps=None):
+        """visuals: list of images or videos (len P, may repeat); questions
+        len P -> host arrays of the batched prefill, the per-pair features
+        on the device, and the prompt lengths."""
         cfg = self.config
         uniq, inv = unique_visuals(visuals)
-        encoded = self._encode_visuals(uniq)
+        encoded = self._encode_visuals(uniq, fps)
 
         p = len(visuals)
         mu = cfg.vision.merge_unit
-        ids_list = [self._build_ids(questions[j],
-                                    int(np.prod(encoded[inv[j]][1])) // mu)
+        ids_list = [self._build_ids(questions[j], int(np.prod(encoded[inv[j]][1])) // mu,
+                                    encoded[inv[j]][2])
                     for j in range(p)]
         s = _bucket(max(len(x) for x in ids_list) + self.seq_extra, SEQ_BUCKETS)
         ids = np.zeros((p, s), np.int64)
@@ -248,9 +307,11 @@ class Qwen2VLAdapter(VQAScoreModel):
             vm = np.isin(arr, [cfg.image_token_id, cfg.video_token_id])
             vis_mask[j, :n] = vm
             vis_slot[j, :n][vm] = np.arange(vm.sum())
-            pos[:, j, :n] = q.build_rope_index(arr, [encoded[inv[j]][1]], cfg)
+            _, grid, video, spg = encoded[inv[j]]
+            pos[:, j, :n] = q.build_rope_index(
+                arr, [grid], cfg, second_per_grid_ts=[spg] if video else None)
             prompt_lens.append(n)
-        # per-pair features gathered on the device from the unique images'
+        # per-pair features gathered on the device from the unique visuals'
         # (the token axis is the second last: (T, D), or (levels, T, D))
         t_max = max(max(e[0].shape[-2] for e in encoded), 1)
         padded = torch.stack([torch.nn.functional.pad(
@@ -271,14 +332,15 @@ class Qwen2VLAdapter(VQAScoreModel):
                        question_template: str = DEFAULT_QWEN_QUESTION,
                        answer_template: str = DEFAULT_QWEN_ANSWER,
                        temperature: float = 1.0, **kw):
-        """Pairwise scoring -> (scores, count). The scores stay on the
-        device until ``np.asarray`` copies them to the host, so a caller can
-        queue the next chunk first (``Score.batch_forward``)."""
+        """Pairwise scoring -> (scores, count); ``images`` may hold videos,
+        sampled at ``fps`` frames a second. The scores stay on the device
+        until ``np.asarray`` copies them to the host, so a caller can queue
+        the next chunk first (``Score.batch_forward``)."""
         if len(images) != len(texts):
             raise ValueError("forward_device: one image per text")
         questions = [question_template.format(t) for t in texts]
         answers = [answer_template.format(t) for t in texts]
-        arrays, prompt_lens = self._prepare_pairs(images, questions)
+        arrays, prompt_lens = self._prepare_pairs(images, questions, fps)
         ids, feats, vis_mask, vis_slot, pos, attn = arrays
 
         ans_tok = [self._encode_text(a) for a in answers]

@@ -1,4 +1,4 @@
-"""Qwen3-VL VQAScore adapter, image scoring (port of
+"""Qwen3-VL VQAScore adapter, image and video scoring (port of
 t2v_metrics_tpu/models/qwen3vl_adapter.py).
 
 A subclass of the port's Qwen2.5-VL adapter with the same scoring contract
@@ -9,8 +9,12 @@ the decoder's hidden state after its first layers. The features stay on the
 device (the JAX adapter copies them through host f32 numpy, which is exact
 from bf16, so the numbers are the same). The sequence bucket is chosen for
 the longest prompt plus 8 tokens, as in the JAX adapter. qwen3.5 prompts end
-with the closed empty thinking block of ``enable_thinking=False``. Video
-scoring, generation and traces are not ported yet and raise.
+with the closed empty thinking block of ``enable_thinking=False``. Videos
+are sampled as for Qwen2.5-VL; their frames are resized on the device with
+the Pillow-style two-pass resize (the JAX adapter resizes them with Pillow
+on the host; the port needs no Pillow: within one uint8 level), and the
+tower runs with grid_t > 1 (the position table tiled over time).
+Generation and traces are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,15 +26,11 @@ import warnings
 import numpy as np
 import torch
 
-from ..constants import VIDEO_EXTENSIONS
-from ..engine.scoring import _load_uint8
-from ..ops.image import smart_resize
 from . import qwen2vl as q2
 from . import checkpoint as ckpt
 from . import qwen3vl as q3
 from .adapters import default_dtype, load_checkpoint_tree
-from .qwen2vl_adapter import (IMAGE_MAX_PIXELS, IMAGE_MIN_PIXELS,
-                              PATCH_BUCKETS, Qwen2VLAdapter, _bucket)
+from .qwen2vl_adapter import PATCH_BUCKETS, Qwen2VLAdapter, _bucket
 
 THINKING_OFF_SUFFIX = "<think>\n\n</think>\n\n"
 
@@ -42,7 +42,7 @@ _QWEN35_TEXT_KEYS = {k: ckpt._HF_DECODER_KEYS[k] for k in (
 
 
 class Qwen3VLAdapter(Qwen2VLAdapter):
-    """Qwen3-VL VQAScore adapter (images), dense and MoE.
+    """Qwen3-VL VQAScore adapter (images and videos), dense and MoE.
 
     kwargs as ``Qwen2VLAdapter``'s: checkpoint (an HF directory, dense or
     MoE, or a native tree), init='random', params (a ``Qwen3VLModel`` or a
@@ -77,6 +77,7 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
             params = qwen3vl_from_numpy(params, cfg, device, dtype)
         self.params = params
         self.tokenizer = self._load_tokenizer(spec["hf"], cfg.text.vocab_size)
+        self.fps_default = spec.get("fps", 8.0)
         self._geometry = {}
 
     def _adopt_config_json(self, path: str, cfg: q3.Qwen3VLConfig) -> q3.Qwen3VLConfig:
@@ -103,8 +104,8 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
         return load_checkpoint_tree(path, q3.convert_qwen3vl, qwen3vl_from_numpy, cfg,
                                     self.model_name, dtype)
 
-    def _build_ids(self, question, n_vis):
-        ids = super()._build_ids(question, n_vis)
+    def _build_ids(self, question, n_vis, is_video=False):
+        ids = super()._build_ids(question, n_vis, is_video)
         if self._assistant_suffix:
             ids = ids + self._encode_text(self._assistant_suffix)
         return ids
@@ -125,34 +126,30 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
                           pe_w, pe_perm.astype(np.int64)))
         return self._geometry[key]
 
+    def _patch_rows(self, kind, pixels, hb, wb):
+        # the JAX adapter resizes video frames with Pillow on the host
+        return q2.video_patches(pixels, self.config.vision, hb, wb, pillow=True) \
+            if kind == "vid" else q2.image_patches(pixels, self.config.vision, hb, wb)
+
     @torch.inference_mode()
-    def _encode_visuals(self, visuals):
-        """Encode unique images, one batched tower call per group of
-        same-shape images -> [(levels (1 + n_ds, T, D) on the device,
-        grid_thw)]: the merged features, then the deepstack levels."""
+    def _encode_visuals(self, visuals, fps=None):
+        """Encode unique visuals, one batched tower call per group of
+        same-shape images or videos -> [(levels (1 + n_ds, T, D) on the
+        device, grid_thw, is_video, seconds per temporal grid step)]: the
+        merged features, then the deepstack levels."""
         cfg = self.config.vision
-        hosts = []
-        for v in visuals:
-            if isinstance(v, str) and v.lower().endswith(VIDEO_EXTENSIONS):
-                raise NotImplementedError("Qwen3-VL video scoring is not "
-                                          "ported yet")
-            hosts.append(_load_uint8(v))
-        groups = {}
-        for i, img in enumerate(hosts):
-            groups.setdefault(img.shape, []).append(i)
+        hosts, groups = self._decoded_groups(visuals, fps)
         mu = cfg.merge_unit
         out = [None] * len(hosts)
-        for (h0, w0, _), idxs in groups.items():
-            hb, wb = smart_resize(h0, w0, cfg.patch_size * cfg.merge_size,
-                                  IMAGE_MIN_PIXELS, IMAGE_MAX_PIXELS)
-            grid = (1, hb // cfg.patch_size, wb // cfg.patch_size)
-            s = grid[1] * grid[2]
+        for (kind, shape), idxs in groups.items():
+            hb, wb, grid = self._visual_grid(kind, shape)
+            s = int(np.prod(grid))
             sb = _bucket(s, PATCH_BUCKETS)
             pos_hw, seg, pe_idx, pe_w, pe_perm = self._device_geometry(grid, s, sb)
             n = len(idxs)
-            stack = np.stack([hosts[i] for i in idxs]).reshape(n, h0, w0 * 3)
-            pixels = torch.from_numpy(stack).to(self.device)
-            rows = q2.image_patches(pixels, cfg, hb, wb)
+            stack = np.stack([hosts[i][1] for i in idxs])
+            pixels = torch.from_numpy(stack.reshape(*stack.shape[:-2], -1)).to(self.device)
+            rows = self._patch_rows(kind, pixels, hb, wb)
             if rows.shape[1] < sb:
                 rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
             main, deepstack = q3.vision_tower(
@@ -160,7 +157,7 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
                 pe_w, pe_perm, seg.expand(n, -1), grid_t=grid[0])
             levels = torch.stack([main, *deepstack], dim=1)   # (n, 1+n_ds, S/mu, D)
             for row, i in enumerate(idxs):
-                out[i] = (levels[row, :, : s // mu], grid)
+                out[i] = (levels[row, :, : s // mu], grid, kind == "vid", hosts[i][2])
         return out
 
     def _splice_and_score(self, ids, feats, *arrays, temperature):

@@ -192,8 +192,8 @@ def test_registry_matches_jax_and_unported_paths_raise(tmp_path, monkeypatch):
     with pytest.raises(CheckpointError, match="never downloads"):
         tt2v.VQAScore("gemma-3-4b-it", device="cpu")          # pretrained weights
     s = tt2v.VQAScore(NAME, device="cpu")
-    with pytest.raises(NotImplementedError):
-        s(images=["clip.mp4"], texts=["a"])                    # video
+    with pytest.raises(OSError, match="cannot open video"):
+        s(images=["clip.mp4"], texts=["a"])  # a video the reader cannot open
     with pytest.raises(NotImplementedError):
         s.model.generate(_images(2, 1), ["a"])
 

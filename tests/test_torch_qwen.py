@@ -183,8 +183,8 @@ def test_registry_and_unported_paths_raise(tmp_path, monkeypatch):
     with pytest.raises(CheckpointError, match="some/dir"):
         tt2v.VQAScore(NAME, device="cpu", checkpoint="some/dir")
     s = tt2v.VQAScore(NAME, device="cpu")
-    with pytest.raises(NotImplementedError):
-        s(images=["clip.mp4"], texts=["a"])                    # video
+    with pytest.raises(OSError, match="cannot open video"):
+        s(images=["clip.mp4"], texts=["a"])  # a video the reader cannot open
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tt2v.VQAScore(NAME, device="cuda")

@@ -211,8 +211,8 @@ def test_registry_matches_jax_and_unported_paths_raise(tmp_path, monkeypatch):
     with pytest.raises(CheckpointError, match="never downloads"):
         tt2v.VQAScore("qwen3-vl-30b-a3b", device="cpu")      # pretrained weights
     s = tt2v.VQAScore("qwen3-vl-test", device="cpu")
-    with pytest.raises(NotImplementedError):
-        s(images=["clip.mp4"], texts=["a"])                   # video
+    with pytest.raises(OSError, match="cannot open video"):
+        s(images=["clip.mp4"], texts=["a"])  # a video the reader cannot open
 
 
 def test_port_scores_qwen3_without_jax():
