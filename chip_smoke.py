@@ -37,8 +37,19 @@ Phases (any failure exits non-zero and prints no result line):
      12288), both with the pads under segment -1, and at Gemma-3-4B's
      10-frame prefill in bucket 4096 (the 1024 window and ten image blocks
      both live, with two wrong plain versions that must fail: no window, no
-     overlay), the per-head kernel at SigLIP-896 over 10 frames
-     (``--kernels-only`` stops here, with no result line);
+     overlay), the per-head kernel at SigLIP-896 over 10 frames; and at the
+     decode sites of generation (one generated token a sequence against a
+     KV cache, DECODE_STEP steps in): the flat kernel at sq = 1 over cache
+     views (Qwen2.5-VL-7B: 4 sequences, GQA 28/4, pad slots in kv_mask;
+     Gemma-3-4B: 2 sequences past a 4096-slot prompt bucket, GQA 8/4, the
+     1024 window biting, with two wrong plain versions that must fail: no
+     window, a window of 1023), the T5-xl decoder step (self-attention over
+     cpos + 1 cached keys with the bias row offset to cpos, dense in the
+     flat kernel and in the per-head kernel's table; cross-attention over
+     640 encoder rows), RMSNorm and rope at one row a sequence, the grouped
+     GEMM at 4 tokens' 32 routed rows of 128 experts, the int8 GEMM and the
+     row quant at M = 4 (``--kernels-only`` stops here, with no result
+     line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
      full, and 2 decoder layers; Qwen3-VL-30B-A3B widths with 2 ViT and 2
@@ -55,6 +66,13 @@ Phases (any failure exits non-zero and prints no result line):
      layers, one with cross-attention), card bf16 against CPU fp32; the
      Qwen2.5-VL, Qwen3-VL and Gemma chains again on seeded clips decoded in
      memory (8 frames of 480x640; Gemma takes 4), card bf16 against CPU fp32;
+     generation on the xl, Qwen2.5-VL, Qwen3-VL and Gemma (video, untied
+     head) chains' models: the CPU's fp32 greedy tokens forced through the
+     prefill and GEN_STEPS cached steps on both sides, log P(next token)
+     card against CPU a step and, on the card, the cached steps against
+     one teacher-forced pass over the same slots, both within the chain's
+     bar; for Qwen, ``forward_with_trace`` (one token, start) against
+     ``forward_with_trace_teacher_forcing`` on the card (printed);
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -78,14 +96,25 @@ Phases (any failure exits non-zero and prints no result line):
      4096; Qwen3-VL: 12288 and 3072; Gemma: 10 frames, 4096); with
      ``--profile``, the device time of one ``batch_forward`` of each, and of
      the Qwen forwards at 1024x1024, by kernel family (torch.profiler) and
-     the device's busy share.
+     the device's busy share; then generation on the same models:
+     ``generate`` of 4 images x 32 tokens (clip-flant5-xl, qwen2.5-vl-7b at
+     1024x1024, qwen3-vl-30b-a3b), 4 x 8 (xxl ``int8``), Gemma's batched
+     path over 2 seeded clips (10 frames, prompts in bucket 4096) and its
+     per-sequence path over one image, x 32 tokens; each prints the prefill
+     ms, the median ms a decode step on the card and the host's enqueue ms
+     a step, the steps run, generated tokens/s, the peak memory beside the
+     KV cache's bytes and the launches a decode step by kernel (with
+     ``--profile`` also the busy share of a generate); qwen2.5-vl-7b also
+     ``forward_with_trace`` at max_new_tokens 1 and 4, start and end.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
 summed over the first calls of the checkpoint-loaded xl, the nine slices and
-the three video slices; a row's ``sites`` are
+the three video slices, and over the generate and trace runs; a row's
+``sites`` are
 further shapes of the main path, each with its times, bound and library
 time: the grouped GEMM's down projection, the int8 GEMM's split-K decoder
 shape, LayerNorm's other shapes and its add + LayerNorm entry, the flat
-kernel's CLIPScore / ITMScore and video sites), the card's name and power limit, and ``{"ok": true,
+kernel's CLIPScore / ITMScore, video and decode sites, each kernel's decode
+site), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -259,6 +288,25 @@ def cuda_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """Median host milliseconds to enqueue one call of ``fn``, the card idle
+    before each (no queue backs the launch up): the Python wrapper, its
+    checks and tensor maps, and the launch itself."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def log_host(name: str, label: str, fn) -> None:
+    log(f"[kernel] {name} {label}: host enqueue {host_ms(fn):.4f} ms a call")
 
 
 def outside(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> int:
@@ -659,6 +707,8 @@ def phase_kernels() -> dict:
     scorer_kernels(randn, record)
     free_cuda()
     video_kernels(randn, record, lengths_mask)
+    free_cuda()
+    decode_kernels(randn, record, lengths_mask)
     return results
 
 
@@ -1011,6 +1061,244 @@ def video_kernels(randn, record, lengths_mask) -> None:
     free_cuda()
 
 
+# The decode sites (a generated token a sequence, sq = 1, against a KV cache)
+# sit this many steps into a rollout: the cache view holds the prompt bucket
+# and DECODE_STEP + 1 generated slots
+DECODE_STEP = 16
+
+
+def cache_attention_site(record, randn, label, b, s, heads, kvh, d, valid_prompt,
+                         window=None, scale=None, edge=False):
+    """The flat kernel at one decode step: q (B, 1, H*d), the q lanes of the
+    step's packed q|k|v row; k and v views of (B, s + 32, KvH*d) caches over
+    slots [0, s + DECODE_STEP], the kernel's end-aligned causal band (and
+    window) over the view, the prompt's pad slots invalid in kv_mask
+    (``valid_prompt`` (B, s)), the generated slots valid. ``edge``: the key at
+    the window's lower edge is made to carry the attention of the first
+    query head of each kv head (3 x its q), so that a window one slot
+    shorter moves the outputs. Checked against the plain version (and, with
+    a window, two wrong plain versions that must fail: no window, and the
+    window less one), with the bound (the k / v rows the band reads, q and
+    the output, over the HBM rate) and SDPA on the same views with the
+    band and mask as a bool mask and enable_gqa."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    rep = heads // kvh
+    sk = s + DECODE_STEP + 1
+    q = randn(b, 1, (heads + 2 * kvh) * d)[..., :heads * d]
+    ck, cv = randn(b, s + 32, kvh * d), randn(b, s + 32, kvh * d)
+    valid = torch.zeros((b, s + 32), dtype=torch.bool, device=q.device)
+    valid[:, :s] = valid_prompt
+    valid[:, s:sk] = True
+    if edge:
+        e = sk - window                  # the oldest slot inside the window
+        for g in range(kvh):
+            ck[:, e, g * d:(g + 1) * d] = 3 * q[:, 0, g * rep * d:g * rep * d + d]
+        valid[:, e] = True
+    k, v, mask = ck[:, :sk], cv[:, :sk], valid[:, :sk]
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask, scale=scale, local_window=window)
+    fn = lambda: A.flash_attention_flat(q, k, v, heads, **kw)  # noqa: E731
+    plain_fn = lambda: A.attention_flat_reference(q, k, v, heads, **kw)  # noqa: E731
+    out, ref = fn(), plain_fn()
+    torch.cuda.synchronize()
+    ok, detail = attention_agrees(out, ref)
+    if window is not None:
+        for wrong, w in (("no window", None), (f"a window of {window - 1}", window - 1)):
+            caught, why = attention_agrees(
+                A.attention_flat_reference(q, k, v, heads, **{**kw, "local_window": w}), ref)
+            log(f"[kernel] flash_attention_flat {label} negative control, plain version "
+                f"with {wrong}: {why}")
+            check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    band = torch.ones(sk, dtype=torch.bool, device=q.device)
+    if window is not None:
+        band[:sk - window] = False
+    keep = band[None] & mask                                      # (B, sk)
+    rows = int(band.sum())
+    ops = 4 * d * heads * int(keep.sum())
+    nbytes = 2 * (2 * b * rows * kvh * d + 2 * b * heads * d) + b * rows
+    qh = q.view(b, 1, heads, d).transpose(1, 2)
+    kh, vh = (t.view(b, sk, kvh, d).transpose(1, 2) for t in (k, v))
+    sdpa_scale = d ** -0.5 if scale is None else scale
+    attention_site(record, label, fn, plain_fn, ops, nbytes,
+                   ("F.scaled_dot_product_attention (bool mask, enable_gqa)",
+                    lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=keep[:, None, None], scale=sdpa_scale,
+                        enable_gqa=True)),
+                   checked=(out, ref, ok, detail))
+    log_host("flash_attention_flat", label, fn)
+
+
+def decode_kernels(randn, record, lengths_mask) -> None:
+    """The kernel sites of generation, each against its plain version with
+    its bound and a library call on the same inputs: the flat kernel at sq =
+    1 against KV caches (Qwen2.5-VL-7B: 4 sequences, GQA 28/4 at d 128,
+    prompts in bucket 1280 with pad slots; Gemma-3-4B: 2 sequences past a
+    4096-slot prompt bucket, GQA 8/4 at d 256, where the 1024 window bites);
+    the T5-xl decoder step (self-attention over cpos + 1 cached keys with
+    the bias row offset to cpos, dense in the flat kernel and in the
+    per-head kernel's table; cross-attention over the 640 encoder rows with
+    their kv_mask); RMSNorm and rope at one row a sequence; the grouped GEMM
+    over 4 tokens' 32 routed rows of 128 experts; the int8 GEMM and the row
+    quant at M = 4 (bitwise)."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+    from t2v_metrics_tpu_torch.ops import moe as M
+    from t2v_metrics_tpu_torch.ops import norms as N
+    from t2v_metrics_tpu_torch.ops import quant as Q
+    from t2v_metrics_tpu_torch.ops import rope as R
+    from t2v_metrics_tpu_torch.ops.position import compute_position_bias
+
+    sdpa = F.scaled_dot_product_attention
+    cache_attention_site(
+        record, randn, f"Qwen2.5 decode, q (4, 1, 28x128) over a (4, {1280 + 32}, 4x128) "
+        f"cache view of {1280 + DECODE_STEP + 1} slots, GQA 28/4, kv_mask with pad slots",
+        4, 1280, 28, 4, 128, lengths_mask(4, 1280, 1200, 1280))
+    cache_attention_site(
+        record, randn, f"Gemma decode, q (2, 1, 8x256) over a (2, {4096 + 32}, 4x256) "
+        f"cache view of {4096 + DECODE_STEP + 1} slots, GQA 8/4, window 1024, kv_mask",
+        2, 4096, 8, 4, 256, lengths_mask(2, 4096, 3900, 4096), window=1024,
+        scale=256 ** -0.5, edge=True)
+    free_cuda()
+
+    # T5-xl decoder step: 4 sequences, 32 heads of 64, slot cpos of a
+    # (4, 33, 2048) self-attention cache
+    b, heads, d, cpos, nb, md = 4, 32, 64, DECODE_STEP, 32, 128
+    sk = cpos + 1
+    packed = randn(b, 1, 3 * heads * d)
+    q = packed[..., :heads * d]
+    ck, cv = randn(b, 33, heads * d), randn(b, 33, heads * d)
+    k, v = ck[:, :sk], cv[:, :sk]
+    rel = randn(heads, nb, dtype=torch.float32, std=3.0)
+    bias = compute_position_bias(rel.T, 1, sk, False, nb, md, q_offset=cpos).contiguous()
+    qh = q.view(b, 1, heads, d).transpose(1, 2)
+    kh, vh = (t.view(b, sk, heads, d).transpose(1, 2) for t in (k, v))
+    nbytes = 2 * (2 * b * sk * heads * d + 2 * b * heads * d)
+    ops = 4 * b * heads * sk * d
+    label = (f"T5 decoder step self, q (4, 1, 32x64) over the (4, 33, 2048) cache view of "
+             f"{sk} slots, bias row offset to cpos {cpos}")
+    self_fn = lambda: A.flash_attention_flat(q, k, v, heads, bias=bias, scale=1.0)  # noqa: E731
+    attention_site(record, label, self_fn,
+                   lambda: A.attention_flat_reference(q, k, v, heads, bias=bias, scale=1.0),
+                   ops, nbytes + 4 * heads * sk,
+                   ("F.scaled_dot_product_attention (bf16 float mask, scale 1.0)",
+                    lambda: sdpa(qh, kh, vh, attn_mask=bias.to(torch.bfloat16), scale=1.0)))
+    log_host("flash_attention_flat", label, self_fn)
+    kw = dict(scale=1.0, rel_bias=rel, rel_cfg=(False, nb, md, cpos))
+    attention_site(record, f"T5 decoder step self, per-head (4, 32, 1, 64) over {sk} cached "
+                   f"keys, T5 bias in the kernel (q_offset {cpos})",
+                   lambda: A.flash_attention(qh, kh, vh, **kw),
+                   lambda: A.attention_reference(qh, kh, vh, **kw),
+                   ops, nbytes + 4 * heads * nb,
+                   ("F.scaled_dot_product_attention (materialized bias, bf16, scale 1.0)",
+                    lambda: sdpa(qh, kh, vh, attn_mask=bias.to(torch.bfloat16), scale=1.0)),
+                   kernel="flash_attention")
+    log_host("flash_attention", "T5 decoder step self, per-head, T5 bias in the kernel",
+             lambda: A.flash_attention(qh, kh, vh, **kw))
+    q, k, v = randn(b, 1, heads * d), randn(b, 640, heads * d), randn(b, 640, heads * d)
+    mask = lengths_mask(b, 640, 590, 640)
+    qh = q.view(b, 1, heads, d).transpose(1, 2)
+    kh, vh = (t.view(b, 640, heads, d).transpose(1, 2) for t in (k, v))
+    attention_site(record, "T5 decoder step cross, q (4, 1, 32x64) over k/v (4, 640, 2048), "
+                   "kv_mask",
+                   lambda: A.flash_attention_flat(q, k, v, heads, kv_mask=mask, scale=1.0),
+                   lambda: A.attention_flat_reference(q, k, v, heads, kv_mask=mask, scale=1.0),
+                   4 * heads * d * int(mask.sum()),
+                   2 * (2 * b * 640 * heads * d + 2 * b * heads * d) + b * 640,
+                   ("F.scaled_dot_product_attention (bool mask, scale 1.0)",
+                    lambda: sdpa(qh, kh, vh, attn_mask=mask[:, None, None], scale=1.0)))
+    log_host("flash_attention_flat", "T5 decoder step cross",
+             lambda: A.flash_attention_flat(q, k, v, heads, kv_mask=mask, scale=1.0))
+    del packed, ck, cv, k, v, q, qh, kh, vh
+    free_cuda()
+
+    # RMSNorm and rope over one row a sequence (Qwen2.5-VL-7B decode, 4
+    # sequences: the block norms at d 3584; rope on the 28 + 4 q|k heads of
+    # the packed 36 x 128 row)
+    x, w = randn(4, 3584, std=3.0), randn(3584)
+    out, ref = N.rms_norm_fused(x, w), N.rms_norm_plain(x, w)
+    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
+    record("rms_norm", "decode (4, 3584), one row a sequence", out, ref, bad == 0,
+           f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max "
+           f"{bf16_ulps(out, ref)} bf16 ulps",
+           lambda: N.rms_norm_fused(x, w), lambda: N.rms_norm_plain(x, w), False,
+           lower=(5 * 4 * 3584, 4 * 4 * 3584 + 2 * 3584, "fp32"),
+           library=("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (3584,), w, 1e-6))),
+           site=True)
+    log_host("rms_norm", "decode (4, 3584)", lambda: N.rms_norm_fused(x, w))
+    pk = randn(4, 1, 36 * 128)
+    ang = 1290.0 * randn(128, dtype=torch.float32).abs().expand(4, 1, 128)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    buf = pk.clone()
+    out, ref = R.rope_pack(buf, cos, sin, 32, 128), R.rope_pack_plain(pk, cos, sin, 32, 128)
+    bad = outside(out, ref, NORM_ATOL, ROPE_RTOL)
+    record("rope_pack", "decode (4, 1, 4608), 32 heads of 128, one row a sequence", out,
+           ref, bad == 0, f"{bad} outside atol {NORM_ATOL} + rtol {ROPE_RTOL}; max "
+           f"{bf16_ulps(out, ref)} bf16 ulps",
+           lambda: R.rope_pack(buf, cos, sin, 32, 128),
+           lambda: R.rope_pack_plain(pk, cos, sin, 32, 128), False,
+           lower=(3 * 4 * 32 * 128, 4 * 4 * 32 * 128 + 8 * 4 * 128, "fp32"), site=True)
+    log_host("rope_pack", "decode (4, 1, 4608)", lambda: R.rope_pack(buf, cos, sin, 32, 128))
+
+    # the grouped GEMM at one decode step of qwen3-vl-30b-a3b: 4 tokens'
+    # top-8 routing, 32 routed rows of 128 experts (at most 32 non-empty
+    # groups of one row each, one 128-row block apiece)
+    ids = randn(4, 128, dtype=torch.float32).topk(8).indices.reshape(-1)
+    _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+    be_host, used_host = be.cpu(), used.cpu()
+    counts = torch.bincount(ids, minlength=128)
+    offs = torch.cumsum((counts + 127) // 128 * 128, 0).int()
+    experts = int((counts > 0).sum())
+    w = randn(128, 2048, 1536, std=2048 ** -0.5)
+    xg = randn(p, 2048)
+    out = M.grouped_matmul(xg, w, be, M.BLOCK_M, used)
+    ref = M.grouped_matmul_reference(xg, w, be_host, M.BLOCK_M, used_host)
+    torch.cuda.synchronize()
+    bad = outside(out, ref, GMM_ATOL, GMM_RTOL)
+    ms = library_ms(lambda: torch._grouped_mm(xg, w, offs=offs), "torch._grouped_mm")
+    record("grouped_gemm", f"decode gate_up, 32 routed rows ({p} buffer rows) x (128, 2048, "
+           f"1536), {experts} experts used", out, ref,
+           bad == 0 and bool(torch.isfinite(out).all()),
+           f"{bad} outside atol {GMM_ATOL} + rtol 2^-7; max {bf16_ulps(out, ref)} bf16 ulps",
+           lambda: M.grouped_matmul(xg, w, be, M.BLOCK_M, used),
+           lambda: M.grouped_matmul_reference(xg, w, be_host, M.BLOCK_M, used_host), False,
+           flop=2 * int(used_host) * M.BLOCK_M * 2048 * 1536,
+           # the work this routing needs: 32 rows and the used experts' weights
+           lower=(2 * 32 * 2048 * 1536, 2 * (32 * 2048 + experts * 2048 * 1536 + 32 * 1536),
+                  "bf16"),
+           library=None if ms is None else ("torch._grouped_mm", ms), site=True)
+    log_host("grouped_gemm", "decode gate_up", lambda: M.grouped_matmul(xg, w, be, M.BLOCK_M,
+                                                                        used))
+    del w, xg, out, ref
+    free_cuda()
+
+    # the int8 GEMM and the row quant at one xxl decode step (M = 4 rows)
+    for label, k, n in (("decode q|k|v", 4096, 12288), ("decode wo", 10240, 4096)):
+        x = randn(4, k, std=3.0)
+        leaf = Q.Linear(randn(k, n, std=k ** -0.5)).quantize_()
+        x_q, xs = Q.quantize_rows_plain(x)
+        fn = lambda: Q.quant_matmul(x_q, leaf.w_q, xs, leaf.scale)  # noqa: E731
+        plain_fn = lambda: Q.quant_matmul_plain(x_q, leaf.w_q, xs, leaf.scale)  # noqa: E731
+        out, ref = fn(), plain_fn()
+        torch.cuda.synchronize()
+        ms = library_ms(lambda: (torch._int_mm(x_q, leaf.w_q).float() * xs  # noqa: B023
+                                 * leaf.scale).to(torch.bfloat16),
+                        f"torch._int_mm (4, {k}) x ({k}, {n})")
+        ops = 2 * 4 * k * n
+        record("quant_matmul", f"(4, {k}) x ({k}, {n}) {label}", out, ref,
+               bool(torch.equal(out, ref)), "bitwise equal required", fn, plain_fn, False,
+               flop=ops, lower=(ops, 4 * k + k * n + 4 * (4 + n) + 2 * 4 * n, "int8"),
+               library=None if ms is None else ("torch._int_mm + f32 epilogue", ms),
+               site=True)
+        log_host("quant_matmul", f"(4, {k}) x ({k}, {n})", fn)
+        (qo, qs), (qr, qrs) = Q.quantize_rows(x), Q.quantize_rows_plain(x)
+        record("quantize_rows", f"decode (4, {k})", qo, qr,
+               bool(torch.equal(qo, qr) and torch.equal(qs, qrs)),
+               "int8 values and f32 scales bitwise equal required",
+               lambda: Q.quantize_rows(x), lambda: Q.quantize_rows_plain(x), False,  # noqa: B023
+               lower=(4 * 4 * k, 3 * 4 * k + 4 * 4, "fp32"), site=True)
+        del x, leaf, out, ref
+    free_cuda()
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the full-width chain, card (bf16, kernels) against CPU (fp32, plain)
 # ---------------------------------------------------------------------------
@@ -1323,10 +1611,11 @@ def phase_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
     host.load_state_dict({k: t.float().cpu() for k, t in card.state_dict().items()})
     tok = SimpleT5Tokenizer(cfg.t5.vocab_size)
     images, texts = seeded_images(m, 11), seeded_texts(n, 12)
+    engines = (CLIPT5Engine(card, cfg, tok, device), CLIPT5Engine(host, cfg, tok, "cpu"))
     t0 = time.perf_counter()
-    on_card = np.log(CLIPT5Engine(card, cfg, tok, device).score_matrix(images, texts))
+    on_card = np.log(engines[0].score_matrix(images, texts))
     t1 = time.perf_counter()
-    on_cpu = np.log(CLIPT5Engine(host, cfg, tok, "cpu").score_matrix(images, texts))
+    on_cpu = np.log(engines[1].score_matrix(images, texts))
     t2 = time.perf_counter()
     diff = float(np.abs(on_card - on_cpu).max())
     log(f"[chain] xl widths, {len(card.vision.blocks)} ViT + "
@@ -1339,7 +1628,8 @@ def phase_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
     check(np.isfinite(on_card).all() and on_card.shape == (m, n),
           "chain: card scores not finite or wrong shape")
     check(diff <= CHAIN_TOL_NATS, f"chain: card and CPU differ by {diff} nats")
-    del card, host
+    t5_generation_chain(engines, [images[i % m] for i in range(n)], texts, CHAIN_TOL_NATS)
+    del card, host, engines
 
 
 def int8_launches(cfg, quant: str | None, t5_passes: int = 1,
@@ -1431,19 +1721,249 @@ def phase_xxl_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Generation chains (phase 3): the cached decode path at full width
+# ---------------------------------------------------------------------------
+
+# Random-init bf16 greedy tokens part from fp32's after a few steps, so the
+# card and the CPU are fed the same ids: the CPU's fp32 greedy rollout of
+# GEN_STEPS + 1 tokens, the first GEN_STEPS of them forced through the cache
+# (the prefill and GEN_STEPS steps give GEN_STEPS + 1 distributions). Each
+# step's log P(the next forced token) is compared and printed. Two bars hold
+# it: the chain bar on the statistic the scoring chains hold, a row's mean
+# log-prob of its answer (here the forced continuation), and a step bar on
+# the largest gap of any one step. The step bar is the chain bar for the
+# dense families (xl, Qwen2.5, Gemma). The Qwen3-VL MoE step bar is
+# QWEN3_STEP_TOL_NATS, from bf16's own noise there: on an H100 80GB HBM3 at
+# 700 W the 30b-a3b chain's steps differed from fp32 by up to 0.197 nats
+# with the plain versions in bf16 on the CPU (the router's bf16 logits
+# change the top-8 set of 156 of 1056 token rows) and by 0.152 with the
+# kernels on the card (164 rows), their row means by 2.07e-2 and 1.58e-2;
+# Qwen2.5-VL-7B's steps by 3.2e-2 and 2.7e-2. On the card the cached steps
+# are also held against one teacher-forced pass over the same slots (bf16
+# both; other kernel shapes, so other roundings), with the same two bars.
+GEN_STEPS = 8
+QWEN3_STEP_TOL_NATS = 0.3
+
+
+def rounded(x: np.ndarray) -> list:
+    return np.round(x.astype(np.float64), 4).tolist()
+
+
+def generation_gaps(card: np.ndarray, other: np.ndarray) -> tuple[float, float]:
+    """(largest gap of one step's log P, largest gap of a row's mean over
+    its steps) between two (B, steps) arrays of log-probs."""
+    return (float(np.abs(card - other).max()),
+            float(np.abs(card.mean(1) - other.mean(1)).max()))
+
+
+def forced_rollout(lm, params_dec, prompt, fed):
+    """The prefill and one cached step for each column of ``fed`` (B, K)
+    host ids: (fp32 log-softmax (B, K + 1, V) of the prefill's last prompt
+    row and of each step, the cache validity after the last step)."""
+    from t2v_metrics_tpu_torch.models import decoder as D
+
+    embeds, pos, n_prompts, bidir_full, deepstack = prompt
+    b, s = embeds.shape[:2]
+    k = fed.shape[1]
+    dev = embeds.device
+    valid = torch.zeros((b, s + k), dtype=torch.bool, device=dev)
+    for j, n in enumerate(n_prompts):
+        valid[j, :n] = True
+    first, cache = lm._prefill(params_dec, embeds, pos, valid, s + k, n_prompts,
+                               bidir_full, deepstack)
+    last = torch.from_numpy(lm._last_pos(pos, n_prompts)).to(dev)
+    ids = torch.from_numpy(fed).to(dev)
+    out = [first.float().log_softmax(-1)]
+    for i in range(k):
+        valid[:, s + i] = True
+        logits, cache = D.forward(params_dec, lm.cfg, lm._embed(params_dec, ids[:, i:i + 1]),
+                                  lm._step_pos(last, i + 1, np.ndim(pos)), valid,
+                                  cache=cache, cache_pos=s + i)
+        out.append(logits[:, 0].log_softmax(-1))
+    return torch.stack(out, 1), valid
+
+
+def teacher_forced_rollout(lm, params_dec, prompt, fed, valid):
+    """The rows of ``forced_rollout`` from one teacher-forced pass over the
+    same slots: the prompt bucket then the fed tokens, their rope positions
+    running on from each row's last prompt token, the prompt's pad slots
+    invalid. (B, K + 1, V) fp32 log-softmax."""
+    from t2v_metrics_tpu_torch.models import decoder as D
+
+    embeds, pos, n_prompts, bidir_full, deepstack = prompt
+    b, s = embeds.shape[:2]
+    k = fed.shape[1]
+    dev = embeds.device
+    seq = torch.cat([embeds, lm._embed(params_dec, torch.from_numpy(fed).to(dev))], 1)
+    steps = lm._last_pos(pos, n_prompts)[:, None] + 1 + np.arange(k)[None]
+    if np.ndim(pos) == 3:
+        steps = np.broadcast_to(steps, (3, b, k))
+    pos_full = torch.from_numpy(np.concatenate([pos, steps], -1)).to(dev)
+    rows = np.concatenate([np.asarray(n_prompts)[:, None] - 1,
+                           np.broadcast_to(s + np.arange(k), (b, k))], 1)
+    ds = None if deepstack is None else [
+        torch.cat([x, x.new_zeros((b, k, x.shape[-1]))], 1) for x in deepstack]
+    bidir = None if bidir_full is None else torch.from_numpy(bidir_full).to(dev)
+    logits = D.forward(params_dec, lm.cfg, seq, pos_full, valid,
+                       logit_positions=torch.from_numpy(rows).to(dev), deepstack=ds,
+                       bidir_ids=bidir)
+    return logits.log_softmax(-1)
+
+
+def qwen_generation_prompt(adapter, images, texts, max_new):
+    """A Qwen adapter's batched generation prompt on its device: (embeds,
+    host positions, prompt lengths, None, deepstack residuals or None)."""
+    from t2v_metrics_tpu_torch.models import qwen2vl as q2
+
+    arrays, lens = adapter._prepare_pairs(images, texts)
+    ids, feats, vis_mask, vis_slot, pos, _ = arrays
+    main, levels = adapter._split_feats_batched(feats)
+    dev = [torch.from_numpy(a).to(adapter.device) for a in (ids, vis_mask, vis_slot)]
+    embeds, deepstack = q2.splice_embeds(adapter.params, dev[0], main, *dev[1:], levels)
+    return embeds, pos, np.asarray(lens), None, deepstack
+
+
+def gemma_generation_prompt(adapter, images, texts, max_new, num_frames=10):
+    """Gemma's batched generation prompt: (embeds, positions, prompt
+    lengths, cache-aligned image-block ids, None)."""
+    embeds, n_prompts, bidir_full = adapter._prompt_embeds(images, texts, num_frames,
+                                                           max_new)
+    b, s = embeds.shape[:2]
+    return embeds, np.broadcast_to(np.arange(s), (b, s)).copy(), n_prompts, bidir_full, None
+
+
+def report_generation(tag, tokens, on_card, on_cpu, tf, tol, step_tol) -> None:
+    """Each step's log P(the forced next token) (B, K) from the card's
+    cached steps, the CPU's and the card's teacher-forced pass, printed; card
+    against CPU and cached against teacher-forced, each row's mean over the
+    steps within ``tol`` nats and every single step within ``step_tol``."""
+    target = torch.from_numpy(tokens.astype(np.int64))[..., None]
+
+    def pick(lp):
+        return torch.gather(lp.float().cpu(), -1, target)[..., 0].numpy()
+
+    a, c, t = pick(on_card), pick(on_cpu), pick(tf)
+    (step_gap, gap), (tf_step, tf_gap) = generation_gaps(a, c), generation_gaps(a, t)
+    agree = float((on_card.argmax(-1).cpu().numpy() == tokens).mean())
+    log(f"{tag} generation log P(next token) card {rounded(a)}")
+    log(f"{tag} generation log P(next token) cpu  {rounded(c)}")
+    log(f"{tag} generation |card - cpu|: a row's mean over the steps {gap:.4e} nats "
+        f"(limit {tol}), one step {step_gap:.4e} (limit {step_tol}); cached steps against "
+        f"the teacher-forced pass on the card: row mean {tf_gap:.4e}, one step "
+        f"{tf_step:.4e} (same limits); card argmax = the CPU's token at {agree:.3f} of "
+        f"the steps")
+    check(np.isfinite(a).all() and np.isfinite(t).all(), f"{tag} generation not finite")
+    for what, mean, step in (("card and CPU", gap, step_gap),
+                             ("cached and teacher-forced", tf_gap, tf_step)):
+        check(mean <= tol and step <= step_tol,
+              f"{tag} generation: {what} differ by {mean} nats (row mean), {step} (one step)")
+
+
+def generation_chain(tag, scorers, prompt_fn, tol, step_tol, embed_scale=None) -> None:
+    """The cached decode of a decoder family at full width: the CPU's fp32
+    greedy tokens forced through the prefill and GEN_STEPS steps on the card
+    (bf16, kernels) and on the CPU; each step's log P(next token) card
+    against CPU, and on the card the cached steps against the teacher-forced
+    pass (``report_generation``)."""
+    from t2v_metrics_tpu_torch.models.generation import CachedLM
+
+    card, host = (s.model for s in scorers)
+    cfg = card.config.text
+    lm = CachedLM(cfg, embed_scale)
+    with torch.inference_mode():
+        hp = prompt_fn(host, GEN_STEPS + 1)
+        tokens, _ = lm.greedy_batch(host.params.decoder, *hp[:3], GEN_STEPS + 1,
+                                    bidir_full=hp[3], deepstack=hp[4])
+        fed = tokens[:, :GEN_STEPS].astype(np.int64)
+        card_prompt, host_prompt = prompt_fn(card, GEN_STEPS), prompt_fn(host, GEN_STEPS)
+        t0 = time.perf_counter()
+        on_card, valid = forced_rollout(lm, card.params.decoder, card_prompt, fed)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        on_cpu, _ = forced_rollout(lm, host.params.decoder, host_prompt, fed)
+        tf = teacher_forced_rollout(lm, card.params.decoder, card_prompt, fed, valid)
+    b, s = card_prompt[0].shape[:2]
+    log(f"{tag} generation: {b} prompts in bucket {s} (lengths "
+        f"{[int(n) for n in card_prompt[2]]}), prefill "
+        f"+ {GEN_STEPS} cached steps fed the CPU's fp32 greedy tokens: card bf16 "
+        f"{(t1 - t0) * 1e3:.1f} ms")
+    report_generation(tag, tokens, on_card, on_cpu, tf, tol, step_tol)
+
+
+def qwen_trace_check(tag, scorer, images, texts) -> None:
+    """On the card: ``forward_with_trace`` with a one-token rollout scored
+    at the start against ``forward_with_trace_teacher_forcing`` (printed)."""
+    roll, _ = scorer.model.forward_with_trace(images, texts, max_new_tokens=1,
+                                              score_position="start")
+    tf, _ = scorer.model.forward_with_trace_teacher_forcing(images, texts)
+    gap = float(np.abs(np.log(roll) - np.log(tf)).max())
+    log(f"{tag} forward_with_trace (1 token, start) against teacher forcing on the card: "
+        f"max {gap:.4e} nats over {len(texts)} pairs")
+    check(np.isfinite(roll).all() and np.isfinite(tf).all(), f"{tag} traces not finite")
+
+
+def t5_generation_chain(engines, images, texts, tol) -> None:
+    """clip-flant5's cached decode steps (the T5 scale folded into W_q, as
+    the chain takes it): the CPU's fp32 greedy tokens forced through
+    ``decode_step`` on the card and on the CPU, log P(next token) compared
+    a step; on the card, the steps against the teacher-forced ``decode``
+    (``report_generation``, ``tol`` the row-mean and the step bar)."""
+    from t2v_metrics_tpu_torch.models import clip_flant5 as tcft5
+    from t2v_metrics_tpu_torch.models import t5 as tt5
+
+    def hidden(engine):
+        qs = [tcft5.format_question(t, engine.cfg.conversation) for t in texts]
+        arrays = engine._build_text_arrays(qs, [""] * len(texts))[:4]
+        dev = [torch.from_numpy(x).to(engine.device) for x in arrays]
+        idx = torch.arange(len(texts), device=engine.device)
+        return engine._encode_hidden(engine.encode_images(images), dev, idx, idx), dev[3]
+
+    def forced(engine, tokens):
+        cfg = engine.cfg.t5
+        t5 = engine.params.t5
+        enc, mask = hidden(engine)
+        ckv = tt5.cross_kv(t5, cfg, enc)
+        cache = tt5.init_dec_cache(t5, cfg, len(texts), GEN_STEPS + 1)
+        ids = torch.from_numpy(tokens).to(engine.device)
+        start = torch.full((len(texts), 1), cfg.decoder_start_token_id,
+                           dtype=torch.long, device=engine.device)
+        fed = torch.cat([start, ids[:, :GEN_STEPS]], 1)
+        out = []
+        for step in range(GEN_STEPS + 1):
+            logits, cache = tt5.decode_step(t5, cfg, fed[:, step:step + 1], cache, step,
+                                            ckv, mask)
+            out.append(logits.log_softmax(-1))
+        tf = tt5.decode(t5, cfg, fed, enc, mask).log_softmax(-1)
+        return torch.stack(out, 1), tf
+
+    card, host = engines
+    with torch.inference_mode():
+        enc, mask = hidden(host)
+        # eos -1: the rollout runs its full length
+        tokens = tt5.greedy_decode(host.params.t5, host.cfg.t5, enc, mask, GEN_STEPS + 1,
+                                   eos_id=-1).numpy()
+        on_card, tf = forced(card, tokens)
+        on_cpu, _ = forced(host, tokens)
+    log(f"[chain] xl generation: {len(texts)} prompts, {GEN_STEPS + 1} cached T5 steps fed "
+        f"the CPU's fp32 greedy tokens")
+    report_generation("[chain] xl", tokens, on_card, on_cpu, tf, tol, tol)
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the slice through the public entry point
 # ---------------------------------------------------------------------------
 
 def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
                 quant: str | None = None, profile: bool = False,
-                bf16_rows=None) -> tuple[dict, np.ndarray]:
+                bf16_rows=None, generate: int = 0) -> tuple[list, np.ndarray]:
     """``VQAScore(model, init="random", quant=quant)``: the first 4 x 8 call
     with its launch counts, ``batch_forward`` of 16 x (1 image, 4 texts)
     against the pairwise forward, then with the T5 scale folded (see
     fold_t5_attention_scale) its rows against per-sample calls, pairs/s,
-    memory. Returns the launch counts and the folded ``batch_forward`` rows;
-    an int8 mode prints its gap from ``bf16_rows``, the bf16 mode's rows on
-    the same weights."""
+    memory; with ``generate``, ``generate`` of the 4 images x that many
+    tokens (phase_generation). Returns the launch counts of each path and
+    the folded ``batch_forward`` rows; an int8 mode prints its gap from
+    ``bf16_rows``, the bf16 mode's rows on the same weights."""
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -1536,8 +2056,119 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     if profile:
         phase_profile(lambda: scorer.batch_forward(data, batch_size=8),
                       f"{name} batch_forward")
+    paths = [counts]
+    if generate:
+        paths.append(phase_generation(scorer, f"[generate] {name}", images, texts[:4],
+                                      generate, t5=True, profile=profile))
     del scorer
-    return counts, rows
+    return paths, rows
+
+
+# ---------------------------------------------------------------------------
+# Generation on the slices (phase 4)
+# ---------------------------------------------------------------------------
+
+class DecodeProbe:
+    """While active, wraps the cached decoder's ``forward`` (or, ``t5``, the
+    T5 ``decode_step``) to record for each cached call a pair of CUDA events
+    around it, the host time of its enqueue and the kernel launches it
+    makes. Events and host counters only: nothing is read back from the
+    card, so the decode loop keeps its one read at the end."""
+
+    def __init__(self, t5: bool = False):
+        from t2v_metrics_tpu_torch.models import decoder as D
+        from t2v_metrics_tpu_torch.models import t5 as T
+
+        self.mod, self.name, self.t5 = (T, "decode_step", True) if t5 else (D, "forward", False)
+        self.calls, self.cache_bytes = [], 0
+
+    def __enter__(self):
+        from t2v_metrics_tpu_torch.ops import launch_counts
+
+        orig = self.orig = getattr(self.mod, self.name)
+
+        def wrapped(*args, **kw):
+            if not self.t5 and kw.get("cache") is None:
+                return orig(*args, **kw)
+            if not self.calls:    # the cache (and T5's cross k / v) of the run
+                tensors = [t for layer in (args[3] if self.t5 else kw["cache"])
+                           for t in layer.values()]
+                if self.t5:
+                    tensors += [t for kv in args[5] for t in kv]
+                self.cache_bytes = sum(t.numel() * t.element_size() for t in tensors)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            before, t0 = launch_counts(), time.perf_counter()
+            start.record()
+            out = orig(*args, **kw)
+            end.record()
+            after = launch_counts()
+            self.calls.append((start, end, time.perf_counter() - t0,
+                               {k: after[k] - before[k] for k in after if after[k] > before[k]}))
+            return out
+
+        torch.cuda.synchronize()
+        self.begin = torch.cuda.Event(enable_timing=True)
+        self.begin.record()
+        setattr(self.mod, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+        torch.cuda.synchronize()
+
+
+def phase_generation(scorer, tag: str, images, texts, max_new: int, t5: bool = False,
+                     profile: bool = False) -> dict:
+    """``scorer.model.generate(images, texts, max_new_tokens=max_new)`` on
+    the slice's model: the launch counts of the run (its path's own, for the
+    kernel table), the prefill ms (on the card's timeline from the call to
+    the end of the prefill: the vision tower and the prompt's prefill; for
+    T5 up to its first step: the towers, the encoder and the cross k / v),
+    the median ms a decode step (device span between the step's events) and
+    the host's enqueue ms a step, the steps run, generated tokens/s, the peak
+    memory with the cache's bytes beside it, and the launches a decode step
+    by kernel; with ``profile``, the device busy share of a second run and
+    of its decode steps alone: the device time and wall of a profiled run
+    less those of a one-token run (towers and prefill, and for T5 one
+    step), over the steps that the longer run adds."""
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with DecodeProbe(t5) as probe:
+        t0 = time.perf_counter()
+        outs = scorer.model.generate(images, texts, max_new_tokens=max_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(len(outs) == len(texts) and all(isinstance(o, str) for o in outs),
+          f"{tag} generate returned {outs!r}")
+    calls = probe.calls
+    prefill_end = calls[0][1] if not t5 else calls[0][0]
+    steps = calls if t5 else calls[1:]
+    check(steps, f"{tag} generate ran no decode step")
+    prefill_ms = probe.begin.elapsed_time(prefill_end)
+    step_ms = statistics.median(s.elapsed_time(e) for s, e, _, _ in steps)
+    host_ms = statistics.median(h for _, _, h, _ in steps) * 1e3
+    tokens = len(steps) + (0 if t5 else 1)
+    log(f"{tag} generate {len(texts)} x {max_new} tokens: {wall:.3f} s; prefill "
+        f"{prefill_ms:.2f} ms; {len(steps)} decode steps, median {step_ms:.3f} ms a step "
+        f"on the card, {host_ms:.3f} ms of host enqueue a step; "
+        f"{len(texts) * tokens / wall:.1f} generated tokens/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (KV cache "
+        f"{probe.cache_bytes / 2**30:.4f} GiB); launches a decode step "
+        f"{json.dumps(steps[-1][3])}; run launches {json.dumps(counts)}")
+    log(f"{tag} generated (first 60 characters of each): {[o[:60] for o in outs]}")
+    if profile:
+        full = phase_profile(lambda: scorer.model.generate(
+            images, texts, max_new_tokens=max_new), f"{tag} generate")
+        one = phase_profile(lambda: scorer.model.generate(
+            images, texts, max_new_tokens=1), f"{tag} generate, one token")
+        log(f"[profile] {tag} decode steps: device busy "
+            f"{100 * (full[0] - one[0]) / (full[1] - one[1]):.1f}% over the "
+            f"{max_new - 1} steps the {max_new}-token run adds")
+    return counts
 
 
 def phase_video_slice(scorer, tag: str, want: dict, seed: int,
@@ -1672,6 +2303,35 @@ def phase_qwen_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2,
     check(np.isfinite(on_card).all() and on_card.shape == (m, n),
           f"{tag} card scores not finite or wrong shape")
     check(diff <= QWEN_CHAIN_TOL_NATS, f"{tag} card and CPU differ by {diff} nats")
+    if not video:
+        pairs = [images[i % m] for i in range(n)]
+        generation_chain(tag, scorers, lambda a, k: qwen_generation_prompt(a, pairs, texts, k),
+                         QWEN_CHAIN_TOL_NATS, QWEN_CHAIN_TOL_NATS)
+        qwen_trace_check(tag, scorers[0], pairs, texts)
+
+
+def qwen_slice_traces(scorer, model: str, images, texts) -> dict:
+    """``forward_with_trace`` on the slice's model, 4 images x 4 texts at
+    ``max_new_tokens`` 1 and 4, scored at the start and at the end: scores in
+    (0, 1], trace dicts of every pair, time; the launch counts of the four
+    calls."""
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    for max_new in (1, 4):
+        for position in ("start", "end"):
+            t0 = time.perf_counter()
+            probs, traces = scorer.model.forward_with_trace(
+                images, texts, max_new_tokens=max_new, score_position=position)
+            dt = time.perf_counter() - t0
+            check(probs.shape == (4,) and np.isfinite(probs).all()
+                  and ((probs > 0) & (probs <= 1)).all() and len(traces) == 4,
+                  f"[trace] {model}: {probs}")
+            log(f"[trace] {model} forward_with_trace max_new_tokens {max_new}, "
+                f"{position}: {dt:.3f} s for 4 pairs; probabilities "
+                f"{probs.round(6).tolist()}; scored indices "
+                f"{[t['scored_indices'] for t in traces]}")
+    return launch_counts()
 
 
 def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
@@ -1763,8 +2423,11 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
     log(f"[qwen video slice] grid {grid}: ViT bucket {patch_b}, prompt bucket {seq_b}")
     check((patch_b, seq_b) == (16384, 4096), f"qwen video buckets {patch_b}, {seq_b}")
     video_counts = phase_video_slice(scorer, "[qwen video slice]", want, 101, profile)
+    gen_counts = phase_generation(scorer, f"[generate] {model}", images, texts, 32,
+                                  profile=profile)
+    trace_counts = qwen_slice_traces(scorer, model, images, texts)
     del scorer
-    return [counts, video_counts]
+    return [counts, video_counts, gen_counts, trace_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -1825,6 +2488,11 @@ def phase_qwen3_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2,
     check(counts["grouped_gemm"] == 2 * cfg.text.layers,
           f"{tag} {counts['grouped_gemm']} grouped GEMM launches")
     check(diff <= QWEN3_CHAIN_TOL_NATS, f"{tag} card and CPU differ by {diff} nats")
+    if not video:
+        pairs = [images[i % m] for i in range(n)]
+        generation_chain(tag, scorers, lambda a, k: qwen_generation_prompt(a, pairs, texts, k),
+                         QWEN3_CHAIN_TOL_NATS, QWEN3_STEP_TOL_NATS)
+        qwen_trace_check(tag, scorers[0], pairs, texts)
 
 
 def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024,
@@ -1903,8 +2571,10 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
     log(f"[qwen3 video slice] grid {grid}: ViT bucket {patch_b}, prompt bucket {seq_b}")
     check((patch_b, seq_b) == (12288, 3072), f"qwen3 video buckets {patch_b}, {seq_b}")
     video_counts = phase_video_slice(scorer, "[qwen3 video slice]", want, 111, profile)
+    gen_counts = phase_generation(scorer, f"[generate] {model}", images, texts, 32,
+                                  profile=profile)
     del scorer
-    return [counts, video_counts]
+    return [counts, video_counts, gen_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -1987,6 +2657,13 @@ def phase_gemma_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2,
           and counts["flash_attention_flat"] == cfg.text.layers,
           f"{tag} attention launches {counts}")
     check(diff <= GEMMA_CHAIN_TOL_NATS, f"{tag} card and CPU differ by {diff} nats")
+    if video:
+        # the untied head's chain (see gemma_chain_config); prompts of 4 frames
+        # (4 x 256 soft tokens, bucket 2048) past the 1024 window
+        pairs = [images[i % m] for i in range(n)]
+        generation_chain(tag, scorers, lambda a, k: gemma_generation_prompt(
+            a, pairs, texts, k, num_frames=4), GEMMA_CHAIN_TOL_NATS, GEMMA_CHAIN_TOL_NATS,
+            embed_scale=cfg.text.d_model ** 0.5)
 
 
 def phase_inkernel_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
@@ -2114,8 +2791,15 @@ def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024
                       rms_norm=2 + 5 * text.layers + 1)
     video_counts = phase_video_slice(scorer, "[gemma video slice]", video_want, 121,
                                      profile)
-    del scorer
-    return [counts, video_counts]
+    # batched generation over 2 clips (10 frames each, prompts in bucket 4096,
+    # the window biting at every step) and the per-sequence path on one image
+    clips = [seeded_clip(131 + i) for i in range(2)]
+    gen_counts = phase_generation(scorer, f"[generate] {model} video, batched", clips,
+                                  seeded_texts(2, 132), 32, profile=profile)
+    seq_counts = phase_generation(scorer, f"[generate] {model} image, per sequence",
+                                  images[:1], texts[:1], 32)
+    del scorer, clips
+    return [counts, video_counts, gen_counts, seq_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -2136,16 +2820,21 @@ SCORER_CHAIN_TOL = 1e-2
 SCORER_ROWS_TOL = 2e-2
 
 
-def attention_site(record, label, fn, plain_fn, ops, nbytes, library) -> None:
-    """Check one flat-attention site of the CLIPScore / ITMScore paths
-    against its plain version and record it as a site of the table's row:
-    ``ops`` the operations its masks keep, ``nbytes`` its inputs and output
-    once, ``library`` (name, fn) of SDPA on the same inputs."""
-    out, ref = fn(), plain_fn()
-    torch.cuda.synchronize()
-    ok, detail = attention_agrees(out, ref)
+def attention_site(record, label, fn, plain_fn, ops, nbytes, library,
+                   kernel="flash_attention_flat", checked=None) -> None:
+    """Check one attention site against its plain version and record it as
+    a site of ``kernel``'s row: ``ops`` the operations its masks keep,
+    ``nbytes`` its inputs and output once, ``library`` (name, fn) of SDPA on
+    the same inputs; ``checked``: (out, ref, ok, detail) where the caller
+    compared them already."""
+    if checked is None:
+        out, ref = fn(), plain_fn()
+        torch.cuda.synchronize()
+        ok, detail = attention_agrees(out, ref)
+    else:
+        out, ref, ok, detail = checked
     ms = library_ms(library[1], library[0])
-    record("flash_attention_flat", label, out, ref, ok, detail, fn, plain_fn, False,
+    record(kernel, label, out, ref, ok, detail, fn, plain_fn, False,
            flop=ops, lower=(ops, nbytes, "bf16"),
            library=None if ms is None else (library[0], ms), site=True)
 
@@ -2450,10 +3139,11 @@ def kernel_family(name: str) -> str:
                  if any(k in name for k in keys)), "other")
 
 
-def phase_profile(run, label: str) -> None:
+def phase_profile(run, label: str) -> tuple[float, float]:
     """Device time of one call of ``run`` by kernel family (torch.profiler,
     device events only), and the device's busy share: the summed device time
-    over the wall time of the same call run without the profiler."""
+    over the wall time of the same call run without the profiler. Returns
+    (device ms, unprofiled wall ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2479,6 +3169,7 @@ def phase_profile(run, label: str) -> None:
             f"device events, {100 * ms[fam] / total:.1f}%")
     log(f"[profile] {label}: device time {total:.2f} ms; unprofiled wall "
         f"{wall_ms:.2f} ms; device busy {100 * total / wall_ms:.1f}%")
+    return total, wall_ms
 
 
 def main() -> int:
@@ -2522,7 +3213,7 @@ def main() -> int:
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
-    slice_counts = [checkpoint_counts, phase_slice(profile=args.profile)[0]]
+    slice_counts = [checkpoint_counts, *phase_slice(profile=args.profile, generate=32)[0]]
     free_cuda()
     for run in (phase_qwen_slice, phase_qwen3_slice, phase_gemma_slice):
         slice_counts.extend(run(profile=args.profile))   # the image and the video half
@@ -2530,8 +3221,8 @@ def main() -> int:
     bf16_rows = None
     for quant in (None, "int8", "int8+vit"):
         counts, rows = phase_slice("clip-flant5-xxl", quant=quant, profile=args.profile,
-                                   bf16_rows=bf16_rows)
-        slice_counts.append(counts)
+                                   bf16_rows=bf16_rows, generate=8 if quant == "int8" else 0)
+        slice_counts.extend(counts)
         bf16_rows = rows if quant is None else bf16_rows
         free_cuda()
     for kind in ("clip", "itm"):

@@ -1,12 +1,14 @@
 """Scoring engines: host batch assembly + device passes (port of
-t2v_metrics_tpu/engine/scoring.py: ``CLIPT5Engine`` without generation, and
-``CLIPEngine``).
+t2v_metrics_tpu/engine/scoring.py: ``CLIPT5Engine`` and ``CLIPEngine``).
 
 CLIP-FlanT5 (VQAScore):
   1. one vision-tower pass per unique image (M), kept as (M, T, D) features;
   2. one teacher-forced encoder+decoder pass per chunk of pairs, with shapes
      padded to the same buckets as the JAX package;
   3. fp32 log-softmax on the device; only the (P,) scores return to the host.
+``CLIPT5Engine.generate`` encodes the batch once (padded to the text
+buckets by repeating the last row, as in the JAX package) and decodes it
+greedily with the cached T5 step, reading the tokens back once at the end.
 
 CLIPScore: one image-tower pass over the M images and one text-tower pass
 over the N texts (each padded to the JAX package's buckets), the fp32
@@ -29,6 +31,7 @@ from ..constants import (CLIP_MEAN, CLIP_STD, DEFAULT_ANSWER_TEMPLATE,
                          DEFAULT_QUESTION_TEMPLATE, IMAGE_TOKEN_INDEX)
 from ..models import clip as tclip
 from ..models import clip_flant5 as tcft5
+from ..models import t5 as tt5
 from ..ops import image as timage
 from ..tokenization import splice_image_tokens_t5
 
@@ -318,6 +321,48 @@ class CLIPT5Engine:
         logp = self._score(feats, prep["arrays"], prep["pair_image"],
                            prep["pair_text"])
         return _HostScores(torch.exp(logp)), prep["n"]
+
+    # -- generation -----------------------------------------------------------
+
+    @torch.inference_mode()
+    def _encode_hidden(self, feats, arrays, pair_image, pair_text) -> torch.Tensor:
+        """The T5 encoder hidden of the pairs' spliced prompts."""
+        ids, img_mask, img_slot, enc_mask = arrays
+        cfg = self.cfg
+        embeds = tcft5._pair_embeds(self.params, feats, ids, img_mask, img_slot,
+                                    pair_image, pair_text)
+        return tt5.encode(self.params.t5, cfg.t5, embeds, enc_mask[pair_text])
+
+    @torch.inference_mode()
+    def generate(self, images, texts, max_new_tokens: int = 128, **_) -> list[str]:
+        """Greedy T5 continuation conditioned on the images (the v3.0
+        CLIP-FlanT5 LLaVA-style generate): one encoder pass for the batch,
+        then cached decode steps with no host round-trip until the tokens
+        are read."""
+        if len(images) != len(texts):
+            raise ValueError("generate: one image per text")
+        cfg = self.cfg
+        eos = getattr(self.tokenizer, "eos_token_id", 1)
+        n = len(texts)
+        questions = [tcft5.format_question(t, cfg.conversation) for t in texts]
+        feats = self.encode_images(images)
+        nb = _bucket(n, TXT_BUCKETS)
+        arrays = _pad_rows(self._build_text_arrays(questions, [""] * n)[:4], nb)
+        if nb > n:
+            feats = torch.cat([feats, feats[-1:].expand(nb - n, -1, -1)])
+        dev = [torch.from_numpy(a).to(self.device) for a in arrays]
+        idx = torch.arange(nb, device=self.device)
+        enc_hidden = self._encode_hidden(feats, dev, idx, idx)
+        tokens = tt5.greedy_decode(self.params.t5, cfg.t5, enc_hidden, dev[3],
+                                   max_new_tokens, eos).cpu().numpy()
+        outs = []
+        for row in tokens[:n]:
+            gen = [int(t) for t in row if t != 0]
+            try:
+                outs.append(self.tokenizer.decode(gen, skip_special_tokens=True).strip())
+            except TypeError:
+                outs.append(self.tokenizer.decode(gen).strip())
+        return outs
 
 
 class CLIPEngine:

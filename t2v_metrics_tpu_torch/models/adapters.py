@@ -297,6 +297,11 @@ class CLIPT5Adapter(VQAScoreModel):
         return self.engine.score_matrix(images, texts, question_template,
                                         answer_template)
 
+    def generate(self, images, texts, max_new_tokens: int = 128,
+                 **kwargs) -> list[str]:
+        """Greedy continuation (v3.0 CLIP-FlanT5 LLaVA-style generate)."""
+        return self.engine.generate(images, texts, max_new_tokens=max_new_tokens)
+
 
 # ---------------------------------------------------------------------------
 # CLIPScore (OpenCLIP cosine similarity)

@@ -178,3 +178,16 @@ def score_pairs(params: CLIPT5Model, cfg: CLIPT5Config,
                           pair_image, pair_text)
     return tt5.answer_log_probs(params.t5, cfg.t5, embeds, enc_mask[pair_text],
                                 ans_ids[pair_text], ans_mask[pair_text])
+
+
+def first_token_distribution(params: CLIPT5Model, cfg: CLIPT5Config, feats, ids,
+                             img_mask, img_slot, enc_mask, pair_image,
+                             pair_text) -> torch.Tensor:
+    """(P, vocab) fp32 softmax at the first decoder step (trace support)."""
+    embeds = _pair_embeds(params, feats, ids, img_mask, img_slot, pair_image,
+                          pair_text)
+    enc_hidden = tt5.encode(params.t5, cfg.t5, embeds, enc_mask[pair_text])
+    start = torch.full((pair_text.shape[0], 1), cfg.t5.decoder_start_token_id,
+                       dtype=torch.long, device=embeds.device)
+    logits = tt5.decode(params.t5, cfg.t5, start, enc_hidden, enc_mask[pair_text])
+    return torch.softmax(logits[:, 0], dim=-1)

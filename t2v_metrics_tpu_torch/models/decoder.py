@@ -13,8 +13,11 @@ the sorted dispatch with the grouped GEMM of ``ops/moe.py`` when
 norms and ``layer_types`` (a local RoPE table on the sliding layers, linear
 scaling on the global ones), ``forward`` with ``logit_positions`` (the lm
 head runs only at the rows that score) and deepstack residuals, and the
-random init. The cached decode path and the shared expert come with the
-slices that need them and raise until then.
+random init, and the KV-cached path (``init_cache``, ``forward(cache=,
+cache_pos=)``: one chunk appended to a flat (B, max_len, KvH*D) k and v per
+layer, written in place, and attended over the cache view up to the chunk's
+end). The shared expert comes with the slice that needs it and raises until
+then.
 
 Parameters keep the JAX layouts (linear weights (in, out), activations flat
 (B, S, H*D)); each layer's q|k|v weights are one packed (d_model,
@@ -25,12 +28,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops import layers as L
 from ..ops import quant as Q
-from ..ops.attention import attention_flat_packed
+from ..ops.attention import attention_flat, attention_flat_packed
 from ..ops.moe import moe_mlp_dispatch
 from ..ops.rope import rope_pack
 from .clip import Norm, init_norm_, normal_
@@ -214,11 +218,22 @@ def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill, no cache)
+# Forward
 # ---------------------------------------------------------------------------
 
+def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> list[dict]:
+    """Flat (B, max_len, kv_heads*head_dim) k and v per layer: the packed
+    projection's k and v columns, appended with no transpose and read by the
+    flat attention with GQA (no repeat of the kv heads)."""
+    kvd = cfg.kv_heads * cfg.head_dim
+    return [{"k": torch.zeros((batch, max_len, kvd), dtype=dtype, device=device),
+             "v": torch.zeros((batch, max_len, kvd), dtype=dtype, device=device)}
+            for _ in range(cfg.layers)]
+
+
 def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask,
-          local_window=None, bidir_ids=None):
+          local_window=None, bidir_ids=None, cache_layer=None, cache_pos=0):
     h, kvh, d = cfg.heads, cfg.kv_heads, cfg.head_dim
     packed = Q.linear(x, p.qkv)                        # (B, S, (H+2KvH)*D)
     if cfg.qk_norm:
@@ -226,9 +241,22 @@ def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask,
                                   kvh, d, cfg.rms_eps, offset=cfg.rms_offset,
                                   cast_weight_dtype=cfg.rms_cast_weight)
     pk = rope_pack(packed, cos, sin, h + kvh, d)
-    out = attention_flat_packed(pk, h, kv_heads=kvh, kv_mask=mask, causal=True,
-                                scale=cfg.q_scale, local_window=local_window,
-                                bidir_ids=bidir_ids)
+    if cache_layer is None:
+        out = attention_flat_packed(pk, h, kv_heads=kvh, kv_mask=mask, causal=True,
+                                    scale=cfg.q_scale, local_window=local_window,
+                                    bidir_ids=bidir_ids)
+        return Q.linear(out, p.o)
+    # the chunk takes cache slots [cache_pos, end), written in place; its
+    # rows attend over the view of slots [0, end) with the causal band and
+    # the window aligned to the view's end, so row i sees slots <= cache_pos
+    # + i (and > cache_pos + i - window): the JAX masks over absolute slots
+    end = cache_pos + x.shape[1]
+    ck, cv = cache_layer["k"], cache_layer["v"]
+    ck[:, cache_pos:end] = pk[..., h * d:(h + kvh) * d]
+    cv[:, cache_pos:end] = pk[..., (h + kvh) * d:]
+    out = attention_flat(pk[..., :h * d], ck[:, :end], cv[:, :end], h, kv_heads=kvh,
+                         kv_mask=mask, causal=True, scale=cfg.q_scale,
+                         local_window=local_window, bidir_ids=bidir_ids)
     return Q.linear(out, p.o)
 
 
@@ -262,12 +290,32 @@ def _moe_mlp(p: MoE, cfg: DecoderConfig, x):
     return out.reshape(b, s, h).to(x.dtype)
 
 
+def _chunk_bidir(bidir_ids, cache_pos: int, s: int, device):
+    """The overlay of a cached chunk of ``s`` rows from a cache-aligned (B,
+    max_len) id array. At the prefill (``cache_pos`` 0) it is the chunk's own
+    (B, s) ids: its keys are its rows, as the kernels take the overlay. Past
+    the prefill the JAX package applies the overlay only to rows of a
+    non-negative group, and generated rows are -1, so there it changes nothing
+    and is left out; that is checked on a host array, and a device array
+    raises there rather than drop a live overlay unseen."""
+    if bidir_ids is None:
+        return None
+    if cache_pos == 0:
+        return torch.as_tensor(bidir_ids[:, :s], device=device)
+    if isinstance(bidir_ids, torch.Tensor) and bidir_ids.device.type != "cpu":
+        raise ValueError("decoder: past the prefill, bidir_ids must be a host array "
+                         "(its rows are checked to be -1 there)")
+    if (np.asarray(bidir_ids[:, cache_pos:cache_pos + s]) >= 0).any():
+        raise NotImplementedError("decoder: an image-block overlay on rows past the "
+                                  "prefill")
+    return None
+
+
 def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
             position_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
             logit_positions: torch.Tensor | None = None,
-            cache=None, deepstack=None, bidir_ids=None) -> torch.Tensor:
-    """embeds: (B, S, D) -> fp32 logits, causal self-attention over the
-    whole sequence (teacher-forced scoring).
+            cache=None, deepstack=None, bidir_ids=None, cache_pos: int = 0):
+    """embeds: (B, S, D) -> fp32 logits; with ``cache`` (logits, cache).
 
     position_ids: (B, S), or (3, B, S) for M-RoPE. attn_mask: (B, S), true =
     a real token. logit_positions: optional (B, A) rows; the lm head then
@@ -280,10 +328,23 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
     each other both ways, over the causal mask and the window (Gemma 3 image
     blocks). Sliding layers (``layer_types``) take the local RoPE table and
     ``sliding_window``; the others the global table, linearly scaled.
+
+    Without ``cache``: causal self-attention over the whole sequence
+    (teacher-forced scoring). With ``cache`` (``init_cache``): the chunk's k
+    and v are written into each layer's cache at slots [cache_pos,
+    cache_pos + S) (a host int), in place, and the returned cache is the same
+    list. attn_mask is then the (B, max_len) validity of the cache slots after
+    the insert: masks count slots, not rope positions, so the pad slots
+    between a short prompt and its first generated token stay invalid and a
+    window counts them. bidir_ids is cache-aligned (B, max_len), -1 on
+    generated slots (see ``_chunk_bidir``).
     """
+    s = embeds.shape[1]
     if cache is not None:
-        raise NotImplementedError("decoder: the KV-cached decode path is not "
-                                  "ported yet")
+        if attn_mask is None:
+            raise ValueError("decoder: the cached path needs the cache's validity mask")
+        attn_mask = attn_mask[:, :cache_pos + s].to(torch.int32).contiguous()
+        bidir_ids = _chunk_bidir(bidir_ids, cache_pos, s, embeds.device)
 
     def norm(x, p):
         return L.rms_norm(x, p.scale, cfg.rms_eps, offset=cfg.rms_offset,
@@ -298,7 +359,8 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
             i % len(cfg.layer_types)] == "sliding_attention")
         a = _attn(blk, cfg, norm(x, blk.ln1), *(rope_l if sliding else rope_g),
                   attn_mask, local_window=cfg.sliding_window if sliding else None,
-                  bidir_ids=bidir_ids)
+                  bidir_ids=bidir_ids, cache_layer=None if cache is None else cache[i],
+                  cache_pos=cache_pos)
         if cfg.sandwich_norms:
             a = norm(a, blk.ln1_post)
         x = x + a
@@ -313,4 +375,5 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
         rows = logit_positions.long().clamp(0, x.shape[1] - 1)
         x = torch.gather(x, 1, rows[..., None].expand(-1, -1, x.shape[-1]))
     head = params.embed.T if params.lm_head is None else params.lm_head
-    return (x @ head).float()
+    logits = (x @ head).float()
+    return logits if cache is None else (logits, cache)

@@ -163,6 +163,20 @@ def image_group_ids(vis_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(vis_mask, gid, -1).to(torch.int32)
 
 
+def splice_embeds(params: Gemma3Model, cfg: Gemma3Config, ids, vis_feats, vis_mask,
+                  vis_slot) -> torch.Tensor:
+    """Token embeddings times sqrt(d_model) (the scale rounded to the weight
+    dtype first), with slot ``vis_slot`` of the image features ``vis_feats``
+    (B, T, D) written at ``vis_mask``."""
+    embed = params.decoder.embed
+    scale = torch.tensor(cfg.text.d_model ** 0.5, dtype=embed.dtype,
+                         device=embed.device)
+    tok = embed[ids] * scale
+    slot = vis_slot.long().clamp(0, vis_feats.shape[1] - 1)
+    vis = torch.gather(vis_feats, 1, slot[..., None].expand(-1, -1, vis_feats.shape[-1]))
+    return torch.where(vis_mask[..., None], vis.to(tok.dtype), tok)
+
+
 def splice_and_score(params: Gemma3Model, cfg: Gemma3Config, ids, vis_feats,
                      vis_mask, vis_slot, position_ids, attn_mask, ans_ids,
                      ans_pos, ans_mask, temperature: float = 1.0) -> torch.Tensor:
@@ -171,13 +185,7 @@ def splice_and_score(params: Gemma3Model, cfg: Gemma3Config, ids, vis_feats,
     features spliced in at ``vis_mask`` (slot ``vis_slot`` of ``vis_feats``
     (B, T, D)), each image block bidirectional, the tied head at
     ``ans_pos`` only."""
-    embed = params.decoder.embed
-    scale = torch.tensor(cfg.text.d_model ** 0.5, dtype=embed.dtype,
-                         device=embed.device)
-    tok = embed[ids] * scale
-    slot = vis_slot.long().clamp(0, vis_feats.shape[1] - 1)
-    vis = torch.gather(vis_feats, 1, slot[..., None].expand(-1, -1, vis_feats.shape[-1]))
-    embeds = torch.where(vis_mask[..., None], vis.to(tok.dtype), tok)
+    embeds = splice_embeds(params, cfg, ids, vis_feats, vis_mask, vis_slot)
     logits = dec.forward(params.decoder, cfg.text, embeds, position_ids,
                          attn_mask, logit_positions=ans_pos,
                          bidir_ids=image_group_ids(vis_mask))   # (B, A, V) fp32

@@ -21,8 +21,15 @@ same). A video (a path, read with cv2, or a ``media.video.DecodedVideo``)
 gives ``num_frames`` frames (default 10) at truncated linspace indices, each
 an image block behind its "Frame at {t}s:" text, as in the JAX adapter; each
 distinct video's frames go through the tower in one call, and each frame's
-block attends bidirectionally within itself. Generation waits for the
-cached decode path; PaliGemma and Gemma 4 are later slices.
+block attends bidirectionally within itself.
+
+``generate`` (the JAX adapter's): with more than one visual and no sampling
+a batched greedy decode on the device (``CachedLM.greedy_batch``, stopping
+at the smallest end-of-turn id, as the JAX batched path does); otherwise one
+sequence at a time (``CachedLM.greedy``, stopping at any of them, nucleus
+sampling when ``do_sample`` and ``temperature > 0``). The image blocks
+attend bidirectionally at the prefill; generated tokens join none.
+PaliGemma and Gemma 4 are later slices.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ..ops.image import normalize_flat, resize_uint8_levels_flat
 from . import gemma3 as g3
 from . import checkpoint as ckpt
 from .adapters import VQAScoreModel, default_dtype, load_checkpoint_tree
+from .generation import CachedLM, decode_text
 
 DEFAULT_QUESTION = 'Does this figure show "{}"? Please answer Yes or No.'
 DEFAULT_ANSWER = "Yes"
@@ -64,6 +72,32 @@ class _GemmaBase(VQAScoreModel):
 
     def _encode_text(self, text):
         return self.tokenizer.encode(text, add_special_tokens=False)
+
+    def _eos_ids(self) -> set:
+        """The tokenizer's eos id and ``<end_of_turn>``'s, where it has them."""
+        ids = set()
+        t = getattr(self.tokenizer, "eos_token_id", None)
+        if t is not None:
+            ids.add(int(t))
+        conv = getattr(self.tokenizer, "convert_tokens_to_ids", None)
+        if conv is not None:
+            for tok in ("<end_of_turn>",):
+                try:
+                    i = conv(tok)
+                except Exception:
+                    continue
+                if isinstance(i, int) and i >= 0:
+                    ids.add(i)
+        return ids
+
+    @staticmethod
+    def _group_ids_np(vis_mask: np.ndarray) -> np.ndarray:
+        """(S,) bool -> per-contiguous-block group ids, -1 on text (the host
+        mirror of gemma3.image_group_ids)."""
+        m = vis_mask.astype(np.int32)
+        starts = m * (1 - np.concatenate([[0], m[:-1]]))
+        gid = np.cumsum(starts) - 1
+        return np.where(vis_mask, gid, -1).astype(np.int32)
 
     @staticmethod
     def _extract_frames(video, num_frames=10):
@@ -242,6 +276,80 @@ class Gemma3Adapter(_GemmaBase):
         flat_imgs = [im for im in images for _ in range(n)]
         return self.forward(flat_imgs, list(texts) * m, **kw).reshape(m, n)
 
-    def generate(self, images, texts, **kw):
-        raise NotImplementedError("Gemma 3 generation needs the cached decode "
-                                  "path, which is not ported yet")
+    @property
+    def _lm(self) -> CachedLM:
+        if getattr(self, "_cached_lm", None) is None:
+            self._cached_lm = CachedLM(self.config.text,
+                                       embed_scale=self.config.text.d_model ** 0.5)
+        return self._cached_lm
+
+    @torch.inference_mode()
+    def generate(self, images, texts, num_frames: int = 10, fps=None,
+                 max_new_tokens: int = 1024, temperature: float = 0.0,
+                 do_sample=None, top_p: float = 0.9, **kw) -> list[str]:
+        """Free-form continuation (reference gemma3_model.py:244-286): the
+        batched greedy decode for more than one visual without sampling,
+        else one sequence at a time."""
+        if len(images) != len(texts):
+            raise ValueError("generate: one image per text")
+        eos = self._eos_ids()
+        if do_sample is None:
+            do_sample = temperature > 0
+        if len(images) > 1 and not do_sample:
+            return self._generate_batched(images, texts, num_frames, max_new_tokens, eos)
+        sample = bool(do_sample and temperature > 0)
+        outs = []
+        for visual, text in zip(images, texts):
+            embeds, n_prompts, bidir_full = self._prompt_embeds([visual], [text],
+                                                                num_frames, max_new_tokens)
+            gen, _ = self._lm.greedy(
+                self.params.decoder, embeds, np.arange(embeds.shape[1])[None],
+                int(n_prompts[0]), max_new_tokens, eos_ids=eos, bidir_full=bidir_full,
+                sample=sample, temperature=temperature if sample else 1.0, top_p=top_p)
+            outs.append(decode_text(self.tokenizer, gen, eos))
+        return outs
+
+    def _prompt_embeds(self, visuals, texts, num_frames, max_new_tokens):
+        """Generation prompts of (visual, text) pairs, padded to one bucket:
+        (embeds (B, S, D) on the device, prompt lengths (B,), the
+        cache-aligned image-block ids (B, S + max_new_tokens), -1 on text
+        and generated slots)."""
+        cfg = self.config
+        uniq, inv = unique_visuals(visuals)
+        encoded = self._encode_visuals(uniq, num_frames)
+        prompts = [self._assemble(t, encoded[inv[j]][1]) for j, t in enumerate(texts)]
+        b = len(prompts)
+        s = _bucket(max(len(p) for p in prompts))
+        ids_arr = np.zeros((b, s), np.int64)
+        vis_mask = np.zeros((b, s), bool)
+        vis_slot = np.zeros((b, s), np.int64)
+        n_prompts = np.zeros((b,), np.int32)
+        bidir_full = np.full((b, s + max_new_tokens), -1, np.int32)
+        for j, ids in enumerate(prompts):
+            n = len(ids)
+            ids_arr[j, :n] = ids
+            vm = ids_arr[j] == cfg.image_token_id
+            vm[n:] = False
+            vis_mask[j] = vm
+            vis_slot[j][vm] = np.arange(vm.sum())
+            n_prompts[j] = n
+            bidir_full[j, :s] = self._group_ids_np(vm)
+        t_max = max(f.shape[0] for f, _ in encoded)
+        padded = torch.stack([torch.nn.functional.pad(f, (0, 0, 0, t_max - f.shape[0]))
+                              for f, _ in encoded])
+        feats = padded[torch.as_tensor(inv, device=padded.device)]
+        dev = [torch.from_numpy(a).to(self.device) for a in (ids_arr, vis_mask, vis_slot)]
+        return g3.splice_embeds(self.params, cfg, dev[0], feats, *dev[1:]), n_prompts, bidir_full
+
+    def _generate_batched(self, images, texts, num_frames, max_new_tokens, eos) -> list[str]:
+        """Batched greedy decode with each row's image blocks; it stops at
+        the smallest eos id, as the JAX adapter's batched path does."""
+        embeds, n_prompts, bidir_full = self._prompt_embeds(images, texts, num_frames,
+                                                            max_new_tokens)
+        b, s = embeds.shape[:2]
+        tokens, lengths = self._lm.greedy_batch(
+            self.params.decoder, embeds, np.broadcast_to(np.arange(s), (b, s)).copy(),
+            n_prompts, max_new_tokens, eos_id=min(eos) if eos else None,
+            bidir_full=bidir_full)
+        return [decode_text(self.tokenizer, tokens[j, : lengths[j]].tolist(), eos)
+                for j in range(b)]

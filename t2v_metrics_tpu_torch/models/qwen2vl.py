@@ -458,6 +458,25 @@ def vision_tower_batch(params: VisionTower, cfg: QwenVisionConfig,
     return torch.gather(x, 1, rev[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def splice_embeds(params: Qwen2VLModel, ids: torch.Tensor, vis_feats: torch.Tensor,
+                  vis_mask: torch.Tensor, vis_slot: torch.Tensor,
+                  deepstack_feats=None):
+    """Token embeddings (B, S, D) with slot ``vis_slot`` of ``vis_feats`` (B,
+    T, D) written at the visual positions ``vis_mask``; and the deepstack
+    residuals (Qwen3-VL): each level of (B, T, D) features scattered to the
+    visual positions, zero elsewhere (None without levels)."""
+    tok = params.decoder.embed[ids]
+    slot = vis_slot.long().clamp(0, vis_feats.shape[1] - 1)
+    idx = slot[..., None].expand(-1, -1, vis_feats.shape[-1])
+    vis = torch.gather(vis_feats, 1, idx)
+    embeds = torch.where(vis_mask[..., None], vis.to(tok.dtype), tok)
+    deepstack = None
+    if deepstack_feats is not None and len(deepstack_feats):
+        deepstack = [torch.where(vis_mask[..., None], torch.gather(level, 1, idx), 0.0)
+                     for level in deepstack_feats]
+    return embeds, deepstack
+
+
 def splice_and_score(params: Qwen2VLModel, cfg: Qwen2VLConfig,
                      ids: torch.Tensor,          # (B, S)
                      vis_feats: torch.Tensor,    # (B, T, D) per-seq vision feats
@@ -475,23 +494,28 @@ def splice_and_score(params: Qwen2VLModel, cfg: Qwen2VLConfig,
     deepstack_feats (Qwen3-VL): levels of (B, T, D) features aligned with
     vis_feats' slots, scattered to the visual positions (zero elsewhere)
     and added after the first decoder layers."""
-    dp = params.decoder
-    tok = dp.embed[ids]
-    slot = vis_slot.long().clamp(0, vis_feats.shape[1] - 1)
-    idx = slot[..., None].expand(-1, -1, vis_feats.shape[-1])
-    vis = torch.gather(vis_feats, 1, idx)
-    embeds = torch.where(vis_mask[..., None], vis.to(tok.dtype), tok)
-    deepstack = None
-    if deepstack_feats is not None:
-        deepstack = [torch.where(vis_mask[..., None], torch.gather(level, 1, idx), 0.0)
-                     for level in deepstack_feats]
-    logits = dec.forward(dp, cfg.text, embeds, position_ids, attn_mask,
+    embeds, deepstack = splice_embeds(params, ids, vis_feats, vis_mask, vis_slot,
+                                      deepstack_feats)
+    logits = dec.forward(params.decoder, cfg.text, embeds, position_ids, attn_mask,
                          logit_positions=ans_pos,
                          deepstack=deepstack)         # (B, A, V) fp32
     logp = L.log_softmax_fp32(logits / temperature)
     ans = ans_ids.long().clamp(0, logp.shape[-1] - 1)
     tok_logp = torch.gather(logp, -1, ans[..., None])[..., 0] * ans_mask
     return tok_logp.sum(-1) / ans_mask.sum(-1).clamp(min=1)
+
+
+def splice_and_answer_dists(params: Qwen2VLModel, cfg: Qwen2VLConfig, ids, vis_feats,
+                            vis_mask, vis_slot, position_ids, attn_mask, ans_pos,
+                            temperature: float = 1.0,
+                            deepstack_feats=None) -> torch.Tensor:
+    """Teacher-forced fp32 softmax distributions (B, A, V) at the answer rows
+    ``ans_pos`` (the forward_with_trace_teacher_forcing path)."""
+    embeds, deepstack = splice_embeds(params, ids, vis_feats, vis_mask, vis_slot,
+                                      deepstack_feats)
+    logits = dec.forward(params.decoder, cfg.text, embeds, position_ids, attn_mask,
+                         logit_positions=ans_pos, deepstack=deepstack)
+    return torch.softmax(logits / temperature, dim=-1)
 
 
 def hf_prefixes(sd) -> tuple[str, str]:

@@ -19,7 +19,14 @@ the device as uint8, where ``qwen2vl.video_patches`` resizes them in one
 float pass (max 360*420 pixels) as the JAX adapter does on its device. The
 JAX adapter decodes with its native libav reader where built, else with
 cv2's position seek; the port reads with cv2 only (``media/video.py``).
-Generation and traces are not ported yet.
+
+Generation and traces (the JAX adapter's): ``generate`` decodes a batch
+greedily on the device through ``CachedLM.greedy_batch``, or one sequence
+at a time with nucleus sampling when ``do_sample`` and ``temperature > 0``;
+``forward_with_trace`` scores the answer at the start or the end of a
+greedy rollout with a per-token trace; ``forward_with_trace_teacher_forcing``
+gives the same trace from one teacher-forced pass. Prompts (images and
+videos) are built by the same ``_prepare_pairs`` as scoring.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..engine.scoring import _HostScores, _load_uint8, unique_visuals
 from ..media.video import is_video, open_video
 from ..ops.image import smart_resize
 from . import qwen2vl as q
+from .generation import CachedLM, trace_from_rollout
 from . import checkpoint as ckpt
 from .adapters import VQAScoreModel, default_dtype, load_checkpoint_tree
 
@@ -379,3 +387,155 @@ class Qwen2VLAdapter(VQAScoreModel):
         flat_imgs = [im for im in images for _ in range(n)]
         flat_txts = list(texts) * m
         return self.forward(flat_imgs, flat_txts, **kw).reshape(m, n)
+
+    # ------------------------------------------------------------------
+    # generation and traces
+    # ------------------------------------------------------------------
+
+    @property
+    def eos_token_id(self):
+        return getattr(self.tokenizer, "eos_token_id", None)
+
+    @property
+    def _lm(self) -> CachedLM:
+        if getattr(self, "_cached_lm", None) is None:
+            self._cached_lm = CachedLM(self.config.text)
+        return self._cached_lm
+
+    def _decode(self, ids) -> str:
+        return getattr(self.tokenizer, "decode", lambda x: str(x))(ids)
+
+    def _split_feats_batched(self, feats):
+        """(P, T, D) visual features -> (main, deepstack levels or None).
+        Qwen3-VL overrides: its rows stack the deepstack levels."""
+        return feats, None
+
+    def _greedy_steps(self, ids_row, feats, vis_mask, vis_slot, pos_row, n_prompt,
+                      max_new_tokens, temperature=1.0, sample=False, top_p=0.9, rng=None):
+        """KV-cached generation of one sequence: ids_row (S,), vis_mask and
+        vis_slot (S,) and pos_row (3, S) on the host, feats its visual
+        features on the device (Qwen3-VL: the deepstack levels too, added at
+        the prefill only). Returns (generated ids, per-step fp32
+        distributions)."""
+        main, levels = self._split_feats_batched(feats[None])
+        rows = [torch.from_numpy(np.asarray(a)[None]).to(self.device)
+                for a in (ids_row, vis_mask, vis_slot)]
+        embeds, deepstack = q.splice_embeds(self.params, rows[0], main, *rows[1:], levels)
+        return self._lm.greedy(self.params.decoder, embeds, np.asarray(pos_row)[:, None],
+                               int(n_prompt), max_new_tokens, eos_ids={self.eos_token_id},
+                               temperature=temperature, deepstack=deepstack,
+                               sample=sample, top_p=top_p, rng=rng)
+
+    @torch.inference_mode()
+    def forward_with_trace(self, images, texts, fps=None,
+                           question_template: str = DEFAULT_QWEN_QUESTION,
+                           answer_template: str = DEFAULT_QWEN_ANSWER,
+                           max_new_tokens: int = 1, temperature: float = 1.0,
+                           score_position: str = "end", debug: bool = False):
+        """Reference trace contract (qwen2vl_model.py:303-493): the answer's
+        geometric-mean probability at the start or the end of a greedy
+        rollout of ``max_new_tokens``, and one trace dict a pair."""
+        assert score_position in ("start", "end")
+        questions = [question_template.format(t) for t in texts]
+        answers = [answer_template.format(t) for t in texts]
+        arrays, prompt_lens = self._prepare_pairs(images, questions, fps)
+        ids, feats, vis_mask, vis_slot, pos, _ = arrays
+        lm_probs, traces = [], []
+        for j in range(len(images)):
+            gen, dists = self._greedy_steps(ids[j], feats[j], vis_mask[j], vis_slot[j],
+                                            pos[:, j], prompt_lens[j], max_new_tokens,
+                                            temperature)
+            gm, trace = trace_from_rollout(gen, dists, self._encode_text(answers[j]),
+                                           {self.eos_token_id}, self._decode,
+                                           score_position)
+            lm_probs.append(gm)
+            traces.append(trace)
+        return np.asarray(lm_probs, np.float32), traces
+
+    def _splice_and_answer_dists(self, ids, feats, *arrays, temperature):
+        return q.splice_and_answer_dists(self.params, self.config, ids, feats, *arrays,
+                                         temperature=temperature)
+
+    @torch.inference_mode()
+    def forward_with_trace_teacher_forcing(
+            self, images, texts, fps=None,
+            question_template: str = DEFAULT_QWEN_QUESTION,
+            answer_template: str = DEFAULT_QWEN_ANSWER,
+            temperature: float = 1.0, debug: bool = False):
+        """The trace of ``forward_with_trace`` from one teacher-forced pass
+        over the answer tokens (the reference's test_teacher_vs_rollout.py
+        holds the two within 1e-6); scored_indices are the forced answer
+        tokens'."""
+        if len(images) != len(texts):
+            raise ValueError("forward_with_trace_teacher_forcing: one image per text")
+        questions = [question_template.format(t) for t in texts]
+        answers = [answer_template.format(t) for t in texts]
+        arrays, prompt_lens = self._prepare_pairs(images, questions, fps)
+        ids, feats, vis_mask, vis_slot, pos, attn = arrays
+        ans_tok = [self._encode_text(a) for a in answers]
+        a_max = max(len(a) for a in ans_tok)
+        full_ids = ids.copy()
+        ans_pos = np.zeros((len(images), a_max), np.int64)
+        for j, (a, n) in enumerate(zip(ans_tok, prompt_lens)):
+            full_ids[j, n:n + len(a)] = a
+            attn[j, n:n + len(a)] = True
+            ans_pos[j, : len(a)] = n - 1 + np.arange(len(a))
+            pos[:, j, n:n + len(a)] = pos[:, j, n - 1].max() + 1 + np.arange(len(a))
+        dev = [torch.from_numpy(a).to(self.device)
+               for a in (full_ids, vis_mask, vis_slot, pos, attn, ans_pos)]
+        dists = self._splice_and_answer_dists(dev[0], feats, *dev[1:],
+                                              temperature=float(temperature))
+        dists = dists.float().cpu().numpy()
+        lm_probs, traces = [], []
+        for j, a in enumerate(ans_tok):
+            gm, trace = trace_from_rollout(list(a), [dists[j, i] for i in range(len(a))],
+                                           a, {self.eos_token_id}, self._decode,
+                                           score_position="start")
+            lm_probs.append(gm)
+            traces.append(trace)
+        return np.asarray(lm_probs, np.float32), traces
+
+    @torch.inference_mode()
+    def generate(self, images, texts, fps=None, max_new_tokens: int = 128,
+                 temperature: float = 0.0, do_sample=None, top_p: float = 0.9,
+                 **kw) -> list[str]:
+        """Free-form continuation (reference qwen2vl_model.py:495-563):
+        greedy over the batch, or nucleus sampling one sequence at a time
+        when do_sample and temperature > 0."""
+        if len(images) != len(texts):
+            raise ValueError("generate: one image per text")
+        if do_sample is None:
+            do_sample = temperature > 0
+        sample = bool(do_sample and temperature > 0)
+        arrays, prompt_lens = self._prepare_pairs(images, list(texts), fps)
+        if not sample:
+            return self._generate_batched(arrays, prompt_lens, max_new_tokens)
+        ids, feats, vis_mask, vis_slot, pos, _ = arrays
+        outs = []
+        for j in range(len(images)):
+            gen, _ = self._greedy_steps(ids[j], feats[j], vis_mask[j], vis_slot[j],
+                                        pos[:, j], prompt_lens[j], max_new_tokens,
+                                        temperature=temperature, sample=True,
+                                        top_p=top_p)
+            if gen and self.eos_token_id is not None and gen[-1] == self.eos_token_id:
+                gen = gen[:-1]
+            outs.append(self._decode(gen).strip())
+        return outs
+
+    def _generate_batched(self, arrays, prompt_lens, max_new_tokens: int) -> list[str]:
+        """Greedy decode of the batch through ``CachedLM.greedy_batch``: the
+        tokens are read back once, at the end."""
+        ids, feats, vis_mask, vis_slot, pos, _ = arrays
+        main, deepstack = self._split_feats_batched(feats)
+        dev = [torch.from_numpy(a).to(self.device) for a in (ids, vis_mask, vis_slot)]
+        embeds, ds = q.splice_embeds(self.params, dev[0], main, *dev[1:], deepstack)
+        tokens, lengths = self._lm.greedy_batch(
+            self.params.decoder, embeds, pos, np.asarray(prompt_lens, np.int32),
+            max_new_tokens, eos_id=self.eos_token_id, deepstack=ds)
+        outs = []
+        for j in range(len(prompt_lens)):
+            gen = tokens[j, : lengths[j]].tolist()
+            if gen and self.eos_token_id is not None and gen[-1] == self.eos_token_id:
+                gen = gen[:-1]
+            outs.append(self._decode(gen).strip())
+        return outs

@@ -381,6 +381,18 @@ def splice_and_score(params: Qwen3VLModel, cfg: Qwen3VLConfig, ids,
                                deepstack_feats=deepstack_feats)
 
 
+def splice_and_answer_dists(params: Qwen3VLModel, cfg: Qwen3VLConfig, ids,
+                            stacked_feats, vis_mask, vis_slot, position_ids,
+                            attn_mask, ans_pos, temperature: float = 1.0) -> torch.Tensor:
+    """Teacher-forced fp32 softmax distributions (B, A, V) at the answer
+    rows, the deepstack residuals included. stacked_feats: (B, 1 + n_ds, T,
+    D), the main level and the deepstack levels."""
+    return q2.splice_and_answer_dists(params, cfg, ids, stacked_feats[:, 0], vis_mask,
+                                      vis_slot, position_ids, attn_mask, ans_pos,
+                                      temperature=temperature,
+                                      deepstack_feats=stacked_feats[:, 1:].unbind(1))
+
+
 def convert_qwen3vl(sd, cfg: Qwen3VLConfig):
     """HF Qwen3VL(Moe)ForConditionalGeneration state dict -> tree of CPU
     tensor views in the JAX layout (port of the JAX ``convert_qwen3vl``):

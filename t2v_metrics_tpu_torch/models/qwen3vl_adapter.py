@@ -14,7 +14,8 @@ are sampled as for Qwen2.5-VL; their frames are resized on the device with
 the Pillow-style two-pass resize (the JAX adapter resizes them with Pillow
 on the host; the port needs no Pillow: within one uint8 level), and the
 tower runs with grid_t > 1 (the position table tiled over time).
-Generation and traces are not ported yet.
+Generation and traces are the Qwen2.5-VL adapter's, with the deepstack
+residuals added at the prefill only (the decode steps take none).
 """
 
 from __future__ import annotations
@@ -165,3 +166,12 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
         return q3.splice_and_score(self.params, self.config, ids, feats[:, 0],
                                    feats[:, 1:].unbind(1), *arrays,
                                    temperature=temperature)
+
+    def _splice_and_answer_dists(self, ids, feats, *arrays, temperature):
+        # feats: (P, 1 + n_ds, T, D), the main level and the deepstack ones
+        return q3.splice_and_answer_dists(self.params, self.config, ids, feats, *arrays,
+                                          temperature=temperature)
+
+    def _split_feats_batched(self, feats):
+        # (P, 1 + n_ds, T, D) -> main (P, T, D) and the deepstack levels
+        return feats[:, 0], feats[:, 1:].unbind(1)

@@ -13,8 +13,17 @@ Parity-critical conventions, as in the JAX package:
   * FlanT5: gated gelu_new MLP, untied lm_head; logits are the bf16
     ``x @ lm_head`` cast to fp32.
 
+Both decode-step attentions run in the port's kernels (the flat one, or
+the per-head one with the bias in the kernel under ``INKERNEL_REL_BIAS``),
+where the JAX package runs them through its XLA reference: the self-
+attention over the cache view of slots [0, cpos] with the bias row of
+relative positions ``mem - cpos``, the cross-attention over the encoder rows
+with their key mask.
+
 Self-attention q|k|v weights are packed into one (d_model, 3*inner) leaf at
-load, so the attention kernel reads the one projection in place. Under int8
+load, so the attention kernel reads the one projection in place; the cached
+decode step (``decode_step``, ``greedy_decode``) writes its k and v columns
+into a (B, max_len, H*d_kv) cache in place. Under int8
 (``ops/quant.quantize_t5_``) the packed q|k|v and the other linears become
 int8 leaves, cross-attention q, k and v stay separate products as in the JAX
 package, and a gated MLP runs one packed wi_0|wi_1 leaf (``wi_01``).
@@ -281,3 +290,99 @@ def answer_log_probs(params: T5Model, cfg: T5Config,
     idx = answer_ids.long().clamp(0, logp.shape[-1] - 1)
     tok_logp = torch.gather(logp, -1, idx[..., None])[..., 0] * answer_mask
     return tok_logp.sum(-1) / torch.clamp(answer_mask.sum(-1), min=1)
+
+
+# ---------------------------------------------------------------------------
+# Cached incremental decoding (generate)
+# ---------------------------------------------------------------------------
+
+def init_dec_cache(params: T5Model, cfg: T5Config, batch: int, max_len: int) -> list[dict]:
+    """The decoder self-attention's k and v cache, (B, max_len, H*d_kv) a
+    layer in the embedding dtype."""
+    e = params.shared_emb
+    kv = cfg.num_heads * cfg.d_kv
+    return [{"k": torch.zeros((batch, max_len, kv), dtype=e.dtype, device=e.device),
+             "v": torch.zeros((batch, max_len, kv), dtype=e.dtype, device=e.device)}
+            for _ in range(len(params.decoder.blocks))]
+
+
+def cross_kv(params: T5Model, cfg: T5Config, enc_hidden: torch.Tensor) -> list:
+    """Per-layer cross-attention (k, v) from the encoder hidden, once."""
+    return [(Q.mm(enc_hidden, blk.cross.k), Q.mm(enc_hidden, blk.cross.v))
+            for blk in params.decoder.blocks]
+
+
+def decode_step(params: T5Model, cfg: T5Config, tok_ids: torch.Tensor, cache,
+                cpos: int, cross_kvs, enc_mask=None):
+    """One incremental decoder step.
+
+    tok_ids: (B, 1) current decoder input token; cache: ``init_dec_cache``'s
+    list, written in place at slot ``cpos`` (a host int; 0 = the decoder
+    start token); cross_kvs: ``cross_kv``'s output. The self-attention runs
+    over the cache view of slots [0, cpos] with the causal bias row of
+    relative positions ``mem - cpos``. Returns (logits (B, vocab) fp32,
+    cache).
+    """
+    dec = params.decoder
+    heads, inner = cfg.num_heads, cfg.num_heads * cfg.d_kv
+    x = params.shared_emb[tok_ids]                      # (B, 1, D)
+    end = cpos + 1
+    rel_emb = dec.blocks[0].attn.rel_bias
+    if INKERNEL_REL_BIAS:
+        bias, rel = None, (rel_emb.T, (False, cfg.num_buckets, cfg.max_distance, cpos))
+    else:
+        bias = compute_position_bias(rel_emb, 1, end, False, cfg.num_buckets,
+                                     cfg.max_distance, q_offset=cpos).float().contiguous()
+    b = x.shape[0]
+
+    def heads_of(t):                                    # (B, S, H*d) -> (B, H, S, d)
+        return t.view(b, t.shape[1], heads, cfg.d_kv).transpose(1, 2)
+
+    for blk, cl, (ck, cv) in zip(dec.blocks, cache, cross_kvs):
+        h = L.rms_norm(x, blk.ln1.scale, cfg.eps)
+        qkv = Q.mm(h, blk.attn.qkv)                     # (B, 1, 3*inner)
+        cl["k"][:, cpos:end] = qkv[..., inner:2 * inner]
+        cl["v"][:, cpos:end] = qkv[..., 2 * inner:]
+        k, v = cl["k"][:, :end], cl["v"][:, :end]
+        if INKERNEL_REL_BIAS:
+            a = merge_heads(attention(heads_of(qkv[..., :inner]), heads_of(k), heads_of(v),
+                                      scale=1.0, rel_bias=rel[0], rel_cfg=rel[1]))
+        else:
+            a = attention_flat(qkv[..., :inner], k, v, heads, bias=bias, scale=1.0)
+        x = x + Q.mm(a, blk.attn.o)
+        h = L.rms_norm(x, blk.ln_cross.scale, cfg.eps)
+        a = attention_flat(Q.mm(h, blk.cross.q), ck, cv, heads, kv_mask=enc_mask, scale=1.0)
+        x = x + Q.mm(a, blk.cross.o)
+        h = L.rms_norm(x, blk.ln2.scale, cfg.eps)
+        x = x + _t5_mlp(blk.mlp, h, cfg)
+    x = L.rms_norm(x, dec.ln_final.scale, cfg.eps)
+    if cfg.tie_word_embeddings:
+        logits = (x * cfg.d_model ** -0.5) @ params.shared_emb.T
+    else:
+        logits = x @ params.lm_head
+    return logits[:, 0].float(), cache
+
+
+@torch.inference_mode()
+def greedy_decode(params: T5Model, cfg: T5Config, enc_hidden: torch.Tensor,
+                  enc_mask: torch.Tensor, max_new_tokens: int, eos_id: int = 1,
+                  pad_id: int = 0) -> torch.Tensor:
+    """Batched greedy decode over cached ``decode_step``s, with no host
+    round-trip until the caller reads the tokens. Returns (B,
+    max_new_tokens) int64 on the device: ``pad_id`` after EOS, and EOS itself
+    is never emitted."""
+    b = enc_hidden.shape[0]
+    dev = enc_hidden.device
+    ckv = cross_kv(params, cfg, enc_hidden)
+    cache = init_dec_cache(params, cfg, b, max_new_tokens + 1)
+    tokens = torch.full((b, max_new_tokens), pad_id, dtype=torch.long, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    tok = torch.full((b, 1), cfg.decoder_start_token_id, dtype=torch.long, device=dev)
+    for step in range(max_new_tokens):
+        logits, cache = decode_step(params, cfg, tok, cache, step, ckv, enc_mask)
+        nxt = logits.argmax(-1)
+        stop = nxt == eos_id
+        tokens[:, step] = torch.where(done | stop, torch.full_like(nxt, pad_id), nxt)
+        done = done | stop
+        tok = nxt[:, None]
+    return tokens

@@ -194,8 +194,14 @@ def test_registry_matches_jax_and_unported_paths_raise(tmp_path, monkeypatch):
     s = tt2v.VQAScore(NAME, device="cpu")
     with pytest.raises(OSError, match="cannot open video"):
         s(images=["clip.mp4"], texts=["a"])  # a video the reader cannot open
-    with pytest.raises(NotImplementedError):
-        s.model.generate(_images(2, 1), ["a"])
+    # generation is ported: the batched and the per-sequence path give the
+    # JAX package's strings on the same parameters
+    tok = SimpleT5Tokenizer(512)
+    j = jt2v.VQAScore(NAME, params=_params(), tokenizer=tok)
+    t = tt2v.VQAScore(NAME, params=_params(), tokenizer=tok, device="cpu")
+    for images, texts in ((_images(2, 2), ["a", "two dogs"]), (_images(2, 1), ["a"])):
+        want = j.model.generate(images, texts, max_new_tokens=4)
+        assert t.model.generate(images, texts, max_new_tokens=4) == want
 
 
 def test_random_init_gemma_norms():

@@ -612,3 +612,115 @@ def test_attention_kernel_qformer_and_clip_text_sites(dev):
     out = A.attention_flat_packed(qkv, 8, causal=True)
     q, k, v, _ = A._split_packed(qkv, 8, None)
     _close_attn(out, A.attention_flat_reference(q, k, v, 8, causal=True))
+
+
+# ---------------------------------------------------------------------------
+# Decode sites: sq = 1 against a KV cache (the generation path)
+# ---------------------------------------------------------------------------
+
+def _decode_operands(dev, b, s, h, kvh, d, step, lo, seed=0):
+    """q (B, 1, H*d), the q lanes of a packed q|k|v row; k, v views of (B, s
+    + 32, KvH*d) caches over slots [0, s + step]; kv_mask with each
+    prompt's pad slots (lengths in [lo, s]) invalid and the generated slots
+    valid."""
+    q = _randn(dev, b, 1, (h + 2 * kvh) * d, seed=seed)[..., :h * d]
+    ck = _randn(dev, b, s + 32, kvh * d, seed=seed + 1)
+    cv = _randn(dev, b, s + 32, kvh * d, seed=seed + 2)
+    sk = s + step + 1
+    lens = torch.randint(lo, s + 1, (b,), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 3))
+    slots = torch.arange(sk, device=dev)[None]
+    mask = (slots < lens[:, None]) | (slots >= s)
+    return q, ck[:, :sk], cv[:, :sk], mask
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,window,step", [
+    (4, 1280, 28, 4, 128, None, 16),   # Qwen2.5-VL-7B: GQA 28/4
+    (2, 4096, 8, 4, 256, 1024, 16),    # Gemma-3-4B past the bucket: the window bites
+    (3, 200, 16, 16, 72, None, 0),     # the first step, MHA, d=72
+    (2, 40, 8, 2, 64, 8, 5),           # a window of 8 over pad slots
+    (4, 1024, 32, 4, 128, None, 31),   # Qwen3-VL: GQA 32/4
+])
+def test_attention_kernel_decode_step(dev, b, s, h, kvh, d, window, step):
+    """The flat kernel at sq = 1 over a cache view (batch stride of the
+    whole cache), end-aligned causal band and window, kv_mask with pad
+    slots, against the plain version; one launch."""
+    q, k, v, mask = _decode_operands(dev, b, s, h, kvh, d, step, max(1, s - 100))
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask, local_window=window,
+              scale=d ** -0.5 if window is None else 1.0 / 16)
+    before = launch_counts()["flash_attention_flat"]
+    out = A.flash_attention_flat(q, k, v, h, **kw)
+    assert launch_counts()["flash_attention_flat"] == before + 1
+    _close_attn(out, A.attention_flat_reference(q, k, v, h, **kw))
+
+
+def test_t5_decode_step_attention_kernels(dev):
+    """The T5-xl decoder step: self-attention over cpos + 1 cached keys with
+    the bias row offset to cpos, dense in the flat kernel and in the
+    per-head kernel's table (both against the plain version of the same
+    bias); cross-attention over 640 encoder rows with their kv_mask."""
+    from t2v_metrics_tpu_torch.ops.position import compute_position_bias
+
+    b, h, d, cpos = 4, 32, 64, 16
+    sk = cpos + 1
+    q = _randn(dev, b, 1, 3 * h * d)[..., :h * d]
+    k = _randn(dev, b, 33, h * d, seed=1)[:, :sk]
+    v = _randn(dev, b, 33, h * d, seed=2)[:, :sk]
+    rel = _randn(dev, h, 32, seed=3, dtype=torch.float32, std=3.0)
+    bias = compute_position_bias(rel.T, 1, sk, False, 32, 128, q_offset=cpos).contiguous()
+    _close_attn(A.flash_attention_flat(q, k, v, h, bias=bias, scale=1.0),
+                A.attention_flat_reference(q, k, v, h, bias=bias, scale=1.0))
+    qh = q.view(b, 1, h, d).transpose(1, 2)
+    kh, vh = (t.view(b, sk, h, d).transpose(1, 2) for t in (k, v))
+    kw = dict(scale=1.0, rel_bias=rel, rel_cfg=(False, 32, 128, cpos))
+    before = launch_counts()["flash_attention"]
+    out = A.flash_attention(qh, kh, vh, **kw)
+    assert launch_counts()["flash_attention"] == before + 1
+    ref = A.attention_reference(qh, kh, vh, **kw)
+    _close_attn(out, ref)
+    _close_attn(ref, A.attention_reference(qh, kh, vh, bias=bias, scale=1.0))
+    qc = _randn(dev, b, 1, h * d, seed=4)
+    kc, vc = _randn(dev, b, 640, h * d, seed=5), _randn(dev, b, 640, h * d, seed=6)
+    m = torch.arange(640, device=dev)[None] < torch.tensor([[640], [600], [591], [620]],
+                                                            device=dev)
+    _close_attn(A.flash_attention_flat(qc, kc, vc, h, kv_mask=m, scale=1.0),
+                A.attention_flat_reference(qc, kc, vc, h, kv_mask=m, scale=1.0))
+
+
+def test_one_row_norm_rope_kernels(dev):
+    """RMSNorm over (4, 3584) and rope over (4, 1, 36 x 128): one row a
+    sequence, as a decode step gives them."""
+    x, w = _randn(dev, 4, 3584, std=3.0), _randn(dev, 3584, seed=1)
+    _close(N.rms_norm_fused(x, w), N.rms_norm_plain(x, w), 1e-5, 1.6e-2)
+    pk = _randn(dev, 4, 1, 36 * 128, seed=2)
+    ang = 1290.0 * _randn(dev, 128, seed=3, dtype=torch.float32).abs().expand(4, 1, 128)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    ref = R.rope_pack_plain(pk, cos, sin, 32, 128)
+    _close(R.rope_pack(pk.clone(), cos, sin, 32, 128), ref, 1e-5, 8e-3)
+
+
+@pytest.mark.parametrize("tokens", [1, 4])
+def test_grouped_gemm_kernel_decode_routing(dev, tokens):
+    """One decode step of the 128-expert MoE: tokens x 8 routed rows, groups
+    of one row each (one 128-row block apiece), the empty experts skipped;
+    num_blocks as the dispatch calls it."""
+    ids = torch.rand((tokens, 128), generator=torch.Generator(device=dev).manual_seed(5),
+                     device=dev).topk(8).indices.reshape(-1)
+    _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+    assert int(used) == len(set(ids.tolist()))
+    xg = _randn(dev, p, 2048, seed=6)
+    w = _randn(dev, 128, 2048, 256, seed=7, std=2048 ** -0.5)
+    out = M.grouped_matmul(xg, w, be, M.BLOCK_M, used)
+    _close(out, M.grouped_matmul_reference(xg, w, be.cpu(), M.BLOCK_M, used.cpu()),
+           1e-4, 2 ** -7)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 12288), (10240, 4096)])
+def test_int8_kernels_at_decode_rows(dev, k, n):
+    """The row quant and the int8 GEMM at M = 4 (an xxl decode step): bitwise."""
+    x = _randn(dev, 4, k, std=3.0)
+    (xq, xs), (rq, rs) = TQ.quantize_rows(x), TQ.quantize_rows_plain(x)
+    assert torch.equal(xq, rq) and torch.equal(xs, rs)
+    leaf = TQ.Linear(_randn(dev, k, n, seed=1, std=k ** -0.5)).quantize_()
+    out = TQ.quant_matmul(xq, leaf.w_q, xs, leaf.scale)
+    assert torch.equal(out, TQ.quant_matmul_plain(xq, leaf.w_q, xs, leaf.scale))
