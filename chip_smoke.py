@@ -48,8 +48,16 @@ Phases (any failure exits non-zero and prints no result line):
      flat kernel and in the per-head kernel's table; cross-attention over
      640 encoder rows), RMSNorm and rope at one row a sequence, the grouped
      GEMM at 4 tokens' 32 routed rows of 128 experts, the int8 GEMM and the
-     row quant at M = 4 (``--kernels-only`` stops here, with no result
-     line);
+     row quant at M = 4; and at the sites of PaliGemma, Gemma 4, LLaVA-1.5
+     and InstructBLIP (``family_kernels``: PaliGemma's MQA 8/1 prefill with
+     one bidirectional group over each whole prompt at 448 and 896 px,
+     Gemma 4-31b's d = 128 band with ten image blocks and Gemma 4-12b's GQA
+     16/8, LLaVA-7b's MHA prefill, SigLIP-224/448 in the flat kernel, the
+     Q-Former over 32 queries + the instruction, the T5-xl encoder over 32
+     query rows + the prompt, three decode sites, each with two wrong
+     plain versions that must fail; RMSNorm at d 2048 / 3840 / 4096 / 5376
+     and rope on the new packed layouts) (``--kernels-only`` stops here,
+     with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
      full, and 2 decoder layers; Qwen3-VL-30B-A3B widths with 2 ViT and 2
@@ -72,7 +80,12 @@ Phases (any failure exits non-zero and prints no result line):
      card against CPU a step and, on the card, the cached steps against
      one teacher-forced pass over the same slots, both within the chain's
      bar; for Qwen, ``forward_with_trace`` (one token, start) against
-     ``forward_with_trace_teacher_forcing`` on the card (printed);
+     ``forward_with_trace_teacher_forcing`` on the card (printed); the
+     PaliGemma-448, LLaVA-7b and InstructBLIP-xl chains (2 tower + 2
+     decoder layers, or 2 EVA + 2 Q-Former + 2+2 T5 layers with the T5
+     scale folded) on 1024x1024 images, card bf16 against CPU fp32 (5e-2
+     and 2.5e-2 nats), and Gemma 4 at 12b and 31b widths through forced
+     tokens (``generation_chain``, 5e-2 a row and a step);
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -105,10 +118,17 @@ Phases (any failure exits non-zero and prints no result line):
      a step, the steps run, generated tokens/s, the peak memory beside the
      KV cache's bytes and the launches a decode step by kernel (with
      ``--profile`` also the busy share of a generate); qwen2.5-vl-7b also
-     ``forward_with_trace`` at max_new_tokens 1 and 4, start and end.
+     ``forward_with_trace`` at max_new_tokens 1 and 4, start and end; then
+     ``VQAScore("paligemma-3b-mix-448" / "gemma-4-12b-it" /
+     "llava-v1.5-7b" / "instructblip-flant5-xl", init="random")`` at full
+     depth: 4 x 4 on 1024x1024 images with launch counts against the
+     code's, ``batch_forward`` of 8 x (1, 4), pairs/s, peak memory at load
+     and while scoring, and ``generate`` of 8 tokens (PaliGemma one
+     sequence, LLaVA and InstructBLIP 4; Gemma 4's score is its rollout).
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the checkpoint-loaded xl, the nine slices and
-the three video slices, and over the generate and trace runs; a row's
+summed over the first calls of the checkpoint-loaded xl, the thirteen
+slices and the three video slices, and over the generate and trace runs; a
+row's
 ``sites`` are
 further shapes of the main path, each with its times, bound and library
 time: the grouped GEMM's down projection, the int8 GEMM's split-K decoder
@@ -709,6 +729,8 @@ def phase_kernels() -> dict:
     video_kernels(randn, record, lengths_mask)
     free_cuda()
     decode_kernels(randn, record, lengths_mask)
+    free_cuda()
+    family_kernels(randn, record, lengths_mask)
     return results
 
 
@@ -792,29 +814,34 @@ def per_head_kernels(randn, record, lengths_mask) -> None:
 
 
 def masked_attention_yardsticks(label, packed, heads, kw) -> tuple:
-    """Log the bound of a Gemma flat attention site, from the (row, col)
-    pairs its masks keep (causal / window band OR the overlay, AND the key
-    mask), and the time of ``F.scaled_dot_product_attention`` on the same
-    q/k/v views with that mask materialized (GQA through enable_gqa).
-    Returns the operations those pairs need."""
+    """Log the bound of a causal flat attention site, from the (row, col)
+    pairs its masks keep (the causal band, cut by the window where there is
+    one, OR the overlay where there is one, AND the key mask), and the time
+    of ``F.scaled_dot_product_attention`` on the same q/k/v views with that
+    mask materialized (GQA through enable_gqa). Returns (the operations
+    those pairs need, the bound's (ops, bytes, type), the yardstick)."""
     from t2v_metrics_tpu_torch.ops import attention as A
 
     b, s, _ = packed.shape
-    kvh = kw["kv_heads"]
+    kvh = kw.get("kv_heads") or heads
     q, k, v, d = A._split_packed(packed, heads, kvh)
     qh, kh, vh = (t.view(b, s, n, d).transpose(1, 2)
                   for t, n in ((q, heads), (k, kvh), (v, kvh)))
     pos = torch.arange(s, device=packed.device)
-    band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - kw["local_window"])
-    ids = kw["bidir_ids"]
-    same = (ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0)
-    keep = (band[None] | same) & kw["kv_mask"][:, None, :]          # (B, S, S)
+    band = pos[None] <= pos[:, None]
+    if kw.get("local_window"):
+        band = band & (pos[None] > pos[:, None] - kw["local_window"])
+    keep = band[None].expand(b, s, s)
+    ids = kw.get("bidir_ids")
+    if ids is not None:
+        keep = keep | ((ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0))
+    keep = keep & kw["kv_mask"][:, None, :]                          # (B, S, S)
     ops = 4 * d * heads * int(keep.sum())
     lower = (ops, 2 * b * s * (2 * heads + 2 * kvh) * d + 5 * b * s, "bf16")
     lo = bound(*lower)
     name = "F.scaled_dot_product_attention (bool mask, enable_gqa)"
     ms = library_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=keep[:, None], scale=kw["scale"], enable_gqa=True), name)
+        qh, kh, vh, attn_mask=keep[:, None], scale=kw.get("scale"), enable_gqa=True), name)
     log(f"[kernel] flash_attention_flat {label}: bound {lo[0]:.4f} ms by {lo[1]} "
         f"({ops / 1e9:.2f} GFLOP kept by the masks); {name} "
         + ("refused" if ms is None else f"{ms:.4f} ms"))
@@ -1068,7 +1095,7 @@ DECODE_STEP = 16
 
 
 def cache_attention_site(record, randn, label, b, s, heads, kvh, d, valid_prompt,
-                         window=None, scale=None, edge=False):
+                         window=None, scale=None, edge=False, wrongs=None):
     """The flat kernel at one decode step: q (B, 1, H*d), the q lanes of the
     step's packed q|k|v row; k and v views of (B, s + 32, KvH*d) caches over
     slots [0, s + DECODE_STEP], the kernel's end-aligned causal band (and
@@ -1078,9 +1105,10 @@ def cache_attention_site(record, randn, label, b, s, heads, kvh, d, valid_prompt
     query head of each kv head (3 x its q), so that a window one slot
     shorter moves the outputs. Checked against the plain version (and, with
     a window, two wrong plain versions that must fail: no window, and the
-    window less one), with the bound (the k / v rows the band reads, q and
-    the output, over the HBM rate) and SDPA on the same views with the
-    band and mask as a bool mask and enable_gqa."""
+    window less one; ``wrongs``, (name, kw override) pairs, replace those),
+    with the bound (the k / v rows the band reads, q and the output, over
+    the HBM rate) and SDPA on the same views with the band and mask as a
+    bool mask and enable_gqa."""
     from t2v_metrics_tpu_torch.ops import attention as A
 
     rep = heads // kvh
@@ -1102,13 +1130,15 @@ def cache_attention_site(record, randn, label, b, s, heads, kvh, d, valid_prompt
     out, ref = fn(), plain_fn()
     torch.cuda.synchronize()
     ok, detail = attention_agrees(out, ref)
-    if window is not None:
-        for wrong, w in (("no window", None), (f"a window of {window - 1}", window - 1)):
-            caught, why = attention_agrees(
-                A.attention_flat_reference(q, k, v, heads, **{**kw, "local_window": w}), ref)
-            log(f"[kernel] flash_attention_flat {label} negative control, plain version "
-                f"with {wrong}: {why}")
-            check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    if wrongs is None and window is not None:
+        wrongs = (("no window", {"local_window": None}),
+                  (f"a window of {window - 1}", {"local_window": window - 1}))
+    for wrong, over in wrongs or ():
+        caught, why = attention_agrees(
+            A.attention_flat_reference(q, k, v, heads, **{**kw, **over}), ref)
+        log(f"[kernel] flash_attention_flat {label} negative control, plain version "
+            f"with {wrong}: {why}")
+        check(not caught, f"the attention tolerance passes a plain version with {wrong}")
     band = torch.ones(sk, dtype=torch.bool, device=q.device)
     if window is not None:
         band[:sk - window] = False
@@ -3118,6 +3148,428 @@ def phase_scorer_slice(kind: str, device: str = "cuda", profile: bool = False) -
 
 
 # ---------------------------------------------------------------------------
+# PaliGemma, Gemma 4, LLaVA-1.5 and InstructBLIP: kernel sites (phase 2),
+# chains (phase 3) and slices (phase 4)
+# ---------------------------------------------------------------------------
+
+PALIGEMMA = "paligemma-3b-mix-448"
+GEMMA4 = "gemma-4-12b-it"
+GEMMA4_31B = "gemma-4-31b-it"
+LLAVA = "llava-v1.5-7b"
+INSTRUCTBLIP = "instructblip-flant5-xl"
+
+
+def prefix_ids(lens: torch.Tensor, s: int) -> torch.Tensor:
+    """PaliGemma's overlay: group 0 on each row's valid prompt (image and
+    text), -1 on its pad rows."""
+    rows = torch.arange(s, device=lens.device)[None]
+    return torch.where(rows < lens[:, None], 0, -1).int()
+
+
+def checked_site(record, label, packed, heads, kw, wrongs, kernel_kw=None) -> None:
+    """A packed flat attention site: the kernel against its plain version,
+    each of ``wrongs`` ((name, kw override) pairs:
+    wrong plain versions) refused by the tolerance, the bound from the
+    pairs the masks keep and SDPA on the same views (causal sites), or the
+    caller's ``kernel_kw`` yardsticks."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    q, k, v, _ = A._split_packed(packed, heads, kw.get("kv_heads"))
+    # the GQA prefills one kv head at a time (their fp32 scores at once
+    # would not fit); the others in one call
+    plain = plain_by_kv_heads if kw.get("kv_heads") else A.attention_flat_reference
+    ref = plain(q, k, v, heads, **kw)
+    for wrong, over in wrongs:
+        caught, why = attention_agrees(plain(q, k, v, heads, **{**kw, **over}), ref)
+        log(f"[kernel] flash_attention_flat {label} negative control, plain version with "
+            f"{wrong}: {why}")
+        check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    if kernel_kw is None:
+        ops, lower, library = masked_attention_yardsticks(label, packed, heads, kw)
+        kernel_kw = dict(flop=ops, lower=lower, library=library)
+    out = A.flash_attention_flat_packed(packed, heads, **kw)
+    torch.cuda.synchronize()
+    ok, detail = attention_agrees(out, ref)
+    record("flash_attention_flat", label, out, ref, ok, detail,
+           lambda: A.flash_attention_flat_packed(packed, heads, **kw),
+           lambda: plain(q, k, v, heads, **kw), False, site=True, **kernel_kw)
+
+
+def family_kernels(randn, record, lengths_mask) -> None:
+    """The kernel sites of the PaliGemma, Gemma 4, LLaVA-1.5 and InstructBLIP
+    paths that no earlier slice runs, each against its plain version with
+    two wrong plain versions that must fail, its bound and SDPA's time:
+    PaliGemma's prefill (MQA 8/1 at d 256, one bidirectional group over each
+    whole prompt, pad rows causal and masked) at 448 px (16 pairs of ~1050
+    rows in bucket 2048) and at 896 px (2 pairs of ~4130 rows in bucket
+    4352, past 4096); Gemma 4-31b's prefill at d 128 (GQA 32/16, window 1024
+    and ten image blocks, a 10-frame prompt in bucket 4096) and Gemma
+    4-12b's (GQA 16/8 at d 256, 16 pairs in bucket 512); LLaVA-7b's prefill
+    (MHA at d 128, 16 pairs of ~640 rows in bucket 704, causal, kv_mask);
+    SigLIP-224 and -448 in the flat kernel at d 72; InstructBLIP's Q-Former
+    self-attention (32 queries + the instruction, kv_mask) and its T5-xl
+    encoder (32 query rows + the prompt, the dense bias, kv_mask); the
+    decode steps of Gemma 4-12b (GQA 16/8), PaliGemma (MQA, a cache of one
+    kv head) and LLaVA-7b; RMSNorm at d 2048 (Gemma offset), 3840, 4096 (eps
+    1e-5) and 5376, and rope on the new packed layouts. The plain versions
+    run one kv head at a time."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+    from t2v_metrics_tpu_torch.ops import norms as N
+    from t2v_metrics_tpu_torch.ops import rope as R
+
+    sdpa = F.scaled_dot_product_attention
+    # PaliGemma: the whole valid prompt is one group
+    for label, b, s, lo, hi in (("PaliGemma-448", 16, 2048, 1040, 1060),
+                                ("PaliGemma-896", 2, 4352, 4120, 4140)):
+        mask = lengths_mask(b, s, lo, hi)
+        lens = mask.sum(1)
+        kw = dict(kv_heads=1, causal=True, kv_mask=mask, bidir_ids=prefix_ids(lens, s))
+        checked_site(record, f"{label} prefill ({b}, {s}, 10x256) d=256, MQA 8/1, one bidir "
+                     f"group over each prompt ({lo}-{hi} rows), kv_mask", randn(b, s, 2560), 8,
+                     kw, (("no overlay", {"bidir_ids": None}),
+                          ("the group 128 rows short (its last key tile unseen)",
+                           {"bidir_ids": prefix_ids(lens - 128, s)})))
+        free_cuda()
+    # Gemma 4-31b: the band at d 128 over a 10-frame prompt; Gemma 4-12b at
+    # the slice's shape (the window does not bite in bucket 512)
+    ids, rows = video_blocks(2, 4096)
+    kw = dict(kv_heads=16, causal=True, scale=168 ** -0.5, local_window=1024, bidir_ids=ids,
+              kv_mask=lengths_mask(2, 4096, rows - 8, rows))
+    checked_site(record, "Gemma 4-31b video prefill (2, 4096, 64x128) d=128, GQA 32/16, "
+                 "window 1024 and ten 256-row image blocks, kv_mask", randn(2, 4096, 64 * 128),
+                 32, kw, (("no window", {"local_window": None}),
+                          ("no overlay", {"bidir_ids": None})))
+    free_cuda()
+    ids = torch.full((16, 512), -1, dtype=torch.int32, device="cuda")
+    ids[:, 4:260] = 0
+    kw = dict(kv_heads=8, causal=True, scale=256 ** -0.5, local_window=1024, bidir_ids=ids,
+              kv_mask=lengths_mask(16, 512, 285, 295))
+    checked_site(record, "Gemma 4-12b prefill (16, 512, 32x256) d=256, GQA 16/8, window "
+                 "1024, one 256-row image block, kv_mask", randn(16, 512, 32 * 256), 16, kw,
+                 (("no overlay", {"bidir_ids": None}), ("no kv_mask",
+                                                         {"kv_mask": torch.ones_like(
+                                                             kw["kv_mask"])})))
+    free_cuda()
+    mask = lengths_mask(16, 704, 630, 650)
+    checked_site(record, "LLaVA-7b prefill (16, 704, 96x128) d=128, MHA, causal, kv_mask",
+                 randn(16, 704, 96 * 128), 32, dict(kv_heads=32, causal=True, kv_mask=mask),
+                 (("no causal mask", {"causal": False}),
+                  ("no kv_mask", {"kv_mask": torch.ones_like(mask)})))
+    free_cuda()
+    # SigLIP-224 / 448: no mask; InstructBLIP's Q-Former and T5 encoder
+    for size, s in ((224, 256), (448, 1024)):
+        packed = randn(4, s, 3 * 1152)
+        qh, kh, vh = A.packed_heads(packed, 16)
+        cut = (torch.arange(s, device="cuda") < s - 64).expand(4, s)
+        ms = library_ms(lambda: sdpa(qh, kh, vh), "F.scaled_dot_product_attention")  # noqa: B023
+        ops = 4 * 4 * 16 * s * s * 72
+        checked_site(record, f"SigLIP-{size} (4, {s}, 3x1152) d=72 packed, no mask", packed,
+                     16, {}, (("scale 1/8", {"scale": 0.125}),
+                              ("the last 64 keys dropped", {"kv_mask": cut})),
+                     dict(flop=ops, lower=(ops, 2 * 4 * s * 4 * 1152, "bf16"),
+                          library=None if ms is None else
+                          ("F.scaled_dot_product_attention (no mask)", ms)))
+        del packed, qh, kh, vh
+    b, s = 16, 50
+    mask = lengths_mask(b, s, 45, 50)
+    packed = randn(b, s, 3 * 768)
+    hs = A.packed_heads(packed, 12)
+    ms = library_ms(lambda: sdpa(*hs, attn_mask=mask[:, None, None, :]),
+                    "F.scaled_dot_product_attention (bool mask)")
+    ops = 4 * 12 * 64 * s * int(mask.sum())
+    checked_site(record, f"InstructBLIP Q-Former self ({b}, {s}, 3x768) d=64, 32 queries + "
+                 "the instruction, kv_mask", packed, 12, dict(kv_mask=mask),
+                 (("no kv_mask", {"kv_mask": None}), ("a causal mask", {"causal": True})),
+                 dict(flop=ops, lower=(ops, 2 * b * s * 4 * 768 + b * s, "bf16"),
+                      library=None if ms is None else
+                      ("F.scaled_dot_product_attention (bool mask)", ms)))
+    packed = randn(b, s, 3 * 2048)
+    kw = dict(bias=randn(1, 32, s, s, dtype=torch.float32, std=3.0),
+              kv_mask=lengths_mask(b, s, 45, 50), scale=1.0)
+    checked_site(record, f"InstructBLIP T5-xl encoder ({b}, {s}, 3x2048) d=64, 32 query rows "
+                 "+ the prompt, bias, kv_mask", packed, 32, kw,
+                 (("no bias", {"bias": None}), ("no kv_mask", {"kv_mask": None})),
+                 t5_attention_yardsticks((packed, 32), kw))
+    del packed, hs, kw
+    free_cuda()
+
+    # decode steps (DECODE_STEP generated slots in): no window bites, so the
+    # wrong versions drop the key mask or double the scale
+    for label, b, s, h, kvh, d in (("Gemma 4-12b rollout", 16, 512, 16, 8, 256),
+                                   ("PaliGemma generate", 1, 2048, 8, 1, 256),
+                                   ("LLaVA-7b generate", 4, 704, 32, 32, 128)):
+        cache_attention_site(
+            record, randn, f"{label} decode, q ({b}, 1, {h}x{d}) over a ({b}, {s + 32}, "
+            f"{kvh}x{d}) cache view of {s + DECODE_STEP + 1} slots, {h}/{kvh} heads, kv_mask",
+            b, s, h, kvh, d, lengths_mask(b, s, s // 2, s - 8),
+            wrongs=(("no kv_mask", {"kv_mask": None}), ("the scale doubled",
+                                                        {"scale": 2 * d ** -0.5})))
+        free_cuda()
+
+    # RMSNorm at the new widths (a row a token: the slices' prefills), and
+    # rope on the new packed q|k|v layouts
+    for label, rows, d, eps, offset in (("PaliGemma (Gemma offset)", 16 * 2048, 2048, 1e-6, 1.0),
+                                        ("Gemma 4-12b", 16 * 512, 3840, 1e-6, 1.0),
+                                        ("LLaVA-7b (eps 1e-5)", 16 * 704, 4096, 1e-5, 0.0),
+                                        ("Gemma 4-31b", 2 * 4096, 5376, 1e-6, 1.0)):
+        x, w = randn(rows, d, std=3.0), randn(d)
+        cast = offset == 0.0
+        kw = dict(eps=eps, offset=offset, cast_weight_dtype=cast)
+        out, ref = N.rms_norm_fused(x, w, **kw), N.rms_norm_plain(x, w, **kw)
+        bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
+        record("rms_norm", f"{label} ({rows}, {d})", out, ref, bad == 0,
+               f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max "
+               f"{bf16_ulps(out, ref)} bf16 ulps",
+               lambda: N.rms_norm_fused(x, w, **kw),  # noqa: B023
+               lambda: N.rms_norm_plain(x, w, **kw), False,  # noqa: B023
+               lower=(5 * rows * d, 4 * rows * d + 2 * d, "fp32"),
+               library=("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (d,), w, eps))),  # noqa: B023
+               site=True)
+        del x, out, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for label, b, s, heads, rot, d in (("PaliGemma", 16, 2048, 10, 9, 256),
+                                       ("LLaVA-7b", 16, 704, 96, 64, 128),
+                                       ("Gemma 4-31b", 2, 4096, 64, 48, 128)):
+        pk = randn(b, s, heads * d)
+        ang = (torch.randint(0, 4096, (b, s, 1), generator=gen, device="cuda").float()
+               * randn(d, dtype=torch.float32).abs())
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        buf = pk.clone()
+        out, ref = R.rope_pack(buf, cos, sin, rot, d), R.rope_pack_plain(pk, cos, sin, rot, d)
+        bad = outside(out, ref, NORM_ATOL, ROPE_RTOL)
+        v_same = bool(torch.equal(out[..., rot * d:], pk[..., rot * d:]))
+        record("rope_pack", f"{label} ({b}, {s}, {heads * d}) {rot} heads of {d}", out, ref,
+               bad == 0 and v_same, f"{bad} outside atol {NORM_ATOL} + rtol {ROPE_RTOL}; "
+               f"max {bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
+               lambda: R.rope_pack(buf, cos, sin, rot, d),  # noqa: B023
+               lambda: R.rope_pack_plain(pk, cos, sin, rot, d), False,  # noqa: B023
+               lower=(3 * b * s * rot * d, 4 * b * s * rot * d + 8 * b * s * d, "fp32"),
+               site=True)
+        del pk, buf, out, ref, cos, sin, ang
+    free_cuda()
+
+
+def family_chain_config(model: str):
+    """``model``'s registry config at full width, cut to 2 tower layers and 2
+    decoder layers (one sliding and one full for Gemma 4), or 2 EVA, 2
+    Q-Former (one with cross-attention) and 2+2 T5 layers.
+
+    PaliGemma and Gemma 4 get a seeded lm head of their own (see
+    gemma_chain_config): with the tied head at random init the last prompt
+    token predicts itself at a logit of ~40 (PaliGemma: the normalized
+    embedding over its std 0.02, dotted with itself), and the bf16 rounding
+    of that one logit (ulp 0.25) moves every log-prob by up to 0.125 nats
+    whatever the kernels do. LLaVA's head is untied in the model itself."""
+    from t2v_metrics_tpu_torch.models.gemma4 import GEMMA4_MODELS
+    from t2v_metrics_tpu_torch.models.instructblip import INSTRUCTBLIP_MODELS
+    from t2v_metrics_tpu_torch.models.llava import LLAVA_MODELS
+    from t2v_metrics_tpu_torch.models.paligemma import PALIGEMMA_MODELS
+
+    if model == INSTRUCTBLIP:
+        cfg = INSTRUCTBLIP_MODELS[model]["config"]
+        return dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, layers=2),
+            qformer=dataclasses.replace(cfg.qformer, layers=2),
+            t5=dataclasses.replace(cfg.t5, enc_layers=2, dec_layers=2))
+    cfg = {**PALIGEMMA_MODELS, **GEMMA4_MODELS, **LLAVA_MODELS}[model]["config"]
+    text = dict(layers=2, tie_embeddings=False)
+    if cfg.text.layer_types is not None:
+        text["layer_types"] = ("sliding_attention", "full_attention")
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=2),
+                               text=dataclasses.replace(cfg.text, **text))
+
+
+def phase_family_chain(model: str, device: str = "cuda", m: int = 2, n: int = 2) -> None:
+    """One family's chain (``family_chain_config``) on seeded 1024x1024
+    images, the card in bf16 with the kernels against the CPU in fp32 with
+    the plain versions, on one set of random parameters: the log scores of
+    score_matrix within the chain bar (PaliGemma's first-token log-prob and
+    LLaVA's mean answer log-prob 5e-2 nats; InstructBLIP's, with the T5 scale
+    folded into W_q, 2.5e-2), or for Gemma 4, whose score is a greedy rollout
+    that bf16 may steer elsewhere, the CPU's fp32 greedy tokens forced
+    through the prefill and GEN_STEPS cached steps on both sides
+    (``generation_chain``: each row's mean and every step within 5e-2)."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.models import gemma3, instructblip, llava, paligemma
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = family_chain_config(model)
+    init, cls = {PALIGEMMA: (paligemma.init_paligemma, paligemma.PaliGemmaModel),
+                 LLAVA: (llava.init_llava, llava.LlavaModel),
+                 INSTRUCTBLIP: (instructblip.init_instructblip,
+                                instructblip.InstructBlipModel)}.get(
+        model, (gemma3.init_gemma3, gemma3.Gemma3Model))
+    card = init(cfg, SEED + 6, device, torch.bfloat16)
+    if model == INSTRUCTBLIP:
+        fold_t5_attention_scale(card, cfg)
+    host = cls(cfg, "cpu", torch.float32)
+    with torch.no_grad():
+        dst = host.state_dict()
+        for name, t in card.state_dict().items():
+            dst[name].copy_(t.float().cpu())
+    vocab = cfg.t5.vocab_size if model == INSTRUCTBLIP else cfg.text.vocab_size
+    kw = dict(config=cfg, tokenizer=t2v.SimpleT5Tokenizer(vocab))
+    if model == INSTRUCTBLIP:
+        kw["qf_tokenizer"] = t2v.SimpleT5Tokenizer(cfg.qformer.vocab_size)
+    scorers = [t2v.VQAScore(model, params=p, device=d, **kw)
+               for p, d in ((card, device), (host, "cpu"))]
+    images, texts = seeded_images(m, 141, 1024, 1024), seeded_texts(n, 142)
+    tag = f"[{model} chain]"
+    widths = (f"{cfg.vision.layers} EVA + {cfg.qformer.layers} Q-Former + "
+              f"{cfg.t5.enc_layers}+{cfg.t5.dec_layers} T5 layers"
+              if model == INSTRUCTBLIP else
+              f"{cfg.vision.layers} tower + {cfg.text.layers} decoder layers")
+    if model in (GEMMA4, GEMMA4_31B):
+        pairs = [images[i % m] for i in range(n)]
+        log(f"{tag} full widths, {widths}, untied head, {n} prompts of 1024x1024 images")
+        generation_chain(tag, scorers, lambda a, k: gemma_generation_prompt(a, pairs, texts, k),
+                         GEMMA_CHAIN_TOL_NATS, GEMMA_CHAIN_TOL_NATS,
+                         embed_scale=cfg.text.d_model ** 0.5)
+        del card, host, scorers
+        return
+    tol = CHAIN_TOL_NATS if model == INSTRUCTBLIP else GEMMA_CHAIN_TOL_NATS
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = np.log(scorers[0].model.score_matrix(images, texts))
+    t1 = time.perf_counter()
+    counts = launch_counts()
+    on_cpu = np.log(scorers[1].model.score_matrix(images, texts))
+    t2 = time.perf_counter()
+    diff = float(np.abs(on_card - on_cpu).max())
+    log(f"{tag} full widths, {widths}, M={m} N={n} 1024x1024 images: card bf16 "
+        f"{t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; card launches {json.dumps(counts)}")
+    log(f"{tag} log scores card {on_card.ravel().round(4).tolist()}")
+    log(f"{tag} log scores cpu  {on_cpu.ravel().round(4).tolist()}")
+    log(f"{tag} max |card - cpu| {diff:.4e} nats (limit {tol}); spread over pairs "
+        f"{float(np.ptp(on_cpu)):.4e} nats")
+    check(np.isfinite(on_card).all() and on_card.shape == (m, n),
+          f"{tag} card scores not finite or wrong shape")
+    check(counts == family_launches(model, cfg), f"{tag} launches {counts} != "
+          f"{family_launches(model, cfg)}")
+    check(diff <= tol, f"{tag} card and CPU differ by {diff} nats")
+    del card, host, scorers
+
+
+def family_launches(model: str, cfg, rollout: int = 5) -> dict:
+    """The launches one ``score_matrix`` call of one image group makes, from
+    the code: PaliGemma's SigLIP in the flat kernel (up to 2048 patches; past
+    that the per-head kernel) with two LayerNorms a layer and the post-norm,
+    then one prefill with the flat attention, rope and two RMSNorms a layer
+    and the final one; Gemma 4's SigLIP (at 896 px in the per-head kernel),
+    the projector's RMSNorm and ``rollout`` decoder passes (the prefill and the
+    steps) of five RMSNorms a layer and the final one; LLaVA's CLIP tower
+    to feature layer -2 (ln_pre and two LayerNorms a layer run), then the
+    prefill; InstructBLIP's EVA tower (two LayerNorms a layer and the
+    post-norm), the Q-Former (self-attention every layer, cross-attention
+    every second; the embedding LayerNorm, one a layer for self-attention,
+    for cross-attention and for each of the two FFNs) and one T5 pass with
+    the dense bias in the flat kernel (RMSNorm twice an encoder and three
+    times a decoder layer, and each stack's final norm)."""
+    want = dict.fromkeys(KERNELS, 0)
+    if model == INSTRUCTBLIP:
+        qf, t5 = cfg.qformer, cfg.t5
+        cross = -(-qf.layers // qf.cross_attention_frequency)
+        want.update(flash_attention_flat=cfg.vision.layers + qf.layers + cross
+                    + t5.enc_layers + 2 * t5.dec_layers,
+                    layer_norm=2 * cfg.vision.layers + 1 + 1 + 3 * qf.layers + cross,
+                    rms_norm=2 * t5.enc_layers + 1 + 3 * t5.dec_layers + 1)
+        return want
+    from t2v_metrics_tpu_torch.models.siglip import FLAT_MAX_KEYS
+
+    v, text = cfg.vision, cfg.text
+    if model == LLAVA:
+        want.update(flash_attention_flat=v.layers - 1 + text.layers,
+                    layer_norm=1 + 2 * (v.layers - 1), rms_norm=2 * text.layers + 1,
+                    rope_pack=text.layers)
+        return want
+    passes = 1 if model == PALIGEMMA else rollout
+    per_head = v.num_patches > FLAT_MAX_KEYS
+    want.update(flash_attention=v.layers if per_head else 0,
+                flash_attention_flat=(0 if per_head else v.layers) + passes * text.layers,
+                layer_norm=2 * v.layers + 1, rope_pack=passes * text.layers,
+                rms_norm=(2 * text.layers + 1 if model == PALIGEMMA
+                          else 1 + passes * (5 * text.layers + 1)))
+    return want
+
+
+def phase_family_slice(model: str, device: str = "cuda", side: int = 1024,
+                       profile: bool = False) -> list:
+    """``VQAScore(model, init="random")`` at full width and depth: 4 x 4 on
+    seeded side x side images with the launch counts of the first call
+    against the code's, scores in [0, 1] and repeatable, ``batch_forward``
+    of 8 x (1 seeded 300x380 image, 4 texts) in one chunk equal to the
+    pairwise forward of the same pairs, pairs/s, peak memory at load and
+    while scoring; then (not Gemma 4, whose score is its own rollout)
+    ``generate`` of 8 tokens (PaliGemma one sequence, LLaVA and InstructBLIP
+    the 4 images batched). Returns the launch counts of each path."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tag = f"[{model} slice]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer = t2v.VQAScore(model, init="random", seed=SEED, device=device)
+    torch.cuda.synchronize()
+    log(f"{tag} random init on {device}: {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of parameters, load peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    images, texts = seeded_images(4, 151, side, side), seeded_texts(4, 152)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = launch_counts()
+    want = family_launches(model, scorer.model.config)
+    log(f"{tag} first forward (4 images {side}x{side} x 4 texts): {t_first:.3f} s; "
+        f"launches {json.dumps(counts)}; from the code {json.dumps(want)}")
+    check(scores.shape == (4, 4), f"{tag} shape {scores.shape}")
+    check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
+          f"{tag} scores not finite in [0, 1]")
+    check(counts == want, f"{tag} launch counts {counts} != {want}")
+    check(np.array_equal(scores, scorer(images=images, texts=texts)),
+          f"{tag} second call differs")
+    log(f"{tag} log scores: {np.log(scores).round(4).tolist()}")
+
+    pool, pool_texts = seeded_images(8, 153), seeded_texts(32, 154)
+    data = [{"images": [pool[i]], "texts": pool_texts[4 * i:4 * i + 4]} for i in range(8)]
+    rows = scorer.batch_forward(data, batch_size=8)
+    media, texts_ = scorer._flatten_pairs(data, "images", 8)
+    check(rows.shape == (8, 1, 4)
+          and np.array_equal(rows.ravel(), scorer.model.forward(media, texts_)),
+          f"{tag} batch_forward rows differ from the pairwise forward of the same pairs")
+    log(f"{tag} batch_forward 8 x (1, 4) rows equal the pairwise forward; log rows "
+        f"spread {float(np.ptp(np.log(rows))):.4e} nats")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer.batch_forward(data, batch_size=8)
+    torch.cuda.synchronize()
+    pairs_s = 32 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    scorer(images=images, texts=texts)
+    torch.cuda.synchronize()
+    fwd_s = 16 / (time.perf_counter() - t0)
+    log(f"{tag} pairs/s after warm-up: batch_forward (32 pairs at 300x380, batch 8) "
+        f"{pairs_s:.2f}; forward (4 x 4 at {side}x{side}) {fwd_s:.2f}")
+    log(f"{tag} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated while "
+        f"scoring; card {card_line()}")
+    if profile:
+        phase_profile(lambda: scorer.batch_forward(data, batch_size=8),
+                      f"{model} batch_forward")
+    paths = [counts]
+    if model == PALIGEMMA:
+        paths.append(phase_generation(scorer, f"[generate] {model}, one sequence",
+                                      images[:1], texts[:1], 8, profile=profile))
+    elif model in (LLAVA, INSTRUCTBLIP):
+        paths.append(phase_generation(scorer, f"[generate] {model}", images, texts, 8,
+                                      t5=model == INSTRUCTBLIP, profile=profile))
+    del scorer
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Optional phase (--profile): where the device time of batch_forward goes
 # ---------------------------------------------------------------------------
 
@@ -3209,7 +3661,9 @@ def main() -> int:
                   lambda: phase_gemma_chain(gemma_chain_config(untied_head=True), m=1,
                                             video=True),
                   lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl")),
-                  phase_scorer_chains):
+                  phase_scorer_chains,
+                  *(lambda model=model: phase_family_chain(model)
+                    for model in (PALIGEMMA, GEMMA4, GEMMA4_31B, LLAVA, INSTRUCTBLIP))):
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
@@ -3227,6 +3681,9 @@ def main() -> int:
         free_cuda()
     for kind in ("clip", "itm"):
         slice_counts.append(phase_scorer_slice(kind, profile=args.profile))
+        free_cuda()
+    for model in (PALIGEMMA, GEMMA4, LLAVA, INSTRUCTBLIP):
+        slice_counts.extend(phase_family_slice(model, profile=args.profile))
         free_cuda()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,

@@ -36,6 +36,9 @@ from .models import clip as tclip
 from .models import clip_flant5 as tcft5
 from .models import decoder as tdec
 from .models import gemma3 as tgemma3
+from .models import instructblip as tib
+from .models import llava as tllava
+from .models import paligemma as tpg
 from .models import qwen2vl as tqwen
 from .models import qwen3vl as tqwen3
 from .models import siglip as tsiglip
@@ -304,6 +307,27 @@ def _load_siglip(p: tsiglip.SiglipVisionTower, tree: dict) -> tsiglip.SiglipVisi
 
 
 @torch.no_grad()
+def paligemma_from_numpy(tree: dict, cfg: tpg.PaliGemmaConfig, device,
+                         dtype) -> tpg.PaliGemmaModel:
+    model = tpg.PaliGemmaModel(cfg, device, dtype)
+    _load_siglip(model.vision, tree["vision"])
+    _leaf(model.projector, tree["projector"])
+    _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+@torch.no_grad()
+def llava_from_numpy(tree: dict, cfg: tllava.LlavaConfig, device,
+                     dtype) -> tllava.LlavaModel:
+    model = tllava.LlavaModel(cfg, device, dtype)
+    _load_vision(model.vision, tree["vision"])
+    _leaf(model.projector.fc1, tree["projector"]["fc1"])
+    _leaf(model.projector.fc2, tree["projector"]["fc2"])
+    _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+@torch.no_grad()
 def gemma3_from_numpy(tree: dict, cfg: tgemma3.Gemma3Config, device,
                       dtype) -> tgemma3.Gemma3Model:
     model = tgemma3.Gemma3Model(cfg, device, dtype)
@@ -334,6 +358,24 @@ def _load_bert_ffn(dst: tbitm.BertFFN, src: dict) -> None:
 def blip2_itm_from_numpy(tree: dict, cfg: tbitm.Blip2ITMConfig, device,
                          dtype) -> tbitm.Blip2ITMModel:
     model = tbitm.Blip2ITMModel(cfg, device, dtype)
+    _load_tower_qformer(model, tree)
+    _leaf(model.itm_head, tree["itm_head"])
+    return model
+
+
+@torch.no_grad()
+def instructblip_from_numpy(tree: dict, cfg: tib.InstructBlipConfig, device,
+                            dtype) -> tib.InstructBlipModel:
+    model = tib.InstructBlipModel(cfg, device, dtype)
+    _load_tower_qformer(model, tree)
+    _leaf(model.proj, tree["proj"])
+    _load_t5(model.t5, tree["t5"])
+    return model
+
+
+def _load_tower_qformer(model, tree: dict) -> None:
+    """The EVA tower, the Q-Former and the query tokens of BLIP-2 ITM and
+    InstructBLIP."""
     v, src = model.vision, tree["vision"]
     for name in ("class_emb", "patch_w", "patch_b", "pos_emb"):
         _copy(getattr(v, name), src[name])
@@ -350,8 +392,6 @@ def blip2_itm_from_numpy(tree: dict, cfg: tbitm.Blip2ITMConfig, device,
         _load_bert_ffn(dst.ffn_query, layer["ffn_query"])
         _load_bert_ffn(dst.ffn_text, layer["ffn_text"])
     _copy(model.query_tokens, tree["query_tokens"])
-    _leaf(model.itm_head, tree["itm_head"])
-    return model
 
 
 # ---------------------------------------------------------------------------

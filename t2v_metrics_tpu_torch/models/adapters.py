@@ -63,6 +63,32 @@ def load_checkpoint_tree(path: str, convert, from_numpy, cfg, model_name: str, d
     return tree
 
 
+def family_params(adapter, hf_repo, cfg, model_cls, init, convert, from_numpy):
+    """An adapter's weights, in the order the families take them: the
+    ``params`` kwarg (a ``model_cls``, or a tree in the JAX package's layout
+    carried over by ``from_numpy``); the ``checkpoint`` directory (see
+    ``load_checkpoint_tree``, with ``convert``); random from ``seed`` with
+    ``init='random'`` or for a model without a hub repo (``init(cfg, seed,
+    device, dtype)``); else the hub repo's snapshot from the local cache
+    (never downloaded). On the adapter's device in ``dtype`` (default bf16 on
+    CUDA, fp32 on the CPU)."""
+    kw, device = adapter.kwargs, adapter.device
+    dtype = kw.get("dtype") or default_dtype(device)
+    params = kw.get("params")
+    if params is None:
+        path = kw.get("checkpoint")
+        if path is None and kw.get("init") != "random" and hf_repo is not None:
+            path = ckpt.resolve_snapshot(hf_repo, adapter.cache_dir)
+        if path is not None:
+            params = load_checkpoint_tree(path, convert, from_numpy, cfg,
+                                          adapter.model_name, dtype)
+        else:
+            params = init(cfg, kw.get("seed", 0), device, dtype)
+    if not isinstance(params, model_cls):
+        params = from_numpy(params, cfg, device, dtype)
+    return params
+
+
 class ScoreModel:
     """Abstract adapter."""
 

@@ -190,12 +190,21 @@ def init_blip2_itm(cfg: Blip2ITMConfig, seed: int, device,
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Blip2ITMModel(cfg, device, dtype)
+    init_tower_qformer_(model, gen)
+    init_linear_(gen, model.itm_head)
+    return model
 
-    def lin(*leaves):
-        for leaf in leaves:
-            tclip.normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
-            leaf.b.zero_()
 
+def init_linear_(gen: torch.Generator, *leaves) -> None:
+    """Linears N(0, 1/d_in) with zero biases, in place."""
+    for leaf in leaves:
+        tclip.normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
+        leaf.b.zero_()
+
+
+def init_tower_qformer_(model: nn.Module, gen: torch.Generator) -> None:
+    """Fill ``model.vision``, ``model.qformer`` and ``model.query_tokens`` in
+    place with init_blip2_itm's distributions (InstructBLIP shares them)."""
     v = model.vision
     tclip.normal_(v.class_emb, 0.02, gen)
     tclip.normal_(v.patch_w, v.patch_w.shape[0] ** -0.5, gen)
@@ -210,14 +219,13 @@ def init_blip2_itm(cfg: Blip2ITMConfig, seed: int, device,
     for layer in qf.layers:
         for attn in (layer.self_attn, layer.cross):
             if attn is not None:
-                lin(*(x for x in (attn.qkv, attn.q, attn.kv, attn.o) if x is not None))
+                init_linear_(gen, *(x for x in (attn.qkv, attn.q, attn.kv, attn.o)
+                                    if x is not None))
                 tclip.init_norm_(attn.ln)
         for ffn in (layer.ffn_query, layer.ffn_text):
-            lin(ffn.fc1, ffn.fc2)
+            init_linear_(gen, ffn.fc1, ffn.fc2)
             tclip.init_norm_(ffn.ln)
     tclip.normal_(model.query_tokens, 0.02, gen)
-    lin(model.itm_head)
-    return model
 
 
 # ---------------------------------------------------------------------------

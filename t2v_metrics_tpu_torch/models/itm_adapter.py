@@ -24,8 +24,7 @@ from ..constants import CLIP_MEAN, CLIP_STD
 from ..engine.scoring import _HostScores, encode_by_shape, unique_visuals
 from ..ops.image import normalize_flat, resize_uint8_levels_flat
 from . import blip2_itm as bitm
-from . import checkpoint as ckpt
-from .adapters import ScoreModel, cached_tokenizer, default_dtype, load_checkpoint_tree
+from .adapters import ScoreModel, cached_tokenizer, family_params
 
 
 def itm_preprocess(pixels: torch.Tensor, size: int) -> torch.Tensor:
@@ -53,34 +52,16 @@ class Blip2ITMAdapter(ScoreModel):
     video_mode = "concat"
 
     def load_model(self):
+        from ..bridge import blip2_itm_from_numpy
+
         spec = bitm.BLIP2_ITM_MODELS[self.model_name]
         cfg: bitm.Blip2ITMConfig = self.kwargs.get("config") or spec["config"]
         self.config = cfg
-        device = self.device
-        dtype = self.kwargs.get("dtype") or default_dtype(device)
-        params = self.kwargs.get("params")
-        if params is None:
-            path = self.kwargs.get("checkpoint")
-            if path is None and self.kwargs.get("init") != "random" \
-                    and spec["hf"] is not None:
-                path = ckpt.resolve_snapshot(spec["hf"], self.cache_dir)
-            if path is not None:
-                params = self._load_checkpoint(path, cfg, dtype)
-            else:
-                params = bitm.init_blip2_itm(cfg, self.kwargs.get("seed", 0), device, dtype)
-        if not isinstance(params, bitm.Blip2ITMModel):
-            from ..bridge import blip2_itm_from_numpy
-
-            params = blip2_itm_from_numpy(params, cfg, device, dtype)
-        self.params = params
+        self.params = family_params(self, spec["hf"], cfg, bitm.Blip2ITMModel,
+                                    bitm.init_blip2_itm, bitm.convert_blip2_itm,
+                                    blip2_itm_from_numpy)
         self.tokenizer = cached_tokenizer(self.kwargs, spec["hf"], cfg.qformer.vocab_size,
                                           self.cache_dir)
-
-    def _load_checkpoint(self, path: str, cfg, dtype) -> dict:
-        from ..bridge import blip2_itm_from_numpy
-
-        return load_checkpoint_tree(path, bitm.convert_blip2_itm, blip2_itm_from_numpy, cfg,
-                                    self.model_name, dtype)
 
     def load_images(self, images):
         return images  # decoded and preprocessed in batches

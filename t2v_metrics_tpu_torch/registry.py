@@ -1,38 +1,42 @@
-"""Model registry of the port: name -> adapter, for the three scorers."""
+"""Model registry of the port: name -> adapter, for the three scorers.
+
+The VQAScore families are listed in the JAX registry's order; their modules
+are imported when a list or an adapter is first asked for."""
 
 from __future__ import annotations
 
 
-def list_all_vqascore_models() -> list[str]:
-    from .models.adapters import CLIP_T5_MODELS
+def _vqa_families():
+    """(names, adapter class) of each VQAScore family, in order."""
+    from .models.adapters import CLIP_T5_MODELS, CLIPT5Adapter
     from .models.gemma3 import GEMMA3_MODELS
+    from .models.gemma4 import GEMMA4_MODELS
+    from .models.gemma_adapters import Gemma3Adapter, Gemma4Adapter, PaliGemmaAdapter
+    from .models.instructblip import INSTRUCTBLIP_MODELS
+    from .models.instructblip_adapter import InstructBlipAdapter
+    from .models.llava import LLAVA_MODELS
+    from .models.llava_adapter import LlavaAdapter
+    from .models.paligemma import PALIGEMMA_MODELS
     from .models.qwen2vl import QWEN2_VL_MODELS
+    from .models.qwen2vl_adapter import Qwen2VLAdapter
     from .models.qwen3vl import QWEN3_VL_MODELS
+    from .models.qwen3vl_adapter import Qwen3VLAdapter
 
-    return [*CLIP_T5_MODELS, *QWEN2_VL_MODELS, *QWEN3_VL_MODELS, *GEMMA3_MODELS]
+    return [(CLIP_T5_MODELS, CLIPT5Adapter), (QWEN2_VL_MODELS, Qwen2VLAdapter),
+            (QWEN3_VL_MODELS, Qwen3VLAdapter), (GEMMA3_MODELS, Gemma3Adapter),
+            (PALIGEMMA_MODELS, PaliGemmaAdapter), (GEMMA4_MODELS, Gemma4Adapter),
+            (LLAVA_MODELS, LlavaAdapter), (INSTRUCTBLIP_MODELS, InstructBlipAdapter)]
+
+
+def list_all_vqascore_models() -> list[str]:
+    return [name for names, _ in _vqa_families() for name in names]
 
 
 def get_vqascore_model(model_name: str, device=None,
                        cache_dir: str | None = None, **kwargs):
-    from .models.adapters import CLIP_T5_MODELS, CLIPT5Adapter
-    from .models.gemma3 import GEMMA3_MODELS
-    from .models.qwen2vl import QWEN2_VL_MODELS
-    from .models.qwen3vl import QWEN3_VL_MODELS
-
-    if model_name in CLIP_T5_MODELS:
-        return CLIPT5Adapter(model_name, device, cache_dir, **kwargs)
-    if model_name in QWEN2_VL_MODELS:
-        from .models.qwen2vl_adapter import Qwen2VLAdapter
-
-        return Qwen2VLAdapter(model_name, device, cache_dir, **kwargs)
-    if model_name in QWEN3_VL_MODELS:
-        from .models.qwen3vl_adapter import Qwen3VLAdapter
-
-        return Qwen3VLAdapter(model_name, device, cache_dir, **kwargs)
-    if model_name in GEMMA3_MODELS:
-        from .models.gemma_adapters import Gemma3Adapter
-
-        return Gemma3Adapter(model_name, device, cache_dir, **kwargs)
+    for names, adapter in _vqa_families():
+        if model_name in names:
+            return adapter(model_name, device, cache_dir, **kwargs)
     raise ValueError(f"unknown VQAScore model {model_name!r}; "
                      f"available: {list_all_vqascore_models()}")
 

@@ -27,6 +27,23 @@ def splice_image_tokens_t5(prompt: str, tokenizer,
     return out
 
 
+def splice_image_tokens(prompt: str, tokenizer,
+                        image_token_index: int = IMAGE_TOKEN_INDEX) -> list[int]:
+    """Decoder-only (BOS-keeping) splicing, the reference LLaVA's
+    ``tokenizer_image_token``: each chunk is tokenized with special tokens;
+    a leading BOS is kept once, from the first chunk, and each ``<image>``
+    is one ``image_token_index``."""
+    chunks = [tokenizer(chunk).input_ids for chunk in prompt.split("<image>")]
+    bos = getattr(tokenizer, "bos_token_id", None)
+    offset = 1 if (chunks and chunks[0] and bos is not None and chunks[0][0] == bos) else 0
+    out: list[int] = chunks[0][:offset]
+    for i, chunk in enumerate(chunks):
+        if i:
+            out.append(image_token_index)
+        out.extend(chunk[offset:])
+    return out
+
+
 def load_hf_tokenizer(path: str, **kwargs):
     """Load a fast tokenizer from a local directory or the local HF cache;
     never from the network. Needs ``transformers``, which the GPU machine

@@ -724,3 +724,84 @@ def test_int8_kernels_at_decode_rows(dev, k, n):
     leaf = TQ.Linear(_randn(dev, k, n, seed=1, std=k ** -0.5)).quantize_()
     out = TQ.quant_matmul(xq, leaf.w_q, xs, leaf.scale)
     assert torch.equal(out, TQ.quant_matmul_plain(xq, leaf.w_q, xs, leaf.scale))
+
+
+# ---------------------------------------------------------------------------
+# Sites of PaliGemma, Gemma 4, LLaVA-1.5 and InstructBLIP
+# ---------------------------------------------------------------------------
+
+def _prefix_ids(dev, lens, s):
+    """PaliGemma's overlay: group 0 on each row's valid prefix, -1 on its
+    pad rows."""
+    rows = torch.arange(s, device=dev)[None]
+    return torch.where(rows < torch.tensor(lens, device=dev)[:, None], 0, -1).int()
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,window,lens,blocks", [
+    (2, 2048, 8, 1, 256, None, (1050, 1031), "prefix"),   # PaliGemma-448, MQA 8/1
+    (1, 4352, 8, 1, 256, None, (4130,), "prefix"),        # PaliGemma-896, past 4096
+    (1, 1536, 32, 16, 128, 1024, (1300,), ((10, 256), (600, 256))),  # Gemma 4-31b
+    (2, 512, 16, 8, 256, 1024, (300, 290), ((5, 256),)),  # Gemma 4-12b
+    (2, 704, 32, 32, 128, None, (700, 650), ()),          # LLaVA-7b, MHA
+])
+def test_attention_kernel_family_prefill_sites(dev, b, s, h, kvh, d, window, lens, blocks):
+    """The decoder prefills of the new families: causal, kv_mask on each
+    row's pad, and the overlay (PaliGemma's one group over the whole valid
+    prompt, Gemma 4's image blocks) with the window where the layer has
+    one; against the plain version, one launch."""
+    qkv = _randn(dev, b, s, (h + 2 * kvh) * d, seed=21)
+    mask = torch.arange(s, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask, local_window=window)
+    if blocks == "prefix":
+        kw["bidir_ids"] = _prefix_ids(dev, lens, s)
+    elif blocks:
+        kw["bidir_ids"] = _bidir(dev, b, s, blocks)
+    before = launch_counts()["flash_attention_flat"]
+    out = A.attention_flat_packed(qkv, h, **kw)
+    assert launch_counts()["flash_attention_flat"] == before + 1
+    q, k, v, _ = A._split_packed(qkv, h, kvh)
+    ref = torch.cat([A.attention_flat_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], h,
+                                                **{**kw, "kv_mask": mask[i:i + 1],
+                                                   **({"bidir_ids": kw["bidir_ids"][i:i + 1]}
+                                                      if "bidir_ids" in kw else {})})
+                     for i in range(b)])
+    _close_attn(out, ref)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,window,step", [
+    (2, 512, 16, 8, 256, 1024, 4),     # Gemma 4-12b's rollout: GQA 16/8
+    (2, 2048, 8, 1, 256, None, 7),     # PaliGemma's generate: MQA over a kv head of 1
+    (4, 704, 32, 32, 128, None, 7),    # LLaVA-7b's generate
+])
+def test_attention_kernel_family_decode_sites(dev, b, s, h, kvh, d, window, step):
+    q, k, v, mask = _decode_operands(dev, b, s, h, kvh, d, step, max(1, s - 100), seed=23)
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask, local_window=window)
+    _close_attn(A.flash_attention_flat(q, k, v, h, **kw),
+                A.attention_flat_reference(q, k, v, h, **kw))
+
+
+def test_attention_kernel_siglip_and_instructblip_sites(dev):
+    """SigLIP-224 / 448 in the flat kernel at d 72; InstructBLIP's Q-Former
+    self-attention over 32 queries + instruction tokens under kv_mask (d 64)
+    and its T5-xl encoder over 32 query rows + the prompt with the dense
+    bias and kv_mask (scale 1)."""
+    for s in (256, 1024):
+        qkv = _randn(dev, 2, s, 3 * 16 * 72, seed=s)
+        q, k, v, _ = A._split_packed(qkv, 16, None)
+        _close_attn(A.attention_flat_packed(qkv, 16), A.attention_flat_reference(q, k, v, 16))
+    qkv = _randn(dev, 8, 32 + 20, 3 * 12 * 64, seed=31)
+    m = torch.arange(52, device=dev)[None] < torch.tensor([[52], [45], [40], [52], [38], [50],
+                                                           [41], [47]], device=dev)
+    q, k, v, _ = A._split_packed(qkv, 12, None)
+    _close_attn(A.attention_flat_packed(qkv, 12, kv_mask=m),
+                A.attention_flat_reference(q, k, v, 12, kv_mask=m))
+    from t2v_metrics_tpu_torch.ops.position import compute_position_bias
+
+    s = 32 + 25
+    qkv = _randn(dev, 4, s, 3 * 32 * 64, seed=32)
+    rel = _randn(dev, 32, 32, seed=33, dtype=torch.float32, std=3.0)
+    bias = compute_position_bias(rel.T, s, s, True, 32, 128).float().contiguous()
+    m = torch.arange(s, device=dev)[None] < torch.tensor([[57], [50], [44], [57]], device=dev)
+    q, k, v, _ = A._split_packed(qkv, 32, None)
+    _close_attn(A.attention_flat_packed(qkv, 32, bias=bias, kv_mask=m, scale=1.0),
+                A.attention_flat_reference(q, k, v, 32, bias=bias, kv_mask=m, scale=1.0))
