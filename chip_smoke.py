@@ -56,8 +56,16 @@ Phases (any failure exits non-zero and prints no result line):
      Q-Former over 32 queries + the instruction, the T5-xl encoder over 32
      query rows + the prompt, three decode sites, each with two wrong
      plain versions that must fail; RMSNorm at d 2048 / 3840 / 4096 / 5376
-     and rope on the new packed layouts) (``--kernels-only`` stops here,
-     with no result line);
+     and rope on the new packed layouts); and at the sites of InternVL and
+     Molmo2 (``new_family_kernels``: InternViT-300M's packed attention at d
+     64 over 1025 rows for 10 and 32 tiles, InternViT-6B's separate q, k, v
+     at d 128 over 1025 rows, internvl3.5-8b's prefill over 16 x ~2650 rows
+     and its 32-tile video prefill over 2 x ~8330 rows (GQA 32/8, causal,
+     kv_mask), its decode step over ~2700 slots, molmo2-4b's prefill and
+     decode at d 80, each with two wrong plain versions that must fail;
+     RMSNorm at 3200, LayerNorm at 4096 / 12800, add + LN at 1024 eps 1e-6,
+     the qk-norm of 32 + 8 heads, rope on 40 heads of 128 and of 80)
+     (``--kernels-only`` stops here, with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
      full, and 2 decoder layers; Qwen3-VL-30B-A3B widths with 2 ViT and 2
@@ -85,7 +93,12 @@ Phases (any failure exits non-zero and prints no result line):
      decoder layers, or 2 EVA + 2 Q-Former + 2+2 T5 layers with the T5
      scale folded) on 1024x1024 images, card bf16 against CPU fp32 (5e-2
      and 2.5e-2 nats), and Gemma 4 at 12b and 31b widths through forced
-     tokens (``generation_chain``, 5e-2 a row and a step);
+     tokens (``generation_chain``, 5e-2 a row and a step); internvl3.5-8b
+     (a 1024x1024 image, 10 tiles), internvl3.5-38b (the 6B tower's RMSNorm
+     blocks and flattened qk-norm) and internvl3.5-30b-a3b (the MoE) at 2
+     tower + 2 decoder layers on one image x 2 texts (5e-2 nats, launch
+     counts against the code's) and molmo2-8b through forced tokens (5e-2
+     a row and a step);
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -124,10 +137,16 @@ Phases (any failure exits non-zero and prints no result line):
      depth: 4 x 4 on 1024x1024 images with launch counts against the
      code's, ``batch_forward`` of 8 x (1, 4), pairs/s, peak memory at load
      and while scoring, and ``generate`` of 8 tokens (PaliGemma one
-     sequence, LLaVA and InstructBLIP 4; Gemma 4's score is its rollout).
+     sequence, LLaVA and InstructBLIP 4; Gemma 4's score is its rollout);
+     ``VQAScore("internvl3.5-8b" / "molmo2-8b", init="random")`` at full
+     depth: 4 x 4 on 1024x1024 images (10 tiles an image for InternVL),
+     ``batch_forward`` of 8 x (1, 4) at 300x380 (13 tiles), one seeded clip
+     as a ``DecodedVideo`` x 2 texts (32 tiles, or 8 frames for Molmo2),
+     each with launch counts against the code's, pairs/s, peak memory, and
+     ``generate`` of 8 tokens over the 4 images.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the checkpoint-loaded xl, the thirteen
-slices and the three video slices, and over the generate and trace runs; a
+summed over the first calls of the checkpoint-loaded xl, the fifteen
+slices and the video slices and calls, and over the generate and trace runs; a
 row's
 ``sites`` are
 further shapes of the main path, each with its times, bound and library
@@ -731,6 +750,8 @@ def phase_kernels() -> dict:
     decode_kernels(randn, record, lengths_mask)
     free_cuda()
     family_kernels(randn, record, lengths_mask)
+    free_cuda()
+    new_family_kernels(randn, record, lengths_mask)
     return results
 
 
@@ -3570,6 +3591,399 @@ def phase_family_slice(model: str, device: str = "cuda", side: int = 1024,
 
 
 # ---------------------------------------------------------------------------
+# InternVL 3 / 3.5 and Molmo2: kernel sites (phase 2), chains (phase 3) and
+# slices (phase 4)
+# ---------------------------------------------------------------------------
+
+INTERNVL = "internvl3.5-8b"
+INTERNVL_38B = "internvl3.5-38b"
+INTERNVL_MOE = "internvl3.5-30b-a3b"
+MOLMO2 = "molmo2-8b"
+# the four chains' bar: card bf16 against CPU fp32, as the other decoder
+# families' (Molmo2's forced-token rollout a step and a row's mean)
+NEW_FAMILY_CHAIN_TOL_NATS = 5e-2
+
+
+def separate_site(record, label, q, k, v, heads, wrongs) -> None:
+    """A flat attention site over separate q, k, v (B, S, H*d) operands with
+    no mask (InternViT-6B): the kernel against its plain version, each of
+    ``wrongs`` ((name, kw override) pairs: wrong plain versions) refused by
+    the tolerance, the bound (every pair of each image; q, k, v read and the
+    output written once) and SDPA on (B, H, S, d) views of the same
+    tensors."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    b, s, hd = q.shape
+    d = hd // heads
+    ref = A.attention_flat_reference(q, k, v, heads)
+    for wrong, over in wrongs:
+        caught, why = attention_agrees(A.attention_flat_reference(q, k, v, heads, **over), ref)
+        log(f"[kernel] flash_attention_flat {label} negative control, plain version with "
+            f"{wrong}: {why}")
+        check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v))
+    ops = 4 * b * heads * s * s * d
+    attention_site(record, label, lambda: A.flash_attention_flat(q, k, v, heads),
+                   lambda: A.attention_flat_reference(q, k, v, heads), ops, 2 * 4 * b * s * hd,
+                   ("F.scaled_dot_product_attention (no mask)",
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+
+
+def new_family_kernels(randn, record, lengths_mask) -> None:
+    """The kernel sites of the InternVL and Molmo2 paths that no earlier
+    slice runs, each against its plain version with two wrong plain
+    versions that must fail, its bound and SDPA's time: InternViT-300M's
+    packed attention at d 64 over 1025 rows (the last 64-row q tile holds
+    one row) for one 1024x1024 image (10 tiles) and for a 32-tile clip;
+    InternViT-6B's separate q, k, v (10, 1025, 3200), 25 heads of 128;
+    internvl3.5-8b's prefill (16 pairs of ~2650 rows, GQA 32/8, causal,
+    kv_mask), its video prefill (2 x ~8330 rows, the longest causal
+    prefill of the port) and one decode step over ~2700 slots; molmo2-4b's
+    prefill and decode step at d 80 (causal GQA 32/8); RMSNorm at 3200 (the
+    6B blocks and its flattened q / k norm) and the qk-norm of 32 + 8 heads
+    of 128; LayerNorm at the projectors' 4096 and 12800 and add + LN at the
+    300M blocks' 1024, eps 1e-6; rope on 32 + 8 heads of 128 and of 80. The
+    plain versions of the GQA sites run one kv head at a time."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+    from t2v_metrics_tpu_torch.ops import norms as N
+    from t2v_metrics_tpu_torch.ops import rope as R
+
+    sdpa = F.scaled_dot_product_attention
+    for b, what in ((10, "one 1024x1024 image's 10 tiles"), (32, "a clip's 32 tiles")):
+        packed = randn(b, 1025, 3 * 1024)
+        qh, kh, vh = A.packed_heads(packed, 16)
+        cut = (torch.arange(1025, device="cuda") < 1025 - 64).expand(b, 1025)
+        ms = library_ms(lambda: sdpa(qh, kh, vh), "F.scaled_dot_product_attention")  # noqa: B023
+        ops = 4 * b * 16 * 1025 * 1025 * 64
+        checked_site(record, f"InternViT-300M ({b}, 1025, 3x1024) d=64 packed, no mask, "
+                     f"{what}", packed, 16, {},
+                     (("the scale doubled", {"scale": 0.25}),
+                      ("the last 64 keys dropped", {"kv_mask": cut})),
+                     dict(flop=ops, lower=(ops, 2 * b * 1025 * 4 * 1024, "bf16"),
+                          library=None if ms is None else
+                          ("F.scaled_dot_product_attention (no mask)", ms)))
+        del packed, qh, kh, vh
+    free_cuda()
+    w = randn(3200)
+    q, k = (N.rms_norm_fused(randn(10, 1025, 3200), w) for _ in range(2))
+    v = randn(10, 1025, 3200)
+    cut = (torch.arange(1025, device="cuda") < 1025 - 64).expand(10, 1025)
+    separate_site(record, "InternViT-6B q, k, v (10, 1025, 3200) d=128, 25 heads, q and k "
+                  "RMS-normalized over 3200, no mask", q, k, v, 25,
+                  (("scale 1/8", {"scale": 0.125}), ("the last 64 keys dropped",
+                                                     {"kv_mask": cut})))
+    del q, k, v
+    free_cuda()
+
+    # the decoders' prefills: internvl3.5-8b's 4 x 4 at 1024x1024 (10 tiles,
+    # 2560 image rows + the conversation), its 32-tile video (8192 + the
+    # conversation, 2 texts), molmo2-4b's 4 x 4 (144 image rows) at d 80
+    for label, b, s, lo, hi, d in (
+            ("internvl3.5-8b prefill", 16, 2688, 2630, 2680, 128),
+            ("internvl3.5-8b video prefill, 32 tiles", 2, 8384, 8320, 8340, 128),
+            ("molmo2-4b prefill", 16, 256, 160, 180, 80)):
+        mask = lengths_mask(b, s, lo, hi)
+        checked_site(record, f"{label} ({b}, {s}, 48x{d}) d={d}, GQA 32/8, causal, kv_mask "
+                     f"({lo}-{hi} rows)", randn(b, s, 48 * d), 32,
+                     dict(kv_heads=8, causal=True, kv_mask=mask),
+                     (("no causal mask", {"causal": False}),
+                      ("no kv_mask", {"kv_mask": torch.ones_like(mask)})))
+        free_cuda()
+    for label, b, s, d in (("internvl3.5-8b generate", 4, 2688, 128),
+                           ("molmo2-4b generate", 4, 256, 80)):
+        cache_attention_site(
+            record, randn, f"{label} decode, q ({b}, 1, 32x{d}) over a ({b}, {s + 32}, "
+            f"8x{d}) cache view of {s + DECODE_STEP + 1} slots, GQA 32/8, kv_mask",
+            b, s, 32, 8, d, lengths_mask(b, s, s - 60, s - 8),
+            wrongs=(("no kv_mask", {"kv_mask": None}),
+                    ("the scale doubled", {"scale": 2 * d ** -0.5})))
+        free_cuda()
+
+    # norms: the 6B tower's RMSNorm at 3200 (blocks, flattened q / k), the
+    # projectors' LayerNorm at 4096 (300M) and 12800 (6B), eps 1e-5, the 300M
+    # blocks' add + LN at 1024, eps 1e-6
+    x, w = randn(10 * 1025, 3200, std=3.0), randn(3200)
+    out, ref = N.rms_norm_fused(x, w), N.rms_norm_plain(x, w)
+    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
+    record("rms_norm", "InternViT-6B (10250, 3200)", out, ref, bad == 0,
+           f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max {bf16_ulps(out, ref)} "
+           "bf16 ulps", lambda: N.rms_norm_fused(x, w), lambda: N.rms_norm_plain(x, w), False,
+           lower=(5 * x.numel(), 4 * x.numel() + 2 * 3200, "fp32"),
+           library=("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (3200,), w, 1e-6))),
+           site=True)
+    for rows, d in ((10 * 256, 4096), (10 * 256, 12800)):
+        x, w, bias = randn(rows, d, std=3.0), randn(d), randn(d)
+        out, ref = N.layer_norm_fused(x, w, bias), N.layer_norm_plain(x, w, bias)
+        bad = outside(out, ref, NORM_ATOL, LN_RTOL)
+        record("layer_norm", f"InternVL projector ({rows}, {d})", out, ref, bad == 0,
+               f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; max {bf16_ulps(out, ref)} "
+               "bf16 ulps", lambda: N.layer_norm_fused(x, w, bias),  # noqa: B023
+               lambda: N.layer_norm_plain(x, w, bias), False,  # noqa: B023
+               lower=(8 * rows * d, 4 * rows * d + 4 * d, "fp32"),
+               library=("F.layer_norm", cuda_ms(
+                   lambda: F.layer_norm(x, (d,), w, bias, 1e-5))),  # noqa: B023
+               site=True)
+    x, r, w, bias = randn(10 * 1025, 1024, std=3.0), randn(10 * 1025, 1024), randn(1024), \
+        randn(1024)
+    (s, out), s_ref = N.add_layer_norm_fused(x, r, w, bias, 1e-6), x + r
+    ref = N.layer_norm_plain(s_ref, w, bias, 1e-6)
+    bad, same = outside(out, ref, NORM_ATOL, LN_RTOL), bool(torch.equal(s, s_ref))
+    record("layer_norm", "InternViT-300M add + LN (10250, 1024) eps 1e-6", out, ref,
+           bad == 0 and same, f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; max "
+           f"{bf16_ulps(out, ref)} bf16 ulps; s bitwise x + r: {same}",
+           lambda: N.add_layer_norm_fused(x, r, w, bias, 1e-6),
+           lambda: N.add_layer_norm_plain(x, r, w, bias, 1e-6), False,
+           lower=(9 * x.numel(), 8 * x.numel() + 4 * 1024, "fp32"),
+           library=("x + r, then F.layer_norm (two calls)", cuda_ms(
+               lambda: F.layer_norm(x + r, (1024,), w, bias, 1e-6))), site=True)
+    del x, r, s, out, ref, s_ref
+    pk, qs, ks = randn(16 * 2688, 48 * 128, std=3.0), randn(128), randn(128)
+    buf = pk.clone()
+    out = N.rms_norm_heads_fused(buf, qs, ks, 32, 8, 128)
+    ref = N.rms_norm_heads_plain(pk, qs, ks, 32, 8, 128)
+    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
+    v_same = bool(torch.equal(out[:, 40 * 128:], pk[:, 40 * 128:]))
+    record("rms_norm", "internvl3.5-8b qk-norm (43008, 48x128), 32+8 heads of 128 in place",
+           out, ref, bad == 0 and v_same, f"{bad} outside atol {NORM_ATOL} + rtol "
+           f"{RMS_RTOL}; max {bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
+           lambda: N.rms_norm_heads_fused(buf, qs, ks, 32, 8, 128),
+           lambda: N.rms_norm_heads_plain(pk, qs, ks, 32, 8, 128), False,
+           lower=(5 * 40 * 128 * 16 * 2688, 4 * 40 * 128 * 16 * 2688 + 4 * 128, "fp32"),
+           site=True)
+    del pk, buf, out, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for label, b, s, d in (("internvl3.5-8b", 16, 2688, 128), ("molmo2-4b", 16, 256, 80)):
+        pk = randn(b, s, 48 * d)
+        ang = (torch.randint(0, 8192, (b, s, 1), generator=gen, device="cuda").float()
+               * randn(d, dtype=torch.float32).abs())
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        buf = pk.clone()
+        out, ref = R.rope_pack(buf, cos, sin, 40, d), R.rope_pack_plain(pk, cos, sin, 40, d)
+        bad = outside(out, ref, NORM_ATOL, ROPE_RTOL)
+        v_same = bool(torch.equal(out[..., 40 * d:], pk[..., 40 * d:]))
+        record("rope_pack", f"{label} ({b}, {s}, {48 * d}) 40 heads of {d}", out, ref,
+               bad == 0 and v_same, f"{bad} outside atol {NORM_ATOL} + rtol {ROPE_RTOL}; "
+               f"max {bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
+               lambda: R.rope_pack(buf, cos, sin, 40, d),  # noqa: B023
+               lambda: R.rope_pack_plain(pk, cos, sin, 40, d), False,  # noqa: B023
+               lower=(3 * b * s * 40 * d, 4 * b * s * 40 * d + 8 * b * s * d, "fp32"),
+               site=True)
+        del pk, buf, out, ref, cos, sin, ang
+    free_cuda()
+
+
+def new_family_chain_config(model: str):
+    """``model``'s registry config at full width, cut to 2 tower layers (3
+    for Molmo2's CLIP tower, of which feature layer -2 runs 2) and 2 decoder
+    layers. InternVL's and Molmo2's heads are untied in the models
+    themselves."""
+    from t2v_metrics_tpu_torch.models.internvl import INTERNVL_MODELS
+    from t2v_metrics_tpu_torch.models.molmo2 import MOLMO2_MODELS
+
+    cfg = {**INTERNVL_MODELS, **MOLMO2_MODELS}[model]["config"]
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, layers=3 if model == MOLMO2 else 2),
+        text=dataclasses.replace(cfg.text, layers=2))
+
+
+def internvl_launches(cfg, tiles_calls: int, passes: int = 1) -> dict:
+    """The launches of InternVL scoring, from the code: ``tiles_calls`` tower
+    calls (one a distinct visual), each a flat attention a layer and, in the
+    300M tower, an add + LayerNorm twice a layer (RMSNorm four times a layer
+    in the 6B tower: the block norms and the flattened q / k norm), and the
+    projector's LayerNorm; then ``passes`` decoder passes of a flat
+    attention, rope and the qk-norm a layer, two RMSNorms a layer and the
+    final one (and two grouped GEMMs a layer with the MoE dispatch)."""
+    v, text = cfg.vision, cfg.text
+    want = dict.fromkeys(KERNELS, 0)
+    rms_layers = 4 * v.layers if v.norm_type == "rms" else 0
+    want.update(flash_attention_flat=tiles_calls * v.layers + passes * text.layers,
+                layer_norm=tiles_calls * ((2 * v.layers if v.norm_type == "layer" else 0) + 1),
+                rms_norm=tiles_calls * rms_layers
+                + passes * ((3 if text.qk_norm else 2) * text.layers + 1),
+                rope_pack=passes * text.layers,
+                grouped_gemm=passes * 2 * text.layers if text.moe_dispatch else 0)
+    return want
+
+
+def molmo2_launches(cfg, tower_calls: int, passes: int = 1) -> dict:
+    """The launches of Molmo2 scoring, from the code: ``tower_calls`` CLIP
+    tower calls (one a group of same-shape images or a video) to feature
+    layer -2 (ln_pre and two LayerNorms a block run, the last block not),
+    then ``passes`` decoder passes (the prefill and each cached step) of a
+    flat attention, rope and the qk-norm a layer, two RMSNorms a layer and
+    the final one."""
+    v, text = cfg.vision, cfg.text
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention_flat=tower_calls * (v.layers - 1) + passes * text.layers,
+                layer_norm=tower_calls * (1 + 2 * (v.layers - 1)),
+                rms_norm=passes * (3 * text.layers + 1), rope_pack=passes * text.layers)
+    return want
+
+
+def molmo2_generation_prompt(adapter, images, texts):
+    """Molmo2's batched prompt: (embeds, positions, prompt lengths, None,
+    None)."""
+    embeds, lens = adapter._prompt_embeds(images, texts)
+    b, s = embeds.shape[:2]
+    return embeds, np.broadcast_to(np.arange(s), (b, s)).copy(), lens, None, None
+
+
+def phase_new_family_chain(model: str, device: str = "cuda", n: int = 2) -> None:
+    """One chain (``new_family_chain_config``), the card in bf16 with the
+    kernels against the CPU in fp32 with the plain versions, on one set of
+    random parameters: InternVL's log P(first answer token) of score_matrix
+    within 5e-2 nats (internvl3.5-8b on a seeded 1024x1024 image, 10 tiles
+    and 2560 image rows; the 6B tower of internvl3.5-38b and the MoE of
+    internvl3.5-30b-a3b on a 448x448 one, one tile), with the launch counts
+    of the card's call against the code's; Molmo2's greedy rollout through
+    forced tokens (``generation_chain``: each row's mean and every step
+    within 5e-2) on 2 seeded 1024x1024 images."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.models import internvl, molmo2
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = new_family_chain_config(model)
+    init, cls = ((molmo2.init_molmo2, molmo2.Molmo2Model) if model == MOLMO2
+                 else (internvl.init_internvl, internvl.InternVLModel))
+    card = init(cfg, SEED + 8, device, torch.bfloat16)
+    host = cls(cfg, "cpu", torch.float32)
+    with torch.no_grad():
+        dst = host.state_dict()
+        for name, t in card.state_dict().items():
+            dst[name].copy_(t.float().cpu())
+    kw = dict(config=cfg, tokenizer=t2v.SimpleT5Tokenizer(cfg.text.vocab_size))
+    scorers = [t2v.VQAScore(model, params=p, device=d, **kw)
+               for p, d in ((card, device), (host, "cpu"))]
+    tag = f"[{model} chain]"
+    widths = f"{cfg.vision.layers} tower + {cfg.text.layers} decoder layers"
+    texts = seeded_texts(n, 172)
+    if model == MOLMO2:
+        images = seeded_images(2, 171, 1024, 1024)
+        pairs = [images[i % 2] for i in range(n)]
+        log(f"{tag} full widths, {widths} (feature layer -2 runs {cfg.vision.layers - 1}), "
+            f"{n} prompts of 1024x1024 images")
+        generation_chain(tag, scorers, lambda a, k: molmo2_generation_prompt(a, pairs, texts),
+                         NEW_FAMILY_CHAIN_TOL_NATS, NEW_FAMILY_CHAIN_TOL_NATS)
+        del card, host, scorers
+        return
+    side = 1024 if model == INTERNVL else 448
+    images = seeded_images(1, 171, side, side)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = np.log(scorers[0].model.score_matrix(images, texts))
+    t1 = time.perf_counter()
+    counts = launch_counts()
+    on_cpu = np.log(scorers[1].model.score_matrix(images, texts))
+    t2 = time.perf_counter()
+    diff = float(np.abs(on_card - on_cpu).max())
+    want = internvl_launches(cfg, 1)
+    log(f"{tag} full widths, {widths}, 1 x {n} on a {side}x{side} image "
+        f"({scorers[0].model._tiles(images[0], 32).shape[0]} tiles): card bf16 "
+        f"{t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; card launches {json.dumps(counts)}")
+    log(f"{tag} log P(first answer token) card {on_card.ravel().round(4).tolist()}")
+    log(f"{tag} log P(first answer token) cpu  {on_cpu.ravel().round(4).tolist()}")
+    log(f"{tag} max |card - cpu| {diff:.4e} nats (limit {NEW_FAMILY_CHAIN_TOL_NATS}); "
+        f"spread over pairs {float(np.ptp(on_cpu)):.4e} nats")
+    check(np.isfinite(on_card).all() and on_card.shape == (1, n),
+          f"{tag} card scores not finite or wrong shape")
+    check(counts == want, f"{tag} launches {counts} != {want}")
+    check(diff <= NEW_FAMILY_CHAIN_TOL_NATS, f"{tag} card and CPU differ by {diff} nats")
+    del card, host, scorers
+
+
+def phase_new_family_slice(model: str, device: str = "cuda", side: int = 1024,
+                           profile: bool = False) -> list:
+    """``VQAScore(model, init="random")`` at full width and depth
+    (internvl3.5-8b, molmo2-8b): 4 x 4 on seeded side x side images with
+    the launch counts of the first call against the code's, scores in [0,
+    1] and repeatable; ``batch_forward`` of 8 x (1 seeded 300x380 image, 4
+    texts) in one chunk equal to the pairwise forward of the same pairs
+    (13 tiles an image for InternVL); one seeded 5 s 30 fps 480x640 clip as
+    a ``DecodedVideo`` with 2 texts (32 tiles for InternVL, 8 frames for
+    Molmo2), its launch counts against the code's; pairs/s of each, peak
+    memory at load and while scoring; ``generate`` of 8 tokens over the 4
+    images (one batched decode). Returns the launch counts of each path."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tag = f"[{model} slice]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer = t2v.VQAScore(model, init="random", seed=SEED, device=device)
+    torch.cuda.synchronize()
+    cfg = scorer.model.config
+    log(f"{tag} random init on {device}: {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of parameters, load peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+    def first_call(media, texts_, label, want):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = scorer(images=media, texts=texts_)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = launch_counts()
+        log(f"{tag} first forward ({label}): {t_first:.3f} s; launches "
+            f"{json.dumps(counts)}; from the code {json.dumps(want)}")
+        check(scores.shape == (len(media), len(texts_)), f"{tag} shape {scores.shape}")
+        check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
+              f"{tag} scores not finite in [0, 1]")
+        check(counts == want, f"{tag} launch counts {counts} != {want}")
+        check(np.array_equal(scores, scorer(images=media, texts=texts_)),
+              f"{tag} second call differs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer(images=media, texts=texts_)
+        torch.cuda.synchronize()
+        log(f"{tag} log scores: {np.log(scores).round(4).tolist()}; pairs/s after warm-up "
+            f"{scores.size / (time.perf_counter() - t0):.2f}")
+        return counts
+
+    images, texts = seeded_images(4, 181, side, side), seeded_texts(4, 182)
+    if model == MOLMO2:
+        want = molmo2_launches(cfg, 1)
+    else:
+        want = internvl_launches(cfg, 4)
+    paths = [first_call(images, texts, f"4 images {side}x{side} x 4 texts", want)]
+
+    pool, pool_texts = seeded_images(8, 183), seeded_texts(32, 184)
+    data = [{"images": [pool[i]], "texts": pool_texts[4 * i:4 * i + 4]} for i in range(8)]
+    rows = scorer.batch_forward(data, batch_size=8)
+    media, texts_ = scorer._flatten_pairs(data, "images", 8)
+    check(rows.shape == (8, 1, 4)
+          and np.array_equal(rows.ravel(), scorer.model.forward(media, texts_)),
+          f"{tag} batch_forward rows differ from the pairwise forward of the same pairs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer.batch_forward(data, batch_size=8)
+    torch.cuda.synchronize()
+    log(f"{tag} batch_forward 8 x (1 300x380 image, 4 texts) rows equal the pairwise forward; "
+        f"log rows spread {float(np.ptp(np.log(rows))):.4e} nats; pairs/s after warm-up "
+        f"{32 / (time.perf_counter() - t0):.2f}")
+    log(f"{tag} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated while "
+        f"scoring images; card {card_line()}")
+    if profile:
+        phase_profile(lambda: scorer.batch_forward(data, batch_size=8),
+                      f"{model} batch_forward")
+
+    torch.cuda.reset_peak_memory_stats()
+    clip = seeded_clip(185)
+    want = molmo2_launches(cfg, 1) if model == MOLMO2 else internvl_launches(cfg, 1)
+    paths.append(first_call([clip], seeded_texts(2, 186), "one 150-frame 480x640 clip at "
+                            "30 fps x 2 texts: "
+                            + ("8 frames" if model == MOLMO2 else "32 tiles"), want))
+    log(f"{tag} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated while "
+        f"scoring video; card {card_line()}")
+    paths.append(phase_generation(scorer, f"[generate] {model}", images, texts, 8,
+                                  profile=profile))
+    del scorer
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Optional phase (--profile): where the device time of batch_forward goes
 # ---------------------------------------------------------------------------
 
@@ -3663,7 +4077,9 @@ def main() -> int:
                   lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl")),
                   phase_scorer_chains,
                   *(lambda model=model: phase_family_chain(model)
-                    for model in (PALIGEMMA, GEMMA4, GEMMA4_31B, LLAVA, INSTRUCTBLIP))):
+                    for model in (PALIGEMMA, GEMMA4, GEMMA4_31B, LLAVA, INSTRUCTBLIP)),
+                  *(lambda model=model: phase_new_family_chain(model)
+                    for model in (INTERNVL, INTERNVL_38B, INTERNVL_MOE, MOLMO2))):
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
@@ -3684,6 +4100,9 @@ def main() -> int:
         free_cuda()
     for model in (PALIGEMMA, GEMMA4, LLAVA, INSTRUCTBLIP):
         slice_counts.extend(phase_family_slice(model, profile=args.profile))
+        free_cuda()
+    for model in (INTERNVL, MOLMO2):
+        slice_counts.extend(phase_new_family_slice(model, profile=args.profile))
         free_cuda()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,

@@ -16,8 +16,9 @@ The entry points run on the GPU and raise without one; ``device="cpu"``
 asks for the CPU. The VQAScore models are clip-flant5 (xl, xxl; xxl also in
 the W8A8 modes ``quant="int8"`` and ``"int8+vit"``), Qwen2.5-VL (3b, 7b,
 32b, 72b), Qwen3-VL (dense and MoE), Gemma 3 (4b, 12b, 27b), PaliGemma
-(mix-224, 448, 896), Gemma 4 (12b, 31b), LLaVA-1.5 (7b, 13b) and
-InstructBLIP (flant5-xl, xxl); CLIPScore takes the OpenCLIP ``pretrain_tag:Arch`` names
+(mix-224, 448, 896), Gemma 4 (12b, 31b), Molmo2 (4b, 7b, 8b), InternVL 3 /
+3.5 (1b to 241b-a28b), LLaVA-1.5 (7b, 13b) and InstructBLIP (flant5-xl,
+xxl); CLIPScore takes the OpenCLIP ``pretrain_tag:Arch`` names
 (ViT-B-32, B-16, L-14, L-14-336) and ITMScore BLIP-2's ITM head
 (``blip2-itm``, ``blip2-itm-coco``); both score video through frames
 concatenated into one image. On CUDA tensors the hot ops run hand-written

@@ -37,7 +37,9 @@ from .models import clip_flant5 as tcft5
 from .models import decoder as tdec
 from .models import gemma3 as tgemma3
 from .models import instructblip as tib
+from .models import internvl as tivl
 from .models import llava as tllava
+from .models import molmo2 as tm2
 from .models import paligemma as tpg
 from .models import qwen2vl as tqwen
 from .models import qwen3vl as tqwen3
@@ -334,6 +336,58 @@ def gemma3_from_numpy(tree: dict, cfg: tgemma3.Gemma3Config, device,
     _load_siglip(model.vision, tree["vision"])
     _norm(model.projector.norm, tree["projector"]["norm"])
     _copy(model.projector.proj, tree["projector"]["proj"])
+    _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+def _unbiased_(dst: Q.Linear, src) -> None:
+    """Drop ``dst``'s bias where the source leaf has none (InternViT's q|k|v
+    carry a bias in the 300M tower's checkpoints, none in the 6B tower's)."""
+    if dst.b is not None and src.get("b") is None:
+        dst.b = None
+
+
+@torch.no_grad()
+def internvl_from_numpy(tree: dict, cfg: tivl.InternVLConfig, device,
+                        dtype) -> tivl.InternVLModel:
+    model = tivl.InternVLModel(cfg, device, dtype)
+    v, src = model.vision, tree["vision"]
+    for name in ("cls", "patch_w", "patch_b", "pos_emb"):
+        _copy(getattr(v, name), src[name])
+    for dst, blk in _pairs(v.blocks, src["blocks"]):
+        _norm(dst.ln1, blk["ln1"])
+        _norm(dst.ln2, blk["ln2"])
+        attn = blk["attn"]
+        if dst.qkv is not None:
+            _unbiased_(dst.qkv, attn["q"])
+            _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
+        else:
+            for name in ("q", "k", "v"):
+                _unbiased_(getattr(dst, name), attn[name])
+                _leaf(getattr(dst, name), attn[name])
+            _norm(dst.q_norm, attn["q_norm"])
+            _norm(dst.k_norm, attn["k_norm"])
+        _unbiased_(dst.o, attn["o"])
+        _leaf(dst.o, attn["o"])
+        _leaf(dst.fc1, blk["mlp"]["fc1"])
+        _leaf(dst.fc2, blk["mlp"]["fc2"])
+        _copy(dst.lambda_1, blk["lambda_1"])
+        _copy(dst.lambda_2, blk["lambda_2"])
+    proj = tree["projector"]
+    _norm(model.projector.ln, proj["ln"])
+    _leaf(model.projector.fc1, proj["fc1"])
+    _leaf(model.projector.fc2, proj["fc2"])
+    _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+@torch.no_grad()
+def molmo2_from_numpy(tree: dict, cfg: tm2.Molmo2Config, device,
+                      dtype) -> tm2.Molmo2Model:
+    model = tm2.Molmo2Model(cfg, device, dtype)
+    _load_vision(model.vision, tree["vision"])
+    _leaf(model.connector.fc1, tree["connector"]["fc1"])
+    _leaf(model.connector.fc2, tree["connector"]["fc2"])
     _load_decoder(model.decoder, tree["decoder"])
     return model
 

@@ -421,6 +421,31 @@ def unique_visuals(visuals):
     return uniq, inv
 
 
+def pair_features(encoded, inv) -> torch.Tensor:
+    """Each pair's visual features (P, T, D): the distinct visuals' (T_i,
+    D) features padded with zero rows to the longest, row ``inv[j]`` for
+    pair j."""
+    t_max = max(f.shape[0] for f in encoded)
+    padded = torch.stack([torch.nn.functional.pad(f, (0, 0, 0, t_max - f.shape[0]))
+                          for f in encoded])
+    return padded[torch.as_tensor(inv, device=padded.device)]
+
+
+def image_slot_arrays(prompts, s: int, image_token_id: int):
+    """(ids, vis_mask, vis_slot) (B, s) of prompt id lists padded to ``s``:
+    ``vis_mask`` true at each prompt's ``image_token_id`` slots,
+    ``vis_slot`` numbering them in order."""
+    b = len(prompts)
+    ids = np.zeros((b, s), np.int64)
+    vis_mask = np.zeros((b, s), bool)
+    vis_slot = np.zeros((b, s), np.int64)
+    for j, p in enumerate(prompts):
+        ids[j, :len(p)] = p
+        vis_mask[j, :len(p)] = ids[j, :len(p)] == image_token_id
+        vis_slot[j][vis_mask[j]] = np.arange(vis_mask[j].sum())
+    return ids, vis_mask, vis_slot
+
+
 def _pad_rows(arrays, nb: int):
     """Pad each array's rows to ``nb`` by repeating its last row."""
     n = len(arrays[0])

@@ -6,7 +6,8 @@ Resize is two dense interpolation-weight matmuls, ``W_h @ img @ W_w.T``,
 whose coefficients reproduce Pillow's resampling; the coefficient matrices
 are built in numpy and cached. Device images use the channel-flattened
 (..., H, W*C) layout of the JAX package, where the W pass is one matmul with
-kron(W_w, I_C).
+kron(W_w, I_C). ``resize_uint8_pillow_flat`` is Pillow's 8-bit resize bit for
+bit: its fixed-point coefficients, summed exactly in float64.
 """
 
 from __future__ import annotations
@@ -172,6 +173,57 @@ def resize_uint8_levels_flat(img: torch.Tensor, out_h: int, out_w: int,
     x = torch.clamp(torch.floor(torch.matmul(img, kw.T) + 0.5), 0.0, 255.0)
     wh = torch.from_numpy(resize_weights(h, out_h, filter)).to(img)
     return torch.clamp(torch.floor(torch.matmul(wh, x) + 0.5), 0.0, 255.0)
+
+
+# Pillow's 8-bit resampling: coefficients in fixed point with 22 fractional
+# bits, each pass summed exactly from half a unit, shifted down and clipped
+_PILLOW_PRECISION = 22
+
+
+@functools.lru_cache(maxsize=64)
+def pillow_fixed_weights(in_size: int, out_size: int, filter: str = "bicubic") -> np.ndarray:
+    """(out_size, in_size) float64 matrix of Pillow's fixed-point coefficients
+    (``normalize_coeffs_8bpc``: the double coefficients of ``resize_weights``
+    times 2^22, rounded half away from zero), integers held exactly."""
+    scale = in_size / out_size
+    kernel_fn, support = _FILTERS[filter]
+    filterscale = max(scale, 1.0)
+    support = support * filterscale
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), in_size)
+        k = kernel_fn((np.arange(lo, hi, dtype=np.float64) + 0.5 - center) / filterscale)
+        s = k.sum()
+        w[i, lo:hi] = k / s if s != 0 else k
+    unit = float(1 << _PILLOW_PRECISION)
+    return np.where(w < 0, np.trunc(w * unit - 0.5), np.trunc(w * unit + 0.5))
+
+
+def resize_uint8_pillow_flat(img: torch.Tensor, out_h: int, out_w: int, channels: int,
+                             filter: str = "bicubic") -> torch.Tensor:
+    """Resize (..., H, W*C) uint8 levels (any dtype) exactly as Pillow resizes
+    a uint8 image: the W pass, then the H pass, each only where the size
+    changes, each an exact float64 sum of pixels times the fixed-point
+    coefficients from half a unit, floored and clipped to [0, 255]. Equal to
+    Pillow bit for bit (upsampling included, where the float pipeline of
+    ``resize_uint8_levels_flat`` may land two levels off). Returns fp32."""
+    *lead, h, wc = img.shape
+    w = wc // channels
+    x = img.to(torch.float64).reshape(*lead, h, w, channels)
+    unit, half = float(1 << _PILLOW_PRECISION), float(1 << (_PILLOW_PRECISION - 1))
+
+    def shift(s):
+        return torch.clamp(torch.floor((s + half) / unit), 0.0, 255.0)
+
+    if out_w != w:
+        kw = torch.from_numpy(pillow_fixed_weights(w, out_w, filter)).to(x.device)
+        x = shift(torch.einsum("pw,...hwc->...hpc", kw, x))
+    if out_h != h:
+        kh = torch.from_numpy(pillow_fixed_weights(h, out_h, filter)).to(x.device)
+        x = shift(torch.einsum("oh,...hpc->...opc", kh, x))
+    return x.reshape(*lead, out_h, out_w * channels).float()
 
 
 def pad_square_flat(img: torch.Tensor, channels: int, fill_rgb) -> torch.Tensor:

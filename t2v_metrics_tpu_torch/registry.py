@@ -14,8 +14,12 @@ def _vqa_families():
     from .models.gemma_adapters import Gemma3Adapter, Gemma4Adapter, PaliGemmaAdapter
     from .models.instructblip import INSTRUCTBLIP_MODELS
     from .models.instructblip_adapter import InstructBlipAdapter
+    from .models.internvl import INTERNVL_MODELS
+    from .models.internvl_adapter import InternVLAdapter
     from .models.llava import LLAVA_MODELS
     from .models.llava_adapter import LlavaAdapter
+    from .models.molmo2 import MOLMO2_MODELS
+    from .models.molmo2_adapter import Molmo2Adapter
     from .models.paligemma import PALIGEMMA_MODELS
     from .models.qwen2vl import QWEN2_VL_MODELS
     from .models.qwen2vl_adapter import Qwen2VLAdapter
@@ -25,6 +29,7 @@ def _vqa_families():
     return [(CLIP_T5_MODELS, CLIPT5Adapter), (QWEN2_VL_MODELS, Qwen2VLAdapter),
             (QWEN3_VL_MODELS, Qwen3VLAdapter), (GEMMA3_MODELS, Gemma3Adapter),
             (PALIGEMMA_MODELS, PaliGemmaAdapter), (GEMMA4_MODELS, Gemma4Adapter),
+            (MOLMO2_MODELS, Molmo2Adapter), (INTERNVL_MODELS, InternVLAdapter),
             (LLAVA_MODELS, LlavaAdapter), (INSTRUCTBLIP_MODELS, InstructBlipAdapter)]
 
 

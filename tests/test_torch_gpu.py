@@ -805,3 +805,76 @@ def test_attention_kernel_siglip_and_instructblip_sites(dev):
     q, k, v, _ = A._split_packed(qkv, 32, None)
     _close_attn(A.attention_flat_packed(qkv, 32, bias=bias, kv_mask=m, scale=1.0),
                 A.attention_flat_reference(q, k, v, 32, bias=bias, kv_mask=m, scale=1.0))
+
+
+def test_attention_kernel_internvit_sites(dev):
+    """InternViT-300M: a packed (B, 1025, 3x1024) projection at d 64, no
+    mask (the last 64-row q tile holds one row); InternViT-6B: separate q,
+    k, v of (B, 1025, 3200), 25 heads of 128, q and k RMS-normalized over
+    the whole width first."""
+    qkv = _randn(dev, 2, 1025, 3 * 1024, seed=41)
+    q, k, v, _ = A._split_packed(qkv, 16, None)
+    _close_attn(A.attention_flat_packed(qkv, 16), A.attention_flat_reference(q, k, v, 16))
+    q, k, v = (_randn(dev, 2, 1025, 3200, seed=42 + i, std=3.0) for i in range(3))
+    w = _randn(dev, 3200, seed=45)
+    q, k = N.rms_norm_fused(q, w), N.rms_norm_fused(k, w)
+    _close_attn(A.flash_attention_flat(q, k, v, 25), A.attention_flat_reference(q, k, v, 25))
+
+
+@pytest.mark.parametrize("rows,d,kind", [(2050, 3200, "rms"), (2048, 12800, "ln"),
+                                         (2048, 4096, "ln"), (2050, 1024, "add_ln")])
+def test_norm_kernels_internvl_widths(dev, rows, d, kind):
+    """RMSNorm at the 6B tower's width 3200; LayerNorm at the projector's
+    shuffled widths 12800 (6B) and 4096 (300M); add + LayerNorm at the
+    300M tower's 1024, eps 1e-6."""
+    x, w, b = _randn(dev, rows, d, seed=46, std=3.0), _randn(dev, d, seed=47), \
+        _randn(dev, d, seed=48)
+    if kind == "rms":
+        _close(N.rms_norm_fused(x, w), N.rms_norm_plain(x, w), 1e-5, 1.6e-2)
+    elif kind == "ln":
+        _close(N.layer_norm_fused(x, w, b, 1e-5), N.layer_norm_plain(x, w, b, 1e-5), 1e-5, 8e-3)
+    else:
+        r = _randn(dev, rows, d, seed=49)
+        s, y = N.add_layer_norm_fused(x, r, w, b, 1e-6)
+        s0, y0 = N.add_layer_norm_plain(x, r, w, b, 1e-6)
+        assert torch.equal(s, s0)
+        _close(y, y0, 1e-5, 8e-3)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,lens", [
+    (2, 2688, 32, 8, 128, (2660, 2600)),   # internvl3.5-8b prefill, a 1024 px image
+    (1, 8384, 32, 8, 128, (8330,)),        # internvl3.5-8b video prefill, 32 tiles
+    (2, 512, 32, 8, 80, (420, 400)),       # molmo2-4b at d 80
+])
+def test_attention_kernel_internvl_molmo2_prefills(dev, b, s, h, kvh, d, lens):
+    qkv = _randn(dev, b, s, (h + 2 * kvh) * d, seed=51)
+    mask = torch.arange(s, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask)
+    out = A.attention_flat_packed(qkv, h, **kw)
+    q, k, v, _ = A._split_packed(qkv, h, kvh)
+    # one kv head's group at a time: the fp32 scores of all heads at once
+    # would not fit
+    g = h // kvh
+    ref = torch.cat([A.attention_flat_reference(
+        q[..., i * g * d:(i + 1) * g * d], k[..., i * d:(i + 1) * d],
+        v[..., i * d:(i + 1) * d], g, **{**kw, "kv_heads": 1}) for i in range(kvh)], dim=-1)
+    _close_attn(out, ref)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,step", [(2, 2688, 32, 8, 128, 5),
+                                              (2, 512, 32, 8, 80, 3)])
+def test_attention_kernel_internvl_molmo2_decode(dev, b, s, h, kvh, d, step):
+    q, k, v, mask = _decode_operands(dev, b, s, h, kvh, d, step, s - 60, seed=52)
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask)
+    _close_attn(A.flash_attention_flat(q, k, v, h, **kw),
+                A.attention_flat_reference(q, k, v, h, **kw))
+
+
+def test_pillow_resize_on_the_card_equals_the_cpu(dev):
+    """The fixed-point resize sums exactly in float64 on the card too."""
+    from t2v_metrics_tpu_torch.ops.image import resize_uint8_pillow_flat
+
+    img = torch.randint(0, 256, (2, 300, 380 * 3), generator=torch.Generator().manual_seed(5),
+                        dtype=torch.uint8)
+    want = resize_uint8_pillow_flat(img, 1344, 1792, 3)
+    assert torch.equal(resize_uint8_pillow_flat(img.to(dev), 1344, 1792, 3).cpu(), want)

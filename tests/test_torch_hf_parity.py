@@ -611,6 +611,134 @@ def test_gemma3_cached_snapshot_matches_jax(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# InternVL 3 / 3.5 (the JAX suites' tests/test_internvl_parity.py and
+# tests/test_internvl35_parity.py: Qwen2 and Qwen3 text, the use_qk_norm RMS
+# tower with a Qwen3-MoE text model of per-expert modules)
+# ---------------------------------------------------------------------------
+
+INTERNVL_IMG = 28
+INTERNVL_SPECIALS = ("<|im_start|>", "<|im_end|>", "<img>", "</img>")
+INTERNVL_WORDS = ("system user assistant Does this figure show \" a photo of cat \" ? "
+                  "Please answer Yes or No . two dogs on grass")
+
+
+def _internvl_hf(text: str):
+    """(HF InternVLForConditionalGeneration, the port's registry name and
+    config) for ``text`` "qwen2", "qwen3" or "qwen3_moe" (with the 6B-style
+    RMS tower and flattened qk-norm)."""
+    from transformers import InternVLForConditionalGeneration
+    from transformers.models.internvl.configuration_internvl import InternVLConfig as HFC
+
+    from t2v_metrics_tpu_torch.models import internvl as tivl
+
+    rms = text == "qwen3_moe"
+    vision = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                  num_attention_heads=4, image_size=[INTERNVL_IMG] * 2, patch_size=[14, 14],
+                  hidden_act="gelu", layer_norm_eps=1e-6, use_absolute_position_embeddings=True,
+                  layer_scale_init_value=0.1, use_qk_norm=rms,
+                  norm_type="rms_norm" if rms else "layer_norm", attention_bias=not rms)
+    tcfg = dict(model_type=text, vocab_size=512, hidden_size=48, intermediate_size=96,
+                num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                hidden_act="silu", rms_norm_eps=1e-6, rope_theta=1_000_000.0,
+                max_position_embeddings=512, tie_word_embeddings=False)
+    if text != "qwen2":
+        tcfg.update(head_dim=16, attention_bias=False)
+    if rms:
+        tcfg.update(moe_intermediate_size=32, num_experts=4, num_experts_per_tok=2,
+                    norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[])
+    torch.manual_seed({"qwen2": 0, "qwen3": 1, "qwen3_moe": 2}[text])
+    hf = InternVLForConditionalGeneration(HFC(
+        vision_config=vision, text_config=tcfg, image_token_id=500, downsample_ratio=0.5,
+        vision_feature_layer=-1, vision_feature_select_strategy="default",
+        projector_hidden_act="gelu")).eval()
+    name = {"qwen2": "internvl3-test", "qwen3": "internvl3.5-test",
+            "qwen3_moe": "internvl3.5-moe-test"}[text]
+    return hf, name, tivl.INTERNVL_MODELS[name]["config"]
+
+
+def _legacy_layout(sd):
+    """transformers 4.57 keys -> the older ``vision_tower.*`` /
+    ``multi_modal_projector.*`` / ``language_model.model.*`` layout."""
+    out = {}
+    for k, v in sd.items():
+        for new, old in (("model.vision_tower.", "vision_tower."),
+                         ("model.multi_modal_projector.", "multi_modal_projector."),
+                         ("model.language_model.", "language_model.model.")):
+            if k.startswith(new):
+                k = old + k[len(new):]
+        out[k] = v
+    return out
+
+
+@pytest.fixture(scope="module")
+def internvl_tok(tmp_path_factory):
+    return stage_tokenizer(str(tmp_path_factory.mktemp("internvl_tok")), INTERNVL_WORDS,
+                           INTERNVL_SPECIALS)
+
+
+@pytest.mark.parametrize("text,layout", [("qwen2", "state_dict"), ("qwen3", "legacy"),
+                                         ("qwen3_moe", "state_dict")])
+def test_internvl_checkpoint_matches_hf(tmp_path, internvl_tok, text, layout):
+    """checkpoint= of the HF directory (the registry's real names with the
+    test configs): the tile's features against HF's ``get_image_features``
+    (3e-5) and P(first answer token) on the ids the adapter builds (1e-5)."""
+    from t2v_metrics_tpu_torch.models import internvl as tivl
+
+    hf, test_name, cfg = _internvl_hf(text)
+    sd = hf.state_dict() if layout == "state_dict" else _legacy_layout(hf.state_dict())
+    path = stage_safetensors(sd, str(tmp_path / "ckpt"))
+    hf.config.to_json_file(os.path.join(path, "config.json"))
+    name = {"qwen2": "internvl3-8b", "qwen3": "internvl3.5-8b",
+            "qwen3_moe": "internvl3.5-30b-a3b"}[text]
+    s = tt2v.VQAScore(name, config=cfg, checkpoint=path, tokenizer=internvl_tok, device="cpu",
+                      dtype=torch.float32)
+    a = s.model
+    assert type(a.tokenizer).__name__ == "PreTrainedTokenizerFast"
+    assert (a.params.vision.blocks[0].qkv is None) == (text == "qwen3_moe")
+    img = np.random.default_rng(3).integers(0, 256, (INTERNVL_IMG, INTERNVL_IMG, 3), np.uint8)
+    got = s(images=[img], texts=TEXTS)
+    tiles = tivl.preprocess_tiles(torch.from_numpy(img.reshape(INTERNVL_IMG, -1)))[None]
+    px = tiles.reshape(1, INTERNVL_IMG, INTERNVL_IMG, 3).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        ref_feats = hf.model.get_image_features(px)
+    ours = a._encode_visuals([img], 32)[0][1]
+    np.testing.assert_allclose(ours.numpy(), ref_feats.reshape(ours.shape).numpy(),
+                               atol=TOWER_ATOL, rtol=0)
+    for j, text_ in enumerate(TEXTS):
+        prompt = a._build_ids('Does this figure show "{}"? Please answer Yes or No.'.format(
+            text_), 1)
+        answer = a._encode_text("Yes")[0]
+        with torch.no_grad():
+            logits = hf(input_ids=torch.tensor([prompt + [answer]]), pixel_values=px).logits
+        ref = float(torch.log_softmax(logits.float(), -1)[0, len(prompt) - 1, answer])
+        assert abs(np.log(got[0, j]) - ref) <= SCORE_ATOL, (text_, np.log(got[0, j]), ref)
+
+
+def test_internvl_moe_layouts_load_the_same(tmp_path):
+    """Both MoE key layouts convert to the same experts: per-expert modules
+    (Qwen3MoE, as HF writes them) and packed ``experts.gate_up_proj`` (E, H,
+    2I) / ``experts.down_proj`` (E, I, H) (Qwen3VLMoe-style)."""
+    hf, _, cfg = _internvl_hf("qwen3_moe")
+    sd = dict(hf.state_dict())
+    for i in range(cfg.text.layers):
+        b = f"model.language_model.layers.{i}.mlp.experts"
+        ex = range(cfg.text.num_experts)
+        sd[f"{b}.gate_up_proj"] = torch.stack([torch.cat(
+            [sd.pop(f"{b}.{e}.gate_proj.weight").t(), sd.pop(f"{b}.{e}.up_proj.weight").t()],
+            dim=1) for e in ex])
+        sd[f"{b}.down_proj"] = torch.stack([sd.pop(f"{b}.{e}.down_proj.weight").t() for e in ex])
+    kw = dict(config=cfg, device="cpu", dtype=torch.float32,
+              tokenizer=tt2v.SimpleT5Tokenizer(512))
+    packed = tt2v.VQAScore("internvl3.5-30b-a3b", checkpoint=stage_safetensors(
+        sd, str(tmp_path / "packed")), **kw).model.params.state_dict()
+    split = tt2v.VQAScore("internvl3.5-30b-a3b", checkpoint=stage_safetensors(
+        hf.state_dict(), str(tmp_path / "split")), **kw).model.params.state_dict()
+    assert packed.keys() == split.keys()
+    for k in packed:
+        assert torch.equal(packed[k], split[k]), k
+
+
+# ---------------------------------------------------------------------------
 # Every family: native trees, adoption, errors
 # ---------------------------------------------------------------------------
 
@@ -622,11 +750,15 @@ def _family(name):
     if name.startswith("qwen3-vl"):
         hf, cfg = _qwen3_hf(name.endswith("moe"))
         return ("qwen3-vl-30b-a3b" if name.endswith("moe") else "qwen3-vl-8b"), cfg, hf
+    if name.startswith("internvl"):
+        hf, _, cfg = _internvl_hf("qwen3_moe")
+        return "internvl3.5-30b-a3b", cfg, hf
     hf, cfg = _gemma_hf()
     return "gemma-3-4b-it", cfg, hf
 
 
-@pytest.mark.parametrize("family", ["qwen2.5-vl", "qwen3-vl", "qwen3-vl-moe", "gemma-3"])
+@pytest.mark.parametrize("family", ["qwen2.5-vl", "qwen3-vl", "qwen3-vl-moe", "gemma-3",
+                                    "internvl3.5-moe"])
 def test_native_tree_equals_hf_directory(tmp_path, qwen_tok, family):
     """A native tree written by the port's save_params (in bf16: the |V2
     records) from the family's converter loads to the same parameters as the
@@ -635,8 +767,10 @@ def test_native_tree_equals_hf_directory(tmp_path, qwen_tok, family):
     path = stage_safetensors(hf.state_dict(), str(tmp_path / "hf"))
     kw = dict(config=cfg, device="cpu", dtype=torch.bfloat16, tokenizer=tt2v.SimpleT5Tokenizer())
     from_hf = tt2v.VQAScore(name, checkpoint=path, **kw).model.params
-    convert = {"qwen2.5-vl": tq2.convert_qwen2vl, "gemma-3": tg3.convert_gemma3}.get(
-        family, tq3.convert_qwen3vl)
+    from t2v_metrics_tpu_torch.models import internvl as tivl
+
+    convert = {"qwen2.5-vl": tq2.convert_qwen2vl, "gemma-3": tg3.convert_gemma3,
+               "internvl3.5-moe": tivl.convert_internvl}.get(family, tq3.convert_qwen3vl)
     sd = {k: v.to(torch.bfloat16) for k, v in ckpt.load_hf_state_dict(path).items()}
     ckpt.save_params(convert(sd, cfg), str(tmp_path / "native"))
     from_native = tt2v.VQAScore(name, checkpoint=str(tmp_path / "native"), **kw).model.params

@@ -105,3 +105,24 @@ def test_host_resize_llava_size_matches_pillow(hw):
     assert got.shape == (2, 336, 336 * 3)
     diff = np.abs(got.astype(int) - want.reshape(2, 336, 336 * 3).astype(int))
     assert diff.max() <= 1 and (diff > 0).mean() < 5e-4
+
+
+def test_pillow_fixed_point_resize_is_pillow_bit_for_bit():
+    """``resize_uint8_pillow_flat`` (InternVL's tiles, Molmo2's 336 px) equals
+    Pillow's uint8 bicubic at 120 random sizes, down- and upsampling (up to
+    ~30x), and at the slices' sizes: 1024 -> 1344 and 300x380 -> 1344x1792
+    (InternVL's tile grids), 480x640 -> 448 and 336 (video frames); an image
+    at its own size passes through, a change of one side resizes only it."""
+    from PIL import Image
+
+    rng = np.random.default_rng(6)
+    sizes = [tuple(int(v) for v in rng.integers(3, 90, 4)) for _ in range(120)]
+    sizes += [(1024, 1024, 1344, 1344), (300, 380, 1344, 1792), (480, 640, 448, 448),
+              (480, 640, 336, 336), (40, 40, 40, 40), (40, 30, 40, 77)]
+    for h, w, oh, ow in sizes:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        want = np.asarray(Image.fromarray(img).resize((ow, oh), Image.BICUBIC))
+        got = TI.resize_uint8_pillow_flat(torch.from_numpy(img.reshape(1, h, w * 3)), oh, ow, 3)
+        assert got.dtype == torch.float32 and got.shape == (1, oh, ow * 3)
+        np.testing.assert_array_equal(got[0].numpy(), want.reshape(oh, -1),
+                                      err_msg=str((h, w, oh, ow)))

@@ -6,6 +6,7 @@ Tolerances: token ids, constants and frame layouts are compared exactly.
 """
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -147,6 +148,25 @@ def test_video_helpers_equal_the_jax_package():
                                       JV.frame_indices(total, n, mode))
     for path in ("a.mp4", "b.MOV", "c.png", 3, None, "d.webm"):
         assert TV.is_video_path(path) == JV.is_video_path(path)
+
+
+def test_conversation_templates_equal_the_jax_package():
+    """InternVL's templates: the port's copy of fastchat_utils gives the JAX
+    package's prompt in every template and separator style."""
+    from t2v_metrics_tpu.models import fastchat_utils as JF
+    from t2v_metrics_tpu_torch.models import fastchat_utils as TF
+
+    assert list(TF.conv_templates) == list(JF.conv_templates)
+    assert [s.name for s in TF.SeparatorStyle] == [s.name for s in JF.SeparatorStyle]
+    for name in JF.conv_templates:
+        t, j = TF.get_conv_template(name), JF.get_conv_template(name)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), name
+        for conv in (t, j):
+            conv.append_message(conv.roles[0], "<image>\nq")
+            conv.append_message(conv.roles[1], "a")
+            conv.append_message(conv.roles[0], "again")
+            conv.append_message(conv.roles[1], None)
+        assert t.get_prompt() == j.get_prompt(), name
 
 
 def test_load_hf_tokenizer_stays_local(monkeypatch):
