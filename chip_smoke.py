@@ -64,7 +64,13 @@ Phases (any failure exits non-zero and prints no result line):
      kv_mask), its decode step over ~2700 slots, molmo2-4b's prefill and
      decode at d 80, each with two wrong plain versions that must fail;
      RMSNorm at 3200, LayerNorm at 4096 / 12800, add + LN at 1024 eps 1e-6,
-     the qk-norm of 32 + 8 heads, rope on 40 heads of 128 and of 80)
+     the qk-norm of 32 + 8 heads, rope on 40 heads of 128 and of 80); and at
+     the sites of the Qwen3-Omni audio tower (``omni_kernels``: the flat
+     kernel with segment ids over a 300 s clip's 3750 rows and over a
+     4-clip call, each with two wrong plain versions that must fail;
+     LayerNorm and add + LN at (3750, 1280)), the float64 log-mel of 300 s
+     against the CPU's, and the exact resize at each Pillow-resize site's
+     shape, bitwise the CPU's, with its time (``resize_sites``)
      (``--kernels-only`` stops here, with no result line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
@@ -98,7 +104,9 @@ Phases (any failure exits non-zero and prints no result line):
      blocks and flattened qk-norm) and internvl3.5-30b-a3b (the MoE) at 2
      tower + 2 decoder layers on one image x 2 texts (5e-2 nats, launch
      counts against the code's) and molmo2-8b through forced tokens (5e-2
-     a row and a step);
+     a row and a step); qwen3-omni-30b-a3b at 2 audio + 2 vision + 2
+     thinker layers on image + audio, audio-only and image-only pairs (5e-2
+     nats, launch counts against the code's);
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -143,9 +151,14 @@ Phases (any failure exits non-zero and prints no result line):
      ``batch_forward`` of 8 x (1, 4) at 300x380 (13 tiles), one seeded clip
      as a ``DecodedVideo`` x 2 texts (32 tiles, or 8 frames for Molmo2),
      each with launch counts against the code's, pairs/s, peak memory, and
-     ``generate`` of 8 tokens over the 4 images.
+     ``generate`` of 8 tokens over the 4 images; ``VQAScore(
+     "qwen3-omni-30b-a3b", init="random")``, the whole thinker: 4 x 4 on
+     1024x1024 images each with a seeded 10 s .wav, 8 x (1, 4) audio-only
+     with 30 s clips, one clip x 2 texts, each with launch counts against
+     the code's, pairs/s and peak memory (``--profile``: the image + audio
+     and audio-only calls' busy share).
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the checkpoint-loaded xl, the fifteen
+summed over the first calls of the checkpoint-loaded xl, the sixteen
 slices and the video slices and calls, and over the generate and trace runs; a
 row's
 ``sites`` are
@@ -752,6 +765,10 @@ def phase_kernels() -> dict:
     family_kernels(randn, record, lengths_mask)
     free_cuda()
     new_family_kernels(randn, record, lengths_mask)
+    free_cuda()
+    omni_kernels(randn, record)
+    free_cuda()
+    resize_sites()
     return results
 
 
@@ -3984,6 +4001,399 @@ def phase_new_family_slice(model: str, device: str = "cuda", side: int = 1024,
 
 
 # ---------------------------------------------------------------------------
+# Qwen3-Omni (the thinker's scoring path): kernel sites and the exact
+# resize (phase 2), the 2+2+2-layer chain (phase 3) and the slice (phase 4)
+# ---------------------------------------------------------------------------
+
+OMNI = "qwen3-omni-30b-a3b"
+# Omni chain: 30b-a3b widths, 2 audio + 2 vision + 2 thinker layers of 128
+# experts, bf16 on the card against fp32 on the CPU: the Qwen3 chain's
+# roundings and the audio tower's; limit 5e-2 as for Qwen3, on the pairs
+# whose scored row routes to the same experts on both sides
+# (phase_omni_chain)
+OMNI_CHAIN_TOL_NATS = 5e-2
+# the device log-mel of a 300 s clip (float64 on the card and the CPU)
+MEL_TOL = 5e-4
+
+
+def write_seeded_wav(path: str, seconds: float, seed: int, sr: int = 16000) -> str:
+    """A seeded 16-bit PCM mono .wav (stdlib ``wave``): two tones and noise."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    f0, f1 = rng.uniform(110.0, 880.0, 2)
+    x = (0.2 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * f1 * t)
+         + rng.normal(0.0, 0.02, t.size))
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+    return path
+
+
+def audio_segments(seconds_list, cfg) -> tuple[np.ndarray, np.ndarray]:
+    """The audio tower's segment ids over the clips of one call, as
+    ``qwen3omni_audio.encode_audios`` lays them out (each clip's chunks in
+    turn, its windows under ids of their own, invalid slots under -1), and
+    the same with every window boundary moved one row later (a wrong plain
+    version). Clips of ``seconds`` at 16 kHz give 100 mel frames a second."""
+    from t2v_metrics_tpu_torch.models.qwen3omni_audio import audio_geometry
+
+    segs, shifted, win = [], [], 0
+    for sec in seconds_list:
+        _, valid, seg, _ = audio_geometry(int(round(sec * 100)), cfg)
+        window = cfg.chunk_tokens * (cfg.n_window_infer // cfg.chunk_frames)
+        rank = np.cumsum(valid.reshape(-1)) - 1
+        segs.append(np.where(seg >= 0, seg + win, -1))
+        shifted.append(np.where(seg >= 0, (rank + 1) // window + win, -1))
+        win += int(seg.max()) + 2
+    return np.concatenate(segs).astype(np.int32), np.concatenate(shifted).astype(np.int32)
+
+
+def omni_kernels(randn, record) -> None:
+    """The sites of the Qwen3-Omni audio tower (d_model 1280, 20 heads of 64),
+    each against its plain version with its bound and library time: the
+    flat kernel with segment ids over a 300 s clip (the JAX package's
+    decode cap: 150 chunks of 25 rows, windows of 50 rows) and over four
+    clips of 10, 7.3, 3.1 and 0.5 s in one call (partial last chunks: rows
+    under -1), each with two wrong plain versions that must fail (segment
+    ids ignored, every window moved one row); LayerNorm and add + LN at the
+    300 s clip's rows, eps 1e-5. The thinker's RMSNorm, rope and grouped GEMM run at
+    qwen3-vl-30b-a3b's sites above. Then the device log-mel of 300 s
+    (float64) against the CPU's, with its time."""
+    from t2v_metrics_tpu_torch.models.qwen3omni import resolve_config
+    from t2v_metrics_tpu_torch.models.qwen3omni_audio import log_mel_device
+    from t2v_metrics_tpu_torch.ops import attention as A
+    from t2v_metrics_tpu_torch.ops import norms as N
+
+    cfg = resolve_config(OMNI).audio
+    heads, d = cfg.heads, cfg.d_model // cfg.heads
+    sdpa = F.scaled_dot_product_attention
+    dev = randn(1).device
+    for label, seconds in (("a 300 s clip", (300.0,)),
+                           ("4 clips of 10, 7.3, 3.1 and 0.5 s in one call",
+                            (10.0, 7.3, 3.1, 0.5))):
+        seg_np, shifted_np = audio_segments(seconds, cfg)
+        s = len(seg_np)
+        seg = torch.from_numpy(seg_np).to(dev)[None]
+        shifted = torch.from_numpy(shifted_np).to(dev)[None]
+        packed = randn(1, s, 3 * cfg.d_model)
+        q, k, v, _ = A._split_packed(packed, heads, None)
+        ref = A.attention_flat_reference(q, k, v, heads, segment_ids=seg)
+        for wrong, over in (("segment ids ignored", {"segment_ids": None}),
+                            ("every window moved one row", {"segment_ids": shifted})):
+            caught, why = attention_agrees(A.attention_flat_reference(q, k, v, heads, **over),
+                                           ref)
+            log(f"[kernel] flash_attention_flat audio tower, {label}, negative control, "
+                f"plain version with {wrong}: {why}")
+            check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+        same = seg[:, :, None] == seg[:, None, :]
+        qh, kh, vh = A.packed_heads(packed, heads)
+        attention_site(
+            record, f"Qwen3-Omni audio tower, {label}: (1, {s}, 3x1280) d=64, segment ids "
+            f"({int((seg_np < 0).sum())} rows under -1)",
+            lambda: A.flash_attention_flat_packed(packed, heads, segment_ids=seg),  # noqa: B023
+            lambda: A.attention_flat_reference(q, k, v, heads, segment_ids=seg),  # noqa: B023
+            4 * d * heads * int(same.sum()), 2 * s * 4 * cfg.d_model + 4 * s,
+            ("F.scaled_dot_product_attention (bool mask)",
+             lambda: sdpa(qh, kh, vh, attn_mask=same[:, None])))  # noqa: B023
+        del packed, q, k, v, ref, same, qh, kh, vh
+        free_cuda()
+
+    rows, dm = 3750, cfg.d_model
+    x, r, w, b = randn(rows, dm, std=3.0), randn(rows, dm, std=3.0), randn(dm), randn(dm)
+    out, ref = N.layer_norm_fused(x, w, b), N.layer_norm_plain(x, w, b)
+    bad = outside(out, ref, NORM_ATOL, LN_RTOL)
+    record("layer_norm", f"Qwen3-Omni audio tower ({rows}, {dm}) eps 1e-5", out, ref, bad == 0,
+           f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; max {bf16_ulps(out, ref)} "
+           "bf16 ulps", lambda: N.layer_norm_fused(x, w, b),
+           lambda: N.layer_norm_plain(x, w, b), False,
+           lower=(8 * rows * dm, 4 * rows * dm + 4 * dm, "fp32"),
+           library=("F.layer_norm", cuda_ms(lambda: F.layer_norm(x, (dm,), w, b, 1e-5))),
+           site=True)
+    (s_, out), s_ref = N.add_layer_norm_fused(x, r, w, b), x + r
+    ref = N.layer_norm_plain(s_ref, w, b)
+    bad, same = outside(out, ref, NORM_ATOL, LN_RTOL), bool(torch.equal(s_, s_ref))
+    record("layer_norm", f"Qwen3-Omni audio tower add + LN ({rows}, {dm}) eps 1e-5", out, ref,
+           bad == 0 and same, f"{bad} outside atol {NORM_ATOL} + rtol {LN_RTOL}; max "
+           f"{bf16_ulps(out, ref)} bf16 ulps; s bitwise x + r: {same}",
+           lambda: N.add_layer_norm_fused(x, r, w, b),
+           lambda: N.add_layer_norm_plain(x, r, w, b), False,
+           lower=(9 * rows * dm, 8 * rows * dm + 4 * dm, "fp32"),
+           library=("x + r, then F.layer_norm (two calls)", cuda_ms(
+               lambda: F.layer_norm(x + r, (dm,), w, b, 1e-5))), site=True)
+    del x, r, s_, out, ref, s_ref
+
+    audio = (np.random.default_rng(SEED + 9).standard_normal(16000 * 300) * 0.1
+             ).astype(np.float32)
+    nm = cfg.num_mel_bins
+    mel = log_mel_device(audio, n_mels=nm, device=dev)
+    t0 = time.perf_counter()
+    want = log_mel_device(audio, n_mels=nm)
+    cpu_s = time.perf_counter() - t0
+    err = float((mel.cpu() - want).abs().max())
+    ms = cuda_ms(lambda: log_mel_device(audio, n_mels=nm, device=dev))
+    log(f"[kernel] log-mel (no TPU kernel: float64 matmuls) of 300 s: {tuple(mel.shape)}, "
+        f"card against CPU max_abs_err {err:.3e} (limit {MEL_TOL}); card {ms:.4f} ms with "
+        f"the host pad and copy, CPU {cpu_s * 1e3:.1f} ms")
+    check(mel.shape == (nm, 30000) and err <= MEL_TOL,
+          f"log-mel card vs CPU {err}")
+
+
+# the Pillow-resize sites of the port: (label, batch, source, output, pad)
+RESIZE_SITES = (("Qwen3-VL / Qwen3-Omni images (factor 32)", 4, (1024, 1024), (992, 992), False),
+                ("Qwen2.5-VL images (factor 28)", 4, (1024, 1024), (980, 980), False),
+                ("LLaVA / CLIP-FlanT5 over 384 px, padded", 4, (1024, 768), (336, 336), True),
+                ("Gemma 3 / Gemma 4 (SigLIP 896)", 4, (1024, 1024), (896, 896), False),
+                ("PaliGemma-448", 4, (1024, 1024), (448, 448), False),
+                ("InstructBLIP (224)", 4, (1024, 1024), (224, 224), False),
+                ("ITMScore blip2-itm (364)", 4, (1024, 1024), (364, 364), False),
+                ("Qwen3-VL / Qwen3-Omni video, 40 frames of 480x640 (360x420 cap)", 40,
+                 (480, 640), (320, 448), False))
+
+
+def resize_sites(dev: str = "cuda") -> None:
+    """The exact resize (Pillow's fixed-point uint8 bicubic, summed in
+    float64) at each site's shape on the card: bitwise equal to the CPU's
+    (which the CPU tests hold to Pillow's), and its CUDA-event time."""
+    from t2v_metrics_tpu_torch.engine.scoring import _pillow_resize
+    from t2v_metrics_tpu_torch.ops.image import resize_uint8_pillow_flat
+
+    rng = np.random.default_rng(SEED + 11)
+    for label, n, (h, w), (oh, ow), pad in RESIZE_SITES:
+        host = torch.from_numpy(rng.integers(0, 256, (n, h, w * 3), dtype=np.uint8))
+        if pad:
+            def fn(x):
+                return _pillow_resize(x, oh, pad_square=True)
+        else:
+            def fn(x):
+                return resize_uint8_pillow_flat(x, oh, ow, 3)
+        on_dev = host.to(dev)
+        got, want = fn(on_dev), fn(host)
+        same = bool(torch.equal(got.cpu(), want))
+        ms = cuda_ms(lambda: fn(on_dev))  # noqa: B023
+        log(f"[resize] {label}: {n} x {h}x{w} -> {oh}x{ow}{' (padded square first)' if pad else ''}"
+            f": card {ms:.4f} ms ({ms / n:.4f} ms an image); bitwise the CPU's: {same}")
+        check(same, f"resize {label}: the card's differs from the CPU's")
+        del host, on_dev, got, want
+    free_cuda()
+
+
+def omni_chain_config(layers: int = 2):
+    """qwen3-omni-30b-a3b widths cut to ``layers`` audio layers, ``layers``
+    vision layers (both tapped by a deepstack merger) and ``layers`` thinker
+    layers of 128 experts."""
+    from t2v_metrics_tpu_torch.models.qwen3omni import resolve_config
+
+    cfg = resolve_config(OMNI)
+    return dataclasses.replace(
+        cfg, audio=dataclasses.replace(cfg.audio, layers=layers),
+        vision=dataclasses.replace(cfg.vision, depth=layers,
+                                   deepstack_indexes=tuple(range(layers))),
+        text=dataclasses.replace(cfg.text, layers=layers))
+
+
+def omni_launches(cfg, audio_calls: int, vision_calls: int) -> dict:
+    """The launches of one scoring call from the code: the audio tower (one
+    call for the call's distinct clips: attention once a layer, LayerNorm
+    twice a layer and ln_post), the vision tower per same-shape group (as
+    Qwen3-VL's) and one thinker prefill (attention and rope once a layer,
+    RMSNorm twice a layer, the qk-norm once a layer and the final norm, the
+    grouped GEMM twice a layer)."""
+    a, v, text = cfg.audio, cfg.vision, cfg.text
+    return {"flash_attention_flat": audio_calls * a.layers + vision_calls * v.depth
+            + text.layers, "flash_attention": 0,
+            "layer_norm": audio_calls * (2 * a.layers + 1)
+            + vision_calls * (2 * v.depth + 1 + len(v.deepstack_indexes)),
+            "rms_norm": 3 * text.layers + 1, "rope_pack": vision_calls * v.depth + text.layers,
+            "grouped_gemm": 2 * text.layers, "quant_matmul": 0, "quantize_rows": 0}
+
+
+def scored_routing(scorer, **kw) -> tuple[np.ndarray, list]:
+    """Log scores of one call, and each pair's top-k expert sets, layer by
+    layer, at the row whose logits score the first answer token (the router
+    of each MoE layer recomputed on the layer's input rows)."""
+    from t2v_metrics_tpu_torch.models import decoder as tdec
+    from t2v_metrics_tpu_torch.ops import quant as Q
+
+    seen = {"pos": None, "sets": []}
+    forward, mlp = tdec.forward, tdec._mlp
+
+    def spy_forward(params, cfg, embeds, *a, logit_positions=None, **k):
+        seen["pos"] = logit_positions[:, 0].cpu()
+        return forward(params, cfg, embeds, *a, logit_positions=logit_positions, **k)
+
+    def spy_mlp(p, cfg, x):
+        if p.moe is not None:
+            logits = Q.mm(x.reshape(-1, x.shape[-1]), p.moe.router).float()
+            top = torch.topk(torch.softmax(logits, -1), cfg.experts_per_tok, -1).indices
+            seen["sets"].append(top.reshape(*x.shape[:2], -1).cpu())
+        return mlp(p, cfg, x)
+
+    tdec.forward, tdec._mlp = spy_forward, spy_mlp
+    try:
+        scores = np.log(scorer(**kw))
+    finally:
+        tdec.forward, tdec._mlp = forward, mlp
+    rows = torch.arange(len(seen["pos"]))
+    return scores, [[sorted(layer[b, seen["pos"][b]].tolist()) for layer in seen["sets"]]
+                    for b in rows]
+
+
+def phase_omni_chain(cfg, device: str = "cuda", m: int = 2, n: int = 2,
+                     side: int = 1024) -> None:
+    """The 2+2+2-layer Qwen3-Omni chain at full width: card bf16 against CPU
+    fp32 on one set of parameters, for image + audio pairs (1024x1024
+    images, 7.3 s and 3.1 s clips: partial last chunks), audio-only pairs
+    and image-only pairs; the launch counts of each card call against the
+    code's. A pair whose scored row routes to the same 8 experts in every
+    layer on both sides is held to OMNI_CHAIN_TOL_NATS; where bf16 moves an
+    expert in or out of the top 8 there (a near tie of the router's 8th and
+    9th logits: one expert's share of that row's MoE output changes), the
+    pair is one MoE step apart, held to QWEN3_STEP_TOL_NATS as the Qwen3
+    decode steps are. Each call must hold at least one pair of the first
+    kind."""
+    import tempfile
+
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.models.qwen3omni import Qwen3OmniModel, init_qwen3omni
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    card = init_qwen3omni(cfg, SEED + 1, device, torch.bfloat16)
+    host = Qwen3OmniModel(cfg, "cpu", torch.float32)
+    with torch.no_grad():    # one tensor at a time: no second host copy
+        dst = host.state_dict()
+        for name, t in card.state_dict().items():
+            dst[name].copy_(t.float().cpu())
+    tok = t2v.SimpleT5Tokenizer(cfg.text.vocab_size)
+    scorers = [t2v.VQAScore(OMNI, params=p, config=cfg, tokenizer=tok, device=d)
+               for p, d in ((card, device), (host, "cpu"))]
+    images, texts = seeded_images(m, 191, side, side), seeded_texts(n, 192)
+    tag = "[omni chain]"
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = [write_seeded_wav(os.path.join(tmp, f"{i}.wav"), sec, 193 + i)
+                for i, sec in enumerate((7.3, 3.1)[:m])]
+        for what, kw, want in (
+                ("image + audio", dict(images=images, audio_paths=wavs),
+                 omni_launches(cfg, 1, 1)),
+                ("audio only", dict(images=[None] * m, audio_paths=wavs),
+                 omni_launches(cfg, 1, 0)),
+                ("image only", dict(images=images), omni_launches(cfg, 0, 1))):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            on_card = np.log(scorers[0](texts=texts, **kw))
+            t1 = time.perf_counter()
+            counts = launch_counts()
+            on_cpu, cpu_sets = scored_routing(scorers[1], texts=texts, **kw)
+            t2 = time.perf_counter()
+            card_again, card_sets = scored_routing(scorers[0], texts=texts, **kw)
+            check(np.array_equal(card_again, on_card), f"{tag} {what}: card scores differ "
+                  "between two calls")
+            gaps = np.abs(on_card - on_cpu).ravel()
+            same = np.array([a == b for a, b in zip(card_sets, cpu_sets)])
+            diff = float(gaps[same].max()) if same.any() else float("nan")
+            log(f"{tag} 30b-a3b widths, {cfg.audio.layers} audio + {cfg.vision.depth} vision "
+                f"+ {cfg.text.layers} thinker layers of {cfg.text.num_experts} experts, "
+                f"{what}, M={m} N={n}: card bf16 {t1 - t0:.2f} s, cpu fp32 {t2 - t1:.2f} s; "
+                f"card launches {json.dumps(counts)}")
+            moved = [(j, sorted(set(a) ^ set(b)))
+                     for j, (ca, cb) in enumerate(zip(card_sets, cpu_sets))
+                     for a, b in zip(ca, cb) if a != b]
+            log(f"{tag} {what}: mean answer log-probs card {on_card.ravel().round(4).tolist()}"
+                f", cpu {on_cpu.ravel().round(4).tolist()}; |card - cpu| "
+                f"{gaps.round(5).tolist()}; max over the {int(same.sum())} pairs routed alike "
+                f"{diff:.4e} nats (limit {OMNI_CHAIN_TOL_NATS}); experts moved at the scored "
+                f"row (pair, experts): {moved}; spread over pairs {float(np.ptp(on_cpu)):.4e}")
+            check(np.isfinite(on_card).all() and on_card.shape == (m, n),
+                  f"{tag} {what}: card scores not finite or wrong shape")
+            check(counts == want, f"{tag} {what}: launch counts {counts} != {want}")
+            check(same.any() and diff <= OMNI_CHAIN_TOL_NATS,
+                  f"{tag} {what}: pairs routed alike differ by {diff} nats")
+            check(float(gaps.max()) <= QWEN3_STEP_TOL_NATS,
+                  f"{tag} {what}: a pair routed apart differs by {float(gaps.max())} nats")
+
+
+def phase_omni_slice(model: str = OMNI, device: str = "cuda", side: int = 1024,
+                     profile: bool = False) -> list:
+    """``VQAScore("qwen3-omni-30b-a3b", init="random")``, the whole thinker
+    (48 MoE layers, the 32-layer audio tower, the 27-layer vision tower) in
+    bf16 from a seed: 4 x 4 on side x side images, each with a seeded 10 s
+    .wav; 8 x (1, 4) audio-only with seeded 30 s clips (one audio tower call
+    over 8 clips); one seeded 5 s 30 fps 480x640 clip as a ``DecodedVideo``
+    x 2 texts. Each: the launch counts of the first call against the code's,
+    scores in [0, 1] and repeatable, pairs/s after warm-up; peak memory at
+    load and while scoring; with ``profile`` the device time of the image +
+    audio and the audio-only calls by kernel family and the busy share.
+    Returns the launch counts of each path."""
+    import tempfile
+
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tag = f"[{model} slice]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer = t2v.VQAScore(model, init="random", seed=SEED, device=device)
+    torch.cuda.synchronize()
+    cfg = scorer.model.config
+    log(f"{tag} random init on {device}: {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of parameters, load peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+    def first_call(label, want, **kw):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = scorer(**kw)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = launch_counts()
+        log(f"{tag} first forward ({label}): {t_first:.3f} s; launches "
+            f"{json.dumps(counts)}; from the code {json.dumps(want)}")
+        shape = (len(kw["images"]), len(kw["texts"]))
+        check(scores.shape == shape, f"{tag} shape {scores.shape}")
+        check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
+              f"{tag} scores not finite in [0, 1]")
+        check(counts == want, f"{tag} launch counts {counts} != {want}")
+        check(np.array_equal(scores, scorer(**kw)), f"{tag} second call differs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer(**kw)
+        torch.cuda.synchronize()
+        log(f"{tag} log scores: {np.log(scores).round(4).tolist()}; pairs/s after warm-up "
+            f"{scores.size / (time.perf_counter() - t0):.2f}")
+        log(f"{tag} peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated "
+            f"scoring {label}; card {card_line()}")
+        torch.cuda.reset_peak_memory_stats()
+        return counts
+
+    paths = []
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs10 = [write_seeded_wav(os.path.join(tmp, f"a{i}.wav"), 10.0, 201 + i)
+                  for i in range(4)]
+        wavs30 = [write_seeded_wav(os.path.join(tmp, f"b{i}.wav"), 30.0, 211 + i)
+                  for i in range(8)]
+        images, texts = seeded_images(4, 221, side, side), seeded_texts(4, 222)
+        kw_ia = dict(images=images, texts=texts, audio_paths=wavs10)
+        paths.append(first_call(f"4 images {side}x{side}, each with a 10 s clip, x 4 texts",
+                                omni_launches(cfg, 1, 1), **kw_ia))
+        kw_a = dict(images=[None] * 8, texts=seeded_texts(4, 223), audio_paths=wavs30)
+        paths.append(first_call("8 x (one 30 s clip, 4 texts), audio only",
+                                omni_launches(cfg, 1, 0), **kw_a))
+        if profile:
+            phase_profile(lambda: scorer(**kw_ia), f"{model} 4 x 4 image + audio")
+            phase_profile(lambda: scorer(**kw_a), f"{model} 8 x 4 audio only")
+    paths.append(first_call("one 150-frame 480x640 clip at 30 fps (40 frames at fps 8) "
+                            "x 2 texts", omni_launches(cfg, 0, 1),
+                            images=[seeded_clip(224)], texts=seeded_texts(2, 225)))
+    del scorer
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Optional phase (--profile): where the device time of batch_forward goes
 # ---------------------------------------------------------------------------
 
@@ -4079,7 +4489,8 @@ def main() -> int:
                   *(lambda model=model: phase_family_chain(model)
                     for model in (PALIGEMMA, GEMMA4, GEMMA4_31B, LLAVA, INSTRUCTBLIP)),
                   *(lambda model=model: phase_new_family_chain(model)
-                    for model in (INTERNVL, INTERNVL_38B, INTERNVL_MOE, MOLMO2))):
+                    for model in (INTERNVL, INTERNVL_38B, INTERNVL_MOE, MOLMO2)),
+                  lambda: phase_omni_chain(omni_chain_config())):
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
@@ -4104,6 +4515,8 @@ def main() -> int:
     for model in (INTERNVL, MOLMO2):
         slice_counts.extend(phase_new_family_slice(model, profile=args.profile))
         free_cuda()
+    slice_counts.extend(phase_omni_slice(profile=args.profile))
+    free_cuda()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,
               "launches": sum(c[name] for c in slice_counts),

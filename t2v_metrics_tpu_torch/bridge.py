@@ -42,6 +42,7 @@ from .models import llava as tllava
 from .models import molmo2 as tm2
 from .models import paligemma as tpg
 from .models import qwen2vl as tqwen
+from .models import qwen3omni as tomni
 from .models import qwen3vl as tqwen3
 from .models import siglip as tsiglip
 from .models import t5 as tt5
@@ -281,7 +282,12 @@ def qwen2vl_from_numpy(tree: dict, cfg: tqwen.Qwen2VLConfig, device,
 def qwen3vl_from_numpy(tree: dict, cfg: tqwen3.Qwen3VLConfig, device,
                        dtype) -> tqwen3.Qwen3VLModel:
     model = tqwen3.Qwen3VLModel(cfg, device, dtype)
-    v, src = model.vision, tree["vision"]
+    _load_qwen3_vision(model.vision, tree["vision"])
+    _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+def _load_qwen3_vision(v: tqwen3.VisionTower, src: dict) -> None:
     for name in ("patch_w", "patch_b", "pos_emb"):
         _copy(getattr(v, name), src[name])
     for dst, blk in _pairs(v.blocks, src["blocks"]):
@@ -296,6 +302,24 @@ def qwen3vl_from_numpy(tree: dict, cfg: tqwen3.Qwen3VLConfig, device,
         _norm(dst.norm, m["norm"])
         _leaf(dst.fc1, m["fc1"])
         _leaf(dst.fc2, m["fc2"])
+
+
+@torch.no_grad()
+def qwen3omni_from_numpy(tree: dict, cfg: tomni.Qwen3OmniConfig, device,
+                         dtype) -> tomni.Qwen3OmniModel:
+    """The thinker's scoring path: the audio tower (q|k|v packed into one
+    leaf), the Qwen3-VL vision tower and the MoE decoder."""
+    model = tomni.Qwen3OmniModel(cfg, device, dtype)
+    a, src = model.audio, tree["audio"]
+    for i, (w, b) in enumerate(zip(a.conv_w, a.conv_b), 1):
+        _copy(w, src[f"conv{i}"]["w"])
+        _copy(b, src[f"conv{i}"]["b"])
+    _copy(a.conv_out, src["conv_out"]["w"])
+    _load_vit_blocks(a.blocks, src["blocks"])
+    _norm(a.ln_post, src["ln_post"])
+    _leaf(a.proj1, src["proj1"])
+    _leaf(a.proj2, src["proj2"])
+    _load_qwen3_vision(model.vision, tree["vision"])
     _load_decoder(model.decoder, tree["decoder"])
     return model
 

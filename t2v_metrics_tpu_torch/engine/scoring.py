@@ -18,8 +18,10 @@ and text once.
 Images: same-shape uint8 HWC arrays no larger than 384 px ship at source
 resolution and the whole preprocess (CLIP-FlanT5: pad to square; CLIPScore:
 shortest side and centre crop; a float bicubic resize, normalize) runs on
-the device, as the JAX engines' device path. Anything else is loaded and
-resized on the host (Pillow-parity numpy resize; paths decode with PIL).
+the device, as the JAX engines' device path. Anything else is decoded on the
+host (paths with PIL), goes to the device as uint8 and is padded or resized
+and cropped there with Pillow's uint8 resize, bit for bit
+(``pillow_resize_batch``), as the JAX engines' host path does with Pillow.
 """
 
 from __future__ import annotations
@@ -102,47 +104,37 @@ def encode_by_shape(visuals, device, encode) -> list:
     return out
 
 
-def _expand2square(img: np.ndarray, fill_rgb) -> np.ndarray:
-    h, w, c = img.shape
-    if h == w:
-        return img
-    side = max(h, w)
-    out = np.empty((side, side, c), dtype=img.dtype)
-    out[:] = np.asarray(fill_rgb, dtype=img.dtype)
-    if w > h:
-        top = (side - h) // 2
-        out[top:top + h] = img
+def _pillow_resize(pixels: torch.Tensor, size: int, pad_square: bool) -> torch.Tensor:
+    """(n, H, W*3) uint8 -> (n, size, size*3) uint8 as the JAX package's
+    ``media.images.load_batch(raw_uint8=True)`` makes it with Pillow: pad mode
+    expand2square with the CLIP-mean fill then the resize to size x size;
+    otherwise the resize of the shortest side to ``size``, then the centre
+    crop."""
+    if pad_square:
+        x = timage.pad_square_flat(pixels, 3, tuple(int(m * 255) for m in CLIP_MEAN))
+        x = timage.resize_uint8_pillow_flat(x, size, size, 3)
     else:
-        left = (side - w) // 2
-        out[:, left:left + w] = img
-    return out
+        rh, rw = timage.resize_shortest_side((pixels.shape[-2], pixels.shape[-1] // 3), size)
+        x = timage.center_crop_flat(timage.resize_uint8_pillow_flat(pixels, rh, rw, 3),
+                                    size, size, 3)
+    return x.to(torch.uint8)
 
 
-def _host_resize_batch(images, size: int, pad_square: bool) -> np.ndarray:
-    """Host preprocess to (N, size, size*3) uint8 with Pillow's uint8 resize
-    pipeline (pad mode: expand2square with the CLIP-mean fill first)."""
-    out = []
-    for image in images:
-        img = _load_uint8(image)
-        if pad_square:
-            img = _expand2square(img, tuple(int(m * 255) for m in CLIP_MEAN))
-            img = timage.resize_np(img, size, size, quantize_uint8=True)
-        else:
-            rh, rw = timage.resize_shortest_side(img.shape[:2], size)
-            img = timage.resize_np(img, rh, rw, quantize_uint8=True)
-            top, left = (rh - size) // 2, (rw - size) // 2
-            img = img[top:top + size, left:left + size]
-        out.append(img.astype(np.uint8).reshape(size, size * 3))
-    return np.stack(out)
+def pillow_resize_batch(images, size: int, pad_square: bool, device) -> torch.Tensor:
+    """Images (paths, PIL images or uint8 arrays of any sizes) -> (N, size,
+    size*3) uint8 on ``device``: decoded on the host, each group of same-shape
+    images resized in one call on the device by ``_pillow_resize``."""
+    return torch.stack(encode_by_shape(
+        images, device, lambda x: _pillow_resize(x, size, pad_square)))
 
 
-def clip_pixels(pixels: np.ndarray, device, size: int, pad_square: bool) -> torch.Tensor:
-    """(M, H, W*3) uint8 -> (M, size, size*3) normalized fp32 on ``device``:
+def clip_pixels(pixels: torch.Tensor, size: int, pad_square: bool) -> torch.Tensor:
+    """(M, H, W*3) uint8 on the device -> (M, size, size*3) normalized fp32:
     /255, and where the image is not size x size, padded to square with the
     CLIP-mean fill (``pad_square``) or resized to the shortest side and
     centre-cropped, bicubic in fp32, then clipped to [0, 1] (PIL clamps each
     resize pass); then the CLIP mean and std."""
-    x = torch.from_numpy(pixels).to(device).float() / 255.0
+    x = pixels.float() / 255.0
     h, w = x.shape[-2], x.shape[-1] // 3
     if h != size or w != size:
         if pad_square:
@@ -158,13 +150,23 @@ def clip_pixels(pixels: np.ndarray, device, size: int, pad_square: bool) -> torc
     return timage.normalize_flat(x, CLIP_MEAN, CLIP_STD)
 
 
-def _pixels_bucketed(images, size: int, pad_square: bool) -> np.ndarray:
-    """(bucket, size-or-source H, W*3) uint8: the device path's stack or the
-    host preprocess, its rows padded to ``IMG_BUCKETS`` with the last."""
-    pixels = _device_resize_batch(images)
-    if pixels is None:
-        pixels = _host_resize_batch(images, size, pad_square)
-    return _pad_rows((pixels,), _bucket(len(images), IMG_BUCKETS))[0]
+def _pixels_bucketed(images, size: int, pad_square: bool, device) -> torch.Tensor:
+    """(bucket, size-or-source H, W*3) uint8 on ``device``: the device path's
+    stack at source size or ``pillow_resize_batch``'s, its rows padded to
+    ``IMG_BUCKETS`` with the last."""
+    stack = _device_resize_batch(images)
+    if stack is None:
+        pixels = pillow_resize_batch(images, size, pad_square, device)
+    else:
+        pixels = torch.from_numpy(stack).to(device)
+    return pad_rows_to(pixels, _bucket(len(images), IMG_BUCKETS))
+
+
+def pad_rows_to(x: torch.Tensor, nb: int) -> torch.Tensor:
+    """Pad a tensor's rows to ``nb`` by repeating its last row."""
+    if nb <= x.shape[0]:
+        return x
+    return torch.cat([x, x[-1:].expand(nb - x.shape[0], *x.shape[1:])])
 
 
 class _HostScores:
@@ -195,11 +197,10 @@ class CLIPT5Engine:
     # -- device passes --------------------------------------------------------
 
     @torch.inference_mode()
-    def _encode(self, pixels: np.ndarray) -> torch.Tensor:
-        """(M, H, W*3) uint8 -> (M, T, D) image features on the device."""
+    def _encode(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(M, H, W*3) uint8 on the device -> (M, T, D) image features."""
         cfg = self.cfg
-        x = clip_pixels(pixels, self.device, cfg.vision.image_size,
-                        cfg.image_aspect_ratio == "pad")
+        x = clip_pixels(pixels, cfg.vision.image_size, cfg.image_aspect_ratio == "pad")
         return tcft5.image_features(self.params, cfg, x)
 
     @torch.inference_mode()
@@ -245,9 +246,9 @@ class CLIPT5Engine:
             ans_mask[j, :len(ans)] = 1.0
         return ids, img_mask, img_slot, enc_mask, ans_ids, ans_mask
 
-    def _pixels(self, images) -> np.ndarray:
+    def _pixels(self, images) -> torch.Tensor:
         return _pixels_bucketed(images, self.cfg.vision.image_size,
-                                self.cfg.image_aspect_ratio == "pad")
+                                self.cfg.image_aspect_ratio == "pad", self.device)
 
     def _prompts(self, texts, question_template, answer_template):
         qt = question_template or DEFAULT_QUESTION_TEMPLATE
@@ -300,8 +301,9 @@ class CLIPT5Engine:
 
     def prepare_pairs(self, images, texts, question_template=None,
                       answer_template=None):
-        """Host stage of pairwise scoring: decode/resize pixels, tokenize and
-        splice texts, bucket-pad; no device work."""
+        """Host stage of pairwise scoring: decode the images and send them to
+        the device (resized there where they take Pillow's resize), tokenize
+        and splice texts, bucket-pad."""
         if len(images) != len(texts):
             raise ValueError("prepare_pairs: one image per text")
         uniq, inv = unique_visuals(images)  # repeated [img]*N calls still encode once
@@ -389,8 +391,9 @@ class CLIPEngine:
     def score_matrix(self, images, texts, **_) -> np.ndarray:
         """(M images) x (N texts) -> (M, N) float32 cosine similarities."""
         m, n = len(images), len(texts)
-        pixels = clip_pixels(_pixels_bucketed(images, self.vcfg.image_size, False),
-                             self.device, self.vcfg.image_size, False)
+        pixels = clip_pixels(
+            _pixels_bucketed(images, self.vcfg.image_size, False, self.device),
+            self.vcfg.image_size, False)
         ids = _pad_rows((self._tokenize(texts),), _bucket(n, TXT_BUCKETS))[0]
         imf = tclip.encode_image(self.params, self.vcfg, pixels)[:m]
         txf = tclip.encode_text(self.params, self.tcfg,

@@ -212,14 +212,14 @@ def init_norm_(norm: Norm) -> None:
 
 def pre_ln_block(p: Block, x: torch.Tensor, branch: torch.Tensor | None, heads: int,
            eps: float, act: str, causal: bool = False,
-           kv_mask=None) -> tuple[torch.Tensor, torch.Tensor]:
+           kv_mask=None, segment_ids=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN block on the residual stream ``x + branch`` (``branch``:
     the previous block's MLP output, not yet added, or None). Each residual
     add is folded into the LayerNorm that reads its sum. Returns (the stream
     after the attention half, this block's MLP output, not yet added)."""
     x, h = L.add_layer_norm(x, branch, p.ln1.scale, p.ln1.bias, eps)
     a = attention_flat_packed(Q.linear(h, p.qkv), heads, causal=causal,
-                              kv_mask=kv_mask)
+                              kv_mask=kv_mask, segment_ids=segment_ids)
     x, h = L.add_layer_norm(x, Q.linear(a, p.o), p.ln2.scale, p.ln2.bias, eps)
     h = L.ACT_FNS[act](Q.linear(h, p.fc1))
     return x, Q.linear(h, p.fc2)

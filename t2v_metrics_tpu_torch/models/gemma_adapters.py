@@ -12,10 +12,10 @@ sequence bucketed to ``SEQ_BUCKETS``.
 
 Images arrive as uint8 HWC arrays (paths and PIL images decode with PIL,
 imported only for them). The SigLIP preprocess (bicubic to 896 x 896, /255,
-normalize with mean and std 0.5) runs on the device with the port's
-Pillow-style two-pass uint8 resize (within one uint8 level of Pillow, and
-exact where the image already has the tower's size); the JAX adapter
-resizes with Pillow on the host. The tower encodes each distinct image once,
+normalize with mean and std 0.5) runs on the device with Pillow's
+fixed-point uint8 resize, bit for bit (``ops/image.py:
+resize_uint8_pillow_flat``); the JAX adapter resizes with Pillow on the
+host. The tower encodes each distinct image once,
 one batched call per group of same-shape images, where the JAX adapter
 calls it once per pair (the tower is per image, so the numbers are the
 same). A video (a path, read with cv2, or a ``media.video.DecodedVideo``)
@@ -40,7 +40,7 @@ import torch
 from ..constants import SIGLIP_MEAN, SIGLIP_STD
 from ..engine.scoring import _HostScores, encode_by_shape, unique_visuals
 from ..media.video import is_video, open_video
-from ..ops.image import normalize_flat, resize_uint8_levels_flat
+from ..ops.image import normalize_flat, resize_uint8_pillow_flat
 from . import checkpoint as ckpt
 from . import gemma3 as g3
 from . import gemma4 as g4
@@ -63,8 +63,9 @@ def _bucket(n, buckets=SEQ_BUCKETS):
 
 def siglip_preprocess(pixels: torch.Tensor, size: int) -> torch.Tensor:
     """uint8 images (N, H, W*3) on the device -> (N, size, size*3) fp32:
-    bicubic resize as Pillow does it on uint8, /255, (x - 0.5) / 0.5."""
-    x = resize_uint8_levels_flat(pixels.float(), size, size, 3)
+    bicubic resize as Pillow does it on uint8, bit for bit, /255, (x - 0.5)
+    / 0.5."""
+    x = resize_uint8_pillow_flat(pixels, size, size, 3)
     return normalize_flat(x / 255.0, SIGLIP_MEAN, SIGLIP_STD)
 
 

@@ -10,10 +10,9 @@ Videos reach it as concatenated frames through the facade.
 
 The image preprocess is BlipImageProcessor's: bicubic straight to 224, /255,
 the CLIP mean and std. The JAX adapter resizes with Pillow on the host;
-here the resize runs on the device with the port's Pillow-style two-pass
-uint8 resize (``itm_adapter.itm_preprocess``, as ITMScore does: within one
-uint8 level of Pillow, exact where the image already has the tower's size),
-since the card machine has no Pillow. The EVA tower encodes each distinct
+here the resize runs on the device with Pillow's fixed-point uint8 resize,
+bit for bit (``itm_adapter.itm_preprocess``, as ITMScore does), since the
+card machine has no Pillow. The EVA tower encodes each distinct
 image once; the Q-Former and T5 run per pair. ``generate`` is T5's batched
 greedy decode over the cached ``t5.decode_step``.
 """

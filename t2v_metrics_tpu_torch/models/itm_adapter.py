@@ -5,10 +5,9 @@ t2v_metrics_tpu/models/itm_adapter.py).
 itm_head (softmax class 1); ``score_matrix`` the (M, N) matrix. The image
 preprocess is Blip2ImageProcessor's: bicubic straight to size x size, /255,
 the CLIP mean and std. The JAX adapter resizes with Pillow on the host; here
-the resize runs on the device with the port's Pillow-style two-pass uint8
-resize (``ops/image.py:resize_uint8_levels_flat``: within one uint8 level of
-Pillow, exact where the image already has the tower's size), since the card
-machine has no Pillow. The EVA tower encodes each distinct image once, one
+the resize runs on the device with Pillow's fixed-point uint8 resize
+(``ops/image.py:resize_uint8_pillow_flat``: equal to Pillow bit for bit),
+since the card machine has no Pillow. The EVA tower encodes each distinct image once, one
 batched call per group of same-shape images, where the JAX adapter runs it
 once per pair (the tower is per image, so the numbers are the same); the
 Q-Former runs per pair. Texts are tokenized with special tokens and padded
@@ -22,15 +21,16 @@ import torch
 
 from ..constants import CLIP_MEAN, CLIP_STD
 from ..engine.scoring import _HostScores, encode_by_shape, unique_visuals
-from ..ops.image import normalize_flat, resize_uint8_levels_flat
+from ..ops.image import normalize_flat, resize_uint8_pillow_flat
 from . import blip2_itm as bitm
 from .adapters import ScoreModel, cached_tokenizer, family_params
 
 
 def itm_preprocess(pixels: torch.Tensor, size: int) -> torch.Tensor:
     """uint8 images (N, H, W*3) on the device -> (N, size, size*3) fp32:
-    bicubic resize as Pillow does it on uint8, /255, the CLIP mean and std."""
-    x = resize_uint8_levels_flat(pixels.float(), size, size, 3)
+    bicubic resize as Pillow does it on uint8, bit for bit, /255, the CLIP
+    mean and std."""
+    x = resize_uint8_pillow_flat(pixels, size, size, 3)
     return normalize_flat(x / 255.0, CLIP_MEAN, CLIP_STD)
 
 

@@ -10,11 +10,11 @@ pairs to ``PAIR_BUCKETS`` and images to ``IMG_BUCKETS`` by repeating the
 last row. Videos reach it as concatenated frames through the facade.
 
 Images: pad mode, expand2square with the CLIP-mean fill then Pillow's
-uint8 bicubic to 336 on the host (``engine/scoring.py:_host_resize_batch``,
-the Pillow-style numpy pipeline: the JAX adapter resizes every image with
-Pillow, where CLIP-FlanT5's engines resize small images in fp32 on the
-device), then the CLIP mean and std on the device (``clip_pixels``); each
-distinct image goes through the tower once. ``generate`` is one batched greedy decode
+uint8 bicubic to 336, bit for bit, on the adapter's device
+(``engine/scoring.py:pillow_resize_batch``: the JAX adapter resizes every
+image with Pillow, where CLIP-FlanT5's engines resize small images in fp32
+on the device), then the CLIP mean and std (``clip_pixels``); each distinct
+image goes through the tower once. ``generate`` is one batched greedy decode
 (``CachedLM.greedy_batch``), the tokens read back once.
 """
 
@@ -25,7 +25,7 @@ import torch
 
 from ..constants import (DEFAULT_ANSWER_TEMPLATE, DEFAULT_QUESTION_TEMPLATE,
                          IMAGE_TOKEN_INDEX, SYSTEM_MSG)
-from ..engine.scoring import (_HostScores, _host_resize_batch, _pad_rows, clip_pixels,
+from ..engine.scoring import (_HostScores, clip_pixels, pad_rows_to, pillow_resize_batch,
                                unique_visuals)
 from ..tokenization import SimpleT5Tokenizer, splice_image_tokens
 from . import llava as lv
@@ -89,13 +89,13 @@ class LlavaAdapter(VQAScoreModel):
     def _encode_images(self, images) -> torch.Tensor:
         """(M, 576, d_model) features of M images on the device, the rows
         padded to ``IMG_BUCKETS`` through the tower and dropped after it.
-        Every image is padded and resized to uint8 on the host, as the JAX
-        adapter's Pillow pipeline does at any size."""
+        Every image is padded and resized to uint8 as the JAX adapter's
+        Pillow pipeline does at any size, bit for bit, on the device."""
         cfg = self.config
         size, pad = cfg.vision.image_size, cfg.image_aspect_ratio == "pad"
-        pixels = _host_resize_batch(images, size, pad)
-        pixels = _pad_rows((pixels,), _bucket(len(images), IMG_BUCKETS))[0]
-        x = clip_pixels(pixels, self.device, size, pad)
+        pixels = pillow_resize_batch(images, size, pad, self.device)
+        pixels = pad_rows_to(pixels, _bucket(len(images), IMG_BUCKETS))
+        x = clip_pixels(pixels, size, pad)
         return lv.image_features(self.params, cfg, x)[:len(images)]
 
     def _splice(self, spliced, s: int, answers=None):

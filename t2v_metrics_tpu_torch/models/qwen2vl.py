@@ -288,11 +288,11 @@ def image_patches(pixels_u8: torch.Tensor, cfg: QwenVisionConfig,
     """(n, H0, W0*3) uint8 images on the device -> (n, S, patch_dim) fp32
     patch rows in ``frames_to_patches`` order, S = (out_h/p)*(out_w/p).
 
-    Bicubic resize to the smart-resize size (two matmuls, each pass rounded
-    to uint8 levels as Pillow's uint8 resize does), /255, CLIP normalize,
+    Bicubic resize to the smart-resize size as Pillow resizes a uint8 image,
+    bit for bit (``resize_uint8_pillow_flat``), /255, CLIP normalize,
     temporal tile x2, patchify.
     """
-    x = timage.resize_uint8_levels_flat(pixels_u8.float(), out_h, out_w, 3)
+    x = timage.resize_uint8_pillow_flat(pixels_u8, out_h, out_w, 3)
     x = timage.normalize_flat(x / 255.0, CLIP_MEAN, CLIP_STD)
     n = x.shape[0]
     x = x.reshape(n, 1, out_h, out_w, 3).permute(0, 1, 4, 2, 3)
@@ -307,15 +307,15 @@ def video_patches(frames_u8: torch.Tensor, cfg: QwenVisionConfig,
 
     The JAX adapter's device preprocess of Qwen2.5-VL video
     (``_video_feats_jit``): one float bicubic pass, rounded and clipped to
-    uint8 levels once, /255, CLIP normalize, patchify. ``pillow``: the
-    two-pass Pillow-style resize of ``image_patches`` instead, for
-    Qwen3-VL, whose JAX adapter resizes video frames with Pillow.
+    uint8 levels once, /255, CLIP normalize, patchify. ``pillow``: Pillow's
+    uint8 resize bit for bit, as in ``image_patches``, for Qwen3-VL and
+    Qwen3-Omni, whose JAX adapters resize video frames with Pillow.
     """
-    x = frames_u8.float()
     if pillow:
-        x = timage.resize_uint8_levels_flat(x, out_h, out_w, 3)
+        x = timage.resize_uint8_pillow_flat(frames_u8, out_h, out_w, 3)
     else:
-        x = torch.clamp(torch.round(timage.resize_flat(x, out_h, out_w, 3)), 0.0, 255.0)
+        x = torch.clamp(torch.round(timage.resize_flat(frames_u8.float(), out_h, out_w, 3)),
+                        0.0, 255.0)
     x = timage.normalize_flat(x / 255.0, CLIP_MEAN, CLIP_STD)
     n, t = x.shape[:2]
     return _patchify(x.reshape(n, t, out_h, out_w, 3).permute(0, 1, 4, 2, 3), cfg)
@@ -460,11 +460,13 @@ def vision_tower_batch(params: VisionTower, cfg: QwenVisionConfig,
 
 def splice_embeds(params: Qwen2VLModel, ids: torch.Tensor, vis_feats: torch.Tensor,
                   vis_mask: torch.Tensor, vis_slot: torch.Tensor,
-                  deepstack_feats=None):
+                  deepstack_feats=None, deepstack_mask=None):
     """Token embeddings (B, S, D) with slot ``vis_slot`` of ``vis_feats`` (B,
     T, D) written at the visual positions ``vis_mask``; and the deepstack
     residuals (Qwen3-VL): each level of (B, T, D) features scattered to the
-    visual positions, zero elsewhere (None without levels)."""
+    positions of ``deepstack_mask`` (default ``vis_mask``; Qwen3-Omni: its
+    vision rows, not its audio rows), zero elsewhere (None without
+    levels)."""
     tok = params.decoder.embed[ids]
     slot = vis_slot.long().clamp(0, vis_feats.shape[1] - 1)
     idx = slot[..., None].expand(-1, -1, vis_feats.shape[-1])
@@ -472,7 +474,8 @@ def splice_embeds(params: Qwen2VLModel, ids: torch.Tensor, vis_feats: torch.Tens
     embeds = torch.where(vis_mask[..., None], vis.to(tok.dtype), tok)
     deepstack = None
     if deepstack_feats is not None and len(deepstack_feats):
-        deepstack = [torch.where(vis_mask[..., None], torch.gather(level, 1, idx), 0.0)
+        ds_mask = vis_mask if deepstack_mask is None else deepstack_mask
+        deepstack = [torch.where(ds_mask[..., None], torch.gather(level, 1, idx), 0.0)
                      for level in deepstack_feats]
     return embeds, deepstack
 
@@ -488,14 +491,15 @@ def splice_and_score(params: Qwen2VLModel, cfg: Qwen2VLConfig,
                      ans_pos: torch.Tensor,      # (B, A) logit positions
                      ans_mask: torch.Tensor,     # (B, A)
                      temperature: float = 1.0,
-                     deepstack_feats=None) -> torch.Tensor:
+                     deepstack_feats=None, deepstack_mask=None) -> torch.Tensor:
     """Teacher-forced mean log-prob of the answer tokens per sequence.
     ans_pos[b, i] is the row whose logits predict answer token i.
     deepstack_feats (Qwen3-VL): levels of (B, T, D) features aligned with
-    vis_feats' slots, scattered to the visual positions (zero elsewhere)
-    and added after the first decoder layers."""
+    vis_feats' slots, scattered to the visual positions (or those of
+    ``deepstack_mask``; zero elsewhere) and added after the first decoder
+    layers."""
     embeds, deepstack = splice_embeds(params, ids, vis_feats, vis_mask, vis_slot,
-                                      deepstack_feats)
+                                      deepstack_feats, deepstack_mask)
     logits = dec.forward(params.decoder, cfg.text, embeds, position_ids, attn_mask,
                          logit_positions=ans_pos,
                          deepstack=deepstack)         # (B, A, V) fp32

@@ -10,13 +10,14 @@ sequences, the lm head at the answer rows only.
 
 Images arrive as uint8 HWC arrays (paths and PIL images decode with PIL,
 imported only for them). The whole preprocess (bicubic resize to the
-smart-resize size, rounding to uint8 levels, normalize, patchify, window
-layout) runs on the device; the JAX adapter resizes images with PIL on the
-host. Videos (a path, or a ``media.video.DecodedVideo``) are sampled at
-``fps`` frames a second (default 8.0, ``"dynamic"`` 2.0) on the host, as
-the JAX adapter's ``_decode_video_raw`` samples them, and the frames go to
-the device as uint8, where ``qwen2vl.video_patches`` resizes them in one
-float pass (max 360*420 pixels) as the JAX adapter does on its device. The
+smart-resize size, bit for bit as Pillow's uint8 resize, normalize,
+patchify, window layout) runs on the device; the JAX adapter resizes images
+with PIL on the host. Videos (a path, or a ``media.video.DecodedVideo``)
+are sampled at ``fps`` frames a second (default 8.0, ``"dynamic"`` 2.0) on
+the host, as the JAX adapter's ``_decode_video_raw`` samples them, and the
+frames go to the device as uint8, where ``qwen2vl.video_patches`` resizes
+them in one float pass (max 360*420 pixels) as the JAX adapter does on its
+device. The
 JAX adapter decodes with its native libav reader where built, else with
 cv2's position seek; the port reads with cv2 only (``media/video.py``).
 
@@ -349,11 +350,16 @@ class Qwen2VLAdapter(VQAScoreModel):
         questions = [question_template.format(t) for t in texts]
         answers = [answer_template.format(t) for t in texts]
         arrays, prompt_lens = self._prepare_pairs(images, questions, fps)
-        ids, feats, vis_mask, vis_slot, pos, attn = arrays
+        return self._score_prepared(arrays, prompt_lens, answers, temperature), len(images)
 
+    def _score_prepared(self, arrays, prompt_lens, answers, temperature) -> _HostScores:
+        """Teacher-force each pair's answer behind its prompt: ``arrays``
+        (ids, feats, splice mask, splice slot, rope ids, attention mask) of
+        the prompts from ``_prepare_pairs`` -> the scores on the device."""
+        ids, feats, vis_mask, vis_slot, pos, attn = arrays
         ans_tok = [self._encode_text(a) for a in answers]
         a_max = max(len(a) for a in ans_tok)
-        pcount = len(images)
+        pcount = len(answers)
         s = ids.shape[1]
         full_ids = ids.copy()
         ans_ids = np.zeros((pcount, a_max), np.int64)
@@ -376,7 +382,7 @@ class Qwen2VLAdapter(VQAScoreModel):
                          ans_pos, ans_mask)]
         logp = self._splice_and_score(dev[0], feats, *dev[1:],
                                       temperature=float(temperature))
-        return _HostScores(torch.exp(logp.float())), pcount
+        return _HostScores(torch.exp(logp.float()))
 
     def _splice_and_score(self, ids, feats, *arrays, temperature):
         return q.splice_and_score(self.params, self.config, ids, feats,

@@ -280,7 +280,14 @@ def init_qwen3vl(cfg: Qwen3VLConfig, seed: int, device,
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Qwen3VLModel(cfg, device, dtype)
-    v = model.vision
+    init_vision_(model.vision, gen)
+    dec.init_decoder(model.decoder, gen)
+    return model
+
+
+@torch.no_grad()
+def init_vision_(v: VisionTower, gen: torch.Generator) -> None:
+    """Fill a vision tower in place with init_qwen3vl's distributions."""
     normal_(v.patch_w, v.patch_w.shape[0] ** -0.5, gen)
     v.patch_b.zero_()
     normal_(v.pos_emb, 0.02, gen)
@@ -296,8 +303,6 @@ def init_qwen3vl(cfg: Qwen3VLConfig, seed: int, device,
     for leaf in leaves:
         normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
         leaf.b.zero_()
-    dec.init_decoder(model.decoder, gen)
-    return model
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,9 @@ from bf16, so the numbers are the same). The sequence bucket is chosen for
 the longest prompt plus 8 tokens, as in the JAX adapter. qwen3.5 prompts end
 with the closed empty thinking block of ``enable_thinking=False``. Videos
 are sampled as for Qwen2.5-VL; their frames are resized on the device with
-the Pillow-style two-pass resize (the JAX adapter resizes them with Pillow
-on the host; the port needs no Pillow: within one uint8 level), and the
-tower runs with grid_t > 1 (the position table tiled over time).
+Pillow's fixed-point uint8 resize, bit for bit (the JAX adapter resizes them
+with Pillow on the host; the port needs no Pillow), and the tower runs with
+grid_t > 1 (the position table tiled over time).
 Generation and traces are the Qwen2.5-VL adapter's, with the deepstack
 residuals added at the prefill only (the decode steps take none).
 """

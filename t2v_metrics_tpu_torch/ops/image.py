@@ -122,26 +122,6 @@ def smart_resize(height: int, width: int, factor: int = 28,
     return h_bar, w_bar
 
 
-def resize_np(img: np.ndarray, out_h: int, out_w: int, filter: str = "bicubic",
-              quantize_uint8: bool = False) -> np.ndarray:
-    """Resize a (..., H, W, C) numpy image with the same weights.
-
-    ``quantize_uint8=True`` replicates Pillow's uint8 pipeline: horizontal
-    pass first, round-half-up and clip to [0, 255] after each pass.
-    """
-    h, w = img.shape[-3], img.shape[-2]
-    wh = resize_weights(h, out_h, filter)
-    ww = resize_weights(w, out_w, filter)
-    x = img.astype(np.float32)
-    if quantize_uint8:
-        x = np.einsum("pw,...hwc->...hpc", ww, x, optimize=True)
-        x = np.clip(np.floor(x + 0.5), 0.0, 255.0)
-        x = np.einsum("oh,...hpc->...opc", wh, x, optimize=True)
-        return np.clip(np.floor(x + 0.5), 0.0, 255.0)
-    out = np.einsum("oh,...hwc->...owc", wh, x, optimize=True)
-    return np.einsum("pw,...owc->...opc", ww, out, optimize=True)
-
-
 # ---------------------------------------------------------------------------
 # Channel-flattened (..., H, W*C) tensor ops
 # ---------------------------------------------------------------------------
@@ -155,24 +135,6 @@ def resize_flat(img: torch.Tensor, out_h: int, out_w: int, channels: int,
     kw = torch.from_numpy(
         kron_resize_weights(wc // channels, out_w, channels, filter)).to(img)
     return torch.matmul(torch.matmul(wh, img), kw.T)
-
-
-def resize_uint8_levels_flat(img: torch.Tensor, out_h: int, out_w: int,
-                             channels: int, filter: str = "bicubic") -> torch.Tensor:
-    """Resize a (..., H, W*C) float image holding uint8 levels the way
-    Pillow resizes a uint8 image: the W pass first, each pass rounded half
-    up and clipped to [0, 255] (Pillow clips the cubic overshoot of its
-    first pass into a uint8 image). Within one level of Pillow, whose
-    coefficients are fixed-point; an image already at the output size
-    passes through exactly. Returns uint8 levels as floats."""
-    h, wc = img.shape[-2], img.shape[-1]
-    if (h, wc) == (out_h, out_w * channels):
-        return img
-    kw = torch.from_numpy(
-        kron_resize_weights(wc // channels, out_w, channels, filter)).to(img)
-    x = torch.clamp(torch.floor(torch.matmul(img, kw.T) + 0.5), 0.0, 255.0)
-    wh = torch.from_numpy(resize_weights(h, out_h, filter)).to(img)
-    return torch.clamp(torch.floor(torch.matmul(wh, x) + 0.5), 0.0, 255.0)
 
 
 # Pillow's 8-bit resampling: coefficients in fixed point with 22 fractional
@@ -207,8 +169,9 @@ def resize_uint8_pillow_flat(img: torch.Tensor, out_h: int, out_w: int, channels
     a uint8 image: the W pass, then the H pass, each only where the size
     changes, each an exact float64 sum of pixels times the fixed-point
     coefficients from half a unit, floored and clipped to [0, 255]. Equal to
-    Pillow bit for bit (upsampling included, where the float pipeline of
-    ``resize_uint8_levels_flat`` may land two levels off). Returns fp32."""
+    Pillow bit for bit, upsampling included, on any device (every partial
+    sum is an integer below 2^53, so the order of the float64 sums does not
+    matter). Returns fp32."""
     *lead, h, wc = img.shape
     w = wc // channels
     x = img.to(torch.float64).reshape(*lead, h, w, channels)

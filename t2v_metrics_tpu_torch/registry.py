@@ -23,13 +23,16 @@ def _vqa_families():
     from .models.paligemma import PALIGEMMA_MODELS
     from .models.qwen2vl import QWEN2_VL_MODELS
     from .models.qwen2vl_adapter import Qwen2VLAdapter
+    from .models.qwen3omni import QWEN3_OMNI_MODELS
+    from .models.qwen3omni_adapter import Qwen3OmniAdapter
     from .models.qwen3vl import QWEN3_VL_MODELS
     from .models.qwen3vl_adapter import Qwen3VLAdapter
 
     return [(CLIP_T5_MODELS, CLIPT5Adapter), (QWEN2_VL_MODELS, Qwen2VLAdapter),
             (QWEN3_VL_MODELS, Qwen3VLAdapter), (GEMMA3_MODELS, Gemma3Adapter),
             (PALIGEMMA_MODELS, PaliGemmaAdapter), (GEMMA4_MODELS, Gemma4Adapter),
-            (MOLMO2_MODELS, Molmo2Adapter), (INTERNVL_MODELS, InternVLAdapter),
+            (MOLMO2_MODELS, Molmo2Adapter), (QWEN3_OMNI_MODELS, Qwen3OmniAdapter),
+            (INTERNVL_MODELS, InternVLAdapter),
             (LLAVA_MODELS, LlavaAdapter), (INSTRUCTBLIP_MODELS, InstructBlipAdapter)]
 
 

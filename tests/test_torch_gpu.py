@@ -878,3 +878,41 @@ def test_pillow_resize_on_the_card_equals_the_cpu(dev):
                         dtype=torch.uint8)
     want = resize_uint8_pillow_flat(img, 1344, 1792, 3)
     assert torch.equal(resize_uint8_pillow_flat(img.to(dev), 1344, 1792, 3).cpu(), want)
+
+
+@pytest.mark.parametrize("src,out,pad", [((1024, 1024), (992, 992), False),   # Qwen3 / Omni
+                                         ((1024, 1024), (980, 980), False),   # Qwen2.5
+                                         ((1024, 768), (336, 336), True),     # LLaVA, CLIP-FlanT5
+                                         ((1024, 1024), (896, 896), False),   # Gemma 3
+                                         ((1024, 1024), (448, 448), False),   # PaliGemma-448
+                                         ((1024, 1024), (224, 224), False),   # InstructBLIP
+                                         ((1024, 1024), (364, 364), False),   # ITMScore
+                                         ((480, 640), (320, 448), False)])    # a video frame
+def test_pillow_resize_sites_on_the_card_equal_the_cpu(dev, src, out, pad):
+    """Each Pillow-resize site of the port at its shape: the card's result
+    (padded to square first where the site pads) equals the CPU's, bit for
+    bit (the CPU's equals Pillow's: tests/test_torch_image.py)."""
+    from t2v_metrics_tpu_torch.engine.scoring import pillow_resize_batch
+    from t2v_metrics_tpu_torch.ops.image import resize_uint8_pillow_flat
+
+    rng = torch.Generator().manual_seed(src[0] + out[0])
+    img = torch.randint(0, 256, (2, src[0], src[1] * 3), generator=rng, dtype=torch.uint8)
+    if pad:
+        imgs = [x.reshape(src[0], src[1], 3).numpy() for x in img]
+        want = pillow_resize_batch(imgs, out[0], True, "cpu")
+        got = pillow_resize_batch(imgs, out[0], True, dev)
+    else:
+        want = resize_uint8_pillow_flat(img, *out, 3)
+        got = resize_uint8_pillow_flat(img.to(dev), *out, 3)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+def test_log_mel_on_the_card_equals_the_cpu(dev):
+    """The float64 log-mel of 30 s of audio on the card against the CPU."""
+    import numpy as np
+
+    from t2v_metrics_tpu_torch.models.qwen3omni_audio import log_mel_device
+
+    audio = (np.random.default_rng(3).standard_normal(16000 * 30) * 0.1).astype(np.float32)
+    torch.testing.assert_close(log_mel_device(audio, device=dev).cpu(),
+                               log_mel_device(audio), atol=1e-5, rtol=0)

@@ -2,8 +2,8 @@
 the engine's device and host preprocess) against the JAX package on the CPU.
 
 Tolerance 2e-5 on [0, 1] pixels in fp32 (same coefficients, different
-matmul summation order); the host uint8 path may differ from Pillow by one
-level where a value sits on a rounding boundary.
+matmul summation order); every uint8 resize (``resize_uint8_pillow_flat``,
+the engine's ``pillow_resize_batch``) equals Pillow's bit for bit.
 """
 
 import numpy as np
@@ -63,20 +63,22 @@ def test_crop_and_patchify():
     np.testing.assert_array_equal(TI.patch_perm(14, 3), JI.patch_perm(14, 3))
 
 
-def test_host_uint8_path_matches_pillow():
-    """Images that do not take the device path are padded and resized on the
-    host with Pillow's uint8 pipeline (JAX package: media.images.load_batch)."""
+@pytest.mark.parametrize("pad_square", [True, False])
+def test_host_uint8_path_matches_pillow(pad_square):
+    """Images that do not take the fp32 device path are padded (or resized
+    by the shortest side and centre-cropped) and resized with Pillow's uint8
+    pipeline, bit for bit (JAX package: media.images.load_batch)."""
     from t2v_metrics_tpu.media.images import load_batch
-    from t2v_metrics_tpu_torch.engine.scoring import _host_resize_batch
+    from t2v_metrics_tpu_torch.engine.scoring import pillow_resize_batch
 
     rng = np.random.default_rng(3)
     imgs = [rng.integers(0, 256, (41, 67, 3), dtype=np.uint8),
-            rng.integers(0, 256, (90, 33, 3), dtype=np.uint8)]
-    got = _host_resize_batch(imgs, 56, pad_square=True)
-    want = load_batch(imgs, 56, pad_square=True, raw_uint8=True)
-    assert got.shape == (2, 56, 56 * 3)
-    diff = np.abs(got.astype(int) - want.reshape(2, 56, 56 * 3).astype(int))
-    assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+            rng.integers(0, 256, (90, 33, 3), dtype=np.uint8),
+            rng.integers(0, 256, (41, 67, 3), dtype=np.uint8)]
+    got = pillow_resize_batch(imgs, 56, pad_square, "cpu")
+    want = load_batch(imgs, 56, pad_square=pad_square, raw_uint8=True)
+    assert got.dtype == torch.uint8 and got.shape == (3, 56, 56 * 3)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(3, 56, 56 * 3))
 
 
 def test_device_batch_only_for_same_shape_small_uint8():
@@ -91,20 +93,18 @@ def test_device_batch_only_for_same_shape_small_uint8():
 
 @pytest.mark.parametrize("hw", [(1024, 1024), (1024, 768)])
 def test_host_resize_llava_size_matches_pillow(hw):
-    """LLaVA's path for images over 384 px: expand2square with the CLIP-mean
-    fill and Pillow's uint8 bicubic down to 336, on the host (JAX package:
-    media.images.load_batch, Pillow). Within one uint8 level; the share of
-    values off by one stays under 5e-4 (measured 8.4e-5 and 5.9e-5)."""
+    """LLaVA's path and CLIP-FlanT5's for images over 384 px: expand2square
+    with the CLIP-mean fill and Pillow's uint8 bicubic down to 336, bit for
+    bit (JAX package: media.images.load_batch, Pillow)."""
     from t2v_metrics_tpu.media.images import load_batch
-    from t2v_metrics_tpu_torch.engine.scoring import _host_resize_batch
+    from t2v_metrics_tpu_torch.engine.scoring import pillow_resize_batch
 
     rng = np.random.default_rng(4)
     imgs = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(2)]
-    got = _host_resize_batch(imgs, 336, pad_square=True)
+    got = pillow_resize_batch(imgs, 336, True, "cpu")
     want = load_batch(imgs, 336, pad_square=True, raw_uint8=True)
     assert got.shape == (2, 336, 336 * 3)
-    diff = np.abs(got.astype(int) - want.reshape(2, 336, 336 * 3).astype(int))
-    assert diff.max() <= 1 and (diff > 0).mean() < 5e-4
+    np.testing.assert_array_equal(got.numpy(), want.reshape(2, 336, 336 * 3))
 
 
 def test_pillow_fixed_point_resize_is_pillow_bit_for_bit():

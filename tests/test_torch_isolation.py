@@ -81,6 +81,28 @@ def test_loading_a_checkpoint_pulls_no_hub_package(tmp_path, with_tokenizer):
         assert loaded == "[]", loaded
 
 
+def test_omni_audio_scoring_pulls_no_hub_package(tmp_path):
+    """Qwen3-Omni scores an image with a .wav (the stdlib reader, the port's
+    own mel filterbank) with no transformers, safetensors or
+    huggingface_hub in sys.modules."""
+    code = (
+        "import sys, wave, numpy as np\n"
+        "import t2v_metrics_tpu_torch as t\n"
+        f"path = {str(tmp_path / 'a.wav')!r}\n"
+        "with wave.open(path, 'wb') as w:\n"
+        "    w.setnchannels(1); w.setsampwidth(2); w.setframerate(16000)\n"
+        "    w.writeframes((np.sin(np.arange(8000) / 9.0) * 9000).astype(np.int16).tobytes())\n"
+        "s = t.VQAScore('qwen3-omni-test', device='cpu')\n"
+        "img = np.zeros((28, 28, 3), np.uint8)\n"
+        "assert np.isfinite(s(images=[img], texts=['a tone'], audio_paths=[path])).all()\n"
+        f"hub = {_HUB_PACKAGES!r}\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in hub))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -8,7 +8,8 @@ two CPU BLAS libraries sum in different orders and the differences compound
 over the layers), 1e-5 on P(match), a softmax of the averaged ITM logits.
 Images the facades score are already at the model's size, so the device
 resize passes them through exactly; the resize itself is held against
-Pillow, within one uint8 level (Pillow's coefficients are fixed-point).
+Pillow bit for bit (``resize_uint8_pillow_flat``: Pillow's fixed-point
+coefficients).
 """
 
 import numpy as np
@@ -25,7 +26,7 @@ from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer  # noqa: E402
 from t2v_metrics_tpu_torch import bridge  # noqa: E402
 from t2v_metrics_tpu_torch.models import blip2_itm as tbitm  # noqa: E402
 from t2v_metrics_tpu_torch.models import itm_adapter  # noqa: E402
-from t2v_metrics_tpu_torch.ops.image import resize_uint8_levels_flat  # noqa: E402
+from t2v_metrics_tpu_torch.ops.image import resize_uint8_pillow_flat  # noqa: E402
 
 TOL = 1e-4
 P_TOL = 1e-5
@@ -164,17 +165,17 @@ def test_tower_runs_once_per_distinct_image(scorers, monkeypatch):
 @pytest.mark.parametrize("shape", [(40, 50), (300, 380), (28, 28), (17, 9)])
 def test_preprocess_within_one_level_of_pillow(shape):
     """The device resize against Pillow's BICUBIC on uint8 (what the JAX
-    adapter runs on the host): within one uint8 level, exact where the image
-    has the model's size; the normalisation is the JAX adapter's."""
+    adapter runs on the host): equal bit for bit; the normalisation is the
+    JAX adapter's."""
     from PIL import Image
 
     img = np.random.default_rng(7).integers(0, 256, (*shape, 3), dtype=np.uint8)
     want = np.asarray(Image.fromarray(img).resize((IMG, IMG), Image.BICUBIC), np.float32)
-    flat = torch.from_numpy(img.reshape(1, shape[0], shape[1] * 3)).float()
-    got = resize_uint8_levels_flat(flat, IMG, IMG, 3)[0].numpy().reshape(IMG, IMG, 3)
-    assert np.abs(got - want).max() <= (0 if shape == (IMG, IMG) else 1)
+    flat = torch.from_numpy(img.reshape(1, shape[0], shape[1] * 3))
+    got = resize_uint8_pillow_flat(flat, IMG, IMG, 3)[0].numpy().reshape(IMG, IMG, 3)
+    np.testing.assert_array_equal(got, want)
     mean, std = np.asarray(jt2v.constants.CLIP_MEAN), np.asarray(jt2v.constants.CLIP_STD)
-    norm = itm_adapter.itm_preprocess(flat.to(torch.uint8), IMG)[0].numpy()
+    norm = itm_adapter.itm_preprocess(flat, IMG)[0].numpy()
     np.testing.assert_allclose(norm.reshape(IMG, IMG, 3), (got / 255.0 - mean) / std,
                                atol=1e-6, rtol=0)
 

@@ -266,10 +266,9 @@ def test_checkpoint_matches_hf(monkeypatch, hf_dirs):
 
 @pytest.mark.parametrize("hw", [(17, 9), (40, 50), (300, 380), (500, 640)])
 def test_scores_at_other_image_sizes_match_jax(hw):
-    """Every image is padded and resized to uint8 on the host as the JAX
-    adapter's Pillow pipeline does (within one uint8 level, see
-    tests/test_torch_image.py), below and above the 384 px of CLIP-FlanT5's
-    device path."""
+    """Every image is padded and resized to uint8 as the JAX adapter's
+    Pillow pipeline does (bit for bit, see tests/test_torch_image.py), below
+    and above the 384 px of CLIP-FlanT5's device path."""
     j, t = _scorers()
     rng = np.random.default_rng(9)
     images = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(2)]

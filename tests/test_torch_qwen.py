@@ -163,13 +163,13 @@ def test_cpu_run_launches_no_kernel(scorers):
 
 def test_resized_image_scores_near_jax(scorers):
     """A real resize (100x90 -> 96x88): the JAX package resizes with PIL on
-    the host, the port on the device, within one uint8 level of each
-    other."""
+    the host, the port on the device with Pillow's fixed-point resize, bit
+    for bit, so the scores agree at the image tests' bar."""
     j, t, _ = scorers
     img = np.random.default_rng(4).integers(0, 256, (100, 90, 3), dtype=np.uint8)
     want = j(images=[img], texts=TEXTS[:2])
     got = t(images=[img], texts=TEXTS[:2])
-    np.testing.assert_allclose(np.log(got), np.log(want), atol=2e-2, rtol=0)
+    np.testing.assert_allclose(np.log(got), np.log(want), atol=TOL, rtol=0)
 
 
 def test_registry_and_unported_paths_raise(tmp_path, monkeypatch):

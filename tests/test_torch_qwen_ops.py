@@ -178,14 +178,18 @@ def test_image_patches_match_jax_host_path():
 @pytest.mark.parametrize("hw,out", [((300, 380), (308, 392)),
                                     ((1024, 1024), (980, 980))])
 def test_device_resize_within_one_level_of_pil(hw, out):
-    """A real resize: the two-matmul bicubic rounded to uint8 levels is
-    within one level of Pillow's fixed-point two-pass bicubic."""
+    """A real resize to the smart-resize size: the device preprocess of
+    ``image_patches`` equals Pillow's fixed-point two-pass bicubic bit for
+    bit, and its patch rows equal the JAX host path's (PIL) to fp32
+    normalize rounding."""
     from PIL import Image
 
     img = np.random.default_rng(7).integers(0, 256, (*hw, 3), dtype=np.uint8)
-    got = TI.resize_uint8_levels_flat(
-        torch.from_numpy(img.reshape(1, hw[0], hw[1] * 3)).float(), *out, 3)
+    flat = torch.from_numpy(img.reshape(1, hw[0], hw[1] * 3))
+    got = TI.resize_uint8_pillow_flat(flat, *out, 3)
     want = np.asarray(Image.fromarray(img).resize(out[::-1], Image.BICUBIC))
-    diff = np.abs(got.numpy().reshape(*out, 3) - want.astype(np.float32))
-    assert diff.max() <= 1.0
-    assert np.array_equal(got.numpy(), np.round(got.numpy()))
+    np.testing.assert_array_equal(got.numpy().reshape(*out, 3), want)
+    rows = tq.image_patches(flat, tq.QwenVisionConfig(), *out)[0].numpy()
+    ref, grid = jq.image_to_patches(img, jq.QwenVisionConfig())   # factor 28
+    assert grid == (1, out[0] // 14, out[1] // 14)
+    np.testing.assert_allclose(rows, ref, atol=1e-6, rtol=0)

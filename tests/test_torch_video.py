@@ -13,12 +13,11 @@ float pass; Qwen3-VL and Gemma on clips already at their resized size,
 ``vid.mp4``'s 96x128 at the Qwen test configs' factor 8, a cv2-written 28x28
 clip at the Gemma test tower's size) the scores are held to 1e-5 and their
 logs to 1e-4 nats, the image tests' bar (fp32; the two CPU BLAS libraries
-sum in different orders). Where the port's Pillow-style resize stands for
-the JAX adapters' Pillow (Qwen3-VL on a cv2-written 100x150 clip, Gemma 3 on
-``vid.mp4`` resized to 28x28) the logs are held to 2e-2 nats, the bar of the
-port's resized-image test (``test_torch_qwen.py::
-test_resized_image_scores_near_jax``); the two resizes are within one uint8
-level of each other.
+sum in different orders). Where the port's exact resize stands for the JAX
+adapters' Pillow (Qwen3-VL on a cv2-written 100x150 clip, Gemma 3 on
+``vid.mp4`` resized to 28x28) the two give the same pixels
+(``ops/image.py:resize_uint8_pillow_flat``, bit for bit), so the same bars
+hold.
 """
 
 import sys
@@ -48,7 +47,6 @@ from t2v_metrics_tpu_torch.models import qwen3vl as tq3  # noqa: E402
 VID = "_test_assets/vid.mp4"
 TOL = 1e-4          # log scores, as the image tests
 SCORE_TOL = 1e-5    # scores
-RESIZED_TOL = 2e-2  # log scores where the Pillow emulation stands for Pillow
 TEXTS = ["a red cube on a table", "two dogs", "a cat sleeping on a warm sofa"]
 QWEN = ("qwen2.5-vl-test", "qwen3-vl-test", "qwen3-vl-moe-test")
 _SCORERS = {}
@@ -298,19 +296,19 @@ def test_image_and_video_in_one_call_match_jax(name, tmp_path):
 
 def test_qwen3_resized_clip_scores_near_jax(tmp_path):
     """A cv2-written 100x150 clip, resized to 96x152: the JAX adapter
-    resizes its frames with Pillow on the host, the port on the device."""
+    resizes its frames with Pillow on the host, the port on the device with
+    Pillow's fixed-point resize, bit for bit."""
     clip = _write_clip(tmp_path / "c.avi", 100, 150)
     for name in ("qwen3-vl-test", "qwen3-vl-moe-test"):
         j, t = scorers(name)
-        _close(t(images=[clip], texts=TEXTS[:2]), j(images=[clip], texts=TEXTS[:2]),
-               RESIZED_TOL)
+        _close(t(images=[clip], texts=TEXTS[:2]), j(images=[clip], texts=TEXTS[:2]))
 
 
 def test_gemma_video_scores_match_jax(tmp_path):
     """A cv2-written clip at the test tower's size (no resize): ``__call__``
     (10 frames) and ``batch_forward`` with num_frames 4 against the JAX
     package's batch_forward; vid.mp4 (frames resized 96x128 -> 28x28,
-    Pillow against the port's emulation) within the resized bar."""
+    Pillow against the port's exact resize) at the same bars."""
     j, t = scorers("gemma-3-test")
     clip = _write_clip(tmp_path / "tower.avi", 28, 28, n=14)
     _close(t(images=[clip], texts=TEXTS), j(images=[clip], texts=TEXTS))
@@ -321,9 +319,9 @@ def test_gemma_video_scores_match_jax(tmp_path):
            .repeat(3, 0))
     for nf in (10, 4):
         _close(t.model.forward([VID] * 2, TEXTS[:2], num_frames=nf),
-               j.model.forward([VID] * 2, TEXTS[:2], num_frames=nf), RESIZED_TOL)
+               j.model.forward([VID] * 2, TEXTS[:2], num_frames=nf))
     data = [{"videos": [VID], "texts": TEXTS[:2]}]
-    _close(t.batch_forward(data), j.batch_forward(data), RESIZED_TOL)
+    _close(t.batch_forward(data), j.batch_forward(data))
 
 
 @pytest.mark.parametrize("name", QWEN + ("gemma-3-test",))
