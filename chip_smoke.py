@@ -69,9 +69,18 @@ Phases (any failure exits non-zero and prints no result line):
      kernel with segment ids over a 300 s clip's 3750 rows and over a
      4-clip call, each with two wrong plain versions that must fail;
      LayerNorm and add + LN at (3750, 1280)), the float64 log-mel of 300 s
-     against the CPU's, and the exact resize at each Pillow-resize site's
-     shape, bitwise the CPU's, with its time (``resize_sites``)
-     (``--kernels-only`` stops here, with no result line);
+     against the CPU's; and at the sites of Qwen3-Omni's speech path at HF's
+     talker widths (``talker_kernels``: the flat kernel at the talker's
+     prefill and decode step (GQA 16/2 at d 64), the code predictor's step
+     (GQA 16/8 at d 128) and a 325-row Code2Wav chunk (causal, window 72),
+     each with two wrong plain versions that must fail; the grouped GEMM at
+     the talker's gate_up and down over a prefill's and a decode token's
+     routing; RMSNorm at 1024, the qk-norm of 16 + 2 heads of 64 and 16 + 8
+     of 128, rope on 18 heads of 64, 24 of 128 and 32 of 64, the ConvNeXt
+     LayerNorm at (650 / 1300, 1024)); and the exact resize at each
+     Pillow-resize site's shape, bitwise the CPU's, with its time
+     (``resize_sites``) (``--kernels-only`` stops here, with no result
+     line);
   3. the full-width chains (clip-flant5-xl widths with 2 ViT and 2+2 T5
      layers; Qwen2.5-VL-7B widths with 2 ViT layers, one windowed and one
      full, and 2 decoder layers; Qwen3-VL-30B-A3B widths with 2 ViT and 2
@@ -106,7 +115,13 @@ Phases (any failure exits non-zero and prints no result line):
      counts against the code's) and molmo2-8b through forced tokens (5e-2
      a row and a step); qwen3-omni-30b-a3b at 2 audio + 2 vision + 2
      thinker layers on image + audio, audio-only and image-only pairs (5e-2
-     nats, launch counts against the code's);
+     nats, launch counts against the code's); Qwen3-Omni's speech path at
+     HF's widths cut to 2 talker layers of 128 experts with the shared
+     expert, 2 code predictor layers and Code2Wav's conv stack behind 2
+     transformer layers (``phase_talker_chain``: the CPU's greedy codec
+     frames forced through card bf16 and CPU fp32, each talker step within
+     0.3 nats and each predictor step within 5e-2, the waveform within 5% of
+     rms(CPU));
   4. the slices through the public entry point, each with the kernel launch
      counts of its first call (checked against the counts the code gives),
      ``batch_forward``, pairs/s and its peak device memory, each slice's
@@ -156,7 +171,12 @@ Phases (any failure exits non-zero and prints no result line):
      1024x1024 images each with a seeded 10 s .wav, 8 x (1, 4) audio-only
      with 30 s clips, one clip x 2 texts, each with launch counts against
      the code's, pairs/s and peak memory (``--profile``: the image + audio
-     and audio-only calls' busy share).
+     and audio-only calls' busy share); then the same thinker with a random
+     talker and Code2Wav at HF's widths (``phase_talker_slice``: generate
+     batched and per sequence, forward_with_trace, generate(return_audio=
+     True) greedy and sampled, chunked_decode of 600 frames; launch counts
+     against the code's, ms a thinker step, ms a talker frame by part,
+     frames/s, Code2Wav ms a chunk, peak memory).
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
 summed over the first calls of the checkpoint-loaded xl, the sixteen
 slices and the video slices and calls, and over the generate and trace runs; a
@@ -419,7 +439,10 @@ def phase_build() -> None:
     norms.rms_norm_heads_fused(ones(1, 8, 40 * 128), ones(128), ones(128), 32, 4, 128)
     norms.rms_norm_heads_fused(ones(1, 8, 16 * 256), ones(256), ones(256), 8, 4, 256,
                                1e-6, 1.0, False)
-    for heads, d in ((32, 80), (36, 128), (32, 72), (16, 256)):
+    norms.rms_norm_fused(ones(8, 1024), ones(1024))                  # Qwen3-Omni's talker
+    for hq, hk, d in ((16, 2, 64), (16, 8, 128)):
+        norms.rms_norm_heads_fused(ones(1, 8, (hq + 2 * hk) * d), ones(d), ones(d), hq, hk, d)
+    for heads, d in ((32, 80), (36, 128), (32, 72), (16, 256), (20, 64), (32, 128), (48, 64)):
         rope.rope_pack(ones(1, 8, heads * d), ones(1, 8, d, dtype=torch.float32),
                        ones(1, 8, d, dtype=torch.float32), min(heads, 32), d)
     for d in (1024, 4096, 10240):
@@ -768,6 +791,8 @@ def phase_kernels() -> dict:
     free_cuda()
     omni_kernels(randn, record)
     free_cuda()
+    talker_kernels(randn, record)
+    free_cuda()
     resize_sites()
     return results
 
@@ -884,6 +909,16 @@ def masked_attention_yardsticks(label, packed, heads, kw) -> tuple:
         f"({ops / 1e9:.2f} GFLOP kept by the masks); {name} "
         + ("refused" if ms is None else f"{ms:.4f} ms"))
     return ops, lower, None if ms is None else (name, ms)
+
+
+def qk_norm_library(pk: torch.Tensor, qk_heads: int, heads: int, d: int, w: torch.Tensor):
+    """The qk-norm's library yardstick: one ``F.rms_norm`` over the q|k
+    heads of the packed rows viewed as (rows, heads, d), its first
+    ``qk_heads`` heads (the normalisation the kernel does; one weight where
+    the kernel takes the q and the k scale)."""
+    view = pk.view(-1, heads, d)[:, :qk_heads]
+    name = f"F.rms_norm over the ({view.shape[0]} x {qk_heads}, {d}) q|k view"
+    return name, cuda_ms(lambda: F.rms_norm(view, (d,), w, 1e-6))
 
 
 def library_ms(fn, name: str) -> float | None:
@@ -3766,7 +3801,7 @@ def new_family_kernels(randn, record, lengths_mask) -> None:
            lambda: N.rms_norm_heads_fused(buf, qs, ks, 32, 8, 128),
            lambda: N.rms_norm_heads_plain(pk, qs, ks, 32, 8, 128), False,
            lower=(5 * 40 * 128 * 16 * 2688, 4 * 40 * 128 * 16 * 2688 + 4 * 128, "fp32"),
-           site=True)
+           library=qk_norm_library(pk, 40, 48, 128, qs), site=True)
     del pk, buf, out, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     for label, b, s, d in (("internvl3.5-8b", 16, 2688, 128), ("molmo2-4b", 16, 256, 80)):
@@ -4394,6 +4429,692 @@ def phase_omni_slice(model: str = OMNI, device: str = "cuda", side: int = 1024,
 
 
 # ---------------------------------------------------------------------------
+# Qwen3-Omni's talker (speech output): kernel sites (phase 2), the chain
+# (phase 3) and the slice through generate(return_audio=True) (phase 4)
+# ---------------------------------------------------------------------------
+
+# Talker chain, card bf16 against CPU fp32 through the CPU's greedy codec
+# frames: a talker step is an MoE step (a router near tie moves an expert:
+# the MoE step bar), a predictor step a dense one (the decoder chains' bar).
+TALKER_STEP_TOL_NATS = QWEN3_STEP_TOL_NATS
+PREDICTOR_STEP_TOL_NATS = 5e-2
+# Code2Wav's waveform, card bf16 against CPU fp32 on one seeded code matrix:
+# rms(card - cpu) <= WAV_TOL_RMS x rms(cpu). The transformer's bf16 roundings
+# (~0.4% a value) pass through 2 + 12 residual convolutions and the
+# SnakeBeta sines; predicted 1-2% of rms, bar 5%.
+WAV_TOL_RMS = 5e-2
+TALKER_FRAMES = 8          # frames of the chain's forced rollout
+C2W_CHAIN_FRAMES = 50      # frames of the chain's Code2Wav comparison
+# rows of the talker's prefill at the slice's pair: a 1024x1024 image (1024
+# rows + 2 markers), a 10 s clip (130 + 2) and the chat text, then the 9
+# assistant rows
+TALKER_PROMPT = 1184
+
+
+def chat_tokenizer(vocab_size: int):
+    """The port's SimpleT5Tokenizer with <|im_start|> and <|im_end|> kept apart
+    from the words beside them (the JAX suite's ``_ChatT5Tokenizer``), so that
+    ``build_talker_inputs`` finds the chat turns; <|im_start|>, <|im_end|>,
+    system, user and assistant take ids 3-7."""
+    import re
+
+    from t2v_metrics_tpu_torch.tokenization import SimpleT5Tokenizer
+
+    class ChatT5Tokenizer(SimpleT5Tokenizer):
+        MARKS = ("<|im_start|>", "<|im_end|>")
+
+        def __init__(self, vocab: int):
+            super().__init__(vocab)
+            for word in (*self.MARKS, "system", "user", "assistant"):
+                self._id(word)
+
+        def __call__(self, text: str, add_special_tokens: bool = True):
+            ids = []
+            for part in re.split(r"(<\|im_start\|>|<\|im_end\|>)", text):
+                ids += ([self._id(part)] if part in self.MARKS
+                        else [self._id(w) for w in part.split()])
+            if add_special_tokens:
+                ids.append(self.eos_token_id)
+            return self._Enc(ids)
+
+    return ChatT5Tokenizer(vocab_size)
+
+
+def talker_run_config(tok=None, text_layers=None, pred_layers=None, c2w_layers=None):
+    """``resolve_talker_config()`` made self-consistent for a random run (these
+    are values of this run, not of a checkpoint): 16 code groups for Code2Wav's
+    16 quantizers; Code2Wav's upsample rates HF's (8, 5, 4, 3), 1920 samples a
+    frame, 12.5 frames/s at 24 kHz; the codec special ids 4196-4205, past the
+    3072-row codec table, each moved down by 2048 into the suppressed top band
+    [2048, 3072); with ``tok`` the chat ids of that tokenizer; depth cut where
+    given."""
+    from t2v_metrics_tpu_torch.models.qwen3omni import resolve_talker_config
+
+    cfg = resolve_talker_config()
+    over = {k: getattr(cfg, k) - 2048 for k in (
+        "codec_eos_token_id", "codec_nothink_id", "codec_think_bos_id",
+        "codec_think_eos_id", "codec_pad_id", "codec_bos_id")}
+    over["speaker_id"] = tuple((name, i - 2048) for name, i in cfg.speaker_id)
+    if tok is not None:
+        ids = {w: tok.encode(w, add_special_tokens=False)[0]
+               for w in ("<|im_start|>", "system", "user", "assistant")}
+        over.update(im_start_token_id=ids["<|im_start|>"], system_token_id=ids["system"],
+                    user_token_id=ids["user"], assistant_token_id=ids["assistant"])
+    c2w = dataclasses.replace(cfg.code2wav, upsample_rates=(8, 5, 4, 3),
+                              num_hidden_layers=c2w_layers or cfg.code2wav.num_hidden_layers)
+    return dataclasses.replace(
+        cfg, num_code_groups=c2w.num_quantizers, code2wav=c2w,
+        text=dataclasses.replace(cfg.text, layers=text_layers or cfg.text.layers),
+        predictor=dataclasses.replace(cfg.predictor,
+                                      layers=pred_layers or cfg.predictor.layers), **over)
+
+
+def kernel_counts(**counts) -> dict:
+    """A launch count over every kernel of the table (the others 0)."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+def add_launches(*dicts) -> dict:
+    return {name: sum(d.get(name, 0) for d in dicts) for name in KERNELS}
+
+
+def decoder_launches(cfg, passes: int = 1) -> dict:
+    """Launches of ``passes`` forwards (a prefill or a step) of a decoder:
+    attention and rope once a layer, RMSNorm twice a layer, the qk-norm once
+    a layer and the final norm, the grouped GEMM twice a MoE layer on the
+    dispatch."""
+    n = cfg.layers
+    gmm = 2 * n if cfg.num_experts and cfg.moe_dispatch else 0
+    return kernel_counts(flash_attention_flat=n * passes, rope_pack=n * passes,
+                    rms_norm=(3 * n + 1 if cfg.qk_norm else 2 * n + 1) * passes,
+                    grouped_gemm=gmm * passes)
+
+
+def c2w_launches(cfg, chunks: int = 1) -> dict:
+    """Launches of ``chunks`` Code2Wav decodes: the transformer's attention
+    and rope once a layer, RMSNorm twice a layer and the final norm, and the
+    ConvNeXt LayerNorm once an upsampling stage."""
+    n = cfg.num_hidden_layers
+    return kernel_counts(flash_attention_flat=n * chunks, rope_pack=n * chunks,
+                    rms_norm=(2 * n + 1) * chunks,
+                    layer_norm=len(cfg.upsampling_ratios) * chunks)
+
+
+def focused_cache_site(record, randn, label, sk: int, heads: int, kvh: int, d: int) -> None:
+    """The flat kernel at one decode step of one sequence: q (1, 1, H*d), the
+    q lanes of a packed row, over k / v views of (1, sk, KvH*d) caches whose
+    slots are all valid (the talker's and the code predictor's caches hold
+    no pad slot). Slot 0's key is made the focus of the first q head of
+    each kv head (3 x its q), so that the two wrong plain versions, slot 0
+    masked and a window one slot short of the view, move those heads and
+    must fail. Bound: the k / v rows, q and the output once; SDPA with
+    enable_gqa beside it."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+
+    rep = heads // kvh
+    q = randn(1, 1, (heads + 2 * kvh) * d)[..., :heads * d]
+    k, v = randn(1, sk, kvh * d), randn(1, sk, kvh * d)
+    for g in range(kvh):
+        k[:, 0, g * d:(g + 1) * d] = 3 * q[:, 0, g * rep * d:g * rep * d + d]
+    mask = torch.ones((1, sk), dtype=torch.bool, device=q.device)
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask)
+    fn = lambda: A.flash_attention_flat(q, k, v, heads, **kw)  # noqa: E731
+    plain_fn = lambda: A.attention_flat_reference(q, k, v, heads, **kw)  # noqa: E731
+    out, ref = fn(), plain_fn()
+    torch.cuda.synchronize()
+    ok, detail = attention_agrees(out, ref)
+    first_off = mask.clone()
+    first_off[:, 0] = False
+    for wrong, over in (("slot 0 masked", {"kv_mask": first_off}),
+                        (f"a window of {sk - 1}", {"local_window": sk - 1})):
+        caught, why = attention_agrees(
+            A.attention_flat_reference(q, k, v, heads, **{**kw, **over}), ref)
+        log(f"[kernel] flash_attention_flat {label} negative control, plain version with "
+            f"{wrong}: {why}")
+        check(not caught, f"the attention tolerance passes a plain version with {wrong}")
+    qh = q.view(1, 1, heads, d).transpose(1, 2)
+    kh, vh = (t.view(1, sk, kvh, d).transpose(1, 2) for t in (k, v))
+    attention_site(record, label, fn, plain_fn, 4 * d * heads * sk,
+                   2 * (2 * sk * kvh * d + 2 * heads * d) + sk,
+                   ("F.scaled_dot_product_attention (enable_gqa)",
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)),
+                   checked=(out, ref, ok, detail))
+    log_host("flash_attention_flat", label, fn)
+
+
+def norm_site(record, name, label, out, ref, fn, plain_fn, lower, library=None, ulp=True):
+    tol = LN_RTOL if name == "layer_norm" else (ROPE_RTOL if name == "rope_pack" else RMS_RTOL)
+    bad = outside(out, ref, NORM_ATOL, tol)
+    record(name, label, out, ref, bad == 0,
+           f"{bad} outside atol {NORM_ATOL} + rtol {tol}; max {bf16_ulps(out, ref)} bf16 ulps",
+           fn, plain_fn, False, lower=lower, library=library, site=True)
+
+
+def talker_kernels(randn, record) -> None:
+    """The kernel sites of Qwen3-Omni's speech path at HF's published talker
+    widths (``talker_run_config``), each against its plain version with its
+    bound and library time: the flat kernel at the talker's prefill
+    (TALKER_PROMPT rows, 16 q heads / 2 kv heads of 64, causal; wrong plain
+    versions: no causal mask, a window of 512), its decode step over the
+    prompt and 16 generated slots, the code predictor's last step (16 q / 8
+    kv heads of 128 over 16 slots; both steps with ``focused_cache_site``'s
+    wrong versions) and the Code2Wav transformer over a 325-row chunk (300
+    frames + 25 of context; 16 heads of 64, causal, window 72; wrong
+    versions: window 71, no window); the grouped GEMM at the talker's gate_up
+    (rows, 1024) x (128, 1024, 768) and down (rows, 384) x (128, 384, 1024)
+    over a seeded top-8 routing of the prefill's rows and of one decode
+    step's 8 routed rows; RMSNorm at 1024 (the talker's rows, one decode
+    row, a Code2Wav chunk), the qk-norm at 16 + 2 heads of 64 and 16 + 8 of
+    128, rope on the talker's 18 heads of 64, the predictor's 24 of 128 and
+    Code2Wav's 32 of 64, and the ConvNeXt LayerNorm at C = 1024, eps 1e-6,
+    over 650 and 1300 rows."""
+    from t2v_metrics_tpu_torch.ops import moe as M
+    from t2v_metrics_tpu_torch.ops import norms as N
+    from t2v_metrics_tpu_torch.ops import rope as R
+
+    cfg = talker_run_config()
+    t, pc, c2 = cfg.text, cfg.predictor, cfg.code2wav
+    n = TALKER_PROMPT
+    dev = randn(1).device
+    lanes = (t.heads + 2 * t.kv_heads) * t.head_dim
+    mask = torch.ones((1, n), dtype=torch.bool, device=dev)
+    checked_site(record, f"Qwen3-Omni talker prefill (1, {n}, {lanes}) d=64, GQA 16/2, causal",
+                 randn(1, n, lanes), t.heads, dict(kv_heads=t.kv_heads, causal=True, kv_mask=mask),
+                 (("no causal mask", {"causal": False}), ("a window of 512", {"local_window": 512})))
+    focused_cache_site(record, randn, f"Qwen3-Omni talker decode, q (1, 1, 16x64) over "
+                       f"{n + 16} cached slots, GQA 16/2", n + 16, t.heads, t.kv_heads,
+                       t.head_dim)
+    focused_cache_site(record, randn, f"Qwen3-Omni code predictor step, q (1, 1, 16x128) over "
+                       f"{cfg.num_code_groups} cached slots, GQA 16/8", cfg.num_code_groups,
+                       pc.heads, pc.kv_heads, pc.head_dim)
+    rows = 300 + 25
+    c_lanes = (c2.num_attention_heads + 2 * c2.num_key_value_heads) * c2.head_dim
+    c_mask = torch.ones((1, rows), dtype=torch.bool, device=dev)
+    checked_site(record, f"Qwen3-Omni Code2Wav transformer (1, {rows}, {c_lanes}) d=64, 16 "
+                 f"heads, causal, window {c2.sliding_window}", randn(1, rows, c_lanes),
+                 c2.num_attention_heads,
+                 dict(causal=True, local_window=c2.sliding_window, kv_mask=c_mask),
+                 ((f"a window of {c2.sliding_window - 1}",
+                   {"local_window": c2.sliding_window - 1}),
+                  ("no window", {"local_window": None})))
+    free_cuda()
+
+    # the grouped GEMM at the talker's expert shapes
+    weights = {"gate_up": randn(128, t.d_model, 2 * t.moe_d_ff, std=t.d_model ** -0.5),
+               "down": randn(128, t.moe_d_ff, t.d_model, std=t.moe_d_ff ** -0.5)}
+    for what, tokens in (("prefill", n), ("decode step", 1)):
+        ids = randn(tokens, 128, dtype=torch.float32).topk(8).indices.reshape(-1)
+        _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+        be_host, used_host = be.cpu(), used.cpu()
+        counts = torch.bincount(ids, minlength=128)
+        offs = torch.cumsum((counts + 127) // 128 * 128, 0).int()
+        experts, tk = int((counts > 0).sum()), ids.numel()
+        for wname, w in weights.items():
+            k, nn_ = w.shape[1], w.shape[2]
+            xg = randn(p, k)
+            out = M.grouped_matmul(xg, w, be, M.BLOCK_M, used)
+            ref = M.grouped_matmul_reference(xg, w, be_host, M.BLOCK_M, used_host)
+            torch.cuda.synchronize()
+            bad = outside(out, ref, GMM_ATOL, GMM_RTOL)
+            ms = library_ms(lambda: torch._grouped_mm(xg, w, offs=offs),  # noqa: B023
+                            "torch._grouped_mm")
+            label = (f"Qwen3-Omni talker {what} {wname}, {tk} routed rows ({p} buffer rows, "
+                     f"{int(used_host)} blocks) x (128, {k}, {nn_}), {experts} experts used")
+            record("grouped_gemm", label, out, ref,
+                   bad == 0 and bool(torch.isfinite(out).all()),
+                   f"{bad} outside atol {GMM_ATOL} + rtol 2^-7; max {bf16_ulps(out, ref)} "
+                   "bf16 ulps",
+                   lambda: M.grouped_matmul(xg, w, be, M.BLOCK_M, used),  # noqa: B023
+                   lambda: M.grouped_matmul_reference(  # noqa: B023
+                       xg, w, be_host, M.BLOCK_M, used_host), False,
+                   flop=2 * int(used_host) * M.BLOCK_M * k * nn_,
+                   lower=(2 * tk * k * nn_, 2 * (tk * k + experts * k * nn_ + tk * nn_), "bf16"),
+                   library=None if ms is None else ("torch._grouped_mm", ms), site=True)
+            if what == "decode step":
+                log_host("grouped_gemm", label,
+                         lambda: M.grouped_matmul(xg, w, be, M.BLOCK_M, used))  # noqa: B023
+            del xg, out, ref
+    del weights
+    free_cuda()
+
+    # RMSNorm at 1024 (eps 1e-6 in the decoders, 1e-5 in Code2Wav)
+    for label, r, eps in (("talker prefill", n, 1e-6), ("talker decode", 1, 1e-6),
+                          ("Code2Wav chunk", rows, 1e-5)):
+        x, w = randn(r, 1024, std=3.0), randn(1024)
+        norm_site(record, "rms_norm", f"Qwen3-Omni {label} ({r}, 1024) eps {eps}",
+                  N.rms_norm_fused(x, w, eps), N.rms_norm_plain(x, w, eps),
+                  lambda: N.rms_norm_fused(x, w, eps),  # noqa: B023
+                  lambda: N.rms_norm_plain(x, w, eps),  # noqa: B023
+                  (5 * r * 1024, 4 * r * 1024 + 2 * 1024, "fp32"),
+                  ("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (1024,), w, eps))))  # noqa: B023
+    # the qk-norm in place: the talker's prefill rows, the predictor's prefill
+    for label, r, hq, hk, d in (("talker", n, t.heads, t.kv_heads, t.head_dim),
+                                ("code predictor", 2, pc.heads, pc.kv_heads, pc.head_dim)):
+        heads = hq + 2 * hk
+        pk, qs, ks = randn(r, heads * d, std=3.0), randn(d), randn(d)
+        buf = pk.clone()
+        out, ref = (N.rms_norm_heads_fused(buf, qs, ks, hq, hk, d),
+                    N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d))
+        norm_site(record, "rms_norm", f"Qwen3-Omni {label} qk-norm ({r}, {heads}x{d}), "
+                  f"{hq}+{hk} heads of {d} in place", out, ref,
+                  lambda: N.rms_norm_heads_fused(buf, qs, ks, hq, hk, d),  # noqa: B023
+                  lambda: N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d),  # noqa: B023
+                  (5 * r * (hq + hk) * d, 4 * r * (hq + hk) * d + 4 * d, "fp32"),
+                  qk_norm_library(pk, hq + hk, heads, d, qs))
+        del pk, buf, out, ref
+    # rope on the packed q|k lanes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    for label, r, hq, hk, hv, d in (("talker prefill", n, t.heads, t.kv_heads, t.kv_heads, 64),
+                                    ("code predictor prefill", 2, pc.heads, pc.kv_heads,
+                                     pc.kv_heads, 128),
+                                    ("Code2Wav chunk", rows, 16, 16, 16, 64)):
+        rot, width = hq + hk, (hq + hk + hv) * d
+        pk = randn(1, r, width)
+        ang = (torch.randint(0, 2048, (1, r, 1), generator=gen, device=dev).float()
+               * randn(d, dtype=torch.float32).abs())
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        buf = pk.clone()
+        norm_site(record, "rope_pack", f"Qwen3-Omni {label} (1, {r}, {width}) {rot} heads of {d}",
+                  R.rope_pack(buf, cos, sin, rot, d), R.rope_pack_plain(pk, cos, sin, rot, d),
+                  lambda: R.rope_pack(buf, cos, sin, rot, d),  # noqa: B023
+                  lambda: R.rope_pack_plain(pk, cos, sin, rot, d),  # noqa: B023
+                  (3 * r * rot * d, 4 * r * rot * d + 8 * r * d, "fp32"))
+        del pk, buf, cos, sin, ang
+    # the ConvNeXt LayerNorm after each 2x upsampling of a 325-row chunk
+    for r in (2 * rows, 4 * rows):
+        x, w, b = randn(r, 1024, std=3.0), randn(1024), randn(1024)
+        norm_site(record, "layer_norm", f"Qwen3-Omni Code2Wav ConvNeXt ({r}, 1024) eps 1e-6",
+                  N.layer_norm_fused(x, w, b, 1e-6), N.layer_norm_plain(x, w, b, 1e-6),
+                  lambda: N.layer_norm_fused(x, w, b, 1e-6),  # noqa: B023
+                  lambda: N.layer_norm_plain(x, w, b, 1e-6),  # noqa: B023
+                  (8 * r * 1024, 4 * r * 1024 + 4 * 1024, "fp32"),
+                  ("F.layer_norm", cuda_ms(
+                      lambda: F.layer_norm(x, (1024,), w, b, 1e-6))))  # noqa: B023
+    free_cuda()
+
+
+def talker_prompt(cfg, rows: int, seed: int):
+    """A seeded talker prompt on the host: embeddings (1, rows, D), 3-D
+    positions (3, 1, rows) with an 8 x 8 image block at rows 16-79 whose
+    h / w streams differ (the interleaved M-RoPE's three streams), 12
+    trailing text rows and the tts-pad row."""
+    g = np.random.default_rng(seed)
+    d = cfg.text.d_model
+    pos = np.zeros((3, 1, rows), np.int64)
+    pos[:, 0, :16] = np.arange(16)
+    blk = np.arange(64)
+    pos[0, 0, 16:80], pos[1, 0, 16:80], pos[2, 0, 16:80] = 16, 16 + blk // 8, 16 + blk % 8
+    pos[:, 0, 80:] = 24 + np.arange(rows - 80)
+
+    def t(*shape):
+        return torch.from_numpy(g.standard_normal(shape).astype(np.float32))
+
+    return t(1, rows, d), pos, t(1, 12, d), t(1, 1, d)
+
+
+def forced_talker(sess, embeds, pos, trailing, tts_pad, codes: np.ndarray):
+    """The talker and its code predictor fed the frames ``codes`` (G, F) as
+    ``TalkerSession.generate_codes`` feeds its own: log P (fp32 log-softmax
+    of the raw logits) of each frame's first code from the talker, (F,), and
+    of its residual codes from the predictor, (F, G - 1)."""
+    from t2v_metrics_tpu_torch.models import decoder as D
+
+    cfg, params = sess.cfg, sess.params
+    table = params.decoder.embed
+    dev, dtype = table.device, table.dtype
+    g, frames = codes.shape
+    e = embeds.to(dev, dtype)
+    n = e.shape[1]
+    last_pos = int(pos[:, 0, n - 1].max())
+    lg, cache, hid, valid = sess.talker_prefill(e, torch.as_tensor(pos, device=dev), n + frames)
+    t_lp, p_lp = [], []
+    for t in range(frames):
+        t_lp.append(lg.float().log_softmax(-1)[int(codes[0, t])])
+        first = table[int(codes[0, t])][None, None]
+        pcache = D.init_cache(cfg.predictor, 1, g, dtype=dtype, device=dev)
+        pvalid = torch.zeros((1, g), dtype=torch.bool, device=dev)
+        pvalid[0, :2] = True
+        plg, pcache = sess.predictor_prefill(torch.cat([hid, first], 1), pvalid, pcache)
+        row, emb = [plg.log_softmax(-1)[int(codes[1, t])]], first
+        for gs in range(1, g):
+            ge = params.predictor.group_embeds[gs - 1][int(codes[gs, t])][None, None]
+            emb = emb + ge
+            if gs < g - 1:
+                plg, pcache = sess.predictor_step(ge, gs, pvalid, pcache)
+                row.append(plg.log_softmax(-1)[int(codes[gs + 1, t])])
+        p_lp.append(torch.stack(row))
+        if t < frames - 1:
+            emb = emb + (trailing[:, t:t + 1] if t < trailing.shape[1] else tts_pad).to(dev, dtype)
+            lg, cache, hid = sess.talker_step(emb.to(dtype), n + t, last_pos + 1 + t, 3, valid,
+                                              cache)
+    return torch.stack(t_lp).float().cpu().numpy(), torch.stack(p_lp).float().cpu().numpy()
+
+
+def host_copy(module_card, make):
+    """An fp32 host copy of a card module, one tensor at a time."""
+    host = make()
+    with torch.no_grad():
+        dst = host.state_dict()
+        for name, t in module_card.state_dict().items():
+            dst[name].copy_(t.float().cpu())
+    return host
+
+
+def phase_talker_chain(device: str = "cuda") -> None:
+    """Qwen3-Omni's speech path at HF's published widths cut to 2 talker
+    layers of 128 experts with the shared expert, 2 of the code predictor's
+    5 layers and Code2Wav's whole conv stack behind 2 transformer layers:
+    card bf16 against CPU fp32 on one set of seeded parameters (drawn on the
+    card in HF's layout through the port's converters, copied to the host).
+    The CPU's greedy codec frames (TALKER_FRAMES of them, from a seeded
+    prompt) go through both sides: each talker step's log P of its frame's
+    first code within TALKER_STEP_TOL_NATS, each predictor step's within
+    PREDICTOR_STEP_TOL_NATS; Code2Wav on a seeded C2W_CHAIN_FRAMES-frame
+    matrix within WAV_TOL_RMS of rms(CPU); the launch counts of both card
+    runs against the code's."""
+    from t2v_metrics_tpu_torch.models import qwen3omni_talker as tk
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tag = "[talker chain]"
+    cfg = talker_run_config(text_layers=2, pred_layers=2, c2w_layers=2)
+    card = tk.init_talker(cfg, SEED + 21, device, torch.bfloat16)
+    proj_ff = card.text_projection.fc1.w.shape[1]
+    host = host_copy(card, lambda: tk.TalkerModel(cfg, proj_ff, "cpu", torch.float32))
+    sessions = tk.TalkerSession(cfg, card), tk.TalkerSession(cfg, host)
+    embeds, pos, trailing, pad = talker_prompt(cfg, 300, SEED + 22)
+    t0 = time.perf_counter()
+    codes = sessions[1].generate_codes(embeds, pos, trailing, pad, max_new_tokens=TALKER_FRAMES,
+                                       do_sample=False, predictor_do_sample=False)
+    t1 = time.perf_counter()
+    frames, g = codes.shape[1], cfg.num_code_groups
+    check(frames >= 2, f"{tag} the CPU's greedy run gave {frames} frames")
+    reset_launch_counts()
+    with torch.inference_mode():
+        t2 = time.perf_counter()
+        on_card = forced_talker(sessions[0], embeds, pos, trailing, pad, codes)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = launch_counts()
+        on_cpu = forced_talker(sessions[1], embeds, pos, trailing, pad, codes)
+    want = add_launches(decoder_launches(cfg.text, frames),
+                        decoder_launches(cfg.predictor, frames * (g - 1)))
+    t_gap = np.abs(on_card[0] - on_cpu[0])
+    p_gap = np.abs(on_card[1] - on_cpu[1])
+    log(f"{tag} 2 talker layers of 128 experts + shared expert, 2 predictor layers, HF's "
+        f"widths: the CPU's greedy {g} x {frames} frames ({(t1 - t0) * 1e3:.0f} ms fp32) forced "
+        f"through both sides: card bf16 {(t3 - t2) * 1e3:.1f} ms; card launches "
+        f"{json.dumps(counts)}; from the code {json.dumps(want)}")
+    log(f"{tag} talker log P(first code) card {rounded(on_card[0])}, cpu {rounded(on_cpu[0])}; "
+        f"|card - cpu| max {float(t_gap.max()):.4e} nats (limit {TALKER_STEP_TOL_NATS})")
+    log(f"{tag} predictor log P(residual code): |card - cpu| max {float(p_gap.max()):.4e} nats "
+        f"(limit {PREDICTOR_STEP_TOL_NATS}), mean {float(p_gap.mean()):.4e}; spread of the CPU's "
+        f"{float(np.ptp(on_cpu[1])):.3f}")
+    check(np.isfinite(on_card[0]).all() and np.isfinite(on_card[1]).all(),
+          f"{tag} card log-probs not finite")
+    check(counts == want, f"{tag} launch counts {counts} != {want}")
+    check(float(t_gap.max()) <= TALKER_STEP_TOL_NATS, f"{tag} a talker step differs by "
+          f"{float(t_gap.max())} nats")
+    check(float(p_gap.max()) <= PREDICTOR_STEP_TOL_NATS, f"{tag} a predictor step differs by "
+          f"{float(p_gap.max())} nats")
+    del card, host, sessions
+    free_cuda()
+
+    c2 = cfg.code2wav
+    card = tk.init_code2wav(c2, SEED + 23, device, torch.bfloat16)
+    host = host_copy(card, lambda: tk.Code2WavModel(c2, "cpu", torch.float32))
+    mat = np.random.default_rng(SEED + 24).integers(0, c2.codebook_size,
+                                                    (1, c2.num_quantizers, C2W_CHAIN_FRAMES))
+    reset_launch_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        wav = tk.code2wav(card, c2, mat).float().cpu()
+        t1 = time.perf_counter()
+        counts = launch_counts()
+        ref = tk.code2wav(host, c2, mat)
+        t2 = time.perf_counter()
+    rms = float(ref.square().mean().sqrt())
+    rel = float((wav - ref).square().mean().sqrt()) / rms
+    clipped = float((ref.abs() >= 1).float().mean())
+    log(f"{tag} Code2Wav, 2 transformer layers + the whole conv stack, {C2W_CHAIN_FRAMES} "
+        f"frames -> {wav.shape[-1]} samples: card bf16 {(t1 - t0) * 1e3:.1f} ms, cpu fp32 "
+        f"{(t2 - t1) * 1e3:.0f} ms; rms(cpu) {rms:.4f} ({clipped:.4f} of it clamped); "
+        f"rms(card - cpu) {rel:.4e} x rms(cpu) (limit {WAV_TOL_RMS}); launches "
+        f"{json.dumps(counts)}")
+    check(torch.isfinite(wav).all() and wav.shape == ref.shape, f"{tag} waveform {wav.shape}")
+    check(counts == c2w_launches(c2), f"{tag} Code2Wav launches {counts}")
+    check(0.01 < rms < 0.9 and rel <= WAV_TOL_RMS, f"{tag} waveform off by {rel} x rms(cpu)")
+
+
+class ForwardProbe:
+    """While active, wraps the decoder's ``forward`` to record each cached
+    call with the name of the config it runs (``kinds``: name -> config), a
+    pair of CUDA events around it, its host enqueue time and whether it is
+    a prefill (cache slot 0). Events and host counters only."""
+
+    def __init__(self, kinds: dict):
+        from t2v_metrics_tpu_torch.models import decoder as D
+
+        self.mod, self.kinds, self.calls = D, kinds, []
+
+    def __enter__(self):
+        orig = self.orig = self.mod.forward
+
+        def wrapped(*args, **kw):
+            if kw.get("cache") is None:
+                return orig(*args, **kw)
+            kind = next((k for k, c in self.kinds.items() if args[1] == c), "other")
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            out = orig(*args, **kw)
+            end.record()
+            self.calls.append((kind, kw.get("cache_pos", 0) == 0, start, end,
+                               time.perf_counter() - t0))
+            return out
+
+        self.mod.forward = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.forward = self.orig
+        torch.cuda.synchronize()
+
+    def spans(self, kind: str, prefill: bool) -> tuple[int, float, float]:
+        """(calls, median card ms, median host enqueue ms) of one kind."""
+        sel = [(s, e, h) for k, p, s, e, h in self.calls if k == kind and p == prefill]
+        if not sel:
+            return 0, float("nan"), float("nan")
+        return (len(sel), statistics.median(s.elapsed_time(e) for s, e, _ in sel),
+                statistics.median(h for _, _, h in sel) * 1e3)
+
+
+def phase_talker_slice(model: str = OMNI, device: str = "cuda", side: int = 1024,
+                       profile: bool = False) -> list:
+    """``VQAScore("qwen3-omni-30b-a3b", init="random")``, the whole thinker,
+    with a chat-preserving tokenizer (``chat_tokenizer``) and a random talker
+    and Code2Wav at HF's published widths (``talker_run_config``: 20 MoE
+    layers of 128 experts, a 5-layer predictor, 8 transformer layers),
+    drawn on the card in HF's layout through the port's converters one layer
+    at a time and passed as ``talker_config=``, ``talker_params=``,
+    ``code2wav_params=``. Runs: ``generate`` of 4 pairs (batched) and of 1
+    pair (per sequence), each a 1024x1024 image with a 10 s clip, 16 tokens;
+    ``forward_with_trace`` of that pair at 4 tokens; ``generate(
+    return_audio=True)`` of that pair, 16 tokens and 32 talker frames,
+    greedy and sampled from the adapter's seed; one ``chunked_decode`` of a
+    seeded 600-frame code matrix (a 300-row chunk, then 300 frames + 25 of
+    context). Each: the launch counts against the code's; the thinker's ms a
+    step, the talker's ms a frame (talker step, predictor prefill and steps:
+    card span and host enqueue), frames/s against 12.5, Code2Wav's ms a
+    chunk and the peak memory; with ``profile`` the device time of the
+    greedy speech run by kernel family. Returns the launch counts."""
+    import tempfile
+
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.models import qwen3omni_talker as tk
+    from t2v_metrics_tpu_torch.models.qwen3omni import resolve_config
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tag = f"[{model} talker slice]"
+    th_cfg = resolve_config(model)
+    tok = chat_tokenizer(th_cfg.text.vocab_size)
+    cfg = talker_run_config(tok)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    talker = tk.init_talker(cfg, SEED + 31, device, torch.bfloat16)
+    c2w = tk.init_code2wav(cfg.code2wav, SEED + 32, device, torch.bfloat16)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    talker_gib = torch.cuda.memory_allocated() / 2**30
+    scorer = t2v.VQAScore(model, init="random", seed=SEED, device=device, tokenizer=tok,
+                          talker_config=cfg, talker_params=talker, code2wav_params=c2w)
+    torch.cuda.synchronize()
+    n_talker = sum(p.numel() for p in talker.parameters())
+    n_c2w = sum(p.numel() for p in c2w.parameters())
+    log(f"{tag} talker {n_talker / 1e9:.3f} B + Code2Wav {n_c2w / 1e9:.3f} B parameters drawn "
+        f"in HF's layout and converted layer by layer: {t1 - t0:.2f} s, {talker_gib:.2f} GiB; "
+        f"with the thinker {torch.cuda.memory_allocated() / 2**30:.2f} GiB, load peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({time.perf_counter() - t0:.2f} s)")
+    del talker, c2w
+    m = scorer.model
+    kinds = {"thinker": th_cfg.text, "talker": cfg.text, "predictor": cfg.predictor}
+    g = cfg.num_code_groups
+    out = []
+
+    def run(label, fn, expect):
+        """One call under the probes: its launches against ``expect(probe,
+        result)``, its card spans, peak memory and wall."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        chunks = []
+        c2w_fn = tk.code2wav
+
+        def timed_c2w(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = c2w_fn(*a, **k)
+            end.record()
+            chunks.append((start, end))
+            return res
+
+        tk.code2wav = timed_c2w
+        try:
+            with ForwardProbe(kinds) as probe:
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            tk.code2wav = c2w_fn
+        counts = launch_counts()
+        want = expect(probe, res)
+        c2w_ms = [s.elapsed_time(e) for s, e in chunks]
+        log(f"{tag} {label}: {wall:.3f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; launches {json.dumps(counts)}; from the code {json.dumps(want)}"
+            + (f"; Code2Wav {[round(x, 3) for x in c2w_ms]} ms a chunk" if c2w_ms else ""))
+        check(counts == want, f"{tag} {label}: launch counts {counts} != {want}")
+        out.append(counts)
+        return res, probe, wall
+
+    def thinker_counts(probe, res=None):
+        """One audio and one vision tower call, the thinker's prefill and
+        the decode steps the probe saw."""
+        steps = probe.spans("thinker", False)[0]
+        return add_launches(omni_launches(th_cfg, 1, 1), decoder_launches(th_cfg.text, steps))
+
+    def thinker_line(label, probe):
+        n, ms, host = probe.spans("thinker", False)
+        _, pre, _ = probe.spans("thinker", True)
+        log(f"{tag} {label}: thinker prefill {pre:.2f} ms; {n} decode steps, median {ms:.3f} ms "
+            f"a step on the card, {host:.3f} ms of host enqueue a step")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = [write_seeded_wav(os.path.join(tmp, f"s{i}.wav"), 10.0, 301 + i)
+                for i in range(4)]
+        images, texts = seeded_images(4, 311, side, side), seeded_texts(4, 312)
+        res, probe, wall = run("generate 4 pairs (image + 10 s clip) x 16 tokens, batched",
+                               lambda: m.generate(images, texts, audio_paths=wavs,
+                                                  max_new_tokens=16), thinker_counts)
+        check(len(res) == 4 and all(isinstance(x, str) for x in res), f"{tag} generate {res!r}")
+        thinker_line("batched generate", probe)
+        res, probe, wall = run("generate 1 pair x 16 tokens, per sequence",
+                               lambda: m.generate(images[:1], texts[:1], audio_paths=wavs[:1],
+                                                  max_new_tokens=16), thinker_counts)
+        thinker_line("per-sequence generate", probe)
+        (probs, traces), probe, _ = run(
+            "forward_with_trace 1 pair, 4 tokens, end",
+            lambda: m.forward_with_trace(images[:1], texts[:1], audio_paths=wavs[:1],
+                                         max_new_tokens=4), thinker_counts)
+        check(probs.shape == (1,) and 0.0 <= float(probs[0]) <= 1.0 and len(traces) == 1,
+              f"{tag} forward_with_trace {probs}")
+        log(f"{tag} forward_with_trace: P {float(probs[0]):.4e}, generated length "
+            f"{traces[0]['generated_length']}")
+
+        def speech_counts(probe, res):
+            frames = probe.spans("predictor", True)[0]
+            check(probe.spans("talker", True)[0] == 1
+                  and probe.spans("talker", False)[0] == frames
+                  and probe.spans("predictor", False)[0] == frames * (g - 2),
+                  f"{tag} talker / predictor calls do not make {frames} frames")
+            chunks = -(-frames // 300) if frames else 0
+            return add_launches(thinker_counts(probe), decoder_launches(cfg.text, 1 + frames),
+                                decoder_launches(cfg.predictor, frames * (g - 1)),
+                                c2w_launches(cfg.code2wav, chunks))
+
+        for mode, sample in (("greedy", False), ("sampled", True)):
+            path = os.path.join(tmp, f"{mode}.wav")
+            (texts_out, wav_out), probe, wall = run(
+                f"generate(return_audio=True) 1 pair, 16 tokens, 32 talker frames, {mode}",
+                lambda: m.generate(images[:1], texts[:1], audio_paths=wavs[:1],  # noqa: B023
+                                   max_new_tokens=16, return_audio=True,
+                                   save_audio_path=path, talker_max_new_tokens=32,  # noqa: B023
+                                   talker_do_sample=sample), speech_counts)  # noqa: B023
+            frames = probe.spans("predictor", True)[0]
+            w = wav_out[0]
+            check(isinstance(texts_out[0], str) and w.ndim == 1 and np.isfinite(w).all()
+                  and np.abs(w).max() <= 1.0 and (frames == 0 or w.size > 0),
+                  f"{tag} {mode}: text {texts_out!r}, waveform {w.shape}")
+            thinker_line(f"speech {mode}", probe)
+            spans = {k: probe.spans(*k) for k in (("talker", False), ("predictor", True),
+                                                   ("predictor", False))}
+            card_frame = (spans[("talker", False)][1] + spans[("predictor", True)][1]
+                          + (g - 2) * spans[("predictor", False)][1])
+            host_frame = (spans[("talker", False)][2] + spans[("predictor", True)][2]
+                          + (g - 2) * spans[("predictor", False)][2])
+            first = next(i for i, c in enumerate(probe.calls) if c[0] == "talker")
+            span_ms = probe.calls[first][2].elapsed_time(probe.calls[-1][3])
+            log(f"{tag} speech {mode}: {frames} frames ({w.size} samples, {w.size / 24000:.2f} "
+                f"s of 24 kHz audio); a frame: talker step {spans[('talker', False)][1]:.3f} ms "
+                f"card / {spans[('talker', False)][2]:.3f} ms host, predictor prefill "
+                f"{spans[('predictor', True)][1]:.3f} / {spans[('predictor', True)][2]:.3f}, "
+                f"{g - 2} predictor steps {spans[('predictor', False)][1]:.3f} / "
+                f"{spans[('predictor', False)][2]:.3f} each; {card_frame:.2f} ms card, "
+                f"{host_frame:.2f} ms host a frame; the talker's card timeline from its "
+                f"prefill to the last predictor step {span_ms:.1f} ms: "
+                f"{frames / (span_ms / 1e3) if span_ms else 0:.2f} frames/s against 12.5 "
+                f"(real time); wall {wall:.2f} s; text {texts_out[0][:60]!r}")
+            with open(path, "rb") as f:
+                check(len(f.read()) == 44 + 2 * w.size, f"{tag} {mode}: .wav size")
+        if profile:
+            phase_profile(lambda: m.generate(images[:1], texts[:1], audio_paths=wavs[:1],
+                                             max_new_tokens=16, return_audio=True,
+                                             talker_max_new_tokens=32,
+                                             talker_do_sample=False),
+                          f"{model} generate(return_audio=True) greedy")
+    sess, tcfg, c2w = m._talker_session()
+    mat = np.random.default_rng(SEED + 33).integers(
+        0, tcfg.code2wav.codebook_size, (1, tcfg.code2wav.num_quantizers, 600))
+    wav_c, _, _ = run("chunked_decode of 600 frames (chunks of 300 and 300 + 25 rows)",
+                      lambda: tk.chunked_decode(c2w, tcfg.code2wav, mat),
+                      lambda probe, res: c2w_launches(tcfg.code2wav, 2))
+    check(wav_c.shape[-1] > 0 and np.isfinite(wav_c).all(), f"{tag} chunked_decode {wav_c.shape}")
+    log(f"{tag} chunked_decode: {wav_c.shape[-1]} samples ({wav_c.shape[-1] / 24000:.2f} s); "
+        f"card {card_line()}")
+    del scorer, m, sess, c2w
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Optional phase (--profile): where the device time of batch_forward goes
 # ---------------------------------------------------------------------------
 
@@ -4490,7 +5211,8 @@ def main() -> int:
                     for model in (PALIGEMMA, GEMMA4, GEMMA4_31B, LLAVA, INSTRUCTBLIP)),
                   *(lambda model=model: phase_new_family_chain(model)
                     for model in (INTERNVL, INTERNVL_38B, INTERNVL_MOE, MOLMO2)),
-                  lambda: phase_omni_chain(omni_chain_config())):
+                  lambda: phase_omni_chain(omni_chain_config()),
+                  phase_talker_chain):
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
@@ -4516,6 +5238,8 @@ def main() -> int:
         slice_counts.extend(phase_new_family_slice(model, profile=args.profile))
         free_cuda()
     slice_counts.extend(phase_omni_slice(profile=args.profile))
+    free_cuda()
+    slice_counts.extend(phase_talker_slice(profile=args.profile))
     free_cuda()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,

@@ -43,6 +43,7 @@ from .models import molmo2 as tm2
 from .models import paligemma as tpg
 from .models import qwen2vl as tqwen
 from .models import qwen3omni as tomni
+from .models import qwen3omni_talker as ttalk
 from .models import qwen3vl as tqwen3
 from .models import siglip as tsiglip
 from .models import t5 as tt5
@@ -251,6 +252,10 @@ def _load_decoder(p: tdec.Decoder, tree: dict) -> tdec.Decoder:
             _leaf(dst.moe.router, moe["router"])
             _copy(dst.moe.gate_up, moe["gate_up"])
             _copy(dst.moe.down, moe["down"])
+            if dst.moe.shared is not None:     # Qwen3-Omni's talker
+                for name in ("gate", "up", "down"):
+                    _leaf(getattr(dst.moe.shared, name), moe["shared"][name])
+                _leaf(dst.moe.shared_gate, moe["shared_gate"])
         else:
             for name in ("gate", "up", "down"):
                 _leaf(getattr(dst, name), src["mlp"][name])
@@ -321,6 +326,82 @@ def qwen3omni_from_numpy(tree: dict, cfg: tomni.Qwen3OmniConfig, device,
     _leaf(a.proj2, src["proj2"])
     _load_qwen3_vision(model.vision, tree["vision"])
     _load_decoder(model.decoder, tree["decoder"])
+    return model
+
+
+@torch.no_grad()
+def talker_from_numpy(tree: dict, cfg: ttalk.TalkerConfig, device,
+                      dtype) -> ttalk.TalkerModel:
+    """Qwen3-Omni's talker from the JAX package's tree (``convert_talker``'s,
+    either package's): the MoE decoder with its shared experts and codec
+    head, the code predictor and the two projections, whose inner width is
+    read from the tree. The decoder layers are read one at a time, so a
+    lazily converted tree (the port's ``convert_talker``) holds one layer's
+    stacked experts at a time."""
+    proj_ff = _as_tensor(tree["text_projection"]["fc1"]["w"]).shape[1]
+    model = ttalk.TalkerModel(cfg, proj_ff, device, dtype)
+    _load_decoder(model.decoder, tree["decoder"])
+    pred, src = model.predictor, tree["predictor"]
+    _load_decoder(pred.decoder, src["decoder"])
+    for dst, t in _pairs(pred.group_embeds, src["group_embeds"]):
+        _copy(dst, t)
+    for dst, t in _pairs(pred.heads, src["heads"]):
+        _copy(dst, t)
+    for name in ("text_projection", "hidden_projection"):
+        _leaf(getattr(model, name).fc1, tree[name]["fc1"])
+        _leaf(getattr(model, name).fc2, tree[name]["fc2"])
+    return model
+
+
+def _load_conv(dst, src: dict) -> None:
+    _copy(dst.w, src["w"])
+    _copy(dst.b, src["b"])
+
+
+def _load_snake(dst: ttalk.Snake, src: dict) -> None:
+    _copy(dst.alpha, src["alpha"])
+    _copy(dst.beta, src["beta"])
+
+
+@torch.no_grad()
+def code2wav_from_numpy(tree: dict, cfg: ttalk.Code2WavConfig, device,
+                        dtype) -> ttalk.Code2WavModel:
+    """Qwen3-Omni's Code2Wav from the JAX package's tree: the transformer
+    (q|k|v packed), the upsampling stages and the decoder blocks. The tree's
+    factors, strides and dilations are the config's and are not read."""
+    model = ttalk.Code2WavModel(cfg, device, dtype)
+    _copy(model.code_embedding, tree["code_embedding"])
+    pre = tree["pre_transformer"]
+    for dst, blk in _pairs(model.blocks, pre["blocks"]):
+        _norm(dst.ln1, blk["ln1"])
+        _norm(dst.ln2, blk["ln2"])
+        attn = blk["attn"]
+        _packed_leaf(dst.qkv, [attn["q"], attn["k"], attn["v"]])
+        _leaf(dst.o, attn["o"])
+        for name in ("gate", "up", "down"):
+            _leaf(getattr(dst, name), blk["mlp"][name])
+        _copy(dst.scale_attn, blk["scale_attn"])
+        _copy(dst.scale_mlp, blk["scale_mlp"])
+    _norm(model.ln_final, pre["ln_final"])
+    for dst, up in _pairs(model.upsample, tree["upsample"]):
+        nx = up["convnext"]
+        _load_conv(dst.tconv, up["tconv"])
+        _load_conv(dst.dw, nx["dw"])
+        _norm(dst.norm, nx["norm"])
+        _leaf(dst.fc1, nx["fc1"])
+        _leaf(dst.fc2, nx["fc2"])
+        _copy(dst.gamma, nx["gamma"])
+    _load_conv(model.dec_pre, tree["dec_pre"])
+    for dst, blk in _pairs(model.dec_blocks, tree["dec_blocks"]):
+        _load_snake(dst.snake, blk["snake"])
+        _load_conv(dst.tconv, blk["tconv"])
+        for ru, src in _pairs(dst.res_units, blk["res_units"]):
+            _load_snake(ru.snake1, src["snake1"])
+            _load_conv(ru.conv1, src["conv1"])
+            _load_snake(ru.snake2, src["snake2"])
+            _load_conv(ru.conv2, src["conv2"])
+    _load_snake(model.dec_snake, tree["dec_snake"])
+    _load_conv(model.dec_post, tree["dec_post"])
     return model
 
 

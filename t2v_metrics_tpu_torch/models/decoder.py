@@ -16,8 +16,9 @@ head runs only at the rows that score) and deepstack residuals, and the
 random init, and the KV-cached path (``init_cache``, ``forward(cache=,
 cache_pos=)``: one chunk appended to a flat (B, max_len, KvH*D) k and v per
 layer, written in place, and attended over the cache view up to the chunk's
-end). The shared expert comes with the slice that needs it and raises until
-then.
+end), Qwen3-Omni's talker MoE (a SwiGLU shared expert behind a sigmoid
+gate, top-k renormalised only when ``moe_norm_topk``) and ``forward``'s
+``want_hidden`` / ``capture_layer`` outputs.
 
 Parameters keep the JAX layouts (linear weights (in, out), activations flat
 (B, S, H*D)); each layer's q|k|v weights are one packed (d_model,
@@ -35,7 +36,7 @@ from torch import nn
 from ..ops import layers as L
 from ..ops import quant as Q
 from ..ops.attention import attention_flat, attention_flat_packed
-from ..ops.moe import moe_mlp_dispatch
+from ..ops.moe import add_shared_expert, moe_mlp_dispatch
 from ..ops.rope import rope_pack
 from .clip import Norm, init_norm_, normal_
 
@@ -75,12 +76,6 @@ class DecoderConfig:
     moe_shared_ff: int = 0               # >0: shared expert + sigmoid gate
 
 
-def check_supported(cfg: DecoderConfig) -> None:
-    """Raise for the decoder options whose slices are not ported yet."""
-    if cfg.moe_shared_ff:
-        raise NotImplementedError("decoder: the shared expert not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -107,10 +102,12 @@ def rope_cos_sin(cfg: DecoderConfig, position_ids: torch.Tensor,
     if position_ids.dim() == 3 and cfg.mrope_section is not None:
         if cfg.mrope_interleaved:
             # Qwen3-VL: the T-stream frequencies, with H at indices
-            # 1, 4, 7, .. (< 3*sec_h) and W at 2, 5, 8, .. (< 3*sec_w)
+            # 1, 4, 7, .. (< 3*sec_h) and W at 2, 5, 8, .. (< 3*sec_w), only
+            # below the half width (HF's slice clips there and the JAX
+            # scatter drops the rest: the talker's (24, 20, 20) over 32)
             out = freqs[0].clone()
             for dim, offset in ((1, 1), (2, 2)):
-                idx = torch.arange(offset, cfg.mrope_section[dim] * 3, 3,
+                idx = torch.arange(offset, min(cfg.mrope_section[dim] * 3, half), 3,
                                    device=dev)
                 out[..., idx] = freqs[dim][..., idx]
             freqs = out[None]
@@ -129,9 +126,22 @@ def rope_cos_sin(cfg: DecoderConfig, position_ids: torch.Tensor,
 # Parameters
 # ---------------------------------------------------------------------------
 
+class SharedExpert(nn.Module):
+    """The talker MoE's shared SwiGLU expert: ``gate``, ``up`` (H, F) and
+    ``down`` (F, H) leaves."""
+
+    def __init__(self, d: int, ff: int, device, dtype):
+        super().__init__()
+        self.gate = Q.Linear.empty(d, ff, False, device, dtype)
+        self.up = Q.Linear.empty(d, ff, False, device, dtype)
+        self.down = Q.Linear.empty(ff, d, False, device, dtype)
+
+
 class MoE(nn.Module):
     """Routed experts: ``router`` (a leaf, w (H, E)), ``gate_up`` (E, H, 2I)
-    with the gate and up halves side by side, and ``down`` (E, I, H)."""
+    with the gate and up halves side by side, and ``down`` (E, I, H); with
+    ``moe_shared_ff`` also ``shared`` (a ``SharedExpert``) and
+    ``shared_gate`` (a leaf, w (H, 1)), else None."""
 
     def __init__(self, cfg: DecoderConfig, device, dtype):
         super().__init__()
@@ -141,6 +151,9 @@ class MoE(nn.Module):
                                                 dtype=dtype), requires_grad=False)
         self.down = nn.Parameter(torch.empty((e, i, d), device=device, dtype=dtype),
                                  requires_grad=False)
+        sf = cfg.moe_shared_ff
+        self.shared = SharedExpert(d, sf, device, dtype) if sf else None
+        self.shared_gate = Q.Linear.empty(d, 1, False, device, dtype) if sf else None
 
 
 class DecoderBlock(nn.Module):
@@ -176,7 +189,6 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: DecoderConfig, device, dtype):
         super().__init__()
-        check_supported(cfg)
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab_size, cfg.d_model), device=device, dtype=dtype),
             requires_grad=False)
@@ -193,7 +205,8 @@ def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
     """Fill a decoder in place with init_decoder's distributions: linears
     N(0, 1/d_in), zero biases, ones for norms (qk-norm included), N(0,
     0.02^2) for ``embed`` and ``lm_head``; the router and ``gate_up``
-    N(0, 1/d_model), ``down`` N(0, 1/moe_d_ff)."""
+    N(0, 1/d_model), ``down`` N(0, 1/moe_d_ff); the shared expert's and its
+    gate's leaves N(0, 1/d_in) like the linears."""
     normal_(p.embed, 0.02, gen)
     if p.lm_head is not None:
         normal_(p.lm_head, 0.02, gen)
@@ -208,6 +221,9 @@ def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
             leaves += [blk.gate, blk.up, blk.down]
         else:
             leaves.append(blk.moe.router)
+            if blk.moe.shared is not None:
+                sh = blk.moe.shared
+                leaves += [sh.gate, sh.up, sh.down, blk.moe.shared_gate]
             normal_(blk.moe.gate_up, blk.moe.gate_up.shape[1] ** -0.5, gen)
             normal_(blk.moe.down, blk.moe.down.shape[1] ** -0.5, gen)
         for leaf in leaves:
@@ -272,9 +288,10 @@ def _mlp(p: DecoderBlock, cfg: DecoderConfig, x):
 def _moe_mlp(p: MoE, cfg: DecoderConfig, x):
     """Top-k routed SwiGLU experts as a dense einsum: every token runs every
     expert and zero router weights mask the rest (HF Qwen3VLMoe semantics:
-    fp32 router softmax, top-k renormalised when ``moe_norm_topk``). The
-    numerics oracle of ``moe_mlp_dispatch``; its (T, E, 2I) and (T, E, H)
-    intermediates rule it out at real widths."""
+    fp32 router softmax, top-k renormalised when ``moe_norm_topk``), plus
+    the sigmoid-gated shared expert where there is one (Qwen3-Omni's
+    talker). The numerics oracle of ``moe_mlp_dispatch``; its (T, E, 2I)
+    and (T, E, H) intermediates rule it out at real widths."""
     b, s, h = x.shape
     xt = x.reshape(-1, h)
     probs = torch.softmax(Q.mm(xt, p.router).float(), dim=-1)   # (T, E)
@@ -287,6 +304,7 @@ def _moe_mlp(p: MoE, cfg: DecoderConfig, x):
     act = L.ACT_FNS[cfg.act](g) * u
     out = torch.einsum("tei,eih->teh", act, p.down)
     out = (out * w[..., None].to(out.dtype)).sum(dim=1)
+    out = add_shared_expert(p, cfg, xt, out)
     return out.reshape(b, s, h).to(x.dtype)
 
 
@@ -314,8 +332,16 @@ def _chunk_bidir(bidir_ids, cache_pos: int, s: int, device):
 def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
             position_ids: torch.Tensor, attn_mask: torch.Tensor | None = None,
             logit_positions: torch.Tensor | None = None,
-            cache=None, deepstack=None, bidir_ids=None, cache_pos: int = 0):
+            cache=None, deepstack=None, bidir_ids=None, cache_pos: int = 0,
+            want_hidden: bool = False, capture_layer: int | None = None):
     """embeds: (B, S, D) -> fp32 logits; with ``cache`` (logits, cache).
+
+    want_hidden: also return the post-final-norm hidden (B, S, D) of every
+    row (the talker's input to its code predictor). capture_layer k: also
+    return HF's ``hidden_states[k]``, the residual stream after layer k
+    (and its deepstack residual), the embeddings for k = 0. These come
+    after the logits (and the cache), in the JAX order: hidden, then the
+    capture.
 
     position_ids: (B, S), or (3, B, S) for M-RoPE. attn_mask: (B, S), true =
     a real token. logit_positions: optional (B, A) rows; the lm head then
@@ -354,6 +380,7 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
     rope_l = (rope_g if cfg.local_rope_theta is None
               else rope_cos_sin(cfg, position_ids, theta=cfg.local_rope_theta))
     x = embeds
+    captured = embeds if capture_layer == 0 else None
     for i, blk in enumerate(params.blocks):
         sliding = (cfg.layer_types is not None and cfg.layer_types[
             i % len(cfg.layer_types)] == "sliding_attention")
@@ -370,10 +397,18 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
         x = x + m
         if deepstack is not None and i < len(deepstack):
             x = x + deepstack[i].to(x.dtype)
+        if capture_layer == i + 1:
+            captured = x
     x = norm(x, params.ln_final)
+    xh = x
     if logit_positions is not None:
         rows = logit_positions.long().clamp(0, x.shape[1] - 1)
-        x = torch.gather(x, 1, rows[..., None].expand(-1, -1, x.shape[-1]))
+        xh = torch.gather(x, 1, rows[..., None].expand(-1, -1, x.shape[-1]))
     head = params.embed.T if params.lm_head is None else params.lm_head
-    logits = (x @ head).float()
-    return logits if cache is None else (logits, cache)
+    logits = (xh @ head).float()
+    out = (logits,) if cache is None else (logits, cache)
+    if want_hidden:
+        out += (x,)
+    if capture_layer is not None:
+        out += (captured,)
+    return out[0] if len(out) == 1 else out

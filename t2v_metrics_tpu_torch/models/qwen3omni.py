@@ -1,6 +1,6 @@
 """Qwen3-Omni (thinker) scorer in PyTorch: audio + vision + MoE text (port of
-t2v_metrics_tpu/models/qwen3omni.py, the scoring path; the talker and its
-config are not ported).
+t2v_metrics_tpu/models/qwen3omni.py: the scoring path and
+``resolve_talker_config``; the talker itself is ``models/qwen3omni_talker.py``).
 
 Composition (HF Qwen3OmniMoeThinkerForConditionalGeneration semantics):
   * audio tower: ``models/qwen3omni_audio.py`` (Whisper-style windowed
@@ -99,6 +99,34 @@ def resolve_config(name: str) -> Qwen3OmniConfig:
     return Qwen3OmniConfig(audio=qa.AudioEncoderConfig(output_dim=text.d_model),
                            vision=q3.Qwen3VisionConfig(out_hidden=text.d_model),
                            text=text)
+
+
+def resolve_talker_config():
+    """Talker config for the 30B-A3B checkpoints, the JAX package's (HF
+    Qwen3OmniMoeTalkerConfig defaults: a 20-layer 1024-wide MoE with 128
+    experts top-8, not renormalised, and a shared expert; a 5-layer code
+    predictor; a 16-quantizer Code2Wav at 24 kHz). Its 32 code groups
+    against Code2Wav's 16 quantizers are kept as JAX and HF have them. One
+    field differs: ``moe_dispatch`` is set, so the talker's experts run the
+    sorted dispatch and the grouped GEMM kernel on the card (the JAX config
+    leaves it off, and its talker runs the dense ``_moe_mlp``; the two agree
+    to the summation order)."""
+    from . import qwen3omni_talker as tk
+
+    text = dataclasses.replace(
+        dec.DecoderConfig(vocab_size=3072, d_model=1024, layers=20,
+                          heads=16, kv_heads=2, head_dim=64, d_ff=0,
+                          rope_theta=10000.0, mrope_section=(24, 20, 20),
+                          mrope_interleaved=True, qkv_bias=False,
+                          qk_norm=True),
+        num_experts=128, experts_per_tok=8, moe_d_ff=384,
+        moe_shared_ff=2048, moe_norm_topk=False, moe_dispatch=True)
+    predictor = dec.DecoderConfig(
+        vocab_size=2048, d_model=1024, layers=5, heads=16, kv_heads=8,
+        head_dim=128, d_ff=3072, rope_theta=10000.0, mrope_section=None,
+        qkv_bias=False, qk_norm=True)
+    return tk.TalkerConfig(text=text, predictor=predictor,
+                           code2wav=tk.Code2WavConfig())
 
 
 class Qwen3OmniModel(nn.Module):

@@ -24,9 +24,21 @@ one audio tower call. A video's own audio track is never scored
 probes the track with its native reader, which reports none where that
 reader is absent, and the port has no such reader.
 
-Generation, traces and the talker are not ported yet: ``generate``,
-``forward_with_trace`` and ``forward_with_trace_teacher_forcing`` raise
-``NotImplementedError`` (the Qwen adapter's versions would drop the audio).
+Generation and traces (the JAX adapter's, over the same batched prompt
+assembly as scoring, audio included): ``generate`` decodes several pairs
+greedily in one batch through ``CachedLM.greedy_batch`` (deepstack at the
+prefill, M-RoPE step positions) and one pair through a per-sequence
+rollout; ``forward_with_trace`` scores the answer at the start or the end
+of a greedy rollout. Each rollout's prompt takes its own sequence bucket,
+as in the JAX adapter. ``generate(return_audio=True)`` adds speech: a
+greedy thinker rollout that also captures the hidden state after layer
+``accept_hidden_layer``, the talker and its code predictor
+(``models/qwen3omni_talker.py``, weights from ``talker_config=``,
+``talker_params=`` and ``code2wav_params=``) and Code2Wav, returning (texts,
+24 kHz waveforms) and writing a ``.wav`` with the stdlib ``wave`` module.
+``forward_with_trace_teacher_forcing`` raises ``NotImplementedError``: the
+JAX adapter inherits the Qwen2.5 version, which raises ``AttributeError`` on
+this family (its vision config has no ``window_size``).
 """
 
 from __future__ import annotations
@@ -38,17 +50,22 @@ import torch
 import torch.nn.functional as F
 
 from ..engine.scoring import unique_visuals
+from . import decoder as dec
 from . import qwen2vl as q2
 from . import qwen3omni as qo
 from . import qwen3omni_audio as qa
+from . import qwen3omni_talker as tk
 from . import qwen3vl as q3
 from .adapters import default_dtype, load_checkpoint_tree
+from .generation import decode_text, trace_from_rollout
 from .qwen2vl_adapter import (_CHAT_POST, _CHAT_PRE, DEFAULT_QWEN_ANSWER,
                               DEFAULT_QWEN_QUESTION, SEQ_BUCKETS, _bucket)
 from .qwen3vl_adapter import Qwen3VLAdapter
 
-_NOT_PORTED = ("Qwen3-Omni generation, traces and the talker are not ported yet "
-               "(ROADMAP.md, queue 1: Qwen3-Omni generation and the talker)")
+_NO_TEACHER_FORCING = (
+    "Qwen3-Omni has no forward_with_trace_teacher_forcing: the JAX adapter inherits "
+    "Qwen2.5-VL's, which raises AttributeError on this family ('Qwen3VisionConfig' "
+    "object has no attribute 'window_size'); use forward_with_trace")
 
 
 def read_wav_16k(path) -> np.ndarray:
@@ -82,7 +99,12 @@ class Qwen3OmniAdapter(Qwen3VLAdapter):
     random from ``seed`` with ``init='random'`` or for a model without a hub
     repo; else the pretrained repo from the local cache (never downloaded).
     kwargs also: config (a ``Qwen3OmniConfig``), dtype, tokenizer,
-    use_audio_in_video (no effect, see the module docstring).
+    use_audio_in_video (no effect, see the module docstring); for speech
+    output talker_config (a ``TalkerConfig``), talker_params and
+    code2wav_params (a ``TalkerModel`` / ``Code2WavModel`` or the JAX
+    package's trees, e.g. ``qwen3omni_talker.convert_talker`` /
+    ``convert_code2wav`` of an HF checkpoint's ``talker.*`` / ``code2wav.*``
+    tensors) and seed (the talker's sampling).
     """
 
     video_mode = "direct"
@@ -142,9 +164,9 @@ class Qwen3OmniAdapter(Qwen3VLAdapter):
         """Per pair a visual (or None), an audio (or None) and a question ->
         the host arrays of the batched prefill (ids, feats (P, 1 + n_ds, T,
         D) on the device, splice mask, splice slot, rope ids, attention
-        mask) and the prompt lengths; the sequence bucket leaves room for
-        ``a_max`` answer tokens. Each distinct visual and audio is encoded
-        once."""
+        mask), the prompt lengths and each pair's visual grids; the
+        sequence bucket leaves room for ``a_max`` answer tokens. Each
+        distinct visual and audio is encoded once."""
         cfg = self.config
         uniq_v, inv_v = unique_visuals([v for v in visuals if v is not None])
         uniq_a, inv_a = unique_visuals([a for a in audios if a is not None])
@@ -205,7 +227,8 @@ class Qwen3OmniAdapter(Qwen3VLAdapter):
             splice_slot[j, :n][sm] = np.arange(sm.sum())
             pos[:, j, :n] = q2.build_rope_index(
                 arr, grids[j], self._rope_cfg, second_per_grid_ts=[1.0] * len(grids[j]))
-        return (ids, feats, splice_mask, splice_slot, pos, attn), [len(x) for x in ids_list]
+        return ((ids, feats, splice_mask, splice_slot, pos, attn),
+                [len(x) for x in ids_list], grids)
 
     # ------------------------------------------------------------------
     # scoring
@@ -226,8 +249,8 @@ class Qwen3OmniAdapter(Qwen3VLAdapter):
         questions = [question_template.format(t) for t in texts]
         answers = [answer_template.format(t) for t in texts]
         a_max = max(len(self._encode_text(a)) for a in answers)
-        arrays, prompt_lens = self._prepare_omni(list(images), audio_paths, questions,
-                                                 a_max, fps)
+        arrays, prompt_lens, _ = self._prepare_omni(list(images), audio_paths, questions,
+                                                    a_max, fps)
         return self._score_prepared(arrays, prompt_lens, answers, temperature), len(images)
 
     def _splice_and_score(self, ids, feats, splice_mask, *arrays, temperature):
@@ -248,14 +271,242 @@ class Qwen3OmniAdapter(Qwen3VLAdapter):
                             audio_paths=flat_audio, **kw).reshape(m, n)
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # generation and traces
     # ------------------------------------------------------------------
 
-    def generate(self, *args, **kw):
-        raise NotImplementedError(_NOT_PORTED)
+    def _splice_prompts(self, arrays):
+        """The prompts' embeddings (P, S, D) with the vision and audio rows
+        spliced in, and the deepstack residuals at the vision rows only."""
+        ids, feats, splice_mask, splice_slot = arrays[:4]
+        vis_mask = splice_mask & (ids != self.config.audio_token_id)
+        dev = [torch.from_numpy(a).to(self.device)
+               for a in (ids, splice_mask, splice_slot, vis_mask)]
+        return q2.splice_embeds(self.params, dev[0], feats[:, 0], dev[1], dev[2],
+                                feats[:, 1:].unbind(1), deepstack_mask=dev[3])
 
-    def forward_with_trace(self, *args, **kw):
-        raise NotImplementedError(_NOT_PORTED)
+    @staticmethod
+    def _row(embeds, deepstack, j: int, s: int):
+        """Pair j's prompt cut to its own bucket ``s`` (1, s, D), and its
+        deepstack rows."""
+        return (embeds[j:j + 1, :s],
+                None if deepstack is None else [d[j:j + 1, :s] for d in deepstack])
+
+    def _generation_eos(self) -> set:
+        """``generate``'s stop ids: eos, and <|im_end|> where the tokenizer
+        names it (the JAX adapter's)."""
+        eos = {self.eos_token_id} - {None}
+        c2i = getattr(self.tokenizer, "convert_tokens_to_ids", None)
+        if c2i is not None:
+            try:
+                i = c2i("<|im_end|>")
+            except (KeyError, ValueError, TypeError):
+                i = None
+            if isinstance(i, int) and i >= 0:
+                eos.add(i)
+        return eos
+
+    @torch.inference_mode()
+    def generate(self, images, texts, audio_paths=None, fps=None,
+                 max_new_tokens: int = 256, return_audio: bool = False,
+                 speaker: str = "Ethan", save_audio_path=None, **kw):
+        """Free-form answers (reference qwen3omni_model.py:483-548): greedy,
+        in one batch for several pairs, per sequence for one. ``images`` may
+        hold None and ``audio_paths`` one audio (or None) a pair. With
+        ``return_audio``: (texts, 24 kHz float32 waveforms), see
+        ``_generate_with_audio``."""
+        audio_paths = [None] * len(texts) if audio_paths is None else list(audio_paths)
+        if not len(images) == len(texts) == len(audio_paths):
+            raise ValueError("generate: one image (or None) and one audio (or None) per text")
+        if return_audio:
+            return self._generate_with_audio(images, texts, audio_paths, max_new_tokens,
+                                             speaker, save_audio_path, fps=fps, **kw)
+        eos = self._generation_eos()
+        arrays, prompt_lens, _ = self._prepare_omni(list(images), audio_paths, list(texts),
+                                                    0, fps)
+        embeds, deepstack = self._splice_prompts(arrays)
+        if len(images) > 1:
+            tokens, lengths = self._lm.greedy_batch(
+                self.params.decoder, embeds, arrays[4], np.asarray(prompt_lens, np.int32),
+                max_new_tokens, eos_id=min(eos) if eos else None, deepstack=deepstack)
+            return [decode_text(self.tokenizer, tokens[j, :lengths[j]].tolist(), eos)
+                    for j in range(len(prompt_lens))]
+        n = prompt_lens[0]
+        s = _bucket(n, SEQ_BUCKETS)
+        row, ds = self._row(embeds, deepstack, 0, s)
+        gen, _ = self._lm.greedy(self.params.decoder, row, arrays[4][:, :1, :s], n,
+                                 max_new_tokens, eos_ids=eos, deepstack=ds)
+        return [decode_text(self.tokenizer, gen, eos)]
+
+    @torch.inference_mode()
+    def forward_with_trace(self, images, texts, audio_paths=None, fps=None,
+                           question_template: str = DEFAULT_QWEN_QUESTION,
+                           answer_template: str = DEFAULT_QWEN_ANSWER,
+                           max_new_tokens: int = 1, temperature: float = 1.0,
+                           score_position: str = "end", debug: bool = False):
+        """Reference trace contract (qwen3omni_model.py supports_trace): the
+        answer's geometric-mean probability at the start or the end of a
+        greedy rollout of ``max_new_tokens``, and one trace dict a pair."""
+        if score_position not in ("start", "end"):
+            raise ValueError(f"score_position must be 'start' or 'end', not {score_position!r}")
+        audio_paths = [None] * len(texts) if audio_paths is None else list(audio_paths)
+        if not len(images) == len(texts) == len(audio_paths):
+            raise ValueError("forward_with_trace: one image (or None) and one audio "
+                             "(or None) per text")
+        questions = [question_template.format(t) for t in texts]
+        answers = [answer_template.format(t) for t in texts]
+        eos = {self.eos_token_id} - {None}
+        decode = getattr(self.tokenizer, "decode", lambda x: str(x))
+        arrays, prompt_lens, _ = self._prepare_omni(list(images), audio_paths, questions,
+                                                    0, fps)
+        embeds, deepstack = self._splice_prompts(arrays)
+        lm_probs, traces = [], []
+        for j, n in enumerate(prompt_lens):
+            s = _bucket(n, SEQ_BUCKETS)
+            row, ds = self._row(embeds, deepstack, j, s)
+            gen, dists = self._lm.greedy(self.params.decoder, row, arrays[4][:, j:j + 1, :s],
+                                         n, max_new_tokens, eos_ids=eos,
+                                         temperature=temperature, deepstack=ds)
+            gm, trace = trace_from_rollout(gen, dists, self._encode_text(answers[j]), eos,
+                                           decode, score_position)
+            lm_probs.append(gm)
+            traces.append(trace)
+        return np.asarray(lm_probs, np.float32), traces
 
     def forward_with_trace_teacher_forcing(self, *args, **kw):
-        raise NotImplementedError(_NOT_PORTED)
+        raise NotImplementedError(_NO_TEACHER_FORCING)
+
+    # ------------------------------------------------------------------
+    # speech output (reference qwen3omni_model.py:483-548: return_audio,
+    # speaker, save_audio_path; a 24 kHz waveform)
+    # ------------------------------------------------------------------
+
+    def _talker_session(self):
+        """(TalkerSession, TalkerConfig, Code2WavModel or None), made once
+        from ``talker_config=``, ``talker_params=`` and ``code2wav_params=``
+        (modules, or the JAX package's trees, carried over by ``bridge.py``
+        in the thinker's dtype)."""
+        if getattr(self, "_talker", None) is not None:
+            return self._talker
+        tcfg = self.kwargs.get("talker_config")
+        tparams = self.kwargs.get("talker_params")
+        if tcfg is None or tparams is None:
+            raise RuntimeError(
+                "talker weights not loaded: pass talker_config= and talker_params= "
+                "(convert with qwen3omni_talker.convert_talker / convert_code2wav from "
+                "an HF checkpoint's talker.* / code2wav.* tensors)")
+        from .. import bridge
+
+        dtype = self.params.decoder.embed.dtype
+        if not isinstance(tparams, tk.TalkerModel):
+            tparams = bridge.talker_from_numpy(tparams, tcfg, self.device, dtype)
+        c2w = self.kwargs.get("code2wav_params")
+        if c2w is not None and not isinstance(c2w, tk.Code2WavModel):
+            c2w = bridge.code2wav_from_numpy(c2w, tcfg.code2wav, self.device, dtype)
+        # the modules replace the trees they were made from
+        self.kwargs["talker_params"], self.kwargs["code2wav_params"] = tparams, c2w
+        self._talker = (tk.TalkerSession(tcfg, tparams), tcfg, c2w)
+        return self._talker
+
+    def _thinker_rollout_with_hiddens(self, arrays, prompt_lens, j: int,
+                                      max_new_tokens: int, eos, accept_layer: int,
+                                      embeds=None, deepstack=None):
+        """Pair j's greedy rollout (its own bucket, deepstack at the prefill)
+        that also keeps, for every token (prompt and generated), its input
+        embedding and the residual stream after layer ``accept_layer``
+        (after the deepstack residual: the talker's condition). Returns
+        (thinker ids (T,) host, embeddings (1, T, D), hiddens (1, T, D) on
+        the device, multimodal mask (T,), prompt length, generated ids)."""
+        cfg = self.config
+        if embeds is None:
+            embeds, deepstack = self._splice_prompts(arrays)
+        n = prompt_lens[j]
+        s = _bucket(n, SEQ_BUCKETS)
+        row, ds = self._row(embeds, deepstack, j, s)
+        pos = arrays[4][:, j:j + 1, :s]
+        last_pos = int(pos[:, 0, n - 1].max())
+        dev = row.device
+        table = self.params.decoder.embed
+        cache = dec.init_cache(cfg.text, 1, s + max_new_tokens, dtype=row.dtype, device=dev)
+        valid = torch.zeros((1, s + max_new_tokens), dtype=torch.bool, device=dev)
+        valid[0, :n] = True
+        logits, cache, cap = dec.forward(
+            self.params.decoder, cfg.text, row, torch.from_numpy(pos).to(dev), valid,
+            logit_positions=torch.full((1, 1), n - 1, device=dev), cache=cache,
+            deepstack=ds, cache_pos=0, capture_layer=accept_layer)
+        all_ids = [int(i) for i in arrays[0][j, :n]]
+        emb_rows, hid_rows = [row[0, :n]], [cap[0, :n]]
+        nxt = int(logits[0, 0].argmax())
+        for t in range(max_new_tokens):
+            all_ids.append(nxt)
+            e1 = table[torch.full((1, 1), nxt, device=dev)]
+            emb_rows.append(e1[0])
+            if nxt in eos:
+                # HF keeps a hidden state for every generated token, eos
+                # included; the talker reads only its embedding
+                hid_rows.append(torch.zeros_like(e1[0]))
+                break
+            cpos = s + t
+            valid[0, cpos] = True
+            logits, cache, cap1 = dec.forward(
+                self.params.decoder, cfg.text, e1,
+                torch.full((3, 1, 1), last_pos + 1 + t, device=dev), valid, cache=cache,
+                cache_pos=cpos, capture_layer=accept_layer)
+            hid_rows.append(cap1[0])
+            nxt = int(logits[0, 0].argmax())
+        thinker_ids = np.asarray(all_ids)
+        mm_mask = np.isin(thinker_ids, [cfg.image_token_id, cfg.video_token_id,
+                                        cfg.audio_token_id])
+        return (thinker_ids, torch.cat(emb_rows)[None], torch.cat(hid_rows)[None], mm_mask,
+                n, all_ids[n:])
+
+    @torch.inference_mode()
+    def _generate_with_audio(self, images, texts, audio_paths, max_new_tokens, speaker,
+                             save_audio_path, fps=None, **kw):
+        """``generate(return_audio=True)``: for each pair a greedy thinker
+        rollout with the accept-layer capture, the talker's codec frames
+        (``talker_max_new_tokens`` 512, ``talker_do_sample`` True,
+        ``talker_temperature`` 0.9, ``talker_top_k`` 50, ``talker_top_p``
+        1.0, ``talker_repetition_penalty`` 1.05, drawn from
+        ``np.random.default_rng(seed)``) and Code2Wav's chunked decode ->
+        (texts, 24 kHz float32 waveforms). ``save_audio_path``: the last
+        pair's waveform as a 16-bit mono ``.wav``."""
+        sess, tcfg, c2w = self._talker_session()
+        eos = {self.eos_token_id} - {None}
+        rng = np.random.default_rng(self.kwargs.get("seed", 0))
+        arrays, prompt_lens, grids = self._prepare_omni(list(images), list(audio_paths),
+                                                        list(texts), 0, fps)
+        embeds, deepstack = self._splice_prompts(arrays)
+        out_texts, out_wavs = [], []
+        for j in range(len(prompt_lens)):
+            t_ids, t_embed, t_hidden, mm_mask, n_prompt, gen_ids = \
+                self._thinker_rollout_with_hiddens(arrays, prompt_lens, j, max_new_tokens,
+                                                   eos, tcfg.accept_hidden_layer,
+                                                   embeds, deepstack)
+            out_texts.append(decode_text(self.tokenizer, gen_ids, eos))
+            talker_embeds, talker_ids, trailing, tts_pad = tk.build_talker_inputs(
+                tcfg, sess.params, t_ids, t_embed, t_hidden, mm_mask,
+                self.params.decoder.embed, speaker, n_prompt)
+            # the talker's 3-D positions: the thinker's rope index over its ids
+            pos = q2.build_rope_index(talker_ids[0], grids[j], self._rope_cfg,
+                                      second_per_grid_ts=[1.0] * len(grids[j]))[:, None]
+            do_sample = kw.get("talker_do_sample", True)
+            codes = sess.generate_codes(
+                talker_embeds, pos, trailing, tts_pad,
+                max_new_tokens=kw.get("talker_max_new_tokens", 512), do_sample=do_sample,
+                temperature=kw.get("talker_temperature", 0.9),
+                top_k=kw.get("talker_top_k", 50), top_p=kw.get("talker_top_p", 1.0),
+                repetition_penalty=kw.get("talker_repetition_penalty", 1.05), rng=rng,
+                predictor_do_sample=do_sample)
+            if codes.shape[1] == 0 or c2w is None:
+                wav = np.zeros((0,), np.float32)
+            else:
+                wav = tk.chunked_decode(c2w, tcfg.code2wav, codes[None])[0, 0]
+            out_wavs.append(wav)
+            if save_audio_path:
+                with wave.open(str(save_audio_path), "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(24000)
+                    w.writeframes(np.clip(wav * 32767, -32768, 32767)
+                                  .astype(np.int16).tobytes())
+        return out_texts, out_wavs

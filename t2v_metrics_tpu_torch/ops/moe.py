@@ -2,7 +2,8 @@
 (port of t2v_metrics_tpu/ops/moe.py).
 
   1. route: an fp32 router softmax, the top-k experts of each token, their
-     weights renormalised;
+     weights renormalised when ``moe_norm_topk`` (every config but the
+     Qwen3-Omni talker's);
   2. group: the token-expert assignments sorted by expert into a buffer
      whose every expert group starts at a row-block boundary
      (``plan_groups``), built as one row gather; no token is dropped;
@@ -13,7 +14,8 @@
      expert, so the E pad blocks past them are not computed (their rows are
      zeros; the JAX kernel computes them, and no token reads them);
   4. combine: each token's k outputs gathered back and summed with the
-     router weights, in the activation dtype.
+     router weights, in the activation dtype, plus the sigmoid-gated shared
+     expert where the MoE has one (``add_shared_expert``, cuBLAS GEMMs).
 
 Expert FLOPs: ~(T*k + E*block_m/2) * H * I against the dense path's T*E*H*I
 (``models/decoder.py:_moe_mlp``, the numerics oracle). Everything here runs
@@ -188,14 +190,28 @@ def grouped_matmul(xg: torch.Tensor, w: torch.Tensor,
 # The MoE MLP
 # ---------------------------------------------------------------------------
 
+def add_shared_expert(p, cfg, xt: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out`` plus the shared expert of ``p`` over the rows ``xt`` (T, H):
+    sigmoid(xt @ shared_gate) * SwiGLU(xt), the gate cast to ``out``'s dtype
+    (JAX ``models/decoder.py:_moe_mlp``); ``out`` as it is without one."""
+    if p.shared is None:
+        return out
+    sh = p.shared
+    h = L.ACT_FNS[cfg.act](Q.mm(xt, sh.gate)) * Q.mm(xt, sh.up)
+    gate = torch.sigmoid(Q.mm(xt, p.shared_gate))
+    return out + gate.to(out.dtype) * Q.mm(h, sh.down)
+
+
 def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
                      block_m: int = BLOCK_M) -> torch.Tensor:
     """Top-k routed SwiGLU experts over x (B, S, H), exact (no token drops).
 
     p holds ``router`` (a leaf with ``w`` (H, E)), ``gate_up`` (E, H, 2I)
-    and ``down`` (E, I, H). The numerics of the JAX dispatch: fp32 router
-    softmax, top-k renormalised, the combine weighted in the activation
-    dtype.
+    and ``down`` (E, I, H), and ``shared`` / ``shared_gate`` (or None). The
+    numerics of the dense ``_moe_mlp``: fp32 router softmax, top-k
+    renormalised when ``cfg.moe_norm_topk`` (the JAX dispatch renormalises
+    whatever it says; every config but the talker's sets it), the combine
+    weighted in the activation dtype, then the shared expert.
     """
     b, s, h = x.shape
     xt = x.reshape(-1, h)
@@ -203,7 +219,8 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
     dev = x.device
     probs = torch.softmax(Q.mm(xt, p.router).float(), dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)
-    topv = topv / topv.sum(-1, keepdim=True)                     # (T, k)
+    if cfg.moe_norm_topk:
+        topv = topv / topv.sum(-1, keepdim=True)                 # (T, k)
     order, dest, block_expert, p_rows, used = _plan(topi.reshape(-1),
                                                     cfg.num_experts, block_m)
     # the grouped buffer as a row gather: each slot's source token; pad
@@ -220,4 +237,5 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
     inv = torch.zeros(t * k, dtype=torch.long, device=dev).scatter_(0, order, dest)
     yk = y.index_select(0, inv).reshape(t, k, h)
     out = (yk * topv[..., None].to(y.dtype)).sum(dim=1)
+    out = add_shared_expert(p, cfg, xt, out)
     return out.reshape(b, s, h).to(x.dtype)

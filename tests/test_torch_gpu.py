@@ -916,3 +916,105 @@ def test_log_mel_on_the_card_equals_the_cpu(dev):
     audio = (np.random.default_rng(3).standard_normal(16000 * 30) * 0.1).astype(np.float32)
     torch.testing.assert_close(log_mel_device(audio, device=dev).cpu(),
                                log_mel_device(audio), atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Qwen3-Omni's talker, code predictor and Code2Wav (the speech path)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,h,kvh,d,window", [
+    (1184, 16, 2, 64, None),     # the talker's prefill: GQA 16/2
+    (325, 16, 16, 64, 72),       # a Code2Wav chunk: MHA, causal, window 72
+    (2, 16, 8, 128, None),       # the code predictor's prefill: two rows
+])
+def test_attention_kernel_talker_prefill_sites(dev, s, h, kvh, d, window):
+    """The flat kernel on the speech path's packed projections, causal (a
+    window where Code2Wav has one), one launch each, against the plain
+    version."""
+    packed = _randn(dev, 1, s, (h + 2 * kvh) * d, seed=s)
+    q, k, v, _ = A._split_packed(packed, h, kvh)
+    kw = dict(kv_heads=kvh, causal=True, local_window=window)
+    before = launch_counts()["flash_attention_flat"]
+    out = A.flash_attention_flat_packed(packed, h, **kw)
+    assert launch_counts()["flash_attention_flat"] == before + 1
+    _close_attn(out, A.attention_flat_reference(q, k, v, h, **kw))
+
+
+@pytest.mark.parametrize("sk,h,kvh,d", [(1200, 16, 2, 64), (16, 16, 8, 128), (3, 16, 8, 128)])
+def test_attention_kernel_talker_decode_sites(dev, sk, h, kvh, d):
+    """One decode step of the talker (over its prompt and generated slots)
+    and of the code predictor (over at most 16 slots): q (1, 1, H*d) over
+    (1, sk, KvH*d) cache views, every slot valid."""
+    q = _randn(dev, 1, 1, (h + 2 * kvh) * d, seed=sk)[..., :h * d]
+    k = _randn(dev, 1, sk + 8, kvh * d, seed=sk + 1)[:, :sk]
+    v = _randn(dev, 1, sk + 8, kvh * d, seed=sk + 2)[:, :sk]
+    mask = torch.ones((1, sk), dtype=torch.bool, device=dev)
+    kw = dict(kv_heads=kvh, causal=True, kv_mask=mask)
+    _close_attn(A.flash_attention_flat(q, k, v, h, **kw),
+                A.attention_flat_reference(q, k, v, h, **kw))
+
+
+@pytest.mark.parametrize("tokens", [1, 300])
+def test_grouped_gemm_kernel_talker_shapes(dev, tokens):
+    """The talker's experts: gate_up (rows, 1024) x (128, 1024, 768) and down
+    (rows, 384) x (128, 384, 1024) over a top-8 routing of one decode token
+    and of 300 prefill tokens, with num_blocks."""
+    ids = torch.rand((tokens, 128), generator=torch.Generator(device=dev).manual_seed(9),
+                     device=dev).topk(8).indices.reshape(-1)
+    _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+    for k, n in ((1024, 768), (384, 1024)):
+        xg = _randn(dev, p, k, seed=k)
+        w = _randn(dev, 128, k, n, seed=n, std=k ** -0.5)
+        _close(M.grouped_matmul(xg, w, be, M.BLOCK_M, used),
+               M.grouped_matmul_reference(xg, w, be.cpu(), M.BLOCK_M, used.cpu()),
+               1e-4, 2 ** -7)
+
+
+def test_talker_norm_rope_sites(dev):
+    """RMSNorm at 1024 (eps 1e-6 and Code2Wav's 1e-5), the qk-norm of 16 + 2
+    heads of 64 and 16 + 8 of 128 (in place), rope on 18 heads of 64, 24 of
+    128 and 32 of 64, and the ConvNeXt LayerNorm at 1024, eps 1e-6."""
+    for rows, eps in ((1184, 1e-6), (1, 1e-6), (325, 1e-5)):
+        x, w = _randn(dev, rows, 1024, std=3.0), _randn(dev, 1024, seed=1)
+        _close(N.rms_norm_fused(x, w, eps), N.rms_norm_plain(x, w, eps), 1e-5, 1.6e-2)
+    for rows, hq, hk, d in ((1184, 16, 2, 64), (2, 16, 8, 128)):
+        pk, qs, ks = (_randn(dev, rows, (hq + 2 * hk) * d, std=3.0), _randn(dev, d, seed=2),
+                      _randn(dev, d, seed=3))
+        ref = N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d)
+        _close(N.rms_norm_heads_fused(pk.clone(), qs, ks, hq, hk, d), ref, 1e-5, 1.6e-2)
+    for rows, rot, width, d in ((1184, 18, 20, 64), (2, 24, 32, 128), (325, 32, 48, 64)):
+        pk = _randn(dev, 1, rows, width * d, seed=4)
+        ang = (torch.arange(rows, device=dev, dtype=torch.float32)[None, :, None]
+               * _randn(dev, d, seed=5, dtype=torch.float32).abs())
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        _close(R.rope_pack(pk.clone(), cos, sin, rot, d), R.rope_pack_plain(pk, cos, sin, rot, d),
+               1e-5, 8e-3)
+    for rows in (650, 1300):
+        x, w, b = (_randn(dev, rows, 1024, std=3.0), _randn(dev, 1024, seed=6),
+                   _randn(dev, 1024, seed=7))
+        _close(N.layer_norm_fused(x, w, b, 1e-6), N.layer_norm_plain(x, w, b, 1e-6), 1e-5, 8e-3)
+
+
+def test_code2wav_on_the_card_as_on_the_cpu(dev):
+    """A Code2Wav of 2 transformer layers and the whole conv stack, bf16 on
+    the card through the kernels against fp32 on the CPU, on one seeded
+    code matrix: within chip_smoke's WAV_TOL_RMS (5%) of rms(cpu)."""
+    import dataclasses
+
+    import numpy as np
+
+    from t2v_metrics_tpu_torch.models import qwen3omni_talker as tk
+
+    cfg = dataclasses.replace(tk.Code2WavConfig(), upsample_rates=(8, 5, 4, 3),
+                              num_hidden_layers=2)
+    card = tk.init_code2wav(cfg, 0, dev, torch.bfloat16)
+    host = tk.Code2WavModel(cfg, "cpu", torch.float32)
+    with torch.no_grad():
+        for name, t in card.state_dict().items():
+            host.state_dict()[name].copy_(t.float().cpu())
+    codes = np.random.default_rng(0).integers(0, 2048, (1, 16, 20))
+    with torch.inference_mode():
+        got, want = tk.code2wav(card, cfg, codes).float().cpu(), tk.code2wav(host, cfg, codes)
+    rms = float(want.square().mean().sqrt())
+    assert got.shape == want.shape and 0.01 < rms < 0.9
+    assert float((got - want).square().mean().sqrt()) <= 5e-2 * rms

@@ -103,6 +103,54 @@ def test_omni_audio_scoring_pulls_no_hub_package(tmp_path):
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
 
 
+def test_omni_speech_output_pulls_no_hub_package(tmp_path):
+    """``generate(return_audio=True)`` on qwen3-omni-test (chip_smoke's
+    chat-preserving tokenizer) with a tiny talker and Code2Wav drawn by
+    ``init_talker`` / ``init_code2wav`` (seeded, in HF's layout, through the
+    port's converters) writes a .wav with no transformers, safetensors or
+    huggingface_hub in sys.modules."""
+    code = (
+        "import dataclasses, sys, wave, numpy as np\n"
+        "import t2v_metrics_tpu_torch as t\n"
+        "from t2v_metrics_tpu_torch.models import decoder as dec, qwen3omni_talker as tk\n"
+        "text = dataclasses.replace(dec.DecoderConfig(vocab_size=64, d_model=32, layers=2,\n"
+        "    heads=4, kv_heads=2, head_dim=8, d_ff=0, rope_theta=1e4, mrope_section=(2, 1, 1),\n"
+        "    mrope_interleaved=True, qkv_bias=False, qk_norm=True), num_experts=4,\n"
+        "    experts_per_tok=2, moe_d_ff=16, moe_norm_topk=False, moe_shared_ff=24,\n"
+        "    moe_dispatch=True)\n"
+        "pred = dec.DecoderConfig(vocab_size=48, d_model=32, layers=2, heads=4, kv_heads=2,\n"
+        "    head_dim=8, d_ff=64, rope_theta=1e4, mrope_section=None, qkv_bias=False, qk_norm=True)\n"
+        "c2w = tk.Code2WavConfig(codebook_size=64, num_quantizers=4, hidden_size=32,\n"
+        "    num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,\n"
+        "    intermediate_size=64, sliding_window=8, upsampling_ratios=(2,),\n"
+        "    upsample_rates=(2, 2), decoder_dim=16)\n"
+        "import chip_smoke\n"
+        "tok = chip_smoke.chat_tokenizer(512)\n"
+        "s = t.VQAScore('qwen3-omni-test', device='cpu', tokenizer=tok)\n"
+        "ids = lambda w: tok.encode(w, add_special_tokens=False)[0]\n"
+        "cfg = tk.TalkerConfig(text=text, predictor=pred, code2wav=c2w, num_code_groups=4,\n"
+        "    thinker_hidden_size=48, accept_hidden_layer=1, codec_eos_token_id=60,\n"
+        "    codec_nothink_id=54, codec_think_bos_id=55, codec_think_eos_id=56, codec_pad_id=52,\n"
+        "    codec_bos_id=53, speaker_id=(('ethan', 57),), suppress_band=12,\n"
+        "    im_start_token_id=ids('<|im_start|>'), system_token_id=ids('system'),\n"
+        "    user_token_id=ids('user'), assistant_token_id=ids('assistant'),\n"
+        "    tts_bos_token_id=8, tts_eos_token_id=9, tts_pad_token_id=10)\n"
+        "s.model.kwargs.update(talker_config=cfg, talker_params=tk.init_talker(cfg, 0, 'cpu',\n"
+        "    proj_ff=64), code2wav_params=tk.init_code2wav(c2w, 1, 'cpu'))\n"
+        f"path = {str(tmp_path / 'out.wav')!r}\n"
+        "texts, wavs = s.model.generate([np.zeros((28, 28, 3), np.uint8)], ['Say it.'],\n"
+        "    max_new_tokens=3, return_audio=True, save_audio_path=path,\n"
+        "    talker_max_new_tokens=3)\n"
+        "assert isinstance(texts[0], str) and np.isfinite(wavs[0]).all()\n"
+        "assert wave.open(path, 'rb').getframerate() == 24000\n"
+        f"hub = {_HUB_PACKAGES!r}\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in hub))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

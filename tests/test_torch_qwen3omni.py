@@ -13,6 +13,14 @@ JAX package's bar); the audio tower 1e-5 relative to its output's scale
 against the JAX package's ``encode_audio``; against Hugging Face's
 Qwen3OmniMoe towers loaded through ``checkpoint=`` 2e-4 (audio, the JAX
 suite's bar) and 3e-5 (vision); scores 1e-5 on their logs (nats).
+
+Generation and traces (``generate``, ``forward_with_trace``,
+``generate(return_audio=True)``) against the JAX adapter on the same
+parameters and tokenizer: generated strings equal (equal tokens), trace
+probabilities 1e-5 nats, the thinker's captured hiddens 1e-5 of their
+largest magnitude, codec codes
+equal, waveforms 3e-4 (the JAX Code2Wav run on its transposed kernels
+reversed, as ``tests/test_torch_talker.py`` explains).
 """
 
 import dataclasses
@@ -34,6 +42,7 @@ from t2v_metrics_tpu_torch.models import qwen2vl as tq2  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3omni as tqo  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3omni_adapter as tqoa  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3omni_audio as tqa  # noqa: E402
+from t2v_metrics_tpu_torch.models import qwen3omni_talker as ttk  # noqa: E402
 
 NAME = "qwen3-omni-test"
 JCFG = jqo.resolve_config(NAME)
@@ -356,14 +365,183 @@ def test_mixed_batch_matches_jax(scorers, media):
            j.model.forward(imgs, texts, audio_paths=auds))
 
 
-def test_adapter_contract(scorers):
+def test_adapter_contract(scorers, media):
+    """The contract's flags; ``generate`` and ``forward_with_trace`` run (an
+    audio-only pair); teacher forcing raises, as the JAX adapter does on
+    this family (``test_teacher_forcing_raises_where_jax_raises``)."""
     _, t = scorers
     m = t.model
     assert m.allows_audio and m.allows_image and m.allows_video
     assert m.video_mode == "direct" and m.fps_default == 8.0 and m.use_audio_in_video
-    for fn in (m.generate, m.forward_with_trace, m.forward_with_trace_teacher_forcing):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn([None], TEXTS[:1])
+    out = m.generate([None], TEXTS[:1], audio_paths=[media["wav"]], max_new_tokens=2)
+    assert isinstance(out, list) and len(out) == 1 and isinstance(out[0], str)
+    probs, traces = m.forward_with_trace([None], TEXTS[:1], audio_paths=[media["wav"]])
+    assert probs.shape == (1,) and 0.0 <= float(probs[0]) <= 1.0 and len(traces) == 1
+    with pytest.raises(NotImplementedError, match="AttributeError"):
+        m.forward_with_trace_teacher_forcing([None], TEXTS[:1])
+
+
+# ---------------------------------------------------------------------------
+# Generation and traces
+# ---------------------------------------------------------------------------
+
+GEN_TEXTS = ["Describe this.", "What sound is this?", "Any cats here?"]
+
+
+def test_generate_batched_and_per_sequence_match_jax(scorers, media):
+    """Three pairs (image + audio, image, audio only) decoded in one batch
+    and one at a time: the port's batch equals its per-sequence strings and
+    the JAX adapter's, in both of its paths."""
+    j, t = scorers
+    imgs, auds = [media["img"], media["img2"], None], [media["wav"], None, media["wav2"]]
+    want_b = j.model.generate(imgs, GEN_TEXTS, audio_paths=auds, max_new_tokens=5)
+    got_b = t.model.generate(imgs, GEN_TEXTS, audio_paths=auds, max_new_tokens=5)
+    assert got_b == want_b
+    for i, a, text, b in zip(imgs, auds, GEN_TEXTS, got_b):
+        want = j.model.generate([i], [text], audio_paths=[a], max_new_tokens=5)
+        assert t.model.generate([i], [text], audio_paths=[a], max_new_tokens=5) == want == [b]
+
+
+def test_generate_video_matches_jax(scorers, media):
+    """vid.mp4 alone (per sequence) and beside an image with audio (batched)."""
+    j, t = scorers
+    for imgs, auds in (([VID], None), ([VID, media["img"]], [None, media["wav"]])):
+        texts = GEN_TEXTS[:len(imgs)]
+        assert (t.model.generate(imgs, texts, audio_paths=auds, max_new_tokens=4)
+                == j.model.generate(imgs, texts, audio_paths=auds, max_new_tokens=4))
+
+
+@pytest.mark.parametrize("max_new,where", [(1, "end"), (3, "start"), (3, "end")])
+def test_forward_with_trace_matches_jax(scorers, media, max_new, where):
+    """The rollout trace of image + audio, image-only and audio-only pairs:
+    probabilities 1e-5 nats, the trace's ids, texts and indices equal."""
+    j, t = scorers
+    imgs, auds = [media["img"], media["img2"], None], [media["wav"], None, media["wav2"]]
+    kw = dict(audio_paths=auds, max_new_tokens=max_new, score_position=where)
+    got_p, got = t.model.forward_with_trace(imgs, TEXTS + TEXTS[:1], **kw)
+    want_p, want = j.model.forward_with_trace(imgs, TEXTS + TEXTS[:1], **kw)
+    _close(got_p, want_p)
+    for g, w in zip(got, want):
+        for key in ("generated_text", "generated_length", "score_position",
+                    "score_start_idx", "scored_indices", "scored_tokens_text"):
+            assert g[key] == w[key], key
+        np.testing.assert_allclose(np.log(g["probability"]), np.log(w["probability"]),
+                                   atol=NATS, rtol=0)
+        for gd, wd in zip(g["token_details"], w["token_details"]):
+            assert gd["expected_token_id"] == wd["expected_token_id"]
+            assert ([a["token_id"] for a in gd["top_alternatives"]]
+                    == [a["token_id"] for a in wd["top_alternatives"]])
+
+
+def test_teacher_forcing_raises_where_jax_raises(scorers, media):
+    """The JAX adapter inherits Qwen2.5-VL's teacher-forced trace, which
+    fails on this family's vision config; the port raises
+    NotImplementedError naming that, and points to forward_with_trace."""
+    j, t = scorers
+    with pytest.raises(AttributeError, match="window_size"):
+        j.model.forward_with_trace_teacher_forcing([media["img"]], TEXTS[:1])
+    with pytest.raises(NotImplementedError, match="forward_with_trace"):
+        t.model.forward_with_trace_teacher_forcing([media["img"]], TEXTS[:1])
+
+
+# ---------------------------------------------------------------------------
+# Speech output: generate(return_audio=True)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def speech(params):
+    """The thinker (qwen3-omni-test) with a chat-preserving tokenizer, the
+    JAX suite's tiny talker at the thinker's width (48), accept layer 1, and
+    a 4-quantizer Code2Wav whose groups match the talker's, in both
+    packages, on seeded HF-layout weights."""
+    import jax
+
+    from t2v_metrics_tpu.models import qwen3omni_talker as jtk
+    from test_talker_parity import _ChatT5Tokenizer
+    from test_torch_talker import (c2w_sd, flip_transposed_kernels, jax_c2w_cfg,
+                                   jax_talker_cfg, port_cfg, talker_sd)
+
+    tok = _ChatT5Tokenizer(512)
+    ccfg = jax_c2w_cfg(num_quantizers=4, codebook=64)
+    jcfg = jax_talker_cfg(**dict(
+        code2wav=ccfg, thinker_hidden_size=48, accept_hidden_layer=1,
+        im_start_token_id=tok._t._id("<|im_start|>"), system_token_id=tok._t._id("system"),
+        user_token_id=tok._t._id("user"), assistant_token_id=tok._t._id("assistant"),
+        tts_bos_token_id=8, tts_eos_token_id=9, tts_pad_token_id=10))
+    jtp = jtk.convert_talker(talker_sd(jcfg, 5), jcfg)
+    jcp = jtk.convert_code2wav(c2w_sd(ccfg, 6), ccfg)
+    jsc = jt2v.VQAScore(NAME, params=params, tokenizer=tok, talker_config=jcfg,
+                        talker_params=jtp, code2wav_params=flip_transposed_kernels(jcp))
+    tsc = tt2v.VQAScore(NAME, params=params, tokenizer=tok, device="cpu",
+                        talker_config=port_cfg(jcfg),
+                        talker_params=jax.tree.map(np.asarray, jtp),
+                        code2wav_params=jax.tree.map(np.asarray, jcp))
+    return jsc, tsc, tok
+
+
+def test_thinker_rollout_with_hiddens_matches_jax(speech, media):
+    """The thinker rollout that feeds the talker: its ids, the input
+    embeddings and the residual stream after layer 1 (after the deepstack
+    residual) of every prompt and generated token, within 1e-5 of their
+    largest magnitude (the vision tower's rows differ by ~1e-5 relative
+    between the packages, as in the scoring tests)."""
+    jsc, tsc, _ = speech
+    j, t = jsc.model, tsc.model
+    want = j._thinker_rollout_with_hiddens(media["img"], media["wav"], "Say something.", 4,
+                                           {j.eos_token_id}, 1)
+    arrays, lens, _ = t._prepare_omni([media["img"]], [media["wav"]], ["Say something."], 0)
+    got = t._thinker_rollout_with_hiddens(arrays, lens, 0, 4, {t.eos_token_id}, 1)
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in ((got[1], want[1]), (got[2], want[2])):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * np.abs(w).max(), rtol=0)
+    np.testing.assert_array_equal(got[3], want[3])
+    assert got[4] == want[4] and got[5] == want[5]
+
+
+@pytest.mark.parametrize("sample", [False, True], ids=["greedy", "sampled"])
+def test_generate_return_audio_matches_jax(speech, media, tmp_path, sample):
+    """generate(return_audio=True) end to end (image + audio, and image only):
+    the texts equal, the codec frames (read through chunked_decode) equal,
+    the waveforms within 3e-4 of the JAX adapter's (its Code2Wav on reversed
+    transposed kernels), and the 24 kHz 16-bit .wav holds the waveform."""
+    from t2v_metrics_tpu.models import qwen3omni_talker as jtk
+
+    jsc, tsc, _ = speech
+    seen = {"jax": [], "port": []}
+    jdec_, tdec_ = jtk.chunked_decode, ttk.chunked_decode
+
+    def spy(store, fn):
+        def wrapped(p, cfg, codes, *a, **k):
+            store.append(np.asarray(codes).copy())
+            return fn(p, cfg, codes, *a, **k)
+        return wrapped
+
+    kw = dict(max_new_tokens=4, return_audio=True, speaker="Ethan", talker_max_new_tokens=5,
+              talker_do_sample=sample)
+    for imgs, auds in (([media["img"]], [media["wav"]]), ([media["img2"]], None)):
+        jtk.chunked_decode = spy(seen["jax"], jdec_)
+        ttk.chunked_decode = spy(seen["port"], tdec_)
+        try:
+            jpath, tpath = str(tmp_path / "j.wav"), str(tmp_path / "t.wav")
+            want_t, want_w = jsc.model.generate(imgs, ["Say something."], audio_paths=auds,
+                                                save_audio_path=jpath, **kw)
+            got_t, got_w = tsc.model.generate(imgs, ["Say something."], audio_paths=auds,
+                                              save_audio_path=tpath, **kw)
+        finally:
+            jtk.chunked_decode, ttk.chunked_decode = jdec_, tdec_
+        assert got_t == want_t and all(isinstance(x, str) for x in got_t)
+        np.testing.assert_array_equal(seen["port"][-1], seen["jax"][-1])
+        assert seen["port"][-1].shape[1] == 4 and seen["port"][-1].shape[2] >= 1
+        assert got_w[0].dtype == np.float32 and got_w[0].shape == want_w[0].shape
+        assert got_w[0].size > 0 and np.isfinite(got_w[0]).all()
+        np.testing.assert_allclose(got_w[0], want_w[0], atol=3e-4, rtol=0)
+        with wave.open(tpath, "rb") as w:
+            assert w.getframerate() == 24000 and w.getsampwidth() == 2
+            pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        np.testing.assert_array_equal(
+            pcm, np.clip(got_w[0] * 32767, -32768, 32767).astype(np.int16))
+
 
 
 # ---------------------------------------------------------------------------
