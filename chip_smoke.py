@@ -19,7 +19,23 @@ Phases (any failure exits non-zero and prints no result line):
      with ``VQAScore("clip-flant5-xl", checkpoint=dir)`` on the card, and a
      seeded 4 x 8 set scored bitwise equal to the same weights passed as
      ``params=``, with its launch counts; prints load seconds and GB/s, host
-     RSS growth and the device peak at load against the weights' bytes;
+     RSS growth and the device peak at load against the weights' bytes; the
+     checkpoint is staged as the repo's snapshot in a temporary hub cache
+     (``models--zhiqiulin--clip-flant5-xl/snapshots/<rev>/`` and
+     ``refs/main``) and kept for the next phase;
+  genai_bench: GenAI-Bench image evaluation through the port's harness, as
+     an offline user runs it (BASELINE config 3): a staged
+     ``GenAI-Image-1600`` fixture (16 prompts x 6 models, seeded Likert
+     ratings, every skill tag) read by ``GenAIBench_Image`` with a seeded
+     1024x1024 image for each of its 96 items, scored by
+     ``cli.genai_image_eval.load_or_compute_scores`` with ``--cache_dir`` the
+     staged hub cache (the snapshot found and loaded by ``get_score_model``;
+     pairs/s, launch counts against the code's), bitwise equal to
+     ``VQAScore(checkpoint=<snapshot>)`` on the same arrays, the npz cache hit
+     building no scorer, the skill tables, correlations and per-skill JSON;
+     then TIFA160 (``TIFA160_DSG``, BASELINE config 2, 80 staged items at
+     512x512) through ``batch_forward`` and ``evaluate_scores`` on the same
+     scorer; no pandas, sklearn, Pillow, cv2 or matplotlib imported;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the clip-flant5-xl/xxl, Qwen2.5-VL-7B, Qwen3-VL-30B-A3B and
      Gemma-3-4B paths give it (the per-head kernel also with the in-kernel
@@ -178,8 +194,8 @@ Phases (any failure exits non-zero and prints no result line):
      against the code's, ms a thinker step, ms a talker frame by part,
      frames/s, Code2Wav ms a chunk, peak memory).
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
-summed over the first calls of the checkpoint-loaded xl, the sixteen
-slices and the video slices and calls, and over the generate and trace runs; a
+summed over the first calls of the checkpoint-loaded xl, the GenAI-Bench
+and TIFA160 calls, the sixteen slices and the video slices and calls, and over the generate and trace runs; a
 row's
 ``sites`` are
 further shapes of the main path, each with its times, bound and library
@@ -196,8 +212,10 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import statistics
@@ -1617,21 +1635,49 @@ def _vm_rss() -> int:
     return 0
 
 
-def phase_checkpoint(model: str = "clip-flant5-xl", shards: int = 4) -> dict:
+# The hub-cache layout the staged checkpoint takes (models/checkpoint.py:
+# resolve_snapshot): models--{org}--{name}/snapshots/<rev>/ and refs/main
+SNAPSHOT_REV = "0" * 40
+
+
+def snapshot_dir(cache: str, repo: str) -> str:
+    return os.path.join(cache, "models--" + repo.replace("/", "--"), "snapshots",
+                        SNAPSHOT_REV)
+
+
+def stage_snapshot(tensors: dict, cache: str, repo: str, shards: int) -> tuple[str, int]:
+    """``tensors`` written as ``repo``'s hub snapshot under ``cache``: the
+    safetensors shards and index in ``snapshot_dir`` and ``refs/main``
+    naming it, as ``checkpoint.resolve_snapshot`` finds it. Returns the
+    snapshot directory and the bytes written."""
+    stage = snapshot_dir(cache, repo)
+    written = write_checkpoint(tensors, stage, shards)
+    refs = os.path.join(os.path.dirname(os.path.dirname(stage)), "refs")
+    os.makedirs(refs, exist_ok=True)
+    with open(os.path.join(refs, "main"), "w") as f:
+        f.write(SNAPSHOT_REV)
+    return stage, written
+
+
+def phase_checkpoint(model: str = "clip-flant5-xl", shards: int = 4) -> tuple[dict, str]:
     """The whole clip-flant5-xl staged as an HF checkpoint and loaded through
     ``VQAScore(model, checkpoint=dir)`` on the card: random bf16 weights from
     a seed with the T5 scale folded into W_q, written by this script's key
-    map and writer as ``shards`` safetensors files and the index json; a
-    seeded 4 x 8 set scored bitwise equal to the same weights passed as
-    ``params=``. Prints load seconds and GB/s, the host RSS growth
-    (``resource.getrusage`` peak against the RSS at the start of the load)
-    and the device peak against the weights' bytes. Returns the launch counts
-    of the loaded model's first call (the slice's main path)."""
+    map and writer as ``shards`` safetensors files and the index json, in
+    the hub-cache layout of the model's repo (a snapshot and ``refs/main``
+    under a temporary cache directory); a seeded 4 x 8 set scored bitwise
+    equal to the same weights passed as ``params=``. Prints load seconds and
+    GB/s, the host RSS growth (``resource.getrusage`` peak against the RSS
+    at the start of the load) and the device peak against the weights'
+    bytes. Returns the launch counts of the loaded model's first call (the
+    slice's main path) and the cache directory, which the caller removes
+    (removed here only where the phase fails)."""
     import resource
     import shutil
 
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch import SimpleT5Tokenizer
+    from t2v_metrics_tpu_torch.models.adapters import CLIP_T5_MODELS
     from t2v_metrics_tpu_torch.models.clip_flant5 import CLIP_T5_CONFIGS, init_clip_t5
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -1641,10 +1687,11 @@ def phase_checkpoint(model: str = "clip-flant5-xl", shards: int = 4) -> dict:
     fold_t5_attention_scale(weights, cfg)
     tensors = hf_clip_t5_tensors(weights, cfg)
     nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
-    stage = staging_dir(2 * nbytes)
+    cache = staging_dir(2 * nbytes)
     try:
         t0 = time.perf_counter()
-        written = write_checkpoint(tensors, stage, shards)
+        stage, written = stage_snapshot(tensors, cache, CLIP_T5_MODELS[model]["hf_repo"],
+                                        shards)
         t_write = time.perf_counter() - t0
         del tensors
         log(f"[checkpoint] {model}: {len(os.listdir(stage)) - 1} safetensors shards + "
@@ -1674,33 +1721,310 @@ def phase_checkpoint(model: str = "clip-flant5-xl", shards: int = 4) -> dict:
         got = scorer(images=images, texts=texts)
         torch.cuda.synchronize()
         counts = launch_counts()
-    finally:
-        shutil.rmtree(stage, ignore_errors=True)
+        expect = clip_t5_launches(cfg, 1)
+        growth = maxrss1 - rss0
+        log(f"[checkpoint] {model} loaded: {t_load:.2f} s, {written / 1e9 / t_load:.2f} GB/s "
+            f"({written / 1e9:.3f} GB from disk to the card, bf16 to bf16); host RSS "
+            f"{rss0 / 2**30:.2f} GiB at the start, peak {maxrss1 / 2**30:.2f} GiB after "
+            f"(getrusage; {maxrss0 / 2**30:.2f} GiB before): growth {growth / 2**30:.3f} GiB, "
+            f"{100 * growth / written:.1f}% of the checkpoint; device {held / 2**30:.3f} GiB "
+            f"held, peak {peak / 2**30:.3f} GiB at load against {weight_bytes / 2**30:.3f} GiB "
+            f"of weights ({peak / weight_bytes:.3f}x); card {card_line()}")
+        log(f"[checkpoint] first call launches {json.dumps(counts)}; from the code "
+            f"{json.dumps(expect)}")
+        same = np.array_equal(got, want)
+        log(f"[checkpoint] 4 x 8 scores from the checkpoint {'bitwise equal to' if same else 'DIFFER from'}"
+            f" params= (max |diff| {float(np.abs(got - want).max()):.3e}); log row 0 "
+            f"{np.log(got[0]).round(4).tolist()}")
+        check(got.shape == (4, 8) and np.isfinite(got).all(), "checkpoint: scores not finite")
+        check(same, "checkpoint: scores differ from the same weights passed as params=")
+        check(counts == expect, f"checkpoint: launch counts {counts} != {expect}")
+        check(growth < written / 4, f"checkpoint: host RSS grew by {growth} bytes while "
+                                    f"loading {written}")
+        del scorer
+    except BaseException:
+        shutil.rmtree(cache, ignore_errors=True)
+        raise
+    return counts, cache
+
+
+# ---------------------------------------------------------------------------
+# GenAI-Bench and TIFA160 through the port's harness (BASELINE configs 3, 2)
+# ---------------------------------------------------------------------------
+
+GENAI_MODELS = ("DALLE_3", "SDXL_Turbo", "DeepFloyd_I_XL_v1", "Midjourney_6", "SDXL_2_1",
+                "SDXL_Base")   # benchmarks/datasets.py:GenAIBench_Image.MODELS
+GENAI_SKILLS = {"basic": ("attribute", "scene", "spatial relation", "action relation",
+                          "part relation"),
+                "advanced": ("counting", "comparison", "differentiation", "negation",
+                             "universal")}
+TIFA_MODELS = ("mini-dalle", "vq-diffusion", "sd1dot5", "sd2dot1", "sd1dot1")
+
+
+def seeded_media(path: str, side: int) -> np.ndarray:
+    """A dataset's ``image_preprocess`` for staged items: a side x side uint8
+    RGB image seeded by the item's path (the files are not in the repo)."""
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32(path.encode()))
+    return rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+
+
+def stage_genai_bench(root: str, prompts: int, seed: int) -> str:
+    """A ``GenAI-Image-1600`` tree under ``root``: ``genai_image.json`` with
+    ``prompts`` prompts x the 6 models, 3 seeded Likert ratings (1-5) each,
+    and ``genai_skills.json`` with every tag ``cli.genai_image_eval
+    .tag_groups`` names: "basic" the first half of the prompts, "advanced"
+    the second, each skill a seeded third of its half."""
+    rng = np.random.default_rng(seed)
+    texts = seeded_texts(prompts, seed)
+    data = {f"{i:05d}": {"prompt": texts[i], "models": {
+        m: rng.integers(1, 6, 3).tolist() for m in GENAI_MODELS}} for i in range(prompts)}
+    half = prompts // 2
+    skills = {"basic": list(range(half)), "advanced": list(range(half, prompts))}
+    for group, tags in GENAI_SKILLS.items():
+        for tag in tags:
+            skills[tag] = sorted(int(i) for i in rng.choice(skills[group],
+                                                            max(2, half // 3), replace=False))
+    d = os.path.join(root, "GenAI-Image-1600")
+    os.makedirs(d)
+    with open(os.path.join(d, "genai_image.json"), "w") as f:
+        json.dump(data, f)
+    with open(os.path.join(d, "genai_skills.json"), "w") as f:
+        json.dump(skills, f)
+    return d
+
+
+def stage_tifa160(workdir: str, sources: int, seed: int) -> None:
+    """TIFA160's files where ``TIFA160_DSG`` reads them, under ``workdir``
+    (the reference reads ``datasets/`` under the working directory, not
+    ``root_dir``): ``datasets/tifa160.json`` with ``sources`` texts x the 5
+    models and ``datasets/dsg_tifa160_anns.csv`` with 2-4 seeded DSG answers
+    (0 / 1) per item; an empty ``tifa160/`` image directory."""
+    import csv
+
+    from t2v_metrics_tpu_torch.benchmarks.datasets import TIFA160_DSG
+
+    rng = np.random.default_rng(seed)
+    texts = seeded_texts(sources, seed)
+    dataset, rows = {}, []
+    for mt in TIFA_MODELS:
+        for sid in range(sources):
+            key = f"{sid}_{TIFA160_DSG.MODEL_NAMES[mt]}"
+            dataset[key] = {"text": texts[sid], "text_id": str(sid),
+                            "image_path": f"{key}.jpg"}
+            rows += [(mt, sid, int(a)) for a in rng.integers(0, 2, rng.integers(2, 5))]
+    os.makedirs(os.path.join(workdir, "datasets"))
+    os.makedirs(os.path.join(workdir, "tifa160"))
+    with open(os.path.join(workdir, "datasets", "tifa160.json"), "w") as f:
+        json.dump(dataset, f)
+    with open(os.path.join(workdir, "datasets", "dsg_tifa160_anns.csv"), "w",
+              newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["model_type", "source_id", "answer"])
+        w.writerows(rows)
+
+
+def clip_t5_launches(cfg, passes: int) -> dict:
+    """Launches of ``passes`` clip-flant5 chunks, each one ViT pass over the
+    chunk's images and one T5 pass over its pairs: attention at the ViT
+    layers run (feature layer -2), the encoder, the decoder's self and
+    cross; LayerNorm twice a ViT layer and ln_pre; RMSNorm twice an encoder
+    and three times a decoder layer and each stack's final norm."""
     vit, enc, dec = cfg.vision.layers - 1, cfg.t5.enc_layers, cfg.t5.dec_layers
-    expect = dict.fromkeys(KERNELS, 0)
-    expect.update(flash_attention_flat=vit + enc + 2 * dec, layer_norm=1 + 2 * vit,
-                  rms_norm=2 * enc + 1 + 3 * dec + 1)
-    growth = maxrss1 - rss0
-    log(f"[checkpoint] {model} loaded: {t_load:.2f} s, {written / 1e9 / t_load:.2f} GB/s "
-        f"({written / 1e9:.3f} GB from disk to the card, bf16 to bf16); host RSS "
-        f"{rss0 / 2**30:.2f} GiB at the start, peak {maxrss1 / 2**30:.2f} GiB after "
-        f"(getrusage; {maxrss0 / 2**30:.2f} GiB before): growth {growth / 2**30:.3f} GiB, "
-        f"{100 * growth / written:.1f}% of the checkpoint; device {held / 2**30:.3f} GiB "
-        f"held, peak {peak / 2**30:.3f} GiB at load against {weight_bytes / 2**30:.3f} GiB "
-        f"of weights ({peak / weight_bytes:.3f}x); card {card_line()}")
-    log(f"[checkpoint] first call launches {json.dumps(counts)}; from the code "
-        f"{json.dumps(expect)}")
-    same = np.array_equal(got, want)
-    log(f"[checkpoint] 4 x 8 scores from the checkpoint {'bitwise equal to' if same else 'DIFFER from'}"
-        f" params= (max |diff| {float(np.abs(got - want).max()):.3e}); log row 0 "
-        f"{np.log(got[0]).round(4).tolist()}")
-    check(got.shape == (4, 8) and np.isfinite(got).all(), "checkpoint: scores not finite")
-    check(same, "checkpoint: scores differ from the same weights passed as params=")
-    check(counts == expect, f"checkpoint: launch counts {counts} != {expect}")
-    check(growth < written / 4, f"checkpoint: host RSS grew by {growth} bytes while "
-                                f"loading {written}")
-    del scorer
-    return counts
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention_flat=passes * (vit + enc + 2 * dec),
+                layer_norm=passes * (1 + 2 * vit),
+                rms_norm=passes * (2 * enc + 1 + 3 * dec + 1))
+    return want
+
+
+def phase_genai_bench(cache_dir: str, model: str = "clip-flant5-xl", device: str = "cuda",
+                      prompts: int = 16, side: int = 1024, tifa_side: int = 512,
+                      batch_size: int = 16, profile: bool = False) -> list[dict]:
+    """GenAI-Bench image evaluation through the port's CLI path, offline, as
+    a user runs it from a local snapshot: a staged ``GenAI-Image-1600``
+    fixture (``prompts`` x 6 models, seeded Likert ratings, every skill tag)
+    read by ``benchmarks.datasets.GenAIBench_Image`` with
+    ``return_image_paths=False`` and a seeded side x side image for each item
+    (GenAI-Bench's 1024 px: the Pillow-exact resize on the card);
+    ``cli.genai_image_eval.load_or_compute_scores`` with ``--cache_dir`` the
+    staged hub cache (``get_score_model`` finds the snapshot; no init flag),
+    then ``show_performance_per_skill``, ``evaluate_scores`` and
+    ``evaluate_scores_per_skill`` and the per-skill JSON, as the CLI's
+    ``main`` does. Checks: scores (n, 1, 1), finite, in [0, 1], bitwise equal
+    to ``VQAScore(model, checkpoint=<snapshot>)``'s ``batch_forward`` of the
+    same arrays; a second call reads the npz and builds no scorer; launch
+    counts the code's. Then TIFA160 (``TIFA160_DSG``, BASELINE config 2,
+    staged in a temporary working directory) through ``batch_forward`` and
+    ``evaluate_scores`` on the same scorer. The phase may import no pandas,
+    sklearn, Pillow, cv2 or matplotlib. With ``profile``, the device time of
+    one ``batch_forward`` of the set by kernel family. Returns the launch
+    counts of the CLI's scoring call and of the TIFA160 call."""
+    import shutil
+    import tempfile
+
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.benchmarks.datasets import GenAIBench_Image, TIFA160_DSG
+    from t2v_metrics_tpu_torch.cli import genai_image_eval as cli
+    from t2v_metrics_tpu_torch.models.adapters import CLIP_T5_MODELS
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    modules_before = set(sys.modules)
+    work = tempfile.mkdtemp(prefix="genai_bench_")
+    cwd, real_get = os.getcwd(), t2v.get_score_model
+    loaded = {}
+
+    def get_score_model(**kw):      # the CLI's own call, timed and kept
+        sync()
+        t0 = time.perf_counter()
+        loaded["scorer"] = real_get(**kw)
+        sync()
+        loaded["s"] = time.perf_counter() - t0
+        return loaded["scorer"]
+
+    def no_scorer(**kw):
+        raise SmokeFailure("genai_bench: the cached call built a scorer")
+
+    try:
+        stage_genai_bench(work, prompts, SEED + 40)
+        dataset = GenAIBench_Image(root_dir=work, num_prompts=1600, return_image_paths=False,
+                                   image_preprocess=lambda p: seeded_media(p, side))
+        n = len(dataset)
+        check(n == prompts * len(GENAI_MODELS), f"genai_bench: {n} samples")
+        argv = sys.argv
+        sys.argv = ["genai_image_eval", "--root_dir", work, "--model", model,
+                    "--cache_dir", cache_dir, "--batch_size", str(batch_size),
+                    "--result_dir", os.path.join(work, "results"),
+                    *(("--device", device) if device != "cuda" else ())]
+        try:
+            args = cli.config()
+        finally:
+            sys.argv = argv
+        check(device != "cuda" or args.device is None, "genai_bench: --device default")
+        os.makedirs(args.result_dir)
+        result_path = f"{args.result_dir}/{args.model}_{args.num_prompts}_prompts.npz"
+
+        t2v.get_score_model = get_score_model
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scores = cli.load_or_compute_scores(args, dataset, result_path)
+        sync()
+        t_call = time.perf_counter() - t0
+        counts = launch_counts()
+        t2v.get_score_model = no_scorer
+        reset_launch_counts()
+        cached = cli.load_or_compute_scores(args, dataset, result_path)
+        cached_counts = launch_counts()
+        t2v.get_score_model = real_get
+        scorer = loaded["scorer"]
+        cfg = scorer.model.config
+        chunks = -(-n // batch_size)
+        want = clip_t5_launches(cfg, chunks)
+        pairs_s = n / (t_call - loaded["s"])
+        log(f"[genai_bench] {model} from the snapshot in --cache_dir: load "
+            f"{loaded['s']:.2f} s; load_or_compute_scores over {n} pairs at {side}x{side} "
+            f"(batch {batch_size}, {chunks} chunks) {t_call - loaded['s']:.3f} s after "
+            f"the load: {pairs_s:.2f} pairs/s; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card_line()}")
+        log(f"[genai_bench] launches {json.dumps(counts)}; from the code {json.dumps(want)}")
+        check(scores.shape == (n, 1, 1), f"genai_bench: scores {scores.shape}")
+        check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
+              "genai_bench: scores not finite in [0, 1]")
+        check(counts == want, f"genai_bench: launch counts {counts} != {want}")
+        check(np.array_equal(cached, scores) and not any(cached_counts.values()),
+              "genai_bench: the cached call differs or launched a kernel")
+
+        snapshot = snapshot_dir(cache_dir, CLIP_T5_MODELS[model]["hf_repo"])
+        ref = t2v.VQAScore(model, checkpoint=snapshot, device=device)
+        ref_scores = ref.batch_forward(dataset, batch_size=batch_size)
+        same = np.array_equal(scores, ref_scores)
+        log(f"[genai_bench] the CLI's scores {'bitwise equal' if same else 'DIFFER from'} "
+            f"VQAScore(checkpoint=<snapshot>).batch_forward of the same arrays (max |diff| "
+            f"{float(np.abs(scores - ref_scores).max()):.3e}); log spread "
+            f"{float(np.ptp(np.log(scores))):.4e} nats")
+        check(same, "genai_bench: CLI scores differ from VQAScore(checkpoint=)")
+        del ref
+        free_cuda()
+        sync()
+        t0 = time.perf_counter()
+        again = scorer.batch_forward(dataset, batch_size=batch_size)
+        sync()
+        warm_s = n / (time.perf_counter() - t0)
+        check(np.array_equal(again, scores), "genai_bench: a second batch_forward differs")
+        t0 = time.perf_counter()
+        for i in range(n):
+            dataset[i]
+        t_items = (time.perf_counter() - t0) * 1e3
+        if profile:
+            phase_profile(lambda: scorer.batch_forward(dataset, batch_size=batch_size),
+                          f"{model} GenAI-Bench batch_forward ({n} pairs at {side} px)")
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as table:
+            cli.show_performance_per_skill(np.asarray(scores).mean(axis=1)[:, 0], dataset,
+                                           print_std=True)
+            overall = dataset.evaluate_scores(scores)
+            skill_result = dataset.evaluate_scores_per_skill(scores)
+            output_file = f"{args.result_dir}/{args.model}_{args.num_prompts}_per_skill.json"
+            with open(output_file, "w") as f:
+                json.dump(skill_result, f, default=float)
+        t_eval = (time.perf_counter() - t0) * 1e3
+        with open(output_file) as f:
+            written = json.load(f)
+        with open(os.path.join(dataset.root_dir, "genai_skills.json")) as f:
+            tags = set(json.load(f))
+        align = overall["alignment"]
+        log(f"[genai_bench] warm batch_forward {warm_s:.2f} pairs/s (the {n} items' "
+            f"seeded images alone take {t_items:.1f} ms on the host); evaluation (skill "
+            f"tables, {len(table.getvalue().splitlines())} lines; correlation; per-skill JSON "
+            f"of {len(written)} tags) {t_eval:.1f} ms on the host; pearson "
+            f"{align['pearson']:.4f}, kendall_b {align['kendall_b']:.4f}, pairwise_acc "
+            f"{align['pairwise_acc'][0]:.4f} (random weights against seeded ratings)")
+        check(set(written) == tags and all(
+            np.isfinite(written[t]["alignment"]["pearson"]) for t in tags),
+            "genai_bench: per-skill JSON incomplete or not finite")
+        check(all(np.isfinite(np.asarray(align[k], np.float64)).all() for k in align),
+              "genai_bench: correlations not finite")
+
+        os.chdir(work)
+        stage_tifa160(work, prompts, SEED + 41)
+        tifa = TIFA160_DSG(root_dir=work, download=False, return_image_paths=False,
+                           image_preprocess=lambda p: seeded_media(p, tifa_side))
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        tifa_scores = scorer.batch_forward(tifa, batch_size=batch_size)
+        sync()
+        tifa_s = len(tifa) / (time.perf_counter() - t0)
+        tifa_counts = launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tifa_result = tifa.evaluate_scores(tifa_scores)
+        tifa_want = clip_t5_launches(cfg, -(-len(tifa) // batch_size))
+        log(f"[genai_bench] TIFA160_DSG: {len(tifa)} pairs at {tifa_side}x{tifa_side}, "
+            f"batch_forward {tifa_s:.2f} pairs/s; {json.dumps(tifa_result)}; launches "
+            f"{json.dumps(tifa_counts)}")
+        check(tifa_scores.shape == (len(tifa), 1, 1) and np.isfinite(tifa_scores).all(),
+              "genai_bench: TIFA160 scores")
+        check(all(np.isfinite(np.asarray(v, np.float64)).all() for v in tifa_result.values()),
+              "genai_bench: TIFA160 correlations not finite")
+        check(tifa_counts == tifa_want, f"genai_bench: TIFA160 launches {tifa_counts} != "
+                                        f"{tifa_want}")
+        host_only = sorted(m for m in set(sys.modules) - modules_before
+                           if m.split(".")[0] in ("pandas", "sklearn", "PIL", "cv2",
+                                                  "matplotlib"))
+        check(not host_only, f"genai_bench: imported {host_only}")
+        del scorer, loaded["scorer"]
+    finally:
+        t2v.get_score_model = real_get
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return [counts, tifa_counts]
 
 
 def phase_chain(cfg, device: str = "cuda", m: int = 2, n: int = 4) -> None:
@@ -2093,17 +2417,11 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     sync()
     t_first = time.perf_counter() - t0
     counts = launch_counts()
-    # one vision encode (4 images) and one T5 pass (32 pairs): attention at
-    # the ViT layers run, the encoder, the decoder's self and cross;
-    # LayerNorm twice a ViT layer and ln_pre; RMSNorm twice an encoder and
-    # three times a decoder layer and each stack's final norm; the int8
+    # one vision encode (4 images) and one T5 pass (32 pairs); the int8
     # kernels as int8_launches says (xl bf16: 95 / 47 / 122)
     cfg = scorer.model.config
-    vit, enc, dec = cfg.vision.layers - 1, cfg.t5.enc_layers, cfg.t5.dec_layers
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_attention_flat=vit + enc + 2 * dec, layer_norm=1 + 2 * vit,
-                rms_norm=2 * enc + 1 + 3 * dec + 1,
-                quant_matmul=int8_launches(cfg, quant),
+    want = clip_t5_launches(cfg, 1)
+    want.update(quant_matmul=int8_launches(cfg, quant),
                 quantize_rows=int8_launches(cfg, quant))
     log(f"[slice] {name} first forward (4 images x 8 texts): {t_first:.3f} s; "
         f"launches {json.dumps(counts)}; from the code {json.dumps(want)}")
@@ -5189,8 +5507,16 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
     if not args.kernels_only:
-        # first, while the host holds nothing large: its RSS growth is the load's
-        checkpoint_counts = phase_checkpoint()
+        import shutil
+
+        # first, while the host holds nothing large: its RSS growth is the load's;
+        # then GenAI-Bench through the CLI from the same checkpoint as a hub snapshot
+        checkpoint_counts, hub_cache = phase_checkpoint()
+        free_cuda()
+        try:
+            genai_counts = phase_genai_bench(hub_cache, profile=args.profile)
+        finally:
+            shutil.rmtree(hub_cache, ignore_errors=True)
         free_cuda()
     results = phase_kernels()
     if args.kernels_only:
@@ -5216,7 +5542,8 @@ def main() -> int:
         chain()
         free_cuda()
     # each slice's model is dropped on return and freed before the next
-    slice_counts = [checkpoint_counts, *phase_slice(profile=args.profile, generate=32)[0]]
+    slice_counts = [checkpoint_counts, *genai_counts,
+                    *phase_slice(profile=args.profile, generate=32)[0]]
     free_cuda()
     for run in (phase_qwen_slice, phase_qwen3_slice, phase_gemma_slice):
         slice_counts.extend(run(profile=args.profile))   # the image and the video half

@@ -31,6 +31,7 @@ import torch
 
 from ..constants import (CLIP_MEAN, CLIP_STD, DEFAULT_ANSWER_TEMPLATE,
                          DEFAULT_QUESTION_TEMPLATE, IMAGE_TOKEN_INDEX)
+from ..media.video import MediaError
 from ..models import clip as tclip
 from ..models import clip_flant5 as tcft5
 from ..models import t5 as tt5
@@ -79,8 +80,11 @@ def _load_uint8(image) -> np.ndarray:
     else:
         from PIL import Image  # only paths and PIL images need Pillow
 
-        img = image if isinstance(image, Image.Image) else Image.open(image)
-        arr = np.asarray(img.convert("RGB"))
+        try:
+            img = image if isinstance(image, Image.Image) else Image.open(image)
+            arr = np.asarray(img.convert("RGB"))
+        except OSError as e:  # missing, truncated or not an image
+            raise MediaError(f"cannot read image {image}: {e}") from e
     if arr.dtype != np.uint8:
         arr = np.clip(arr, 0, 255).astype(np.uint8)
     return arr

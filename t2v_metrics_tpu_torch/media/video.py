@@ -23,12 +23,19 @@ import numpy as np
 from ..constants import VIDEO_EXTENSIONS
 
 
+class MediaError(OSError, ValueError):
+    """A media file that cannot be read: a video that does not open or gives
+    no frame, an image that cannot be decoded. The readers raise it, and
+    only it, for bad media; a score loop that records unreadable samples
+    catches it and nothing else."""
+
+
 def _open_capture(video_path: str):
     import cv2
 
     cap = cv2.VideoCapture(str(video_path))
     if not cap.isOpened():
-        raise IOError(f"cannot open video {video_path}")
+        raise MediaError(f"cannot open video {video_path}")
     return cap, cv2
 
 
@@ -87,7 +94,10 @@ def extract_frames(video_path: str, num_frames: int, mode: str = "step",
             idx = frame_indices(total, n, "linspace")
         else:
             idx = frame_indices(total, num_frames, mode)
-        return [f.copy() for f in map(read, idx) if f is not None]
+        frames = [f.copy() for f in map(read, idx) if f is not None]
+    if not frames:
+        raise MediaError(f"no readable frame in video {video_path}")
+    return frames
 
 
 def concatenate_horizontal(frames: list[np.ndarray], dist: int = 10) -> np.ndarray:

@@ -39,7 +39,7 @@ import torch
 
 from ..constants import SIGLIP_MEAN, SIGLIP_STD
 from ..engine.scoring import _HostScores, encode_by_shape, unique_visuals
-from ..media.video import is_video, open_video
+from ..media.video import MediaError, is_video, open_video
 from ..ops.image import normalize_flat, resize_uint8_pillow_flat
 from . import checkpoint as ckpt
 from . import gemma3 as g3
@@ -115,7 +115,7 @@ class _GemmaBase(VQAScoreModel):
                 if frame is not None:
                     frames.append((round(i / fps, 2), np.ascontiguousarray(frame)))
         if not frames:
-            raise ValueError(f"no readable frame in video {video}")
+            raise MediaError(f"no readable frame in video {video}")
         return frames
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..engine.scoring import _HostScores, _load_uint8, unique_visuals
-from ..media.video import is_video, open_video
+from ..media.video import MediaError, is_video, open_video
 from ..ops.image import smart_resize
 from . import qwen2vl as q
 from .generation import CachedLM, trace_from_rollout
@@ -197,7 +197,10 @@ class Qwen2VLAdapter(VQAScoreModel):
             n = total / native * float(fps)
             n = max(4, min(768, total, int(round(n / 2) * 2)))  # FRAME_FACTOR=2
             idx = np.round(np.linspace(0, max(total - 1, 0), n)).astype(np.int64)
-            frames = np.stack([f for f in map(read, idx) if f is not None])
+            frames = [f for f in map(read, idx) if f is not None]
+        if not frames:
+            raise MediaError(f"no readable frame in video {video}")
+        frames = np.stack(frames)
         tp = self.config.vision.temporal_patch_size
         if frames.shape[0] % tp:  # repeat the last frame to the temporal grid
             reps = np.repeat(frames[-1:], tp - frames.shape[0] % tp, axis=0)

@@ -1,7 +1,8 @@
 """Model registry of the port: name -> adapter, for the three scorers.
 
-The VQAScore families are listed in the JAX registry's order; their modules
-are imported when a list or an adapter is first asked for."""
+The VQAScore families are listed in the JAX registry's order, the remote API
+scorers (GPT-4o, Gemini) last; their modules are imported when a list or an
+adapter is first asked for."""
 
 from __future__ import annotations
 
@@ -27,13 +28,16 @@ def _vqa_families():
     from .models.qwen3omni_adapter import Qwen3OmniAdapter
     from .models.qwen3vl import QWEN3_VL_MODELS
     from .models.qwen3vl_adapter import Qwen3VLAdapter
+    from .remote.gemini import GEMINI_MODELS, GeminiAdapter
+    from .remote.gpt4v import GPT4V_MODELS, GPT4VAdapter
 
     return [(CLIP_T5_MODELS, CLIPT5Adapter), (QWEN2_VL_MODELS, Qwen2VLAdapter),
             (QWEN3_VL_MODELS, Qwen3VLAdapter), (GEMMA3_MODELS, Gemma3Adapter),
             (PALIGEMMA_MODELS, PaliGemmaAdapter), (GEMMA4_MODELS, Gemma4Adapter),
             (MOLMO2_MODELS, Molmo2Adapter), (QWEN3_OMNI_MODELS, Qwen3OmniAdapter),
             (INTERNVL_MODELS, InternVLAdapter),
-            (LLAVA_MODELS, LlavaAdapter), (INSTRUCTBLIP_MODELS, InstructBlipAdapter)]
+            (LLAVA_MODELS, LlavaAdapter), (INSTRUCTBLIP_MODELS, InstructBlipAdapter),
+            (GPT4V_MODELS, GPT4VAdapter), (GEMINI_MODELS, GeminiAdapter)]
 
 
 def list_all_vqascore_models() -> list[str]:

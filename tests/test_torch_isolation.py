@@ -1,12 +1,15 @@
-"""The port stands alone: it imports nothing of the JAX package, and its own
-copies of the host layers (tokenization, constants, video frames) give the
-JAX package's results.
+"""The port stands alone: it imports nothing of the JAX package, needs none
+of the host-only packages the GPU machine lacks (pandas, sklearn; matplotlib,
+cv2, Pillow and the API clients only inside the functions that use them),
+and its own copies of the host layers (tokenization, constants, video
+frames) give the JAX package's results.
 
 Tolerances: token ids, constants and frame layouts are compared exactly.
 """
 
 import ast
 import dataclasses
+import json
 import pathlib
 import subprocess
 import sys
@@ -169,6 +172,71 @@ def test_sources_import_nothing_of_the_jax_package(path):
     bad = [n for n in _imports(path)
            if n.split(".")[0] in ("jax", "jaxlib", "t2v_metrics_tpu")]
     assert not bad, bad
+
+
+_LAZY = ("matplotlib", "cv2", "PIL", "openai", "google", "diffusers")
+
+
+def _module_level_imports(path: pathlib.Path) -> list[str]:
+    """Imports that run when the module is imported: those outside every
+    function body."""
+    names = []
+
+    def visit(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                names.extend(a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                names.append(child.module)
+            visit(child)
+    visit(ast.parse(path.read_text(), str(path)))
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_need_no_host_only_package(path):
+    """The GPU machine has no pandas, sklearn, matplotlib, cv2, Pillow,
+    openai or google-genai: no module of the port imports pandas or sklearn
+    at all, and the others only inside the functions that need them."""
+    assert not [n for n in _imports(path) if n.split(".")[0] in ("pandas", "sklearn")]
+    assert not [n for n in _module_level_imports(path) if n.split(".")[0] in _LAZY]
+
+
+def test_genai_bench_scoring_loads_no_host_only_package(tmp_path):
+    """GenAIBench_Image built with arrays (``return_image_paths=False``) and
+    scored through ``cli.genai_image_eval.load_or_compute_scores`` on
+    clip-flant5-test, then evaluated per skill: no pandas, sklearn, PIL, cv2
+    or matplotlib in sys.modules (the way the GPU machine runs it)."""
+    root = tmp_path / "GenAI-Image-1600"
+    root.mkdir()
+    prompts = {f"{i:05d}": {"prompt": f"prompt {i}", "models": {
+        m: [1 + i, 3] for m in ("DALLE_3", "SDXL_Turbo", "DeepFloyd_I_XL_v1", "Midjourney_6",
+                                "SDXL_2_1", "SDXL_Base")}} for i in range(2)}
+    (root / "genai_image.json").write_text(json.dumps(prompts))
+    (root / "genai_skills.json").write_text(json.dumps({"basic": [0], "advanced": [1]}))
+    code = (
+        "import argparse, sys, zlib, numpy as np\n"
+        "from t2v_metrics_tpu_torch.benchmarks.datasets import GenAIBench_Image\n"
+        "from t2v_metrics_tpu_torch.cli import genai_image_eval as cli\n"
+        "pre = lambda p: np.random.default_rng(zlib.crc32(p.encode())).integers(\n"
+        "    0, 256, (40, 40, 3), dtype=np.uint8)\n"
+        f"ds = GenAIBench_Image(root_dir={str(tmp_path)!r}, return_image_paths=False,\n"
+        "                      image_preprocess=pre)\n"
+        "args = argparse.Namespace(model='clip-flant5-test', device='cpu', cache_dir=None,\n"
+        "                          batch_size=4, question=None, answer=None)\n"
+        f"s = cli.load_or_compute_scores(args, ds, {str(tmp_path / 's.npz')!r})\n"
+        "assert s.shape == (12, 1, 1) and np.isfinite(s).all()\n"
+        "ds.evaluate_scores(s); ds.evaluate_scores_per_skill(s)\n"
+        "cli.show_performance_per_skill(s.mean(axis=1)[:, 0], ds, tag_groups={})\n"
+        "bad = ('pandas', 'sklearn', 'PIL', 'cv2', 'matplotlib')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout[-2000:]
 
 
 def test_simple_t5_tokenizer_gives_the_jax_ids():
