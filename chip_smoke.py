@@ -193,16 +193,37 @@ Phases (any failure exits non-zero and prints no result line):
      True) greedy and sampled, chunked_decode of 600 frames; launch counts
      against the code's, ms a thinker step, ms a talker frame by part,
      frames/s, Code2Wav ms a chunk, peak memory).
+  parallel (``phase_parallel``; phase 2 also checks its per-rank kernel
+     sites, ``parallel_kernels``): parallel/ as two ranks on the one card
+     over a gloo group (NCCL refuses two ranks on one GPU), spawned with a
+     time limit; a rank that fails or hangs fails the run. Each case is
+     run first as one rank in this process: tp 2 on clip-flant5-xxl's
+     2+2-layer chain, bf16 (the chain bar) and ``int8`` (0.1 nats; the
+     row-parallel products' int32 partials all-reduced, the row absmax
+     all-reduced before the quantize); tp 2 on the whole xxl, 4 x 4 pairs
+     (bitwise the same on both ranks, launch counts against the code's,
+     each rank's peak beside its ``abstract_sharded_params`` bytes,
+     pairs/s of two ranks sharing one card, not a multi-GPU rate); dp 2 on
+     the whole xl, 32 pairs split by image through ``batch_forward``
+     (bitwise one rank's on the same two chunks); pp 2 on the xl encoder,
+     12 + 12 layers, 4 microbatches of 4 x 640 rows (bitwise one rank's
+     encode of each microbatch, else 1e-3 of the rms); sp 2 on the xl
+     chain (320 of 640 encoder rows a rank; the chain bar); ep 2 on
+     qwen3-vl-30b-a3b widths, 2 ViT + 2 decoder layers (64 of 128 experts a
+     rank; 5e-2 nats on pairs routed alike, 0.3 apart); each rank's launch
+     counts and bytes staged through the host; then NCCL at world 1
+     through parallel/comm.py.
 The last lines are the kernel table (JSON; ``launches`` is a kernel's count
 summed over the first calls of the checkpoint-loaded xl, the GenAI-Bench
-and TIFA160 calls, the sixteen slices and the video slices and calls, and over the generate and trace runs; a
+and TIFA160 calls, the sixteen slices and the video slices and calls, over
+the generate and trace runs, and over both ranks of each parallel case; a
 row's
 ``sites`` are
 further shapes of the main path, each with its times, bound and library
 time: the grouped GEMM's down projection, the int8 GEMM's split-K decoder
 shape, LayerNorm's other shapes and its add + LayerNorm entry, the flat
 kernel's CLIPScore / ITMScore, video and decode sites, each kernel's decode
-site), the card's name and power limit, and ``{"ok": true,
+site, the per-rank sites of the parallel phase), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 
 Needs torch with CUDA, nvcc (``/usr/local/cuda`` or ``CUDA_HOME``) and triton;
@@ -465,6 +486,8 @@ def phase_build() -> None:
                        ones(1, 8, d, dtype=torch.float32), min(heads, 32), d)
     for d in (1024, 4096, 10240):
         quant.quantize_rows(ones(8, d))
+    for d in (2048, 5120):     # the row-parallel K-shards of xxl at tp 2: both steps
+        quant.quantize_rows_scaled(ones(8, d), quant.row_absmax(ones(8, d)))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     log(f"[build] nvcc flash_flat.cu (head dims 64/72/80/88/128/256) and "
@@ -810,6 +833,8 @@ def phase_kernels() -> dict:
     omni_kernels(randn, record)
     free_cuda()
     talker_kernels(randn, record)
+    free_cuda()
+    parallel_kernels(randn, record, lengths_mask)
     free_cuda()
     resize_sites()
     return results
@@ -1472,7 +1497,6 @@ def fold_t5_attention_scale(params, cfg) -> None:
     weights and scales as quantizing the folded dense weights (a power of
     two commutes with the rounding).
     """
-    inner = cfg.t5.num_heads * cfg.t5.d_kv
     f = cfg.t5.d_kv ** -0.5
 
     def fold(leaf, cols):
@@ -1482,7 +1506,8 @@ def fold_t5_attention_scale(params, cfg) -> None:
             leaf.w[:, cols] *= f
 
     for blk in [*params.t5.encoder.blocks, *params.t5.decoder.blocks]:
-        fold(blk.attn.qkv, slice(0, inner))
+        # the q columns: a third of the packed leaf (this rank's heads under TP)
+        fold(blk.attn.qkv, slice(0, blk.attn.qkv.d_out // 3))
     for blk in params.t5.decoder.blocks:
         fold(blk.cross.q, slice(None))
 
@@ -5438,6 +5463,487 @@ def phase_talker_slice(model: str = OMNI, device: str = "cuda", side: int = 1024
 
 # kernel families by substrings of the kernel's name; the rest is "other"
 # (elementwise ops, gathers, copies, log-softmax)
+# ---------------------------------------------------------------------------
+# Parallel (parallel/): tensor, data, pipeline, sequence and expert
+# parallelism as two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# The card machine has one H100, and NCCL refuses two ranks on one GPU
+# ("Duplicate GPU detected"). So phase_parallel runs two ranks on the one
+# card over a gloo group (parallel/comm.py takes the collectives gloo has no
+# CUDA route for through host memory, and counts the bytes). It shows that
+# each rank's sharded program launches the kernels at its per-rank shapes
+# and that the ranks together give the unsharded result. Its rates are
+# those of two ranks sharing one card: not a multi-GPU rate.
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT_S = 600
+# The pipeline's stages run the same kernels at the same shapes as one
+# rank's encode of each microbatch, so the outputs are expected bitwise
+# equal; should cuBLAS pick other algorithms in the two processes, the
+# bar is 1e-3 of the output's rms.
+PIPELINE_TOL_RMS = 1e-3
+
+
+def parallel_kernels(randn, record, lengths_mask) -> None:
+    """The kernels at the per-rank shapes phase_parallel's ranks give them:
+    the int8 GEMM at clip-flant5-xxl's tp-2 shapes (column-parallel q|k|v,
+    N halved; row-parallel o and wo, K halved, through the int32 sums and
+    the second pass, bitwise the plain version, at the encoder's rows and at
+    one decode step's, where the kernel splits K), the row quant's two
+    steps (the absmax, then the quantize with the all-reduced scale), the
+    grouped GEMM on 64 of qwen3-vl-30b-a3b's 128 experts (one rank of EP 2:
+    the routed rows of its experts, the rest in a sink group never
+    computed), and the flat attention of sequence parallelism (320 query
+    rows of the xl encoder against all 640 keys, the bias rows offset to
+    the rank's half)."""
+    from t2v_metrics_tpu_torch.ops import attention as A
+    from t2v_metrics_tpu_torch.ops import moe as M
+    from t2v_metrics_tpu_torch.ops import quant as Q
+
+    enc = 16 * 640                         # the 4 x 4 slice's encoder rows
+    for label, m, k, n, row in (
+            ("tp 2 column-parallel T5 encoder q|k|v", enc, 4096, 6144, False),
+            ("tp 2 row-parallel T5 encoder o", enc, 2048, 4096, True),
+            ("tp 2 row-parallel T5 encoder wo", enc, 5120, 4096, True),
+            ("tp 2 row-parallel T5 decoder wo, one decode step of 16 pairs", 16, 5120, 4096,
+             True)):
+        x = randn(m, k, std=3.0)
+        leaf = Q.Linear(randn(k, n, std=k ** -0.5)).quantize_()
+        x_q, xs = Q.quantize_rows_plain(x)
+        w_q, ws = leaf.w_q, leaf.scale
+        if row:
+            fn = lambda: Q.quant_matmul_dequant(Q.quant_matmul_sums(x_q, w_q),  # noqa: E731
+                                                xs, ws)
+        else:
+            fn = lambda: Q.quant_matmul(x_q, w_q, xs, ws)  # noqa: E731
+        plain_fn = lambda: Q.quant_matmul_plain(x_q, w_q, xs, ws)  # noqa: E731
+        lib = library_ms(lambda: (torch._int_mm(x_q, w_q).float() * xs * ws  # noqa: B023
+                                  ).to(torch.bfloat16), f"torch._int_mm ({m}, {k}) x ({k}, {n})")
+        out, ref = fn(), plain_fn()
+        ops = 2 * m * k * n
+        # the row-parallel path also writes and reads the int32 sums its
+        # all-reduce carries (the kernel's splits of K, if any, are its own)
+        extra = 2 * 4 * m * n if row else 0
+        splits = Q.G.split_k(m, n, k, Q.G.sm_count(x.device))
+        record("quant_matmul", f"({m}, {k}) x ({k}, {n}) {label}"
+               + (f" (partials in {splits} splits of K, summed, + second pass)" if row else ""),
+               out, ref,
+               bool(torch.equal(out, ref)), "bitwise equal required", fn, plain_fn, False,
+               flop=ops, lower=(ops, m * k + k * n + 4 * (m + n) + 2 * m * n + extra, "int8"),
+               library=None if lib is None else ("torch._int_mm + f32 epilogue", lib),
+               site=True)
+        del x, leaf, x_q, xs, out, ref
+    x = randn(enc, 2048, std=3.0)
+    out, ref = Q.row_absmax(x), Q.row_absmax_plain(x)
+    record("quantize_rows", f"tp 2 row absmax ({enc}, 2048)", out, ref, bool(torch.equal(out, ref)),
+           "bitwise equal required", lambda: Q.row_absmax(x), lambda: Q.row_absmax_plain(x),
+           False, lower=(2 * enc * 2048, 2 * enc * 2048 + 4 * enc, "fp32"),
+           library=("torch.amax of |x| (two calls)", cuda_ms(
+               lambda: x.abs().amax(-1, keepdim=True))), site=True)
+    xs = Q._absmax_scale(ref)
+    out, ref = Q.quantize_rows_scaled(x, xs), Q.quantize_rows_scaled_plain(x, xs)
+    record("quantize_rows", f"tp 2 quantize with the all-reduced scale ({enc}, 2048)", out, ref,
+           bool(torch.equal(out, ref)), "bitwise equal required",
+           lambda: Q.quantize_rows_scaled(x, xs), lambda: Q.quantize_rows_scaled_plain(x, xs),
+           False, lower=(2 * enc * 2048, 3 * enc * 2048 + 4 * enc, "fp32"), site=True)
+    del x, xs, out, ref
+    free_cuda()
+
+    # EP 2 of qwen3-vl-30b-a3b: 16 x 1024 tokens routed top-8 over 128
+    # experts; rank 0 holds experts 0-63 and computes only their rows
+    tokens = 16 * 1024
+    topi = randn(tokens, 128, dtype=torch.float32).topk(8).indices
+    mine = topi < 64
+    ids = torch.where(mine, topi, 64).reshape(-1)
+    _, _, be, p, used = M._plan(ids, 65, M.BLOCK_M, 64)
+    be_host, used_host = be.cpu(), used.cpu()
+    tk = int(mine.sum())
+    counts = torch.bincount(ids[ids < 64], minlength=64)
+    offs = torch.cumsum((counts + 127) // 128 * 128, 0).int()
+    for wname, w in (("gate_up", randn(64, 2048, 1536, std=2048 ** -0.5)),
+                     ("down", randn(64, 768, 2048, std=768 ** -0.5))):
+        k, n = w.shape[1], w.shape[2]
+        xg = randn(p, k)
+        out = M.grouped_matmul(xg, w, be, M.BLOCK_M, used)
+        ref = M.grouped_matmul_reference(xg, w, be_host, M.BLOCK_M, used_host)
+        bad = outside(out, ref, GMM_ATOL, GMM_RTOL)
+        lib = library_ms(lambda: torch._grouped_mm(xg, w, offs=offs),  # noqa: B023
+                         "torch._grouped_mm")
+        record("grouped_gemm",
+               f"EP 2 {wname} ({p}, {k}) x (64 local experts, {k}, {n}), {tk} of "
+               f"{tokens * 8} assignments routed here, num_blocks {int(used_host)}",
+               out, ref, bad == 0 and bool(torch.isfinite(out).all()),
+               f"{bad} outside atol {GMM_ATOL} + rtol 2^-7; max {bf16_ulps(out, ref)} bf16 ulps",
+               lambda: M.grouped_matmul(xg, w, be, M.BLOCK_M, used),  # noqa: B023
+               lambda: M.grouped_matmul_reference(xg, w, be_host, M.BLOCK_M,  # noqa: B023
+                                                  used_host), False,
+               flop=2 * tk * k * n,
+               lower=(2 * tk * k * n, 2 * (tk * k + 64 * k * n + tk * n), "bf16"),
+               library=None if lib is None else ("torch._grouped_mm", lib), site=True)
+        del w, xg, out, ref
+    free_cuda()
+
+    # SP 2 of the xl T5 encoder: 16 pairs, this rank's 320 query rows of 640
+    # against every key (K|V all-gathered), bias rows 320-639, keys masked
+    b, heads, d = 16, 32, 64
+    q = randn(b, 320, heads * d)
+    kv = randn(b, 640, 2 * heads * d)
+    k_, v_ = kv[..., :heads * d], kv[..., heads * d:]
+    bias = randn(1, heads, 640, 640, dtype=torch.float32)[:, :, 320:].contiguous()
+    mask = lengths_mask(b, 640, 400, 640)
+    kw = dict(bias=bias, kv_mask=mask, scale=1.0)
+    out = A.attention_flat(q, k_, v_, heads, **kw)
+    ref = A.attention_flat_reference(q, k_, v_, heads, **kw)
+    ok, detail = attention_agrees(out, ref)
+    qh, kh, vh = (A.split_heads(t, heads) for t in (q, k_, v_))
+    amask = (bias + torch.where(mask, 0.0, float("-inf"))[:, None, None, :]).to(torch.bfloat16)
+    name = "F.scaled_dot_product_attention (bf16 float mask, scale 1.0)"
+    lib = library_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask,
+                                                            scale=1.0), name)
+    flop = 4 * b * heads * 320 * 640 * d
+    record("flash_attention_flat", "SP 2 T5 encoder: 320 query rows of 640 against all "
+           "640 keys, bias rows offset to 320, kv_mask", out, ref, ok, detail,
+           lambda: A.attention_flat(q, k_, v_, heads, **kw),
+           lambda: A.attention_flat_reference(q, k_, v_, heads, **kw), False, flop=flop,
+           lower=(flop, 2 * b * 320 * heads * d * 2 + 2 * b * 640 * 2 * heads * d
+                  + 4 * heads * 320 * 640 + b * 640, "bf16"),
+           library=None if lib is None else (name, lib), site=True)
+    del q, kv, bias, mask, out, ref, amask
+    free_cuda()
+
+
+def tp_int8_launches(cfg) -> int:
+    """quant_matmul (and quantize_rows) launches of one T5 pass under
+    ``int8`` at tp > 1: a column-parallel product launches the fused GEMM
+    and the row quant once each; a row-parallel one (o, cross o, wo) the
+    GEMM's int32 partials and its second pass, the row absmax and the
+    quantize with the all-reduced scale: two each. A gated encoder layer
+    has 2 + 2 of them, a decoder layer 5 + 3 (q|k|v, cross q, k, v,
+    wi_0|wi_1; o, cross o, wo)."""
+    return (2 + 2 * 2) * cfg.t5.enc_layers + (5 + 3 * 2) * cfg.t5.dec_layers
+
+
+def _case_run(fn) -> dict:
+    """``fn()`` with the launch counts, the bytes staged through the host,
+    the seconds and the device peak of its run."""
+    from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from t2v_metrics_tpu_torch.parallel import comm
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    staged = comm.STAGED["bytes"]
+    t0 = time.perf_counter()
+    value = fn()
+    torch.cuda.synchronize()
+    return {"value": value, "counts": launch_counts(), "s": time.perf_counter() - t0,
+            "staged": comm.STAGED["bytes"] - staged,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _clip_t5_engine(cfg, seed: int, mesh, quant=None):
+    from t2v_metrics_tpu_torch import SimpleT5Tokenizer
+    from t2v_metrics_tpu_torch.engine.scoring import CLIPT5Engine
+    from t2v_metrics_tpu_torch.models.clip_flant5 import init_clip_t5
+    from t2v_metrics_tpu_torch.ops import quant as Q
+
+    model = init_clip_t5(cfg, seed, "cuda", torch.bfloat16, mesh=mesh)
+    fold_t5_attention_scale(model, cfg)
+    if quant:
+        Q.quantize_t5_(model.t5)
+    return CLIPT5Engine(model, cfg, SimpleT5Tokenizer(cfg.t5.vocab_size), "cuda", mesh=mesh)
+
+
+def par_tp_chain(par: bool, quant=None) -> dict:
+    """clip-flant5-xxl widths, 2 ViT + 2+2 T5 layers, T5 scale folded, at tp
+    2 (or on one rank): log scores of 2 images x 4 texts."""
+    from t2v_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = chain_config(model="clip-flant5-xxl")
+    eng = _clip_t5_engine(cfg, SEED + 40, make_mesh(dp=1, tp=2) if par else None, quant)
+    return _case_run(lambda: np.log(eng.score_matrix(seeded_images(2, 41),
+                                                     seeded_texts(4, 42))))
+
+
+def par_tp_full(par: bool) -> dict:
+    """clip-flant5-xxl whole (24 ViT + 24+24 T5 layers) at tp 2, T5 scale
+    folded: 4 x 4 pairs, once to warm up and once timed; the device peak
+    from the model's making on, and one rank's parameter bytes under the
+    mesh (``abstract_sharded_params``)."""
+    from t2v_metrics_tpu_torch.models.clip_flant5 import CLIP_T5_CONFIGS, CLIPT5Model
+    from t2v_metrics_tpu_torch.parallel.mesh import make_mesh, sharded_bytes
+
+    cfg = CLIP_T5_CONFIGS["clip-flant5-xxl"]
+    mesh = make_mesh(dp=1, tp=2)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _clip_t5_engine(cfg, SEED + 43, mesh)
+    images, texts = seeded_images(4, 44), seeded_texts(4, 45)
+    eng.score_matrix(images, texts)
+    peak = torch.cuda.max_memory_allocated()
+    run = _case_run(lambda: np.log(eng.score_matrix(images, texts)))
+    run["peak"] = max(peak, run["peak"])
+    run["estimate"] = sharded_bytes(CLIPT5Model(cfg, "meta", torch.bfloat16), mesh)
+    return run
+
+
+def par_dp(par: bool) -> dict:
+    """clip-flant5-xl whole, 8 images x 4 texts through batch_forward: at dp
+    2 one chunk of 32 pairs, split by image (each rank 4 images, 16 pairs);
+    on one rank the same two chunks of 16 pairs."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    images, texts = seeded_images(8, 46), seeded_texts(4, 47)
+    data = [{"images": [im], "texts": texts} for im in images]
+    s = t2v.VQAScore("clip-flant5-xl", init="random", seed=SEED + 48, device="cuda",
+                     tokenizer=t2v.SimpleT5Tokenizer(32128),
+                     mesh=make_mesh(dp=2, tp=1) if par else None)
+    if par:
+        return _case_run(lambda: s.batch_forward(data, batch_size=8))
+    return _case_run(lambda: np.concatenate([s.batch_forward(data[:4], batch_size=4),
+                                             s.batch_forward(data[4:], batch_size=4)]))
+
+
+def par_pp(par: bool) -> dict:
+    """The clip-flant5-xl T5 encoder (24 layers) on 16 x 640 rows: at pp 2
+    stages of 12 + 12 layers with 4 microbatches of 4; on one rank encode
+    of each microbatch. Returns the output's bf16 bits."""
+    from t2v_metrics_tpu_torch.models import t5 as tt5
+    from t2v_metrics_tpu_torch.models.clip_flant5 import CLIP_T5_CONFIGS
+    from t2v_metrics_tpu_torch.parallel import pipeline as P
+    from t2v_metrics_tpu_torch.parallel.mesh import Mesh
+
+    cfg = dataclasses.replace(CLIP_T5_CONFIGS["clip-flant5-xl"].t5, dec_layers=0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 49)
+    model = tt5.init_t5(tt5.T5Model(cfg, "cuda", torch.bfloat16), gen)
+    embeds = torch.randn((16, 640, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    lens = torch.randint(500, 641, (16,), generator=gen, device="cuda")
+    mask = torch.arange(640, device="cuda")[None] < lens[:, None]
+    if par:
+        mesh = Mesh(np.arange(PARALLEL_WORLD), ("pp",))
+        P.stage_encoder_(model, cfg, mesh)
+        free_cuda()
+        run = _case_run(lambda: P.pipeline_encode(model, cfg, embeds, mask, mesh, n_micro=4))
+    else:
+        run = _case_run(lambda: torch.cat([tt5.encode(model, cfg, embeds[i:i + 4],
+                                                      mask[i:i + 4]) for i in range(0, 16, 4)]))
+    run["value"] = run["value"].view(torch.int16).cpu().numpy()
+    run["layers"] = len(model.encoder.blocks)
+    return run
+
+
+def par_sp(par: bool) -> dict:
+    """The xl chain (2 ViT + 2+2 T5 layers, scale folded) at sp 2: each rank
+    runs 320 of the encoder's 640 rows; 2 images x 4 texts."""
+    from t2v_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    eng = _clip_t5_engine(chain_config(), SEED + 50,
+                          make_mesh(dp=1, sp=2, tp=1) if par else None)
+    return _case_run(lambda: np.log(eng.score_matrix(seeded_images(2, 51),
+                                                     seeded_texts(4, 52))))
+
+
+def par_ep(par: bool) -> dict:
+    """qwen3-vl-30b-a3b widths, 2 ViT + 2 decoder layers of 128 experts, at
+    ep 2 (each rank 64 experts): log scores of 2 images x 2 texts and each
+    pair's top-8 sets at its scored row."""
+    import t2v_metrics_tpu_torch as t2v
+    from t2v_metrics_tpu_torch.models.qwen3vl import init_qwen3vl
+    from t2v_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = qwen3_chain_config()
+    model = init_qwen3vl(cfg, SEED + 53, "cuda", torch.bfloat16,
+                         mesh=make_mesh(dp=1, ep=2, tp=1) if par else None)
+    scorer = t2v.VQAScore(QWEN3, params=model, config=cfg, device="cuda",
+                          tokenizer=t2v.SimpleT5Tokenizer(cfg.text.vocab_size))
+    run = _case_run(lambda: scored_routing(scorer, images=seeded_images(2, 54),
+                                           texts=seeded_texts(2, 55)))
+    run["experts"] = model.decoder.blocks[0].moe.gate_up.shape[0]
+    return run
+
+
+PARALLEL_CASES = (("tp_chain", par_tp_chain),
+                  ("tp_int8_chain", lambda par: par_tp_chain(par, "int8")),
+                  ("tp_full", par_tp_full), ("dp", par_dp), ("pp", par_pp),
+                  ("sp", par_sp), ("ep", par_ep))
+
+
+def parallel_rank(rank: int) -> dict:
+    """One rank of phase_parallel (a spawned process in the gloo group): every
+    case on its mesh, then the bytes this rank staged through the host
+    (over the whole phase: warm-up calls too)."""
+    from t2v_metrics_tpu_torch.parallel import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm.reset_staged()
+    out = {}
+    for name, fn in PARALLEL_CASES:
+        out[name] = fn(True)
+        log(f"[parallel] rank {rank}: {name} {out[name]['s']:.2f} s, staged "
+            f"{out[name]['staged'] / 2**20:.1f} MiB, "
+            f"launches {json.dumps({k: v for k, v in out[name]['counts'].items() if v})}")
+    out["staged_bytes"] = comm.STAGED["bytes"]
+    return out
+
+
+def nccl_world1() -> None:
+    """``initialize_distributed`` with NCCL on the card, world 1, and one
+    all-reduce and one all-gather through parallel/comm.py: the NCCL route
+    builds and runs (no host staging). Not a multi-GPU measurement."""
+    import socket
+
+    import torch.distributed as dist
+
+    from t2v_metrics_tpu_torch.parallel import comm, mesh as pmesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pmesh.initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
+        group = dist.group.WORLD
+        staged = comm.STAGED["bytes"]
+        t = torch.arange(8, dtype=torch.float32, device="cuda")
+        comm.all_reduce(t, group)
+        gathered = comm.all_gather(t, group)
+        torch.cuda.synchronize()
+        ok = (torch.equal(t.cpu(), torch.arange(8.0)) and torch.equal(gathered.cpu(), t.cpu())
+              and comm.STAGED["bytes"] == staged)
+        log(f"[parallel] NCCL world 1 (torch {torch.__version__}, nccl "
+            f"{torch.cuda.nccl.version()}): all_reduce and all_gather "
+            f"through comm.py {'agree' if ok else 'DISAGREE'}, 0 bytes staged")
+        check(ok, "NCCL world 1: the collectives disagree or staged through the host")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel() -> list[dict]:
+    """parallel/ on the card: the single-rank references of each case first
+    (this process), then the two ranks over gloo (spawned; a rank that fails
+    or outlives PARALLEL_TIMEOUT_S fails the run), then NCCL at world 1.
+    Returns each rank's launch counts of each case."""
+    from t2v_metrics_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    refs = {}
+    for name, fn in PARALLEL_CASES:
+        if name != "tp_full":
+            refs[name] = fn(False)
+            free_cuda()
+    t1 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PARALLEL_WORLD, backend="gloo",
+                      timeout_s=PARALLEL_TIMEOUT_S)
+    t2 = time.perf_counter()
+    card = card_line()
+    tag = f"[parallel] two ranks on one card over gloo ({card})"
+    for r, res in enumerate(ranks):
+        log(f"{tag}: rank {r} staged {res['staged_bytes'] / 2**20:.1f} MiB through the host")
+
+    def same(name, key="value"):
+        vals = [res[name][key] for res in ranks]
+        ok = all(np.array_equal(v, vals[0]) for v in vals[1:])
+        check(ok, f"parallel {name}: the ranks' results differ")
+        return vals[0]
+
+    for name, quant, limit in (("tp_chain", None, CHAIN_TOL_NATS),
+                               ("tp_int8_chain", "int8", XXL_INT8_CHAIN_TOL_NATS)):
+        got, want = same(name), refs[name]["value"]
+        diff = float(np.abs(got - want).max())
+        cfg = chain_config(model="clip-flant5-xxl")
+        log(f"{tag}: tp 2 xxl {quant or 'bf16'} chain (2 ViT + 2+2 T5): log-probs "
+            f"{got.ravel().round(4).tolist()}, one rank {want.ravel().round(4).tolist()}; "
+            f"max gap {diff:.4e} nats (limit {limit})")
+        check(np.isfinite(got).all() and diff <= limit,
+              f"parallel {name}: {diff} nats from one rank")
+        if quant:
+            for r, res in enumerate(ranks):
+                c = res[name]["counts"]
+                want_n = tp_int8_launches(cfg)
+                check(c["quant_matmul"] == want_n and c["quantize_rows"] == want_n,
+                      f"parallel {name} rank {r}: launches {c}, want {want_n} of each int8 kernel")
+    from t2v_metrics_tpu_torch.models.clip_flant5 import CLIP_T5_CONFIGS
+
+    chain = clip_t5_launches(chain_config(model="clip-flant5-xxl"), 1)
+    lps = CLIP_T5_CONFIGS["clip-flant5-xl"].t5.enc_layers // PARALLEL_WORLD
+    stage = dict.fromkeys(KERNELS, 0)
+    stage.update(flash_attention_flat=4 * lps, rms_norm=4 * 2 * lps + 1)  # + ln_final
+    for name, want in (("tp_chain", chain), ("sp", clip_t5_launches(chain_config(), 1)),
+                       ("pp", stage)):
+        for r, res in enumerate(ranks):
+            check(res[name]["counts"] == want, f"parallel {name} rank {r}: launches "
+                  f"{res[name]['counts']}, the code's {want}")
+    full = same("tp_full")
+    check(np.isfinite(full).all() and (full <= 0).all() and full.shape == (4, 4),
+          "parallel tp_full: scores not finite, above 1 or of the wrong shape")
+    want = clip_t5_launches(CLIP_T5_CONFIGS["clip-flant5-xxl"], 1)
+    for r, res in enumerate(ranks):
+        run = res["tp_full"]
+        check(run["counts"] == want, f"parallel tp_full rank {r}: launches {run['counts']}, "
+              f"the code's {want}")
+        log(f"{tag}: tp 2 xxl bf16 whole, 4 x 4 pairs: rank {r} {run['s']:.3f} s, "
+            f"{16 / run['s']:.2f} pairs/s (two ranks sharing one card, not a multi-GPU "
+            f"rate); device peak {run['peak'] / 2**30:.2f} GiB against its parameters "
+            f"{run['estimate'] / 2**30:.2f} GiB (abstract_sharded_params); staged "
+            f"{run['staged'] / 2**20:.1f} MiB; launches {json.dumps(run['counts'])}")
+    log(f"{tag}: tp 2 xxl scores {np.exp(full).ravel().round(5).tolist()} (bitwise equal "
+        "on both ranks)")
+
+    got, want = same("dp"), refs["dp"]["value"]
+    check(got.shape == (8, 1, 4) and np.array_equal(got, want),
+          "parallel dp: the ranks' scores are not bitwise one rank's batch_forward")
+    cfg_xl = CLIP_T5_CONFIGS["clip-flant5-xl"]
+    for r, res in enumerate(ranks):
+        check(res["dp"]["counts"] == clip_t5_launches(cfg_xl, 1),
+              f"parallel dp rank {r}: launches {res['dp']['counts']}")
+    log(f"{tag}: dp 2 xl, 32 pairs split by image (16 a rank): bitwise equal to one rank's "
+        f"batch_forward of the same two chunks; rank 0 {ranks[0]['dp']['s']:.2f} s, one rank "
+        f"{refs['dp']['s']:.2f} s for both chunks")
+
+    got, want = same("pp"), refs["pp"]["value"]
+    bitwise = bool(np.array_equal(got, want))
+    as_f = [torch.from_numpy(v).view(torch.bfloat16).float() for v in (got, want)]
+    rms = float(as_f[1].square().mean().sqrt())
+    gap = float((as_f[0] - as_f[1]).abs().max())
+    log(f"{tag}: pp 2 xl encoder (12 + 12 layers, 4 microbatches of 4 x 640): bitwise "
+        f"equal to one rank's encode of each microbatch: {bitwise}; max gap {gap:.3e} "
+        f"({gap / rms:.3e} of the rms {rms:.3e}); stages hold "
+        f"{[res['pp']['layers'] for res in ranks]} layers; rank 0 {ranks[0]['pp']['s']:.2f} s")
+    check(bitwise or gap <= PIPELINE_TOL_RMS * rms, f"parallel pp: gap {gap} against rms {rms}")
+
+    got, want = same("sp"), refs["sp"]["value"]
+    diff = float(np.abs(got - want).max())
+    log(f"{tag}: sp 2 xl chain (320 of 640 encoder rows a rank): max gap {diff:.4e} nats "
+        f"(limit {CHAIN_TOL_NATS})")
+    check(np.isfinite(got).all() and diff <= CHAIN_TOL_NATS, f"parallel sp: {diff} nats")
+
+    (got, sets), (want, want_sets) = ranks[0]["ep"]["value"], refs["ep"]["value"]
+    check(all(np.array_equal(res["ep"]["value"][0], got) and res["ep"]["value"][1] == sets
+              for res in ranks), "parallel ep: the ranks' results differ")
+    check([res["ep"]["experts"] for res in ranks] == [64] * PARALLEL_WORLD,
+          "parallel ep: a rank does not hold 64 experts")
+    for r, res in enumerate(ranks):
+        check(res["ep"]["counts"]["grouped_gemm"] == 2 * qwen3_chain_config().text.layers,
+              f"parallel ep rank {r}: {res['ep']['counts']['grouped_gemm']} grouped GEMMs")
+    for i, (g, w) in enumerate(zip(got.ravel(), want.ravel())):
+        alike = sets[i] == want_sets[i]
+        limit = QWEN3_CHAIN_TOL_NATS if alike else QWEN3_STEP_TOL_NATS
+        log(f"{tag}: ep 2 qwen3-vl-30b-a3b (2 ViT + 2 decoder layers, 64 experts a rank) "
+            f"pair {i}: {g:.4f} vs one rank {w:.4f} nats, routed "
+            f"{'alike' if alike else 'apart'} (limit {limit})")
+        check(np.isfinite(g) and abs(g - w) <= limit, f"parallel ep pair {i}: {abs(g - w)}")
+    for r, res in enumerate(ranks):
+        log(f"{tag}: rank {r} launches by case: " + json.dumps(
+            {name: {k: v for k, v in res[name]["counts"].items() if v}
+             for name, _ in PARALLEL_CASES}))
+    nccl_world1()
+    log(f"{tag}: references {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [res[name]["counts"] for res in ranks for name, _ in PARALLEL_CASES]
+
+
 KERNEL_FAMILIES = (("quant_matmul", ("quant_matmul_kernel",)),
                    ("quantize_rows", ("quant_rows_kernel",)),
                    ("grouped_gemm", ("grouped_gemm_kernel",)),
@@ -5567,6 +6073,8 @@ def main() -> int:
     slice_counts.extend(phase_omni_slice(profile=args.profile))
     free_cuda()
     slice_counts.extend(phase_talker_slice(profile=args.profile))
+    free_cuda()
+    slice_counts.extend(phase_parallel())
     free_cuda()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,

@@ -25,6 +25,7 @@ the loaders are the one statement of each family's layout.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -49,6 +50,7 @@ from .models import siglip as tsiglip
 from .models import t5 as tt5
 from .models.checkpoint import _flatten, release_pages
 from .ops import quant as Q
+from .parallel.mesh import build_sharded
 
 
 def _as_tensor(src) -> torch.Tensor:
@@ -73,6 +75,9 @@ def _copy(dst: torch.Tensor, src) -> None:
         _AUDIT.fit(dst.shape, src)
         return
     t = _as_tensor(src)
+    shard = getattr(dst, "shard", None)
+    if shard is not None:   # a rank's share (parallel/mesh.py): slice the source
+        t = shard.take(t)
     if tuple(t.shape) != tuple(dst.shape):
         raise ValueError(f"shape {tuple(t.shape)} does not fit {tuple(dst.shape)}")
     if t.dtype == dst.dtype and t.stride() == dst.stride():
@@ -91,6 +96,12 @@ def _copy_int8(dst: Q.Linear, w_q, scale) -> None:
         _AUDIT.fit(dense.shape[1:], scale)
         return
     w_q, scale = _as_tensor(w_q), _as_tensor(scale).float()
+    shard = getattr(dense, "shard", None)
+    if shard is not None:   # a rank's share: the scale follows the output columns
+        w_q = shard.take(w_q)
+        if shard.dim == 1:
+            scale = dataclasses.replace(shard, full_shape=shard.full_shape[1:],
+                                        dim=0).take(scale)
     if (w_q.dtype != torch.int8 or tuple(w_q.shape) != tuple(dense.shape)
             or tuple(scale.shape) != tuple(w_q.shape[1:])):
         raise ValueError(f"int8 leaf {w_q.dtype} {tuple(w_q.shape)} / {tuple(scale.shape)} "
@@ -118,6 +129,8 @@ def _packed_leaf(dst: Q.Linear, srcs: list[dict]) -> None:
     if "w_q" in srcs[0]:
         _copy_int8(dst, torch.cat([_as_tensor(s["w_q"]) for s in srcs], dim=1),
                    torch.cat([_as_tensor(s["scale"]) for s in srcs]))
+    elif hasattr(dst.w, "shard"):   # a rank's share of each part, cut from their pack
+        _copy(dst.w, torch.cat([_as_tensor(s["w"]) for s in srcs], dim=1))
     else:
         widths = [_as_tensor(s["w"]).shape[-1] for s in srcs]
         if sum(widths) != dst.w.shape[1]:
@@ -126,7 +139,9 @@ def _packed_leaf(dst: Q.Linear, srcs: list[dict]) -> None:
         for s, n in zip(srcs, widths):
             _copy(dst.w[:, off:off + n], s["w"])
             off += n
-    if dst.b is not None:
+    if dst.b is not None and hasattr(dst.b, "shard"):
+        _copy(dst.b, torch.cat([_as_tensor(s["b"]) for s in srcs]))
+    elif dst.b is not None:
         off = 0
         for s in srcs:
             n = _as_tensor(s["b"]).shape[0]
@@ -175,10 +190,11 @@ def _load_vision(p: tclip.VisionTower, tree: dict) -> tclip.VisionTower:
 
 
 @torch.no_grad()
-def clip_from_numpy(tree: dict, cfg: tuple, device, dtype) -> tclip.CLIPModel:
+def clip_from_numpy(tree: dict, cfg: tuple, device, dtype, mesh=None) -> tclip.CLIPModel:
     """CLIPScore's tree ({vision, text, logit_scale}); ``cfg`` is the
-    (vision, text) config pair."""
-    model = tclip.CLIPModel(*cfg, device, dtype)
+    (vision, text) config pair. ``mesh``: each rank loads its share only
+    (``parallel/mesh.py:build_sharded``)."""
+    model = build_sharded(tclip.CLIPModel, (*cfg,), device, dtype, mesh)
     _load_vision(model.vision, tree["vision"])
     t, src = model.text, tree["text"]
     for name in ("tok_emb", "pos_emb", "proj"):
@@ -221,8 +237,10 @@ def _load_t5(p: tt5.T5Model, tree: dict) -> tt5.T5Model:
 
 @torch.no_grad()
 def clip_t5_from_numpy(tree: dict, cfg: tcft5.CLIPT5Config, device,
-                       dtype) -> tcft5.CLIPT5Model:
-    model = tcft5.CLIPT5Model(cfg, device, dtype)
+                       dtype, mesh=None) -> tcft5.CLIPT5Model:
+    """``mesh``: each rank loads its share only
+    (``parallel/mesh.py:build_sharded``)."""
+    model = build_sharded(tcft5.CLIPT5Model, (cfg,), device, dtype, mesh)
     _load_vision(model.vision, tree["vision"])
     _load_t5(model.t5, tree["t5"])
     _leaf(model.projector.fc1, tree["projector"]["fc1"])

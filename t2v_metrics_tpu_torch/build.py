@@ -121,13 +121,28 @@ def grouped_gemm_lib():
 @functools.cache
 def quant_matmul_lib():
     """The ``quant_matmul_forward`` C entry point, built on first use."""
-    so = build_shared_lib("quant_matmul", [CSRC_DIR / "quant_matmul.cu"])
-    fn = ctypes.CDLL(str(so)).quant_matmul_forward
+    fn = _quant_matmul_cdll().quant_matmul_forward
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     # geo (x_q, w_qt maps); xs, ws, o, part; M, N, K, splits, grid; stream
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + [vp] * 4 + [i32] * 5 + [vp]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def quant_matmul_dequant_lib():
+    """The ``quant_matmul_dequant`` C entry point (the second pass alone)."""
+    fn = _quant_matmul_cdll().quant_matmul_dequant
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    # part, xs, ws, o; M, N, splits; stream
+    fn.argtypes = [vp] * 4 + [i32] * 3 + [vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _quant_matmul_cdll():
+    return ctypes.CDLL(str(build_shared_lib("quant_matmul", [CSRC_DIR / "quant_matmul.cu"])))
 
 
 @functools.cache

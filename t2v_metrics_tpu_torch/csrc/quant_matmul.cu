@@ -35,6 +35,12 @@
 // int32 partial sums to a workspace (S, M, N), and a second kernel sums the
 // S partials (integer sums are exact in any order, so the result stays
 // bitwise that of one whole-K sum) and applies the same epilogue.
+//
+// Tensor parallelism splits K across ranks the same way (a row-parallel
+// product, ops/quant.py:int8_matmul): each rank's launch writes only its
+// int32 partials (o null), the ranks all-reduce them (exact), and
+// quant_matmul_dequant runs the second kernel on the sum, so the sharded
+// product is bitwise the unsharded one, as GSPMD's int32 reduce makes it.
 
 #include "gemm_sm90.cuh"
 
@@ -165,16 +171,19 @@ quant_matmul_kernel_reduce(const Params p) {
 // geo: the tensor maps of x_q (M, K) and w_qt (N, K), gemm::GEO int64 each
 // (ops/gemm.py); xs (M,), ws (N,) f32; o (M, N) bf16; part: with splits > 1
 // an int32 workspace of splits x M x N, else null; all contiguous and
-// 16-byte aligned (the wrapper checks). K must be a multiple of 32 and N of
-// 8, splits at most K / 128 rounded up; grid: the persistent blocks (at most
-// one an SM). Returns cudaGetLastError() after the launches
-// (cudaErrorInvalidValue for shapes or maps the kernel does not take).
+// 16-byte aligned (the wrapper checks). With o null the launch writes only
+// the int32 partials into part (any splits; xs and ws unread). K must be a
+// multiple of 32 and N of 8, splits at most K / 128 rounded up; grid: the
+// persistent blocks (at most one an SM). Returns cudaGetLastError() after
+// the launches (cudaErrorInvalidValue for shapes or maps the kernel does not
+// take).
 extern "C" int quant_matmul_forward(const long long* geo, const void* xs, const void* ws,
                                     void* o, void* part, int M, int N, int K, int splits,
                                     int grid, void* stream) {
   const int kb = (K + gemm::BK_BYTES - 1) / gemm::BK_BYTES;
+  const bool partials_only = o == nullptr;
   if (M <= 0 || N <= 0 || K <= 0 || K % 32 || N % 8 || grid <= 0 || splits < 1 || splits > kb ||
-      (splits > 1) != (part != nullptr))
+      (partials_only ? part == nullptr : (splits > 1) != (part != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
   cudaError_t err = gemm::encode(&ta, geo, 2, {gemm::BK_BYTES, gemm::BM, 1}, 1);
@@ -197,8 +206,30 @@ extern "C" int quant_matmul_forward(const long long* geo, const void* xs, const 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   quant_matmul_kernel<<<grid, gemm::THREADS, gemm::SMEM, st>>>(ta, tb, p);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || splits == 1 || partials_only) return static_cast<int>(err);
   const long long blocks = ((long long)M * N / 8 + 255) / 256;
   quant_matmul_kernel_reduce<<<static_cast<unsigned>(blocks), 256, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The second pass alone: part (splits, M, N) int32 partial sums (from
+// quant_matmul_forward with o null, all-reduced across ranks), summed and
+// dequantized into o (M, N) bf16 with xs (M,) and ws (N,) f32. N must be a
+// multiple of 8; all contiguous and 16-byte aligned (the wrapper checks).
+extern "C" int quant_matmul_dequant(const void* part, const void* xs, const void* ws, void* o,
+                                    int M, int N, int splits, void* stream) {
+  if (M <= 0 || N <= 0 || N % 8 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.xs = static_cast<const float*>(xs);
+  p.ws = static_cast<const float*>(ws);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.part = static_cast<int*>(const_cast<void*>(part));
+  p.M = M;
+  p.N = N;
+  p.K = 0;
+  p.splits = splits;
+  const long long blocks = ((long long)M * N / 8 + 255) / 256;
+  quant_matmul_kernel_reduce<<<static_cast<unsigned>(blocks), 256, 0,
+                               static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

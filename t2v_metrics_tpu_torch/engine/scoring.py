@@ -26,6 +26,8 @@ and cropped there with Pillow's uint8 resize, bit for bit
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -186,12 +188,78 @@ class _HostScores:
         return arr if dtype is None else arr.astype(dtype)
 
 
+class _Parallel:
+    """An engine's mesh (``parallel/mesh.py``): the model sharded over it
+    (tensor and expert parallelism), its images split over the data axes
+    by image, and the mesh ambient while the device works (sequence
+    parallelism). Without a mesh: one rank, no collective."""
+
+    def __init__(self, params, mesh):
+        self.mesh = mesh
+        self.data = None
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+
+            pmesh.shard_params(params, mesh)
+            self.data = pmesh.data_sharding(mesh, 1)
+
+    def ambient(self):
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
+
+    @property
+    def ranks(self) -> int:
+        """The data-parallel ranks (1 without a mesh)."""
+        return 1 if self.data is None else self.data.count
+
+    def rows(self, n: int) -> slice:
+        """This rank's share of ``n`` images."""
+        return slice(0, n) if self.data is None else self.data.rows(n)
+
+    def gather_rows(self, local: np.ndarray, n: int, device) -> np.ndarray:
+        """The ranks' ``rows(n)`` of a matrix joined on every rank."""
+        if self.ranks == 1:
+            return local
+        t = torch.from_numpy(np.ascontiguousarray(local, np.float32)).to(device)
+        return self.data.gather(t, n).cpu().numpy()
+
+    def split_pairs(self, images):
+        """(this rank's pair indices, the owner of each pair): the pairs go
+        with their image, each distinct image to one rank's ``rows``."""
+        uniq, inv = unique_visuals(images)
+        chunk = -(-len(uniq) // self.ranks)
+        owners = [u // chunk for u in inv]
+        me = self.data.mesh.axis_index(self.data.axes)
+        return [j for j, o in enumerate(owners) if o == me], owners
+
+    def gather_pairs(self, local: torch.Tensor, owners) -> torch.Tensor:
+        """Each rank's scores of its pairs (``split_pairs``) joined into the
+        scores of all pairs, in order, on every rank."""
+        counts = np.bincount(owners, minlength=self.ranks)
+        width = int(counts.max())
+        pad = local.new_zeros((width - local.shape[0],))
+        parts = self.mesh.all_gather(torch.cat([local.float(), pad]), self.data.axes)
+        parts = parts.reshape(self.ranks, width)
+        out = local.new_empty((len(owners),), dtype=torch.float32)
+        for k in range(self.ranks):
+            idx = torch.as_tensor([j for j, o in enumerate(owners) if o == k],
+                                  dtype=torch.long, device=out.device)
+            out[idx] = parts[k, :counts[k]]
+        return out
+
+
 class CLIPT5Engine:
     """Device engine for CLIP-FlanT5 VQAScore. Parameters live on
-    ``device``; public methods take host data and return numpy."""
+    ``device``; public methods take host data and return numpy.
+
+    ``mesh`` (``parallel/mesh.py``): the model is sharded over it in place
+    (tensor parallelism), the pairs are split over its data axes by image,
+    so each image is still encoded once, and every rank returns all the
+    scores; a mesh with an sp axis runs the T5 encoder sequence-parallel.
+    """
 
     def __init__(self, params: tcft5.CLIPT5Model, cfg: tcft5.CLIPT5Config,
-                 tokenizer, device, max_pairs_per_call: int = 128):
+                 tokenizer, device, max_pairs_per_call: int = 128, mesh=None):
+        self.par = _Parallel(params, mesh)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -205,15 +273,17 @@ class CLIPT5Engine:
         """(M, H, W*3) uint8 on the device -> (M, T, D) image features."""
         cfg = self.cfg
         x = clip_pixels(pixels, cfg.vision.image_size, cfg.image_aspect_ratio == "pad")
-        return tcft5.image_features(self.params, cfg, x)
+        with self.par.ambient():
+            return tcft5.image_features(self.params, cfg, x)
 
     @torch.inference_mode()
     def _score(self, feats, arrays, pair_image, pair_text) -> torch.Tensor:
         dev = [torch.from_numpy(a).to(self.device) for a in arrays]
-        return tcft5.score_pairs(
-            self.params, self.cfg, feats, *dev,
-            torch.from_numpy(pair_image).to(self.device).long(),
-            torch.from_numpy(pair_text).to(self.device).long())
+        with self.par.ambient():
+            return tcft5.score_pairs(
+                self.params, self.cfg, feats, *dev,
+                torch.from_numpy(pair_image).to(self.device).long(),
+                torch.from_numpy(pair_text).to(self.device).long())
 
     # -- host-side assembly ---------------------------------------------------
 
@@ -272,7 +342,10 @@ class CLIPT5Engine:
         """(M images) x (N texts) -> (M, N) float32 scores = exp(mean logp)."""
         questions, answers = self._prompts(texts, question_template,
                                            answer_template)
-        return np.exp(self._score_pairs_all(images, questions, answers))
+        rows = self.par.rows(len(images))
+        local = (self._score_pairs_all(images[rows], questions, answers)
+                 if rows.stop > rows.start else np.zeros((0, len(texts)), np.float32))
+        return np.exp(self.par.gather_rows(local, len(images), self.device))
 
     def _score_pairs_all(self, images, questions, answers) -> np.ndarray:
         m, n = len(images), len(questions)
@@ -307,9 +380,20 @@ class CLIPT5Engine:
                       answer_template=None):
         """Host stage of pairwise scoring: decode the images and send them to
         the device (resized there where they take Pillow's resize), tokenize
-        and splice texts, bucket-pad."""
+        and splice texts, bucket-pad. Over data-parallel ranks, each rank
+        prepares the pairs of its share of the distinct images, as one rank
+        would for those pairs alone."""
         if len(images) != len(texts):
             raise ValueError("prepare_pairs: one image per text")
+        if self.par.ranks > 1:
+            mine, owners = self.par.split_pairs(images)
+            local = (self._prepare([images[j] for j in mine], [texts[j] for j in mine],
+                                   question_template, answer_template)
+                     if mine else None)
+            return {"dp": (local, owners), "n": len(texts)}
+        return self._prepare(images, texts, question_template, answer_template)
+
+    def _prepare(self, images, texts, question_template, answer_template):
         uniq, inv = unique_visuals(images)  # repeated [img]*N calls still encode once
         questions, answers = self._prompts(texts, question_template,
                                            answer_template)
@@ -322,7 +406,13 @@ class CLIPT5Engine:
                 "pair_image": pair_image, "pair_text": pair_text, "n": n}
 
     def forward_device_prepared(self, prep):
-        """Device stage: returns (scores still on the device, valid count)."""
+        """Device stage: returns (scores still on the device, valid count);
+        over data-parallel ranks, every rank's scores of all the pairs."""
+        if "dp" in prep:
+            local, owners = prep["dp"]
+            scores = (self.forward_device_prepared(local)[0].t[:local["n"]] if local
+                      else torch.zeros((0,), device=self.device))
+            return _HostScores(self.par.gather_pairs(scores, owners)), prep["n"]
         feats = self._encode(prep["pixels"])[: prep["m"]]
         logp = self._score(feats, prep["arrays"], prep["pair_image"],
                            prep["pair_text"])
@@ -337,7 +427,8 @@ class CLIPT5Engine:
         cfg = self.cfg
         embeds = tcft5._pair_embeds(self.params, feats, ids, img_mask, img_slot,
                                     pair_image, pair_text)
-        return tt5.encode(self.params.t5, cfg.t5, embeds, enc_mask[pair_text])
+        with self.par.ambient():
+            return tt5.encode(self.params.t5, cfg.t5, embeds, enc_mask[pair_text])
 
     @torch.inference_mode()
     def generate(self, images, texts, max_new_tokens: int = 128, **_) -> list[str]:
@@ -376,7 +467,8 @@ class CLIPEngine:
     live on ``device``; public methods take host data and return numpy."""
 
     def __init__(self, params: tclip.CLIPModel, vcfg: tclip.CLIPVisionConfig,
-                 tcfg: tclip.CLIPTextConfig, tokenizer, device):
+                 tcfg: tclip.CLIPTextConfig, tokenizer, device, mesh=None):
+        self.par = _Parallel(params, mesh)   # TP; images split over dp
         self.params = params
         self.vcfg, self.tcfg = vcfg, tcfg
         self.tokenizer = tokenizer
@@ -395,14 +487,20 @@ class CLIPEngine:
     def score_matrix(self, images, texts, **_) -> np.ndarray:
         """(M images) x (N texts) -> (M, N) float32 cosine similarities."""
         m, n = len(images), len(texts)
-        pixels = clip_pixels(
-            _pixels_bucketed(images, self.vcfg.image_size, False, self.device),
-            self.vcfg.image_size, False)
+        rows = self.par.rows(m)
         ids = _pad_rows((self._tokenize(texts),), _bucket(n, TXT_BUCKETS))[0]
-        imf = tclip.encode_image(self.params, self.vcfg, pixels)[:m]
-        txf = tclip.encode_text(self.params, self.tcfg,
-                                torch.from_numpy(ids).to(self.device).long())[:n]
-        return (imf.float() @ txf.float().T).cpu().numpy()
+        with self.par.ambient():
+            txf = tclip.encode_text(self.params, self.tcfg,
+                                    torch.from_numpy(ids).to(self.device).long())[:n]
+            local = np.zeros((0, n), np.float32)
+            if rows.stop > rows.start:
+                mine = images[rows]
+                pixels = clip_pixels(
+                    _pixels_bucketed(mine, self.vcfg.image_size, False, self.device),
+                    self.vcfg.image_size, False)
+                imf = tclip.encode_image(self.params, self.vcfg, pixels)[:len(mine)]
+                local = (imf.float() @ txf.float().T).cpu().numpy()
+        return self.par.gather_rows(local, m, self.device)
 
     def forward_pairwise(self, images, texts, **_) -> np.ndarray:
         """len(images) == len(texts) paired scoring -> (P,): each distinct

@@ -215,6 +215,11 @@ class CLIPT5Adapter(VQAScoreModel):
         linears); the environment's ``T2V_QUANT`` when not given. A
         ``CLIPT5Model`` passed as ``params`` is quantized in place; loaded
         weights are quantized after the load.
+      mesh: a ``parallel.mesh.Mesh`` of this process's ranks: each rank
+        holds its share of the weights (random ones drawn whole a tensor at
+        a time and sliced, a checkpoint's read in slices; ``params`` sharded
+        in place), the pairs are split over the data axes by image, every
+        rank returns all the scores
     """
 
     video_mode = "concat"
@@ -226,6 +231,7 @@ class CLIPT5Adapter(VQAScoreModel):
         device = self.device
         dtype = self.kwargs.get("dtype") or default_dtype(device)
         quant = self.kwargs.get("quant") or os.environ.get("T2V_QUANT")
+        mesh = self.kwargs.get("mesh")
         if quant not in (None, "", "int8", "int8+vit"):
             raise ValueError(f"unknown quant mode {quant!r} ('int8' or 'int8+vit')")
 
@@ -239,11 +245,11 @@ class CLIPT5Adapter(VQAScoreModel):
                 params = self._load_checkpoint(path, cfg, dtype)
             else:
                 params = tcft5.init_clip_t5(cfg, self.kwargs.get("seed", 0), device,
-                                            dtype)
+                                            dtype, mesh=mesh)
         if not isinstance(params, tcft5.CLIPT5Model):
             from ..bridge import clip_t5_from_numpy
 
-            params = clip_t5_from_numpy(params, cfg, device, dtype)
+            params = clip_t5_from_numpy(params, cfg, device, dtype, mesh=mesh)
         if quant:
             # in place, one leaf at a time, each dense leaf freed as it goes
             Q.quantize_t5_(params.t5)
@@ -251,7 +257,7 @@ class CLIPT5Adapter(VQAScoreModel):
                 Q.quantize_clip_vision_(params.vision)
 
         tokenizer = self._load_tokenizer(spec["tokenizer"], cfg.t5.vocab_size)
-        self.engine = CLIPT5Engine(params, cfg, tokenizer, device)
+        self.engine = CLIPT5Engine(params, cfg, tokenizer, device, mesh=mesh)
 
     def _load_checkpoint(self, path: str, cfg: tcft5.CLIPT5Config, dtype) -> dict:
         """The tree of a checkpoint directory (see ``load_checkpoint_tree``),
@@ -375,7 +381,9 @@ class CLIPScoreAdapter(ScoreModel):
     or a pytree in the JAX package's layout with numpy or CPU tensor leaves),
     vision_config / text_config (replace the registry's), seed (default 0),
     dtype (default bf16 on CUDA, fp32 on CPU), tokenizer (an object or a
-    local directory; else the snapshot's, else SimpleT5Tokenizer).
+    local directory; else the snapshot's, else SimpleT5Tokenizer), mesh (a
+    ``parallel.mesh.Mesh``: the towers tensor-parallel, the images split
+    over the data axes, every rank returns the whole matrix).
     """
 
     video_mode = "concat"
@@ -391,6 +399,7 @@ class CLIPScoreAdapter(ScoreModel):
         self.vcfg, self.tcfg = vcfg, tcfg
         device = self.device
         dtype = self.kwargs.get("dtype") or default_dtype(device)
+        mesh = self.kwargs.get("mesh")
 
         params = self.kwargs.get("params")
         if params is None:
@@ -402,14 +411,14 @@ class CLIPScoreAdapter(ScoreModel):
                 params = self._load_checkpoint(path, (vcfg, tcfg), dtype)
             else:
                 params = tclip.init_clip(vcfg, tcfg, self.kwargs.get("seed", 0), device,
-                                         dtype)
+                                         dtype, mesh=mesh)
         if not isinstance(params, tclip.CLIPModel):
             from ..bridge import clip_from_numpy
 
-            params = clip_from_numpy(params, (vcfg, tcfg), device, dtype)
+            params = clip_from_numpy(params, (vcfg, tcfg), device, dtype, mesh=mesh)
         tokenizer = cached_tokenizer(self.kwargs, spec["hf_repo"], tcfg.vocab_size,
                                      self.cache_dir)
-        self.engine = CLIPEngine(params, vcfg, tcfg, tokenizer, device)
+        self.engine = CLIPEngine(params, vcfg, tcfg, tokenizer, device, mesh=mesh)
 
     def _load_checkpoint(self, path: str, cfg: tuple, dtype) -> dict:
         from ..bridge import clip_from_numpy

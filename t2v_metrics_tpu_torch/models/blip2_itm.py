@@ -114,7 +114,7 @@ class VisionTower(nn.Module):
         self.patch_w = _param(device, dtype, 3 * cfg.patch_size ** 2, w)
         self.patch_b = _param(device, dtype, w)
         self.pos_emb = _param(device, dtype, cfg.num_patches + 1, w)
-        self.blocks = nn.ModuleList(tclip.Block(w, cfg.mlp_dim, device, dtype)
+        self.blocks = nn.ModuleList(tclip.Block(w, cfg.mlp_dim, cfg.heads, device, dtype)
                                     for _ in range(cfg.layers))
         self.ln_post = tclip.Norm(w, True, device, dtype)
 

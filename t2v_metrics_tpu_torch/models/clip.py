@@ -28,6 +28,7 @@ from ..ops import layers as L
 from ..ops import quant as Q
 from ..ops.attention import attention_flat_packed
 from ..ops.image import patch_perm, patchify_flat
+from ..parallel.mesh import build_sharded, full_shape, gather_cols
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +88,14 @@ class Norm(nn.Module):
 
 
 class Block(nn.Module):
-    """A pre-LN transformer block of either tower."""
+    """A pre-LN transformer block of either tower (``heads``: the q|k|v
+    parts' head count, which tensor parallelism divides)."""
 
-    def __init__(self, width: int, mlp_dim: int, device, dtype):
+    def __init__(self, width: int, mlp_dim: int, heads: int, device, dtype):
         super().__init__()
         self.ln1 = Norm(width, True, device, dtype)
         self.qkv = Q.Linear.empty(width, 3 * width, True, device, dtype)
+        self.qkv.parts = tuple((f"{n} heads", heads, width // heads) for n in "qkv")
         self.o = Q.Linear.empty(width, width, True, device, dtype)
         self.ln2 = Norm(width, True, device, dtype)
         self.fc1 = Q.Linear.empty(width, mlp_dim, True, device, dtype)
@@ -112,7 +115,7 @@ class VisionTower(nn.Module):
         self.patch_w = param(3 * cfg.patch_size ** 2, w)
         self.pos_emb = param(cfg.num_patches + 1, w)
         self.ln_pre = Norm(w, True, device, dtype)
-        self.blocks = nn.ModuleList(Block(w, cfg.mlp_dim, device, dtype)
+        self.blocks = nn.ModuleList(Block(w, cfg.mlp_dim, cfg.heads, device, dtype)
                                     for _ in range(cfg.layers))
         self.ln_post = Norm(w, True, device, dtype)
         self.proj = param(w, cfg.proj_dim)
@@ -129,7 +132,7 @@ class TextTower(nn.Module):
 
         self.tok_emb = param(cfg.vocab_size, w)
         self.pos_emb = param(cfg.context_length, w)
-        self.blocks = nn.ModuleList(Block(w, cfg.mlp_dim, device, dtype)
+        self.blocks = nn.ModuleList(Block(w, cfg.mlp_dim, cfg.heads, device, dtype)
                                     for _ in range(cfg.layers))
         self.ln_final = Norm(w, True, device, dtype)
         self.proj = param(w, cfg.proj_dim)
@@ -153,7 +156,7 @@ def init_blocks_(blocks, gen: torch.Generator) -> None:
         init_norm_(blk.ln1)
         init_norm_(blk.ln2)
         for leaf in (blk.qkv, blk.o, blk.fc1, blk.fc2):
-            normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
+            normal_(leaf.w, fan_in(leaf.w) ** -0.5, gen)
             leaf.b.zero_()
 
 
@@ -185,14 +188,14 @@ def init_text(p: TextTower, gen: torch.Generator) -> TextTower:
 
 @torch.no_grad()
 def init_clip(vcfg: CLIPVisionConfig, tcfg: CLIPTextConfig, seed: int, device,
-              dtype=torch.float32) -> CLIPModel:
+              dtype=torch.float32, mesh=None) -> CLIPModel:
     """Random parameters made on ``device`` in ``dtype`` from a
     ``torch.Generator`` seeded with ``seed``, with init_clip's distributions
     and ``logit_scale`` log(1/0.07) (the numbers differ from the JAX
-    package's)."""
+    package's). ``mesh``: each rank holds its share of the same weights."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = CLIPModel(vcfg, tcfg, device, dtype)
+    model = build_sharded(CLIPModel, (vcfg, tcfg), device, dtype, mesh)
     init_vision(model.vision, gen)
     init_text(model.text, gen)
     model.logit_scale.fill_(math.log(1 / 0.07))
@@ -200,8 +203,21 @@ def init_clip(vcfg: CLIPVisionConfig, tcfg: CLIPTextConfig, seed: int, device,
 
 
 def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
-    """Fill ``t`` in place with N(0, std^2) draws made in fp32 on its device."""
-    t.copy_(torch.randn(t.shape, generator=gen, device=t.device).mul_(std))
+    """Fill ``t`` in place with N(0, std^2) draws made in fp32 on its device.
+    A rank's shard (``parallel/mesh.py:shard_params``) draws the whole
+    tensor and keeps its slice, so every rank holds slices of the same
+    weights as one unsharded draw from the same seed."""
+    shard = getattr(t, "shard", None)
+    if shard is None:
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device).mul_(std))
+    else:
+        full = torch.randn(shard.full_shape, generator=gen, device=t.device)
+        t.copy_(shard.take(full).mul_(std))
+
+
+def fan_in(w: torch.Tensor) -> int:
+    """The input width of a weight (K, N), the whole tensor's for a shard."""
+    return full_shape(w)[0]
 
 
 def init_norm_(norm: Norm) -> None:
@@ -216,8 +232,11 @@ def pre_ln_block(p: Block, x: torch.Tensor, branch: torch.Tensor | None, heads: 
     """One pre-LN block on the residual stream ``x + branch`` (``branch``:
     the previous block's MLP output, not yet added, or None). Each residual
     add is folded into the LayerNorm that reads its sum. Returns (the stream
-    after the attention half, this block's MLP output, not yet added)."""
+    after the attention half, this block's MLP output, not yet added).
+    ``heads``: the tower's; under tensor parallelism the block runs the
+    share its q|k|v leaf holds."""
     x, h = L.add_layer_norm(x, branch, p.ln1.scale, p.ln1.bias, eps)
+    heads = heads * p.qkv.d_out // (3 * x.shape[-1])
     a = attention_flat_packed(Q.linear(h, p.qkv), heads, causal=causal,
                               kv_mask=kv_mask, segment_ids=segment_ids)
     x, h = L.add_layer_norm(x, Q.linear(a, p.o), p.ln2.scale, p.ln2.bias, eps)
@@ -238,7 +257,7 @@ def vision_tower(p: VisionTower, cfg: CLIPVisionConfig, pixels: torch.Tensor,
     b = pixels.shape[0]
     pixels = pixels.to(p.patch_w.dtype)
     perm = torch.from_numpy(patch_perm(cfg.patch_size, 3)).to(pixels.device)
-    x = patchify_flat(pixels, cfg.patch_size, 3) @ p.patch_w[perm]
+    x = gather_cols(patchify_flat(pixels, cfg.patch_size, 3) @ p.patch_w[perm], p.patch_w)
     cls = p.class_emb.to(x.dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + p.pos_emb
     x = L.layer_norm(x, p.ln_pre.scale, p.ln_pre.bias, cfg.ln_eps)

@@ -18,6 +18,7 @@ from torch import nn
 from ..constants import DEFAULT_IMAGE_TOKEN, SYSTEM_MSG
 from ..ops import layers as L
 from ..ops import quant as Q
+from ..parallel.mesh import build_sharded
 from . import clip as tclip
 from . import t5 as tt5
 
@@ -80,16 +81,18 @@ class CLIPT5Model(nn.Module):
 
 @torch.no_grad()
 def init_clip_t5(cfg: CLIPT5Config, seed: int, device,
-                 dtype=torch.float32) -> CLIPT5Model:
+                 dtype=torch.float32, mesh=None) -> CLIPT5Model:
     """Random parameters made directly on ``device`` in ``dtype`` from a
     ``torch.Generator`` seeded with ``seed``, with init_clip_t5's
-    distributions (the numbers differ from the JAX package's)."""
+    distributions (the numbers differ from the JAX package's). ``mesh``:
+    each rank holds its share of the same weights (one tensor drawn whole at
+    a time, ``clip.normal_``)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = CLIPT5Model(cfg, device, dtype)
+    model = build_sharded(CLIPT5Model, (cfg,), device, dtype, mesh)
     tclip.init_vision(model.vision, gen)
     for leaf in (model.projector.fc1, model.projector.fc2):
-        tclip.normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
+        tclip.normal_(leaf.w, tclip.fan_in(leaf.w) ** -0.5, gen)
         leaf.b.zero_()
     tt5.init_t5(model.t5, gen)
     return model

@@ -38,7 +38,9 @@ from ..ops import quant as Q
 from ..ops.attention import attention_flat, attention_flat_packed
 from ..ops.moe import add_shared_expert, moe_mlp_dispatch
 from ..ops.rope import rope_pack
-from .clip import Norm, init_norm_, normal_
+from ..parallel import comm
+from ..parallel.mesh import gather_cols
+from .clip import Norm, fan_in, init_norm_, normal_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +170,8 @@ class DecoderBlock(nn.Module):
         qkv_out = (cfg.heads + 2 * cfg.kv_heads) * hd
         self.ln1 = Norm(d, False, device, dtype)
         self.qkv = Q.Linear.empty(d, qkv_out, cfg.qkv_bias, device, dtype)
+        self.qkv.parts = (("heads", cfg.heads, hd), ("kv heads", cfg.kv_heads, hd),
+                          ("kv heads", cfg.kv_heads, hd))
         self.q_norm = Norm(hd, False, device, dtype) if cfg.qk_norm else None
         self.k_norm = Norm(hd, False, device, dtype) if cfg.qk_norm else None
         self.o = Q.Linear.empty(cfg.heads * hd, d, False, device, dtype)
@@ -227,7 +231,7 @@ def init_decoder(p: Decoder, gen: torch.Generator) -> Decoder:
             normal_(blk.moe.gate_up, blk.moe.gate_up.shape[1] ** -0.5, gen)
             normal_(blk.moe.down, blk.moe.down.shape[1] ** -0.5, gen)
         for leaf in leaves:
-            normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
+            normal_(leaf.w, fan_in(leaf.w) ** -0.5, gen)
             if leaf.b is not None:
                 leaf.b.zero_()
     return p
@@ -250,7 +254,9 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
 
 def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask,
           local_window=None, bidir_ids=None, cache_layer=None, cache_pos=0):
-    h, kvh, d = cfg.heads, cfg.kv_heads, cfg.head_dim
+    d = cfg.head_dim
+    tp = (cfg.heads + 2 * cfg.kv_heads) * d // p.qkv.d_out   # its share of the heads
+    h, kvh = cfg.heads // tp, cfg.kv_heads // tp
     packed = Q.linear(x, p.qkv)                        # (B, S, (H+2KvH)*D)
     if cfg.qk_norm:
         packed = L.rms_norm_heads(packed, p.q_norm.scale, p.k_norm.scale, h,
@@ -291,7 +297,9 @@ def _moe_mlp(p: MoE, cfg: DecoderConfig, x):
     fp32 router softmax, top-k renormalised when ``moe_norm_topk``), plus
     the sigmoid-gated shared expert where there is one (Qwen3-Omni's
     talker). The numerics oracle of ``moe_mlp_dispatch``; its (T, E, 2I)
-    and (T, E, H) intermediates rule it out at real widths."""
+    and (T, E, H) intermediates rule it out at real widths. On a share of
+    the experts (expert parallelism) the rank runs its own and the combine
+    is all-reduced, as in the dispatch."""
     b, s, h = x.shape
     xt = x.reshape(-1, h)
     probs = torch.softmax(Q.mm(xt, p.router).float(), dim=-1)   # (T, E)
@@ -299,11 +307,17 @@ def _moe_mlp(p: MoE, cfg: DecoderConfig, x):
     if cfg.moe_norm_topk:
         topv = topv / topv.sum(-1, keepdim=True)
     w = torch.zeros_like(probs).scatter_(1, topi, topv)
+    lo, group = getattr(p, "experts", (0, None))
+    w = w[:, lo:lo + p.gate_up.shape[0]]
     gu = torch.einsum("th,ehi->tei", xt, p.gate_up)
     g, u = gu.chunk(2, dim=-1)
     act = L.ACT_FNS[cfg.act](g) * u
     out = torch.einsum("tei,eih->teh", act, p.down)
-    out = (out * w[..., None].to(out.dtype)).sum(dim=1)
+    out = out * w[..., None].to(out.dtype)
+    if group is None:
+        out = out.sum(dim=1)
+    else:   # as the dispatch: the ranks' fp32 sums, rounded once after
+        out = comm.all_reduce(out.float().sum(dim=1), group).to(x.dtype)
     out = add_shared_expert(p, cfg, xt, out)
     return out.reshape(b, s, h).to(x.dtype)
 
@@ -404,8 +418,10 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
     if logit_positions is not None:
         rows = logit_positions.long().clamp(0, x.shape[1] - 1)
         xh = torch.gather(x, 1, rows[..., None].expand(-1, -1, x.shape[-1]))
-    head = params.embed.T if params.lm_head is None else params.lm_head
-    logits = (xh @ head).float()
+    if params.lm_head is None:
+        logits = (xh @ params.embed.T).float()
+    else:
+        logits = gather_cols(xh @ params.lm_head, params.lm_head).float()
     out = (logits,) if cache is None else (logits, cache)
     if want_hidden:
         out += (x,)

@@ -189,7 +189,7 @@ class AudioEncoder(nn.Module):
                                         param(dh, dh, 3, 3)])
         self.conv_b = nn.ParameterList([param(dh) for _ in range(3)])
         self.conv_out = param(dh * cfg.freq_after, d)
-        self.blocks = nn.ModuleList(Block(d, cfg.ffn_dim, device, dtype)
+        self.blocks = nn.ModuleList(Block(d, cfg.ffn_dim, cfg.heads, device, dtype)
                                     for _ in range(cfg.layers))
         self.ln_post = Norm(d, True, device, dtype)
         self.proj1 = Q.Linear.empty(d, d, True, device, dtype)

@@ -30,7 +30,8 @@ from ..ops.attention import attention_flat_packed
 from ..ops.rope import rope_pack
 from . import decoder as dec
 from . import qwen2vl as q2
-from .clip import Norm, init_norm_, normal_
+from ..parallel.mesh import build_sharded, gather_cols
+from .clip import Norm, fan_in, init_norm_, normal_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,6 +224,7 @@ class VisionBlock(nn.Module):
         d = cfg.hidden
         self.ln1 = Norm(d, True, device, dtype)
         self.qkv = Q.Linear.empty(d, 3 * d, True, device, dtype)
+        self.qkv.parts = tuple((f"{n} heads", cfg.heads, cfg.head_dim) for n in "qkv")
         self.o = Q.Linear.empty(d, d, True, device, dtype)
         self.ln2 = Norm(d, True, device, dtype)
         self.fc1 = Q.Linear.empty(d, cfg.d_ff, True, device, dtype)
@@ -270,16 +272,17 @@ class Qwen3VLModel(nn.Module):
 
 @torch.no_grad()
 def init_qwen3vl(cfg: Qwen3VLConfig, seed: int, device,
-                 dtype=torch.float32) -> Qwen3VLModel:
+                 dtype=torch.float32, mesh=None) -> Qwen3VLModel:
     """Random parameters made on ``device`` in ``dtype``, one tensor at a
     time, from a ``torch.Generator`` seeded with ``seed``, with
     init_qwen3vl's distributions (the numbers differ from the JAX
     package's): linears N(0, 1/d_in), zero biases, LayerNorms (1, 0),
     position table N(0, 0.02^2), the decoder as ``decoder.init_decoder``.
-    No host copy is made (qwen3-vl-30b-a3b is ~31 B parameters)."""
+    No host copy is made (qwen3-vl-30b-a3b is ~31 B parameters). ``mesh``:
+    each rank holds its share of the same weights (its experts under EP)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = Qwen3VLModel(cfg, device, dtype)
+    model = build_sharded(Qwen3VLModel, (cfg,), device, dtype, mesh)
     init_vision_(model.vision, gen)
     dec.init_decoder(model.decoder, gen)
     return model
@@ -301,7 +304,7 @@ def init_vision_(v: VisionTower, gen: torch.Generator) -> None:
     for norm in norms:
         init_norm_(norm)
     for leaf in leaves:
-        normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
+        normal_(leaf.w, fan_in(leaf.w) ** -0.5, gen)
         leaf.b.zero_()
 
 
@@ -335,7 +338,7 @@ def vision_tower(params: VisionTower, cfg: Qwen3VisionConfig,
     """B same-shape images through one call -> (merged (B, S/mu, out),
     [deepstack level (B, S/mu, out) for each of ``deepstack_indexes``])."""
     dtype = params.patch_w.dtype
-    x = patches.to(dtype) @ params.patch_w + params.patch_b   # (B, S, hidden)
+    x = gather_cols(patches.to(dtype) @ params.patch_w, params.patch_w) + params.patch_b
     b, s, _ = x.shape
     # bilinear position embeddings: the blend in f32, one rounding
     pe = (params.pos_emb[pe_idx.long()].float() * pe_w.float()[..., None]).sum(0)
@@ -360,9 +363,9 @@ def vision_tower(params: VisionTower, cfg: Qwen3VisionConfig,
     for i, blk in enumerate(params.blocks):
         x, h = L.add_layer_norm(x, branch, blk.ln1.scale, blk.ln1.bias, cfg.ln_eps)
         tap(i - 1)
-        pk = rope_pack(Q.linear(h, blk.qkv), cos, sin, 2 * cfg.heads,
-                       cfg.head_dim)
-        a = attention_flat_packed(pk, cfg.heads, segment_ids=seg)
+        heads = blk.qkv.d_out // (3 * cfg.head_dim)       # this rank's under TP
+        pk = rope_pack(Q.linear(h, blk.qkv), cos, sin, 2 * heads, cfg.head_dim)
+        a = attention_flat_packed(pk, heads, segment_ids=seg)
         x, h = L.add_layer_norm(x, Q.linear(a, blk.o), blk.ln2.scale, blk.ln2.bias,
                                 cfg.ln_eps)
         branch = Q.linear(L.ACT_FNS[cfg.act](Q.linear(h, blk.fc1)), blk.fc2)

@@ -27,7 +27,8 @@ from ..ops import quant as Q
 from ..ops.attention import (attention, attention_flat_packed, merge_heads,
                              packed_heads)
 from ..ops.image import patch_perm, patchify_flat
-from .clip import Norm, init_norm_, normal_
+from ..parallel.mesh import gather_cols
+from .clip import Norm, fan_in, init_norm_, normal_
 
 # The row count up to which the JAX package's flat kernel takes a layer:
 # t2v_metrics_tpu/ops/attention.py:904 (128 <= sq <= 2048, packed) and :858
@@ -55,10 +56,11 @@ class SiglipBlock(nn.Module):
     """``ln1``, ``qkv`` (q|k|v packed, with biases), ``o``, ``ln2``, ``fc1``,
     ``fc2``."""
 
-    def __init__(self, width: int, mlp_dim: int, device, dtype):
+    def __init__(self, width: int, mlp_dim: int, heads: int, device, dtype):
         super().__init__()
         self.ln1 = Norm(width, True, device, dtype)
         self.qkv = Q.Linear.empty(width, 3 * width, True, device, dtype)
+        self.qkv.parts = tuple((f"{n} heads", heads, width // heads) for n in "qkv")
         self.o = Q.Linear.empty(width, width, True, device, dtype)
         self.ln2 = Norm(width, True, device, dtype)
         self.fc1 = Q.Linear.empty(width, mlp_dim, True, device, dtype)
@@ -80,7 +82,7 @@ class SiglipVisionTower(nn.Module):
         self.patch_w = param(3 * cfg.patch_size ** 2, w)
         self.patch_b = param(w)
         self.pos_emb = param(cfg.num_patches, w)
-        self.blocks = nn.ModuleList(SiglipBlock(w, cfg.mlp_dim, device, dtype)
+        self.blocks = nn.ModuleList(SiglipBlock(w, cfg.mlp_dim, cfg.heads, device, dtype)
                                     for _ in range(cfg.layers))
         self.ln_post = Norm(w, True, device, dtype)
 
@@ -98,7 +100,7 @@ def init_siglip(p: SiglipVisionTower, gen: torch.Generator) -> SiglipVisionTower
         init_norm_(blk.ln1)
         init_norm_(blk.ln2)
         for leaf in (blk.qkv, blk.o, blk.fc1, blk.fc2):
-            normal_(leaf.w, leaf.w.shape[0] ** -0.5, gen)
+            normal_(leaf.w, fan_in(leaf.w) ** -0.5, gen)
             leaf.b.zero_()
     return p
 
@@ -118,14 +120,16 @@ def vision_tower(p: SiglipVisionTower, cfg: SiglipVisionConfig,
         raise ValueError("vision_tower takes channel-flattened (B, H, W*3) pixels")
     pixels = pixels.to(p.patch_w.dtype)
     perm = torch.from_numpy(patch_perm(cfg.patch_size, 3)).to(pixels.device)
-    x = patchify_flat(pixels, cfg.patch_size, 3) @ p.patch_w[perm] + p.patch_b
+    x = gather_cols(patchify_flat(pixels, cfg.patch_size, 3) @ p.patch_w[perm],
+                    p.patch_w) + p.patch_b
     x = x + p.pos_emb
     # each residual add is folded into the LayerNorm that reads its sum
     # (L.add_layer_norm); ``branch`` is the last block's MLP output, not yet added
     branch = None
     for blk in p.blocks:
         x, h = L.add_layer_norm(x, branch, blk.ln1.scale, blk.ln1.bias, cfg.ln_eps)
-        a = Q.linear(_self_attention(Q.linear(h, blk.qkv), cfg.heads), blk.o)
+        heads = cfg.heads * blk.qkv.d_out // (3 * cfg.width)   # this rank's under TP
+        a = Q.linear(_self_attention(Q.linear(h, blk.qkv), heads), blk.o)
         x, h = L.add_layer_norm(x, a, blk.ln2.scale, blk.ln2.bias, cfg.ln_eps)
         branch = Q.linear(L.ACT_FNS[cfg.act](Q.linear(h, blk.fc1)), blk.fc2)
     return L.add_layer_norm(x, branch, p.ln_post.scale, p.ln_post.bias, cfg.ln_eps)[1]

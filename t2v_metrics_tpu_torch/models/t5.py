@@ -39,8 +39,10 @@ from torch import nn
 from ..ops import layers as L
 from ..ops import quant as Q
 from ..ops.attention import (attention, attention_flat, attention_flat_packed,
-                             merge_heads, packed_heads)
+                             merge_heads, packed_heads, split_heads)
 from ..ops.position import compute_position_bias
+from ..parallel import mesh as pmesh
+from ..parallel import sp as psp
 from .clip import Norm, init_norm_, normal_
 
 # In-kernel T5 relative-position bias (t2v_metrics_tpu/models/t5.py:44, off
@@ -95,6 +97,7 @@ class T5SelfAttention(nn.Module):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
         self.qkv = Q.Linear.empty(cfg.d_model, 3 * inner, False, device, dtype)
+        self.qkv.parts = tuple((f"{n} heads", cfg.num_heads, cfg.d_kv) for n in "qkv")
         self.o = Q.Linear.empty(inner, cfg.d_model, False, device, dtype)
         self.rel_bias = (nn.Parameter(
             torch.empty((cfg.num_buckets, cfg.num_heads), device=device,
@@ -173,10 +176,27 @@ def init_t5(p: T5Model, gen: torch.Generator) -> T5Model:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _self_attention(p: T5SelfAttention, x, heads, bias=None, kv_mask=None,
-                    causal=False, rel_bias=None, rel_cfg=None):
+def _self_attention(p: T5SelfAttention, x, cfg: T5Config, bias=None, kv_mask=None,
+                    causal=False, rel_bias=None, rel_cfg=None, seq=False):
+    """Self-attention over this rank's heads (all of them without tensor
+    parallelism). ``seq``: ``x`` holds this rank's rows of the sequence
+    (``parallel/sp.py``): its queries run against the keys and values of
+    every row, all-gathered over sp; ``bias`` holds its rows only, and the
+    in-kernel bias takes their offset in ``rel_cfg``."""
     qkv = Q.mm(x, p.qkv)
-    if rel_bias is None:
+    heads = p.qkv.d_out // (3 * cfg.d_kv)
+    inner = heads * cfg.d_kv
+    if seq:
+        q, kv = qkv[..., :inner], psp.gather_seq(qkv[..., inner:])
+        k, v = kv[..., :inner], kv[..., inner:]
+        if rel_bias is None:
+            a = attention_flat(q, k, v, heads, bias=bias, kv_mask=kv_mask,
+                               causal=causal, scale=1.0)
+        else:
+            a = merge_heads(attention(*(split_heads(t, heads) for t in (q, k, v)),
+                                      kv_mask=kv_mask, causal=causal, scale=1.0,
+                                      rel_bias=rel_bias, rel_cfg=rel_cfg))
+    elif rel_bias is None:
         a = attention_flat_packed(qkv, heads, bias=bias, kv_mask=kv_mask,
                                   causal=causal, scale=1.0)
     else:
@@ -186,9 +206,9 @@ def _self_attention(p: T5SelfAttention, x, heads, bias=None, kv_mask=None,
     return Q.mm(a, p.o)
 
 
-def _cross_attention(p: T5CrossAttention, x, kv, heads, kv_mask=None):
-    a = attention_flat(Q.mm(x, p.q), Q.mm(kv, p.k), Q.mm(kv, p.v), heads,
-                       kv_mask=kv_mask, scale=1.0)
+def _cross_attention(p: T5CrossAttention, x, kv, cfg: T5Config, kv_mask=None):
+    a = attention_flat(Q.mm(x, p.q), Q.mm(kv, p.k), Q.mm(kv, p.v),
+                       p.q.d_out // cfg.d_kv, kv_mask=kv_mask, scale=1.0)
     return Q.mm(a, p.o)
 
 
@@ -196,8 +216,8 @@ def _t5_mlp(p: T5MLP, x, cfg: T5Config):
     if cfg.gated and hasattr(p, "wi_01"):
         # int8: ONE packed wi_0|wi_1 product (one activation quant for both),
         # split into its halves
-        hh = Q.mm(x, p.wi_01)
-        h = L.ACT_FNS[cfg.act](hh[..., :cfg.d_ff]) * hh[..., cfg.d_ff:]
+        h0, h1 = Q.mm(x, p.wi_01).chunk(2, dim=-1)
+        h = L.ACT_FNS[cfg.act](h0) * h1
     elif cfg.gated:
         h = L.ACT_FNS[cfg.act](Q.mm(x, p.wi_0)) * Q.mm(x, p.wi_1)
     else:
@@ -205,9 +225,10 @@ def _t5_mlp(p: T5MLP, x, cfg: T5Config):
     return Q.mm(h, p.wo)
 
 
-def _enc_block(p: T5Block, x, cfg: T5Config, bias, kv_mask, rel=(None, None)):
+def _enc_block(p: T5Block, x, cfg: T5Config, bias, kv_mask, rel=(None, None),
+               seq=False):
     h = L.rms_norm(x, p.ln1.scale, cfg.eps)
-    x = x + _self_attention(p.attn, h, cfg.num_heads, bias, kv_mask, False, *rel)
+    x = x + _self_attention(p.attn, h, cfg, bias, kv_mask, False, *rel, seq=seq)
     h = L.rms_norm(x, p.ln2.scale, cfg.eps)
     return x + _t5_mlp(p.mlp, h, cfg)
 
@@ -215,10 +236,9 @@ def _enc_block(p: T5Block, x, cfg: T5Config, bias, kv_mask, rel=(None, None)):
 def _dec_block(p: T5Block, x, enc, cfg: T5Config, self_bias, enc_mask,
                self_mask, rel=(None, None)):
     h = L.rms_norm(x, p.ln1.scale, cfg.eps)
-    x = x + _self_attention(p.attn, h, cfg.num_heads, self_bias, self_mask,
-                            True, *rel)
+    x = x + _self_attention(p.attn, h, cfg, self_bias, self_mask, True, *rel)
     h = L.rms_norm(x, p.ln_cross.scale, cfg.eps)
-    x = x + _cross_attention(p.cross, h, enc, cfg.num_heads, kv_mask=enc_mask)
+    x = x + _cross_attention(p.cross, h, enc, cfg, kv_mask=enc_mask)
     h = L.rms_norm(x, p.ln2.scale, cfg.eps)
     return x + _t5_mlp(p.mlp, h, cfg)
 
@@ -244,14 +264,26 @@ def _position_bias(stack: T5Stack, cfg: T5Config, qlen: int, klen: int,
 def encode(params: T5Model, cfg: T5Config, input_embeds: torch.Tensor,
            mask: torch.Tensor | None = None) -> torch.Tensor:
     """input_embeds: (B, S, d_model), possibly with image features spliced
-    in. mask: (B, S) bool."""
+    in. mask: (B, S) bool.
+
+    Under an ambient mesh with an sp axis (``parallel/sp.py``, the hooks of
+    the JAX t5.py:216-222) each rank runs its S/sp rows through the blocks
+    and the final norm, its queries against all keys with its rows of the
+    bias, and the rows are joined at the end."""
     enc = params.encoder
     s = input_embeds.shape[1]
     bias, rel = _position_bias(enc, cfg, s, s, True)
-    x = input_embeds
+    share = psp.seq_shard(s)
+    if share is not None:
+        off, rows = share
+        if bias is not None:
+            bias = bias[:, :, off:off + rows].contiguous()
+        else:
+            rel = (rel[0], rel[1][:3] + (off,))
+    x = psp.shard_seq(input_embeds)
     for blk in enc.blocks:
-        x = _enc_block(blk, x, cfg, bias, mask, rel)
-    return L.rms_norm(x, enc.ln_final.scale, cfg.eps)
+        x = _enc_block(blk, x, cfg, bias, mask, rel, seq=share is not None)
+    return psp.gather_seq(L.rms_norm(x, enc.ln_final.scale, cfg.eps))
 
 
 def decode(params: T5Model, cfg: T5Config, decoder_ids: torch.Tensor,
@@ -268,7 +300,7 @@ def decode(params: T5Model, cfg: T5Config, decoder_ids: torch.Tensor,
     if cfg.tie_word_embeddings:
         logits = (x * cfg.d_model ** -0.5) @ params.shared_emb.T
     else:
-        logits = x @ params.lm_head
+        logits = pmesh.gather_cols(x @ params.lm_head, params.lm_head)
     return logits.float()
 
 
@@ -300,7 +332,7 @@ def init_dec_cache(params: T5Model, cfg: T5Config, batch: int, max_len: int) -> 
     """The decoder self-attention's k and v cache, (B, max_len, H*d_kv) a
     layer in the embedding dtype."""
     e = params.shared_emb
-    kv = cfg.num_heads * cfg.d_kv
+    kv = params.decoder.blocks[0].attn.qkv.d_out // 3    # this rank's heads
     return [{"k": torch.zeros((batch, max_len, kv), dtype=e.dtype, device=e.device),
              "v": torch.zeros((batch, max_len, kv), dtype=e.dtype, device=e.device)}
             for _ in range(len(params.decoder.blocks))]
@@ -324,7 +356,8 @@ def decode_step(params: T5Model, cfg: T5Config, tok_ids: torch.Tensor, cache,
     cache).
     """
     dec = params.decoder
-    heads, inner = cfg.num_heads, cfg.num_heads * cfg.d_kv
+    inner = dec.blocks[0].attn.qkv.d_out // 3           # this rank's heads
+    heads = inner // cfg.d_kv
     x = params.shared_emb[tok_ids]                      # (B, 1, D)
     end = cpos + 1
     rel_emb = dec.blocks[0].attn.rel_bias
@@ -359,7 +392,7 @@ def decode_step(params: T5Model, cfg: T5Config, tok_ids: torch.Tensor, cache,
     if cfg.tie_word_embeddings:
         logits = (x * cfg.d_model ** -0.5) @ params.shared_emb.T
     else:
-        logits = x @ params.lm_head
+        logits = pmesh.gather_cols(x @ params.lm_head, params.lm_head)
     return logits[:, 0].float(), cache
 
 

@@ -155,6 +155,12 @@ def packed_heads(qkv, heads):
     return qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
 
 
+def split_heads(t, heads):
+    """A flat (B, S, H*D) projection -> (B, H, S, D), a strided view."""
+    b, s, lanes = t.shape
+    return t.view(b, s, heads, lanes // heads).transpose(1, 2)
+
+
 def merge_heads(a):
     """(B, H, S, D) -> (B, S, H*D); free on the per-head kernel's output."""
     b, h, s, d = a.shape

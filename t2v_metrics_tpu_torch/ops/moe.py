@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import comm
 from . import gemm as G
 from . import layers as L
 from . import quant as Q
@@ -57,11 +58,14 @@ def plan_groups(expert_ids: torch.Tensor, num_experts: int, block_m: int):
     return _plan(expert_ids, num_experts, block_m)[:4]
 
 
-def _plan(expert_ids: torch.Tensor, num_experts: int, block_m: int):
+def _plan(expert_ids: torch.Tensor, num_experts: int, block_m: int,
+          computed: int | None = None):
     """``plan_groups``'s four results and ``num_blocks``: a (1,) int32
     device tensor, the leading row blocks that belong to an expert (the
     rest are pad blocks no token reads), from the counts, with no host
-    sync."""
+    sync. ``computed``: only the blocks of the first ``computed`` experts
+    count in ``num_blocks`` (the last group is then a sink that is never
+    computed, and its blocks name expert ``computed - 1``)."""
     tk = expert_ids.shape[0]
     dev = expert_ids.device
     p_rows = _round_up(tk, block_m) + num_experts * block_m
@@ -80,6 +84,9 @@ def _plan(expert_ids: torch.Tensor, num_experts: int, block_m: int):
     block_row = torch.arange(p_rows // block_m, device=dev)[:, None] * block_m
     in_e = (block_row >= starts[None]) & (block_row < (starts + padded)[None])
     block_expert = in_e.int().argmax(dim=1).to(torch.int32)
+    if computed is not None:
+        block_expert.clamp_(max=computed - 1)
+        padded = padded[:computed]
     num_blocks = (padded.sum() // block_m).to(torch.int32).reshape(1)
     return order, dest, block_expert, p_rows, num_blocks
 
@@ -212,6 +219,17 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
     renormalised when ``cfg.moe_norm_topk`` (the JAX dispatch renormalises
     whatever it says; every config but the talker's sets it), the combine
     weighted in the activation dtype, then the shared expert.
+
+    Expert parallelism (``p.experts`` = (first expert, group), set by
+    ``parallel/mesh.py:shard_params``; ``gate_up`` / ``down`` then hold
+    this rank's experts): the router runs replicated over all experts; the
+    assignments to other ranks' experts go to a sink group past this rank's,
+    which the grouped GEMM never computes, with zero combine weights; the
+    combine is all-reduced in fp32 over the group (ep, or tp without an ep
+    axis) and rounded once.
+    The shared expert is replicated (the JAX rules match none of its leaves)
+    and every rank adds it after the all-reduce, so it counts once with no
+    collective of its own.
     """
     b, s, h = x.shape
     xt = x.reshape(-1, h)
@@ -221,8 +239,16 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
     topv, topi = torch.topk(probs, k, dim=-1)
     if cfg.moe_norm_topk:
         topv = topv / topv.sum(-1, keepdim=True)                 # (T, k)
-    order, dest, block_expert, p_rows, used = _plan(topi.reshape(-1),
-                                                    cfg.num_experts, block_m)
+    lo, group = getattr(p, "experts", (0, None))
+    e_local = p.gate_up.shape[0]
+    ids, computed = topi, None
+    if group is not None:
+        mine = (topi >= lo) & (topi < lo + e_local)
+        ids = torch.where(mine, topi - lo, e_local)
+        topv = topv * mine
+        computed = e_local
+    order, dest, block_expert, p_rows, used = _plan(
+        ids.reshape(-1), e_local + (group is not None), block_m, computed)
     # the grouped buffer as a row gather: each slot's source token; pad
     # slots read token row 0, a finite row whose outputs are never read
     token_of = torch.arange(t, device=dev).repeat_interleave(k)[order]
@@ -236,6 +262,10 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
     # combine: token t's k outputs sit at the dest rows of its assignments
     inv = torch.zeros(t * k, dtype=torch.long, device=dev).scatter_(0, order, dest)
     yk = y.index_select(0, inv).reshape(t, k, h)
-    out = (yk * topv[..., None].to(y.dtype)).sum(dim=1)
+    out = (yk * topv[..., None].to(y.dtype))
+    if group is None:
+        out = out.sum(dim=1)
+    else:   # the ranks' fp32 sums of their experts' terms, rounded once after
+        out = comm.all_reduce(out.float().sum(dim=1), group).to(y.dtype)
     out = add_shared_expert(p, cfg, xt, out)
     return out.reshape(b, s, h).to(x.dtype)

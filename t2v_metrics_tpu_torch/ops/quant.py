@@ -53,6 +53,7 @@ import functools
 import torch
 from torch import nn
 
+from ..parallel import comm
 from . import gemm as G
 
 
@@ -75,12 +76,23 @@ class Linear(nn.Module):
         self.scale = (None if scale is None else
                       nn.Parameter(scale.contiguous(), requires_grad=False))
         self.b = None if b is None else nn.Parameter(b, requires_grad=False)
+        # packed leaves: ((label, units, unit width), ...) of the parts side by
+        # side in the output, which tensor parallelism cuts each on its own
+        self.parts = None
+        # a row-parallel leaf (parallel/mesh.py:shard_params): the tp group its
+        # product is all-reduced over, before the bias
+        self.reduce_group = None
 
     @classmethod
     def empty(cls, d_in: int, d_out: int, bias: bool, device, dtype):
         w = torch.empty((d_in, d_out), device=device, dtype=dtype)
         b = torch.empty((d_out,), device=device, dtype=dtype) if bias else None
         return cls(w, b)
+
+    @property
+    def d_out(self) -> int:
+        """The output width (this rank's under tensor parallelism)."""
+        return self.w.shape[1] if self.w is not None else self.w_qt.shape[0]
 
     @property
     def quantized(self) -> bool:
@@ -96,7 +108,7 @@ class Linear(nn.Module):
         """Quantize the dense weight in place and free it (a no-op on an
         int8 leaf)."""
         if not self.quantized:
-            w_q, scale = quantize_weight(self.w)
+            w_q, scale = quantize_weight(self.w, self.reduce_group)
             self.w = None
             self.w_qt = nn.Parameter(w_q.t().contiguous(), requires_grad=False)
             self.scale = nn.Parameter(scale, requires_grad=False)
@@ -114,20 +126,31 @@ def _absmax_scale(absmax: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(absmax, 1e-12) / absmax.new_full((), 127.0)
 
 
-def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 of a (K, N) weight: (w_q int8 (K, N),
-    scale f32 (N,))."""
+    scale f32 (N,)). ``group``: the tp group of a row-parallel K-shard, over
+    which each column's absmax is taken, as over the whole K."""
     wf = w.float()
-    scale = _absmax_scale(wf.abs().amax(dim=0))
+    scale = _absmax_scale(comm.all_reduce(wf.abs().amax(dim=0), group, "max"))
     return torch.round(wf / scale).to(torch.int8), scale
 
 
 def quantize_rows_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row int8: (..., K) -> int8 (..., K), f32 scale
     (..., 1)."""
-    xf = x.float()
-    xs = _absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
-    return torch.round(xf / xs).to(torch.int8), xs
+    xs = _absmax_scale(row_absmax_plain(x))
+    return quantize_rows_scaled_plain(x, xs), xs
+
+
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Each row's max |x| in f32, (..., 1): the row quant's first step."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_rows_scaled_plain(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """``rint(x / xs)`` to int8 with a given f32 scale (..., 1): the row
+    quant's second step."""
+    return torch.round(x.float() / xs).to(torch.int8)
 
 
 def quant_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -164,23 +187,34 @@ def _quant_rows_kernel():
         libdevice = tl.math
 
     @triton.jit
-    def quant_rows_kernel(X, Q, S, x_stride, n_cols, BLOCK: tl.constexpr):
+    def quant_rows_kernel(X, Q, S, x_stride, n_cols, BLOCK: tl.constexpr,
+                          MODE: tl.constexpr):
+        # MODE 0: absmax, scale and quantize; 1: the absmax only, into S;
+        # 2: quantize with the scale S holds
         row = tl.program_id(0).to(tl.int64)
         cols = tl.arange(0, BLOCK)
         cm = cols < n_cols
         x = tl.load(X + row * x_stride + cols, mask=cm, other=0.0).to(tl.float32)
-        amax = tl.max(tl.abs(x), axis=0)
-        # correctly rounded divisions, as torch's; rint rounds half to even
-        xs = libdevice.div_rn(tl.maximum(amax, 1e-12), 127.0)
-        q = libdevice.rint(libdevice.div_rn(x, xs))
-        tl.store(Q + row * n_cols + cols, q.to(tl.int8), mask=cm)
-        tl.store(S + row, xs)
+        if MODE == 1:
+            tl.store(S + row, tl.max(tl.abs(x), axis=0))
+        else:
+            if MODE == 2:
+                xs = tl.load(S + row)
+            else:
+                # correctly rounded divisions, as torch's
+                xs = libdevice.div_rn(tl.maximum(tl.max(tl.abs(x), axis=0), 1e-12), 127.0)
+            # rint rounds half to even
+            q = libdevice.rint(libdevice.div_rn(x, xs))
+            tl.store(Q + row * n_cols + cols, q.to(tl.int8), mask=cm)
+            if MODE == 0:
+                tl.store(S + row, xs)
 
     return quant_rows_kernel
 
 
-def quantize_rows_launch(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the row-quant kernel on a CUDA tensor."""
+def _quant_rows_run(x: torch.Tensor, mode: int, xs: torch.Tensor | None = None):
+    """Launch the row-quant kernel in ``mode`` on a CUDA tensor: (x_q int8 or
+    None, the (..., 1) f32 scale or absmax)."""
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise TypeError(f"quantize_rows: unsupported dtype {x.dtype}")
     k = x.shape[-1]
@@ -190,14 +224,27 @@ def quantize_rows_launch(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     rows = x2.shape[0]
-    x_q = torch.empty((rows, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    x_q = (None if mode == 1 else
+           torch.empty((rows, k), dtype=torch.int8, device=x.device))
+    if xs is None:
+        s = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    else:
+        s = xs.reshape(rows, 1)
+        if s.dtype != torch.float32 or s.device != x.device or not s.is_contiguous():
+            raise ValueError("quantize_rows: the scale must be a contiguous f32 (rows, 1) "
+                             "on x's device")
     if rows:
         block = 1 << (k - 1).bit_length()
-        _quant_rows_kernel()[(rows,)](x2, x_q, xs, x2.stride(0), k, BLOCK=block,
+        _quant_rows_kernel()[(rows,)](x2, s if x_q is None else x_q, s, x2.stride(0), k,
+                                      BLOCK=block, MODE=mode,
                                       num_warps=max(1, min(16, block // 256)))
         quantize_rows_launch.launches += 1
-    return x_q.reshape(x.shape), xs.reshape(*x.shape[:-1], 1)
+    return (None if x_q is None else x_q.reshape(x.shape)), s.reshape(*x.shape[:-1], 1)
+
+
+def quantize_rows_launch(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the row-quant kernel on a CUDA tensor."""
+    return _quant_rows_run(x, 0)
 
 
 quantize_rows_launch.launches = 0
@@ -212,11 +259,30 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return quantize_rows_launch(x)
 
 
-def quant_matmul_launch(x_q: torch.Tensor, w_q: torch.Tensor,
-                        x_scale: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: x_q (M, K) int8 contiguous, w_q (K, N) int8
-    with ``w_q.t()`` contiguous (the leaf's ``w_q``), x_scale (M, 1) and
-    w_scale (N,) f32 -> (M, N) bf16. K must be a multiple of 32, N of 8."""
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """The row quant's first step, each row's max |x| (..., 1) in f32: the
+    kernel (one launch) on CUDA, the plain version on CPU."""
+    if x.device.type == "cpu":
+        return row_absmax_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_absmax: no kernel for device {x.device}")
+    return _quant_rows_run(x, 1)[1]
+
+
+def quantize_rows_scaled(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """The row quant's second step, ``rint(x / xs)`` to int8 with the given
+    (..., 1) f32 scale: the kernel (one launch) on CUDA, the plain version
+    on CPU."""
+    if x.device.type == "cpu":
+        return quantize_rows_scaled_plain(x, xs)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_rows_scaled: no kernel for device {x.device}")
+    return _quant_rows_run(x, 2, xs.contiguous())[0]
+
+
+def _quant_matmul_run(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale):
+    """Launch the CUDA GEMM: the bf16 product, or with no scales the exact
+    int32 partial sums of each split of K, (splits, M, N)."""
     from ..build import quant_matmul_lib
 
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
@@ -227,33 +293,84 @@ def quant_matmul_launch(x_q: torch.Tensor, w_q: torch.Tensor,
     n = w_q.shape[1]
     if k % 32 or n % 8:
         raise ValueError(f"quant_matmul: needs K % 32 == 0 and N % 8 == 0, got K {k}, N {n}")
-    if (x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32
-            or x_scale.numel() != m or w_scale.shape != (n,)):
+    partials = x_scale is None
+    if not partials and (x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32
+                         or x_scale.numel() != m or w_scale.shape != (n,)):
         raise ValueError(f"quant_matmul: scales must be f32 ({m}, 1) and ({n},)")
     w_qt = w_q.t()
-    for t, name in ((x_q, "x_q"), (w_qt, "w_q.t()"), (x_scale, "x_scale"),
-                    (w_scale, "w_scale")):
-        if t.device != x_q.device:
-            raise ValueError("quant_matmul: operands on different devices")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"quant_matmul: {name} must be contiguous and 16-byte aligned")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
-    if m == 0:
-        return out
-    geo = G.geo_array(((x_q, G.kmajor_map(x_q, G.BM, "quant_matmul", "x_q")),
-                       (w_qt, G.kmajor_map(w_qt, G.BN, "quant_matmul", "w_q.t()"))))
+    operands = ((x_q, "x_q"), (w_qt, "w_q.t()"))
+    if not partials:
+        operands += ((x_scale, "x_scale"), (w_scale, "w_scale"))
+    _check_aligned("quant_matmul", x_q.device, operands)
     sms = G.sm_count(x_q.device)
     splits = G.split_k(m, n, k, sms)
     # split K: the exact int32 partial sums of each split, summed by the
     # kernel's second pass (allocated here; the kernel allocates nothing)
     part = (torch.empty((splits, m, n), dtype=torch.int32, device=x_q.device)
-            if splits > 1 else None)
+            if splits > 1 or partials else None)
+    out = None if partials else torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
+    if m == 0:
+        return part if partials else out
+    geo = G.geo_array(((x_q, G.kmajor_map(x_q, G.BM, "quant_matmul", "x_q")),
+                       (w_qt, G.kmajor_map(w_qt, G.BN, "quant_matmul", "w_q.t()"))))
     units = -(-m // G.BM) * -(-n // G.BN) * splits
-    rc = quant_matmul_lib()(geo, x_scale.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+    rc = quant_matmul_lib()(geo, None if partials else x_scale.data_ptr(),
+                            None if partials else w_scale.data_ptr(),
+                            None if partials else out.data_ptr(),
                             None if part is None else part.data_ptr(), m, n, k, splits,
                             min(units, sms), torch.cuda.current_stream(x_q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul_forward launch failed: CUDA error {rc}")
+    quant_matmul_launch.launches += 1
+    return part if partials else out
+
+
+def _check_aligned(name: str, device, operands) -> None:
+    for t, what in operands:
+        if t.device != device:
+            raise ValueError(f"{name}: operands on different devices")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be contiguous and 16-byte aligned")
+
+
+def quant_matmul_launch(x_q: torch.Tensor, w_q: torch.Tensor,
+                        x_scale: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: x_q (M, K) int8 contiguous, w_q (K, N) int8
+    with ``w_q.t()`` contiguous (the leaf's ``w_q``), x_scale (M, 1) and
+    w_scale (N,) f32 -> (M, N) bf16. K must be a multiple of 32, N of 8."""
+    return _quant_matmul_run(x_q, w_q, x_scale, w_scale)
+
+
+def quant_matmul_partials_launch(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel for its exact int32 partial sums only:
+    (splits, M, N), the splits of K it picks (``ops/gemm.py split_k``)."""
+    return _quant_matmul_run(x_q, w_q, None, None)
+
+
+def quant_matmul_dequant_launch(part: torch.Tensor, x_scale: torch.Tensor,
+                                w_scale: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel's second pass on int32 partials (S, M, N): their
+    sum dequantized with x_scale (M, 1) and w_scale (N,) f32 -> (M, N) bf16."""
+    from ..build import quant_matmul_dequant_lib
+
+    if part.dtype != torch.int32 or part.dim() != 3:
+        raise TypeError(f"quant_matmul_dequant: part must be int32 (S, M, N), got "
+                        f"{part.dtype} {tuple(part.shape)}")
+    s, m, n = part.shape
+    if n % 8 or x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32 \
+            or x_scale.numel() != m or w_scale.shape != (n,):
+        raise ValueError(f"quant_matmul_dequant: needs N % 8 == 0 and f32 scales ({m}, 1) "
+                         f"and ({n},), got N {n}")
+    _check_aligned("quant_matmul_dequant", part.device,
+                   ((part, "part"), (x_scale, "x_scale"), (w_scale, "w_scale")))
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=part.device)
+    if m == 0:
+        return out
+    rc = quant_matmul_dequant_lib()(part.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+                                    out.data_ptr(), m, n, s,
+                                    torch.cuda.current_stream(part.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul_dequant launch failed: CUDA error {rc}")
     quant_matmul_launch.launches += 1
     return out
 
@@ -275,13 +392,73 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     return quant_matmul_launch(x_q, w_q, x_scale, w_scale)
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+def quant_matmul_partials_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums x_q (M, K) @ w_q (K, N) as one split, (1, M, N)."""
+    return torch.matmul(x_q.double(), w_q.double()).to(torch.int32)[None]
+
+
+def quant_matmul_dequant_plain(part: torch.Tensor, x_scale: torch.Tensor,
+                               w_scale: torch.Tensor,
+                               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The sum of int32 partials (S, M, N), then ``(f32(acc) * x_scale) *
+    w_scale`` rounded once to ``out_dtype``, as ``quant_matmul_plain``."""
+    acc = part.sum(0).float()
+    return (acc * x_scale.reshape(-1, 1) * w_scale).to(out_dtype)
+
+
+def quant_matmul_partials(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 partial sums of an int8 product, (splits, M, N): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if x_q.device.type == "cpu":
+        return quant_matmul_partials_plain(x_q, w_q)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"quant_matmul_partials: no kernel for device {x_q.device}")
+    return quant_matmul_partials_launch(x_q, w_q)
+
+
+def quant_matmul_sums(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of an int8 product as one split, (1, M, N): the
+    kernel's partials with its splits of K (up to ``G.MAX_SPLITS`` for few
+    rows) summed here, so a collective over them moves M x N int32 whatever
+    the split. Exact: each sum is at most 127^2 K, inside int32 for the
+    port's K."""
+    part = quant_matmul_partials(x_q, w_q)
+    return part if part.shape[0] == 1 else part.sum(0, keepdim=True, dtype=torch.int32)
+
+
+def quant_matmul_dequant(part: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+                         out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Partials (S, M, N) summed and dequantized: the kernel's second pass
+    for CUDA tensors (bf16 out), the plain version for CPU tensors."""
+    if part.device.type == "cpu":
+        return quant_matmul_dequant_plain(part, x_scale, w_scale, out_dtype)
+    if part.device.type != "cuda":
+        raise ValueError(f"quant_matmul_dequant: no kernel for device {part.device}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"quant_matmul_dequant: the kernel writes bf16, not {out_dtype}")
+    return quant_matmul_dequant_launch(part, x_scale.contiguous(), w_scale)
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                group=None) -> torch.Tensor:
     """x (..., K) @ int8 w_q (K, N) with f32 per-channel scale (N,), in the
-    dtype of x."""
+    dtype of x.
+
+    ``group``: the tp group of a row-parallel product, whose x and w_q are
+    this rank's K-shards. It computes the JAX function as GSPMD partitions
+    it: each row's absmax is all-reduced (max) before the shard is quantized,
+    so the scale is the whole row's; the int32 sums, their splits of K
+    summed locally first, are all-reduced (exact) and only then
+    dequantized. So the product is bitwise the unsharded one."""
     k, n = w_q.shape
-    x_q, xs = quantize_rows(x)
-    out = quant_matmul(x_q.reshape(-1, k), w_q, xs.reshape(-1, 1), scale, x.dtype)
+    if group is None:
+        x_q, xs = quantize_rows(x)
+        out = quant_matmul(x_q.reshape(-1, k), w_q, xs.reshape(-1, 1), scale, x.dtype)
+    else:
+        xs = _absmax_scale(comm.all_reduce(row_absmax(x), group, "max"))
+        part = quant_matmul_sums(quantize_rows_scaled(x, xs).reshape(-1, k), w_q)
+        out = quant_matmul_dequant(comm.all_reduce(part, group), xs.reshape(-1, 1), scale,
+                                   x.dtype)
     return out.reshape(*x.shape[:-1], n)
 
 
@@ -303,16 +480,30 @@ def pack(ps: list[Linear]) -> Linear:
         raise ValueError("pack: biases must be all present or all absent")
     b = None if bs[0] is None else torch.cat(bs)
     if kinds.pop():
-        return Linear(b=b, w_q=torch.cat([p.w_qt for p in ps]).t(),
-                      scale=torch.cat([p.scale for p in ps]))
-    return Linear(torch.cat([p.w for p in ps], dim=1), b)
+        out = Linear(b=b, w_q=torch.cat([p.w_qt for p in ps]).t(),
+                     scale=torch.cat([p.scale for p in ps]))
+    else:
+        out = Linear(torch.cat([p.w for p in ps], dim=1), b)
+    out.parts = tuple((f"columns of part {i}", p.d_out, 1) for i, p in enumerate(ps))
+    return out
 
 
 def mm(x: torch.Tensor, p: Linear) -> torch.Tensor:
-    """x @ w through a leaf, dense or int8."""
+    """x @ w through a leaf, dense or int8. A row-parallel leaf's partial
+    products are all-reduced over its tp group: int8 the exact int32 sums;
+    dense the fp32 partials (the GEMM's own accumulator type), rounded once
+    to x's dtype after the sum, as one GEMM over the whole K rounds."""
     if p.quantized:
-        return int8_matmul(x, p.w_q, p.scale)
-    return x @ p.w
+        return int8_matmul(x, p.w_q, p.scale, p.reduce_group)
+    if p.reduce_group is None:
+        return x @ p.w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype != torch.float32:
+        part = torch.mm(x2, p.w, out_dtype=torch.float32)
+    else:
+        part = x2.float() @ p.w.float()
+    y = comm.all_reduce(part, p.reduce_group).to(x.dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def mm_packed(x: torch.Tensor, ps: list[Linear]) -> torch.Tensor:

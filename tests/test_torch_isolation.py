@@ -49,6 +49,35 @@ def test_port_and_chip_smoke_load_no_jax_package():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_parallel_modules_are_scanned_and_a_rank_loads_no_jax(tmp_path):
+    """parallel/ (mesh, comm, sp, pipeline, launch) is in the source scans
+    below, and a rank of a process group that builds a mesh and shards a
+    model through it loads no jax and no t2v_metrics_tpu module."""
+    modules = {p.stem for p in (PORT / "parallel").glob("*.py")}
+    assert {"mesh", "comm", "sp", "pipeline", "launch"} <= modules
+    scanned = {p for p in PORT.rglob("*.py")}
+    assert all(PORT / "parallel" / f"{m}.py" in scanned for m in modules)
+    init = f"file://{tmp_path / 'init'}"
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        f"dist.init_process_group('gloo', init_method={init!r}, world_size=1, rank=0)\n"
+        "from t2v_metrics_tpu_torch.parallel import comm, launch, mesh, pipeline, sp\n"
+        "from t2v_metrics_tpu_torch.models import clip_flant5 as c\n"
+        "from t2v_metrics_tpu_torch.models.adapters import CLIP_T5_MODELS as R\n"
+        "m = mesh.make_mesh(dp=1, tp=1)\n"
+        "model = c.init_clip_t5(R['clip-flant5-test']['config'], 0, 'cpu', mesh=m)\n"
+        "assert model.mesh is m\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 't2v_metrics_tpu')\n"
+        "             or k.startswith(('jax.', 't2v_metrics_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
+
+
 _HUB_PACKAGES = ("safetensors", "transformers", "huggingface_hub")
 
 

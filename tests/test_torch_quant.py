@@ -136,6 +136,26 @@ def test_quant_matmul_plain_matches_interpret_kernel(seed):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
+def test_quant_matmul_sums_are_one_split(monkeypatch):
+    """What a row-parallel int8 product all-reduces: one (1, M, N) int32
+    split, however many splits of K the kernel wrote (four here, as it
+    picks for a decode step's few rows), summed exactly."""
+    rng = np.random.default_rng(11)
+    x_q = torch.from_numpy(rng.integers(-127, 128, (4, 1024)).astype(np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (1024, 24)).astype(np.int8))
+    x_q[0], w_q[:, 0] = 127, 127            # |acc| = 127^2 x 1024, past 2^24
+
+    def four_splits(x, w):
+        return torch.cat([TQ.quant_matmul_partials_plain(xc, wc)
+                          for xc, wc in zip(x.chunk(4, 1), w.chunk(4, 0))])
+
+    monkeypatch.setattr(TQ, "quant_matmul_partials", four_splits)
+    assert four_splits(x_q, w_q).shape == (4, 4, 24)
+    got = TQ.quant_matmul_sums(x_q, w_q)
+    assert got.dtype == torch.int32 and got.shape == (1, 4, 24)
+    assert torch.equal(got, TQ.quant_matmul_partials_plain(x_q, w_q))
+
+
 # ---------------------------------------------------------------------------
 # (b) packing int8 leaves
 # ---------------------------------------------------------------------------
