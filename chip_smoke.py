@@ -9,9 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
      and ITMScore paths from the sources in this checkout (one nvcc per CUDA
      source, started together: the flat flash attention at head dims
      64/72/80/88/128/256 and the per-head one at 64/72/80/128/256, the MoE
-     grouped GEMM, the int8 GEMM and
-     LayerNorm; Triton for RMSNorm, the rotary embedding and the per-row int8
-     quant) and time the build;
+     grouped GEMM, the int8 GEMM, LayerNorm and RMSNorm (one row-norm body);
+     Triton for the rotary embedding with the qk-norm folded in and the
+     per-row int8 quant) and time the build;
   checkpoint: the whole clip-flant5-xl (random bf16 weights from a seed, the
      T5 scale folded into W_q) written by this script's own HF key map and
      safetensors writer as 4 shards and ``model.safetensors.index.json`` in
@@ -43,7 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
      times, its bound (the least time the card could take: bytes over 3.35
      TB/s or operations over the peak rate of their type) and, where one
      PyTorch call computes the same function, that call's time; LayerNorm
-     also with the residual add folded in, at each of its four sites; and
+     also with the residual add folded in, at each of its four sites,
+     RMSNorm at each of its sites alone and through its add entry (the
+     residual add folded in; also at the T5-xl and -xxl encoders' (20480,
+     2048 / 4096)), the decoders' qk-norm folded into the rotary embedding
+     (Qwen3-VL's 32 + 4 heads of 128, Gemma 3's 8 + 4 of 256 with the
+     offset); and
      at the CLIPScore / ITMScore shapes: the flat kernel at the EVA ViT-g
      site (head dim 88, with two wrong plain versions that must fail), the
      Q-Former's cross- and self-attention and the CLIP text tower's causal
@@ -62,7 +67,8 @@ Phases (any failure exits non-zero and prints no result line):
      window, a window of 1023), the T5-xl decoder step (self-attention over
      cpos + 1 cached keys with the bias row offset to cpos, dense in the
      flat kernel and in the per-head kernel's table; cross-attention over
-     640 encoder rows), RMSNorm and rope at one row a sequence, the grouped
+     640 encoder rows), RMSNorm (alone and with the add) and rope at one row
+     a sequence, the qk-norm + rope of a Qwen3-VL decode step, the grouped
      GEMM at 4 tokens' 32 routed rows of 128 experts, the int8 GEMM and the
      row quant at M = 4; and at the sites of PaliGemma, Gemma 4, LLaVA-1.5
      and InstructBLIP (``family_kernels``: PaliGemma's MQA 8/1 prefill with
@@ -71,16 +77,18 @@ Phases (any failure exits non-zero and prints no result line):
      16/8, LLaVA-7b's MHA prefill, SigLIP-224/448 in the flat kernel, the
      Q-Former over 32 queries + the instruction, the T5-xl encoder over 32
      query rows + the prompt, three decode sites, each with two wrong
-     plain versions that must fail; RMSNorm at d 2048 / 3840 / 4096 / 5376
-     and rope on the new packed layouts); and at the sites of InternVL and
+     plain versions that must fail; RMSNorm (alone and with the add) at d
+     2048 / 3840 / 4096 / 5376 and rope on the new packed layouts); and at
+     the sites of InternVL and
      Molmo2 (``new_family_kernels``: InternViT-300M's packed attention at d
      64 over 1025 rows for 10 and 32 tiles, InternViT-6B's separate q, k, v
      at d 128 over 1025 rows, internvl3.5-8b's prefill over 16 x ~2650 rows
      and its 32-tile video prefill over 2 x ~8330 rows (GQA 32/8, causal,
      kv_mask), its decode step over ~2700 slots, molmo2-4b's prefill and
      decode at d 80, each with two wrong plain versions that must fail;
-     RMSNorm at 3200, LayerNorm at 4096 / 12800, add + LN at 1024 eps 1e-6,
-     the qk-norm of 32 + 8 heads, rope on 40 heads of 128 and of 80); and at
+     RMSNorm (alone and with the add) at 3200, LayerNorm at 4096 / 12800,
+     add + LN at 1024 eps 1e-6, the qk-norm + rope of 32 + 8 heads, rope on
+     40 heads of 128 and of 80); and at
      the sites of the Qwen3-Omni audio tower (``omni_kernels``: the flat
      kernel with segment ids over a 300 s clip's 3750 rows and over a
      4-clip call, each with two wrong plain versions that must fail;
@@ -91,8 +99,9 @@ Phases (any failure exits non-zero and prints no result line):
      (GQA 16/8 at d 128) and a 325-row Code2Wav chunk (causal, window 72),
      each with two wrong plain versions that must fail; the grouped GEMM at
      the talker's gate_up and down over a prefill's and a decode token's
-     routing; RMSNorm at 1024, the qk-norm of 16 + 2 heads of 64 and 16 + 8
-     of 128, rope on 18 heads of 64, 24 of 128 and 32 of 64, the ConvNeXt
+     routing; RMSNorm (alone and with the add) at 1024, the qk-norm + rope of
+     16 + 2 heads of 64 and 16 + 8 of 128, rope on 18 heads of 64, 24 of 128
+     and 32 of 64, the ConvNeXt
      LayerNorm at (650 / 1300, 1024)); and the exact resize at each
      Pillow-resize site's shape, bitwise the CPU's, with its time
      (``resize_sites``) (``--kernels-only`` stops here, with no result
@@ -213,7 +222,9 @@ Phases (any failure exits non-zero and prints no result line):
      rank; 5e-2 nats on pairs routed alike, 0.3 apart); each rank's launch
      counts and bytes staged through the host; then NCCL at world 1
      through parallel/comm.py.
-The last lines are the kernel table (JSON; ``launches`` is a kernel's count
+Before the last lines, ``[time]``: each stage's wall seconds and the Triton
+variants the run compiled. The last lines are the kernel table (JSON;
+``launches`` is a kernel's count
 summed over the first calls of the checkpoint-loaded xl, the GenAI-Bench
 and TIFA160 calls, the sixteen slices and the video slices and calls, over
 the generate and trace runs, and over both ranks of each parallel case; a
@@ -278,6 +289,14 @@ ATTN_ATOL_RMS, ATTN_RTOL, ATTN_RMS_RATIO = 5e-2, 2 ** -7, 1e-2
 # Rotary embedding: both sides round one f32 value to bf16; the kernel may
 # fuse a multiply-add the plain version rounds twice, so one bf16 ulp.
 ROPE_RTOL = 8e-3
+# The qk-norm folded into the rotation: each side rounds the normalized head
+# to bf16 (T5's cast twice) before it rotates, so each of a normalized pair
+# (n1, n2) may differ by two bf16 ulps, 2^-6 of itself, and a rotated value
+# n1 cos - n2 sin by up to 2^-6 hypot(n1, n2), whatever its own size (the
+# rotation may cancel): |out - ref| <= NORM_ATOL + ROPE_RTOL * |ref| +
+# QK_ROPE_PAIR_RTOL * hypot(n1, n2) per element, with the plain version's n
+# and 2^-6 = 1.6e-2 under QK_ROPE_PAIR_RTOL.
+QK_ROPE_PAIR_RTOL = 2.5e-2
 # Chain: bf16 on the card against fp32 on the CPU, 2+2 T5 layers, with the
 # T5 attention scale folded into W_q (see phase_chain): bf16 against fp32 of
 # the same chain on the CPU differs by ~6e-3 nats, so 2.5e-2 is ~4x that.
@@ -337,7 +356,7 @@ KERNELS = {
                         "t2v_metrics_tpu/ops/attention.py:151"),
     "layer_norm": ("cuda", "t2v_metrics_tpu_torch/csrc/layer_norm.cu",
                    "t2v_metrics_tpu/ops/norms.py:65"),
-    "rms_norm": ("triton", "t2v_metrics_tpu_torch/ops/norms.py",
+    "rms_norm": ("cuda", "t2v_metrics_tpu_torch/csrc/rms_norm.cu",
                  "t2v_metrics_tpu/ops/norms.py:113"),
     "rope_pack": ("triton", "t2v_metrics_tpu_torch/ops/rope.py",
                   "t2v_metrics_tpu/ops/rope.py:51"),
@@ -370,6 +389,34 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+STAGES: list[tuple[str, float]] = []
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """Time a stage of the run on the host's clock, into ``STAGES``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        STAGES.append((name, time.perf_counter() - t0))
+
+
+def log_stages() -> None:
+    """The wall seconds of each stage, and the Triton variants this run
+    compiled (the compile cache starts empty in a new checkout), by kernel."""
+    from pathlib import Path
+
+    from t2v_metrics_tpu_torch import build
+
+    build.triton_cache_env()
+    compiled: dict[str, int] = {}
+    for f in Path(os.environ["TRITON_CACHE_DIR"]).glob("*/*.cubin"):
+        compiled[f.stem] = compiled.get(f.stem, 0) + 1
+    log("[time] " + "; ".join(f"{name} {sec:.1f} s" for name, sec in STAGES)
+        + f"; Triton variants in the cache: {json.dumps(compiled)}")
 
 
 def card_line() -> str:
@@ -460,7 +507,7 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def phase_build() -> None:
     from t2v_metrics_tpu_torch import build
-    from t2v_metrics_tpu_torch.ops import norms, quant, rope
+    from t2v_metrics_tpu_torch.ops import quant, rope
 
     t0 = time.perf_counter()
     build.build_all()          # one nvcc per CUDA source, all at once
@@ -471,19 +518,18 @@ def phase_build() -> None:
     def ones(*shape, dtype=torch.bfloat16):
         return torch.ones(shape, device=dev, dtype=dtype)
 
-    for d in (2048, 1280, 3584):
-        norms.rms_norm_fused(ones(8, d), ones(d))
-    for d in (2560, 1152):     # Gemma: (1 + w), multiplied in fp32
-        norms.rms_norm_fused(ones(8, d), ones(d), 1e-6, 1.0, False)
-    norms.rms_norm_heads_fused(ones(1, 8, 40 * 128), ones(128), ones(128), 32, 4, 128)
-    norms.rms_norm_heads_fused(ones(1, 8, 16 * 256), ones(256), ones(256), 8, 4, 256,
-                               1e-6, 1.0, False)
-    norms.rms_norm_fused(ones(8, 1024), ones(1024))                  # Qwen3-Omni's talker
-    for hq, hk, d in ((16, 2, 64), (16, 8, 128)):
-        norms.rms_norm_heads_fused(ones(1, 8, (hq + 2 * hk) * d), ones(d), ones(d), hq, hk, d)
+    # rope with and without the qk-norm (T5's cast; Gemma's offset without
+    # it), at the prefills' 16-row blocks
+    for hq, hk, d, offset, cast in ((32, 4, 128, 0.0, True), (32, 8, 128, 0.0, True),
+                                    (8, 4, 256, 1.0, False), (16, 2, 64, 0.0, True),
+                                    (16, 8, 128, 0.0, True)):
+        rope.rms_norm_rope_pack(ones(1, 32, (hq + 2 * hk) * d), ones(d), ones(d),
+                                ones(1, 32, d, dtype=torch.float32),
+                                ones(1, 32, d, dtype=torch.float32), hq, hk, d, 1e-6, offset,
+                                cast)
     for heads, d in ((32, 80), (36, 128), (32, 72), (16, 256), (20, 64), (32, 128), (48, 64)):
-        rope.rope_pack(ones(1, 8, heads * d), ones(1, 8, d, dtype=torch.float32),
-                       ones(1, 8, d, dtype=torch.float32), min(heads, 32), d)
+        rope.rope_pack(ones(1, 32, heads * d), ones(1, 32, d, dtype=torch.float32),
+                       ones(1, 32, d, dtype=torch.float32), min(heads, 32), d)
     for d in (1024, 4096, 10240):
         quant.quantize_rows(ones(8, d))
     for d in (2048, 5120):     # the row-parallel K-shards of xxl at tp 2: both steps
@@ -491,9 +537,9 @@ def phase_build() -> None:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     log(f"[build] nvcc flash_flat.cu (head dims 64/72/80/88/128/256) and "
-        f"flash_attention.cu (64/72/80/128/256), grouped_gemm.cu, quant_matmul.cu and layer_norm.cu "
-        f"in parallel: {t_nvcc:.2f} s; with the Triton RMSNorm, rotary embedding "
-        f"and row quant: {total:.2f} s")
+        f"flash_attention.cu (64/72/80/128/256), grouped_gemm.cu, quant_matmul.cu, "
+        f"layer_norm.cu and rms_norm.cu in parallel: {t_nvcc:.2f} s; with the Triton "
+        f"rotary embedding (with and without the qk-norm) and row quant: {total:.2f} s")
     for lib in ("flash_flat", "flash_attention", "grouped_gemm", "quant_matmul"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -511,13 +557,14 @@ def phase_build() -> None:
                   if "C7513" in ln or "C7515" in ln]
         log(f"[build] ptxas {lib}: {len(serial)} wgmma serialization warnings")
         check(not serial, f"{lib}: ptxas serializes wgmma: {serial[:2]}")
-    # layer_norm.cu's 100 small instantiations, summed up
-    usage = build.ptxas_usage("layer_norm")
-    regs = [u[0] for u in usage.values()]
-    check(usage, "layer_norm.cu: no ptxas lines in its build log")
-    log(f"[build] ptxas layer_norm: {len(usage)} kernels, {min(regs)}-{max(regs)} "
-        f"registers; spill stores {sum(u[1] for u in usage.values())} bytes, spill "
-        f"loads {sum(u[2] for u in usage.values())} bytes in all")
+    # the row norms' 100 small instantiations each, summed up
+    for lib in ("layer_norm", "rms_norm"):
+        usage = build.ptxas_usage(lib)
+        check(usage, f"{lib}.cu: no ptxas lines in its build log")
+        regs = [u[0] for u in usage.values()]
+        log(f"[build] ptxas {lib}: {len(usage)} kernels, {min(regs)}-{max(regs)} "
+            f"registers; spill stores {sum(u[1] for u in usage.values())} bytes, spill "
+            f"loads {sum(u[2] for u in usage.values())} bytes in all")
 
 
 # ---------------------------------------------------------------------------
@@ -608,36 +655,34 @@ def phase_kernels() -> dict:
         del x, r, s, out, ref, s_ref
 
     # RMSNorm: T5 encoder at (P*640, 2048), decoder at (P*4, 2048), P=32;
-    # Qwen2.5-VL-7B ViT at (M*5120, 1280), M=4, decoder at (P*1280, 3584), P=16
+    # Qwen2.5-VL-7B ViT at (M*5120, 1280), M=4, decoder at (P*1280, 3584),
+    # P=16; each alone and through the add entry (the residual add folded
+    # in), and the add entry at the T5-xxl encoder's (P*640, 4096)
     for rows, d, main in ((32 * 640, 2048, False), (32 * 4, 2048, False),
-                          (4 * 5120, 1280, False), (16 * 1280, 3584, True)):
-        x, w = randn(rows, d, std=3.0), randn(d)
-        out, ref = N.rms_norm_fused(x, w), N.rms_norm_plain(x, w)
-        bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
-        record("rms_norm", f"({rows}, {d})", out, ref, bad == 0,
-               f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; "
-               f"max {bf16_ulps(out, ref)} bf16 ulps",
-               lambda: N.rms_norm_fused(x, w),
-               lambda: N.rms_norm_plain(x, w), main,
-               lower=(5 * rows * d, 4 * rows * d + 2 * d, "fp32"),
-               library=main and ("F.rms_norm", cuda_ms(
-                   lambda: F.rms_norm(x, (d,), w, 1e-6))) or None)
+                          (4 * 5120, 1280, False), (16 * 1280, 3584, True),
+                          (32 * 640, 4096, None)):
+        x, r, w = randn(rows, d, std=3.0), randn(rows, d, std=3.0), randn(d)
+        if main is not None:
+            rms_site(record, f"({rows}, {d})", x, w, main=main)
+        rms_site(record, f"add + RMSNorm ({rows}, {d})", x, w, r=r)
+        if d in (3584, 4096):
+            rms_grid_check(x, w, r)
+        del x, r
 
-    # qk-norm of the Qwen3-VL-30B-A3B decoder: 16 pairs x 1024 tokens (the
-    # 4 x 4 slice at 1024x1024: 984-987-token prompts + 8 in bucket 1024),
-    # the 32 q + 4 k heads of 128 of each packed (32 + 2*4) x 128 row, in place
-    pk, qs, ks = randn(16 * 1024, 40 * 128, std=3.0), randn(128), randn(128)
-    buf = pk.clone()
-    out = N.rms_norm_heads_fused(buf, qs, ks, 32, 4, 128)
-    ref = N.rms_norm_heads_plain(pk, qs, ks, 32, 4, 128)
-    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
-    v_same = bool(torch.equal(out[:, 36 * 128:], pk[:, 36 * 128:]))
-    record("rms_norm", "qk-norm (16384, 40x128), 32+4 heads of 128 in place",
-           out, ref, bad == 0 and v_same and out.data_ptr() == buf.data_ptr(),
-           f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max "
-           f"{bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
-           lambda: N.rms_norm_heads_fused(buf, qs, ks, 32, 4, 128),
-           lambda: N.rms_norm_heads_plain(pk, qs, ks, 32, 4, 128), False)
+    # the qk-norm folded into the rotation: the Qwen3-VL-30B-A3B decoder, 16
+    # pairs x 1024 tokens (the 4 x 4 slice at 1024x1024: 984-987-token
+    # prompts + 8 in bucket 1024), the 32 q + 4 k heads of 128 of each packed
+    # (32 + 2*4) x 128 row, T5's cast; Gemma-3-4b's prefill, 8 + 4 heads of
+    # 256 with the offset and no cast
+    gen_r = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for label, b, s, hq, hk, d, offset, cast in (
+            ("Qwen3-VL-30B-A3B", 16, 1024, 32, 4, 128, 0.0, True),
+            ("Gemma-3-4b (offset 1)", 16, 1024, 8, 4, 256, 1.0, False)):
+        pk, qs, ks = randn(b, s, (hq + 2 * hk) * d, std=3.0), randn(d), randn(d)
+        qk_rope_site(record, f"qk-norm + rope {label} ({b}, {s}, {(hq + 2 * hk) * d}), "
+                     f"{hq}+{hk} heads of {d} in place", pk, qs, ks,
+                     *rope_angles(gen_r, b, s, d), hq, hk, d, offset, cast)
+        del pk
 
     # Rotary embedding on the packed q|k|v rows of Qwen2.5-VL-7B: the ViT
     # (M=4 images x 5120 patch rows, 16 q + 16 k heads of 80, 3840 lanes)
@@ -964,6 +1009,100 @@ def qk_norm_library(pk: torch.Tensor, qk_heads: int, heads: int, d: int, w: torc
     return name, cuda_ms(lambda: F.rms_norm(view, (d,), w, 1e-6))
 
 
+def rms_site(record, label, x, w, r=None, main=False, eps=1e-6, offset=0.0, cast=True):
+    """RMSNorm at one site against its plain version: alone, or with ``r``
+    through the add entry (s bitwise the eager x + r, y against the plain
+    RMSNorm of it). Bounds: bf16 in and out, the weight once; the add reads
+    x and r and writes s and y. Library: ``F.rms_norm``, after the eager add
+    for the add entry (two calls)."""
+    from t2v_metrics_tpu_torch.ops import norms as N
+
+    d = x.shape[-1]
+    rows = x.numel() // d
+    kw = dict(eps=eps, offset=offset, cast_weight_dtype=cast)
+    if r is None:
+        out, ref, same = N.rms_norm_fused(x, w, **kw), N.rms_norm_plain(x, w, **kw), True
+        fn, plain = (lambda: N.rms_norm_fused(x, w, **kw)), (lambda: N.rms_norm_plain(x, w, **kw))
+        lower = (5 * rows * d, 4 * rows * d + 2 * d, "fp32")
+        library = ("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (d,), w, eps)))
+    else:
+        (s, out), s_ref = N.add_rms_norm_fused(x, r, w, **kw), x + r
+        ref, same = N.rms_norm_plain(s_ref, w, **kw), bool(torch.equal(s, s_ref))
+        fn = lambda: N.add_rms_norm_fused(x, r, w, **kw)  # noqa: E731
+        plain = lambda: N.add_rms_norm_plain(x, r, w, **kw)  # noqa: E731
+        lower = (6 * rows * d, 8 * rows * d + 2 * d, "fp32")
+        library = ("x + r, then F.rms_norm (two calls)",
+                   cuda_ms(lambda: F.rms_norm(x + r, (d,), w, eps)))
+    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
+    record("rms_norm", label, out, ref, bad == 0 and same,
+           f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max {bf16_ulps(out, ref)} "
+           f"bf16 ulps" + ("" if r is None else f"; s bitwise x + r: {same}"),
+           fn, plain, main, lower=lower, library=library, site=not main)
+
+
+def rms_grid_check(x, w, r) -> None:
+    """The RMSNorm kernel's rows do not depend on its grid: launches of the
+    plan on one block an SM and on one block, which loop over many rows a
+    block (the shared buffers of the warps' partial sums taken by turns from
+    row to row), bitwise against the wrapper's one wave, alone and through
+    the add entry. Not counted: the launch counts are reset before the main
+    path."""
+    from t2v_metrics_tpu_torch.ops import norms as N
+    from t2v_metrics_tpu_torch.ops.gemm import sm_count
+
+    rows, d = x.shape
+    for add in (None, r):
+        ref = N._norm_launch("rms_norm", x, add, w, None, 1e-6, (0.0, True))
+        for grid in (sm_count(x.device), 1):
+            s, y = N._norm_launch("rms_norm", x, add, w, None, 1e-6, (0.0, True), grid=grid)
+            same = torch.equal(y, ref[1]) and (add is None or torch.equal(s, ref[0]))
+            check(same, f"rms_norm ({rows}, {d}){' add' if add is not None else ''}: "
+                        f"{grid} blocks differ from the plan's grid")
+    log(f"[kernels] rms_norm ({rows}, {d}), alone and with the add: bitwise the same on the "
+        f"plan's grid, {sm_count(x.device)} blocks and 1 block")
+
+
+def qk_rope_site(record, label, pk, qs, ks, cos, sin, hq, hk, d, offset=0.0, cast=True):
+    """The qk-norm folded into the rotation at one site, in place on a copy
+    of ``pk`` (B, S, L), against ``rms_norm_rope_pack_plain`` (the pair
+    tolerance QK_ROPE_PAIR_RTOL), the v lanes untouched. Bound: one read and
+    one write of the q|k lanes, cos/sin and the weights once. Library: the
+    qk-norm alone as one ``F.rms_norm`` over the q|k view (no PyTorch call
+    rotates)."""
+    from t2v_metrics_tpu_torch.ops import norms as N
+    from t2v_metrics_tpu_torch.ops import rope as R
+
+    b, s, lanes = pk.shape
+    rot, rows = hq + hk, b * s
+    args = (qs, ks, cos, sin, hq, hk, d, 1e-6, offset, cast)
+    buf = pk.clone()
+    out, ref = R.rms_norm_rope_pack(buf, *args), R.rms_norm_rope_pack_plain(pk, *args)
+    o = out[..., :rot * d].float().reshape(rows, rot, 2, d // 2)
+    r = ref[..., :rot * d].float().reshape(rows, rot, 2, d // 2)
+    n = N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d, 1e-6, offset, cast)
+    n = n[..., :rot * d].float().reshape(rows, rot, 2, d // 2)
+    pair = torch.hypot(n[:, :, :1], n[:, :, 1:])
+    del n
+    bad = int(((o - r).abs() > NORM_ATOL + ROPE_RTOL * r.abs() + QK_ROPE_PAIR_RTOL * pair).sum())
+    v_same = bool(torch.equal(out[..., rot * d:], pk[..., rot * d:]))
+    in_place = out.data_ptr() == buf.data_ptr()
+    record("rope_pack", label, out, ref, bad == 0 and v_same and in_place,
+           f"{bad} outside atol {NORM_ATOL} + rtol {ROPE_RTOL} + {QK_ROPE_PAIR_RTOL} x the "
+           f"normalized pair's length; max {bf16_ulps(out, ref)} bf16 ulps; v lanes untouched "
+           f"{v_same}; in place {in_place}",
+           lambda: R.rms_norm_rope_pack(buf, *args), lambda: R.rms_norm_rope_pack_plain(pk, *args),
+           False, lower=(10 * rows * rot * d, 4 * rows * rot * d + 8 * rows * d + 4 * d, "fp32"),
+           library=qk_norm_library(pk, rot, lanes // d, d, qs), site=True)
+    return buf
+
+
+def rope_angles(gen, b, s, d, span=4096):
+    """Seeded f32 cos / sin (B, S, d) of positions below ``span``."""
+    ang = (torch.randint(0, span, (b, s, 1), generator=gen, device=gen.device).float()
+           * torch.rand(d, generator=gen, device=gen.device))
+    return torch.cos(ang), torch.sin(ang)
+
+
 def library_ms(fn, name: str) -> float | None:
     """CUDA-event ms of a PyTorch call used as a yardstick, or None (said
     so) where it refuses the inputs."""
@@ -1283,7 +1422,8 @@ def decode_kernels(randn, record, lengths_mask) -> None:
     the T5-xl decoder step (self-attention over cpos + 1 cached keys with
     the bias row offset to cpos, dense in the flat kernel and in the
     per-head kernel's table; cross-attention over the 640 encoder rows with
-    their kv_mask); RMSNorm and rope at one row a sequence; the grouped GEMM
+    their kv_mask); RMSNorm (alone and with the add), rope and the qk-norm +
+    rope at one row a sequence; the grouped GEMM
     over 4 tokens' 32 routed rows of 128 experts; the int8 GEMM and the row
     quant at M = 4 (bitwise)."""
     from t2v_metrics_tpu_torch.ops import attention as A
@@ -1357,22 +1497,23 @@ def decode_kernels(randn, record, lengths_mask) -> None:
     free_cuda()
 
     # RMSNorm and rope over one row a sequence (Qwen2.5-VL-7B decode, 4
-    # sequences: the block norms at d 3584; rope on the 28 + 4 q|k heads of
-    # the packed 36 x 128 row)
-    x, w = randn(4, 3584, std=3.0), randn(3584)
-    out, ref = N.rms_norm_fused(x, w), N.rms_norm_plain(x, w)
-    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
-    record("rms_norm", "decode (4, 3584), one row a sequence", out, ref, bad == 0,
-           f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max "
-           f"{bf16_ulps(out, ref)} bf16 ulps",
-           lambda: N.rms_norm_fused(x, w), lambda: N.rms_norm_plain(x, w), False,
-           lower=(5 * 4 * 3584, 4 * 4 * 3584 + 2 * 3584, "fp32"),
-           library=("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (3584,), w, 1e-6))),
-           site=True)
+    # sequences: the block norms at d 3584, alone and through the add entry;
+    # rope on the 28 + 4 q|k heads of the packed 36 x 128 row); the qk-norm
+    # + rope of a Qwen3-VL-30B-A3B step (32 + 4 heads of 128)
+    x, r, w = randn(4, 3584, std=3.0), randn(4, 3584, std=3.0), randn(3584)
+    rms_site(record, "decode (4, 3584), one row a sequence", x, w)
+    rms_site(record, "add + RMSNorm decode (4, 3584)", x, w, r=r)
     log_host("rms_norm", "decode (4, 3584)", lambda: N.rms_norm_fused(x, w))
-    pk = randn(4, 1, 36 * 128)
+    log_host("rms_norm", "add + RMSNorm decode (4, 3584)",
+             lambda: N.add_rms_norm_fused(x, r, w))
+    pk, qs, ks = randn(4, 1, 40 * 128, std=3.0), randn(128), randn(128)
     ang = 1290.0 * randn(128, dtype=torch.float32).abs().expand(4, 1, 128)
     cos, sin = torch.cos(ang), torch.sin(ang)
+    buf = qk_rope_site(record, "qk-norm + rope decode (4, 1, 5120), 32+4 heads of 128",
+                       pk, qs, ks, cos, sin, 32, 4, 128)
+    log_host("rope_pack", "qk-norm + rope decode (4, 1, 5120)",
+             lambda: R.rms_norm_rope_pack(buf, qs, ks, cos, sin, 32, 4, 128))
+    pk = randn(4, 1, 36 * 128)
     buf = pk.clone()
     out, ref = R.rope_pack(buf, cos, sin, 32, 128), R.rope_pack_plain(pk, cos, sin, 32, 128)
     bad = outside(out, ref, NORM_ATOL, ROPE_RTOL)
@@ -1854,8 +1995,9 @@ def clip_t5_launches(cfg, passes: int) -> dict:
     """Launches of ``passes`` clip-flant5 chunks, each one ViT pass over the
     chunk's images and one T5 pass over its pairs: attention at the ViT
     layers run (feature layer -2), the encoder, the decoder's self and
-    cross; LayerNorm twice a ViT layer and ln_pre; RMSNorm twice an encoder
-    and three times a decoder layer and each stack's final norm."""
+    cross; LayerNorm twice a ViT layer and ln_pre; RMSNorm (each but a
+    stack's first through its add entry) twice an encoder and three times a
+    decoder layer and each stack's final norm."""
     vit, enc, dec = cfg.vision.layers - 1, cfg.t5.enc_layers, cfg.t5.dec_layers
     want = dict.fromkeys(KERNELS, 0)
     want.update(flash_attention_flat=passes * (vit + enc + 2 * dec),
@@ -2505,7 +2647,8 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     paths = [counts]
     if generate:
         paths.append(phase_generation(scorer, f"[generate] {name}", images, texts[:4],
-                                      generate, t5=True, profile=profile))
+                                      generate, t5=True, profile=profile,
+                                      events=quant is None))
     del scorer
     return paths, rows
 
@@ -2519,14 +2662,19 @@ class DecodeProbe:
     T5 ``decode_step``) to record for each cached call a pair of CUDA events
     around it, the host time of its enqueue and the kernel launches it
     makes. Events and host counters only: nothing is read back from the
-    card, so the decode loop keeps its one read at the end."""
+    card, so the decode loop keeps its one read at the end. With
+    ``traced``, the ``traced``-th cached call runs under torch.profiler
+    instead, to count the device events (kernels, copies, memsets) a step
+    makes (``device_events``); it is left out of ``calls``, since the
+    profiler's start and stop wait for the card."""
 
-    def __init__(self, t5: bool = False):
+    def __init__(self, t5: bool = False, traced: int = 0):
         from t2v_metrics_tpu_torch.models import decoder as D
         from t2v_metrics_tpu_torch.models import t5 as T
 
         self.mod, self.name, self.t5 = (T, "decode_step", True) if t5 else (D, "forward", False)
         self.calls, self.cache_bytes = [], 0
+        self.traced, self.seen, self.device_events = traced, 0, None
 
     def __enter__(self):
         from t2v_metrics_tpu_torch.ops import launch_counts
@@ -2542,6 +2690,9 @@ class DecodeProbe:
                 if self.t5:
                     tensors += [t for kv in args[5] for t in kv]
                 self.cache_bytes = sum(t.numel() * t.element_size() for t in tensors)
+            self.seen += 1
+            if self.seen == self.traced:
+                return self.trace(orig, *args, **kw)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             before, t0 = launch_counts(), time.perf_counter()
             start.record()
@@ -2558,13 +2709,23 @@ class DecodeProbe:
         setattr(self.mod, self.name, wrapped)
         return self
 
+    def trace(self, orig, *args, **kw):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+        self.device_events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        return out
+
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.orig)
         torch.cuda.synchronize()
 
 
 def phase_generation(scorer, tag: str, images, texts, max_new: int, t5: bool = False,
-                     profile: bool = False) -> dict:
+                     profile: bool = False, events: bool = False) -> dict:
     """``scorer.model.generate(images, texts, max_new_tokens=max_new)`` on
     the slice's model: the launch counts of the run (its path's own, for the
     kernel table), the prefill ms (on the card's timeline from the call to
@@ -2573,8 +2734,9 @@ def phase_generation(scorer, tag: str, images, texts, max_new: int, t5: bool = F
     the median ms a decode step (device span between the step's events) and
     the host's enqueue ms a step, the steps run, generated tokens/s, the peak
     memory with the cache's bytes beside it, and the launches a decode step
-    by kernel; with ``profile``, the device busy share of a second run and
-    of its decode steps alone: the device time and wall of a profiled run
+    by kernel; with ``events``, the device events of one decode step (a
+    short second run with that step traced); with ``profile``, the device
+    busy share of a second run and of its decode steps alone: the device time and wall of a profiled run
     less those of a one-token run (towers and prefill, and for T5 one
     step), over the steps that the longer run adds."""
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2590,6 +2752,10 @@ def phase_generation(scorer, tag: str, images, texts, max_new: int, t5: bool = F
     counts = launch_counts()
     check(len(outs) == len(texts) and all(isinstance(o, str) for o in outs),
           f"{tag} generate returned {outs!r}")
+    traced = None
+    if events:     # its second cached call, a decode step, traced
+        with DecodeProbe(t5, traced=2) as traced:
+            scorer.model.generate(images, texts, max_new_tokens=3)
     calls = probe.calls
     prefill_end = calls[0][1] if not t5 else calls[0][0]
     steps = calls if t5 else calls[1:]
@@ -2604,7 +2770,9 @@ def phase_generation(scorer, tag: str, images, texts, max_new: int, t5: bool = F
         f"{len(texts) * tokens / wall:.1f} generated tokens/s; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (KV cache "
         f"{probe.cache_bytes / 2**30:.4f} GiB); launches a decode step "
-        f"{json.dumps(steps[-1][3])}; run launches {json.dumps(counts)}")
+        f"{json.dumps(steps[-1][3])}; "
+        + (f"device events a decode step {traced.device_events}; " if traced else "")
+        + f"run launches {json.dumps(counts)}")
     log(f"{tag} generated (first 60 characters of each): {[o[:60] for o in outs]}")
     if profile:
         full = phase_profile(lambda: scorer.model.generate(
@@ -2870,7 +3038,7 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
     check((patch_b, seq_b) == (16384, 4096), f"qwen video buckets {patch_b}, {seq_b}")
     video_counts = phase_video_slice(scorer, "[qwen video slice]", want, 101, profile)
     gen_counts = phase_generation(scorer, f"[generate] {model}", images, texts, 32,
-                                  profile=profile)
+                                  profile=profile, events=True)
     trace_counts = qwen_slice_traces(scorer, model, images, texts)
     del scorer
     return [counts, video_counts, gen_counts, trace_counts]
@@ -2973,14 +3141,15 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
     check(np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1)).all(),
           "qwen3 slice: scores not finite in [0, 1]")
     # one same-shape image group (one tower call) and one prefill: attention
-    # and rope once a layer; RMSNorm twice a layer, the qk-norm once a layer
-    # and the final norm; LayerNorm twice a ViT layer, the merger and the
-    # deepstack mergers; the grouped GEMM twice a decoder layer (gate_up,
-    # down). 30b-a3b: 75 / 75 / 145 / 58 / 96
+    # and rope (with the qk-norm in the decoder) once a layer; RMSNorm twice
+    # a layer and the final norm; LayerNorm twice a ViT layer, the merger and
+    # the deepstack mergers; the grouped GEMM twice a decoder layer (gate_up,
+    # down). 30b-a3b: 75 / 75 / 145 / 58 / 96 before the qk-norm went into
+    # rope, RMSNorm now 97
     v, text = scorer.model.config.vision, scorer.model.config.text
     want = {"flash_attention_flat": v.depth + text.layers, "flash_attention": 0,
             "layer_norm": 2 * v.depth + 1 + len(v.deepstack_indexes),
-            "rms_norm": 3 * text.layers + 1, "rope_pack": v.depth + text.layers,
+            "rms_norm": 2 * text.layers + 1, "rope_pack": v.depth + text.layers,
             "grouped_gemm": 2 * text.layers, "quant_matmul": 0, "quantize_rows": 0}
     check(counts == want, f"qwen3 slice: launch counts {counts} != {want}")
     check(np.array_equal(scores, scorer(images=images, texts=texts)),
@@ -3018,7 +3187,7 @@ def phase_qwen3_slice(model: str = QWEN3, device: str = "cuda", side: int = 1024
     check((patch_b, seq_b) == (12288, 3072), f"qwen3 video buckets {patch_b}, {seq_b}")
     video_counts = phase_video_slice(scorer, "[qwen3 video slice]", want, 111, profile)
     gen_counts = phase_generation(scorer, f"[generate] {model}", images, texts, 32,
-                                  profile=profile)
+                                  profile=profile, events=True)
     del scorer
     return [counts, video_counts, gen_counts]
 
@@ -3183,13 +3352,14 @@ def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024
     # one same-shape image group (one tower call) and one prefill: the
     # per-head attention once a SigLIP layer (4096 patches > 2048), LayerNorm
     # twice a SigLIP layer and its post-norm; the projector's RMSNorm; per
-    # decoder layer the flat attention, rope, and RMSNorm five times (ln1,
-    # qk-norm, ln1_post, ln_ff_pre, ln_ff_post), and the final norm
-    # (4b: 27 / 34 / 55 / 172 / 34)
+    # decoder layer the flat attention, rope with the qk-norm, and RMSNorm
+    # four times (ln1, ln1_post, ln_ff_pre, ln_ff_post), and the final norm
+    # (4b: 27 / 34 / 55 / 138 / 34; RMSNorm 172 before the qk-norm went into
+    # rope)
     v, text = scorer.model.config.vision, scorer.model.config.text
     want = dict.fromkeys(KERNELS, 0)
     want.update(flash_attention=v.layers, flash_attention_flat=text.layers,
-                layer_norm=2 * v.layers + 1, rms_norm=1 + 5 * text.layers + 1,
+                layer_norm=2 * v.layers + 1, rms_norm=1 + 4 * text.layers + 1,
                 rope_pack=text.layers)
     check(counts == want, f"gemma slice: launch counts {counts} != {want}")
     check(np.array_equal(scores, scorer(images=images, texts=texts)),
@@ -3223,7 +3393,7 @@ def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024
     # video: 10 frames a clip (the default), one tower call per distinct
     # clip, each frame's image block behind its "Frame at {t}s:" text; one
     # prefill in bucket 4096, where the window bites (2 clips: 54 / 34 /
-    # 110 / 173 / 34)
+    # 110 / 139 / 34; RMSNorm 173 before the qk-norm went into rope)
     from t2v_metrics_tpu_torch.models.gemma_adapters import _bucket
 
     stamps = [round(i / 30.0, 2) for i in np.linspace(0, 149, 10, dtype=int)]
@@ -3234,7 +3404,7 @@ def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024
         f"bucket {_bucket(len(ids) + 1)}")
     check(_bucket(len(ids) + 1) == 4096, "gemma video prompt outside bucket 4096")
     video_want = dict(want, flash_attention=2 * v.layers, layer_norm=2 * (2 * v.layers + 1),
-                      rms_norm=2 + 5 * text.layers + 1)
+                      rms_norm=2 + 4 * text.layers + 1)
     video_counts = phase_video_slice(scorer, "[gemma video slice]", video_want, 121,
                                      profile)
     # batched generation over 2 clips (10 frames each, prompts in bucket 4096,
@@ -3243,7 +3413,7 @@ def phase_gemma_slice(model: str = GEMMA, device: str = "cuda", side: int = 1024
     gen_counts = phase_generation(scorer, f"[generate] {model} video, batched", clips,
                                   seeded_texts(2, 132), 32, profile=profile)
     seq_counts = phase_generation(scorer, f"[generate] {model} image, per sequence",
-                                  images[:1], texts[:1], 32)
+                                  images[:1], texts[:1], 32, events=True)
     del scorer, clips
     return [counts, video_counts, gen_counts, seq_counts]
 
@@ -3626,7 +3796,7 @@ def family_kernels(randn, record, lengths_mask) -> None:
     self-attention (32 queries + the instruction, kv_mask) and its T5-xl
     encoder (32 query rows + the prompt, the dense bias, kv_mask); the
     decode steps of Gemma 4-12b (GQA 16/8), PaliGemma (MQA, a cache of one
-    kv head) and LLaVA-7b; RMSNorm at d 2048 (Gemma offset), 3840, 4096 (eps
+    kv head) and LLaVA-7b; RMSNorm, alone and with the add, at d 2048 (Gemma offset), 3840, 4096 (eps
     1e-5) and 5376, and rope on the new packed layouts. The plain versions
     run one kv head at a time."""
     from t2v_metrics_tpu_torch.ops import attention as A
@@ -3722,26 +3892,17 @@ def family_kernels(randn, record, lengths_mask) -> None:
                                                         {"scale": 2 * d ** -0.5})))
         free_cuda()
 
-    # RMSNorm at the new widths (a row a token: the slices' prefills), and
-    # rope on the new packed q|k|v layouts
+    # RMSNorm at the new widths (a row a token: the slices' prefills), alone
+    # and through the add entry, and rope on the new packed q|k|v layouts
     for label, rows, d, eps, offset in (("PaliGemma (Gemma offset)", 16 * 2048, 2048, 1e-6, 1.0),
                                         ("Gemma 4-12b", 16 * 512, 3840, 1e-6, 1.0),
                                         ("LLaVA-7b (eps 1e-5)", 16 * 704, 4096, 1e-5, 0.0),
                                         ("Gemma 4-31b", 2 * 4096, 5376, 1e-6, 1.0)):
-        x, w = randn(rows, d, std=3.0), randn(d)
-        cast = offset == 0.0
-        kw = dict(eps=eps, offset=offset, cast_weight_dtype=cast)
-        out, ref = N.rms_norm_fused(x, w, **kw), N.rms_norm_plain(x, w, **kw)
-        bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
-        record("rms_norm", f"{label} ({rows}, {d})", out, ref, bad == 0,
-               f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max "
-               f"{bf16_ulps(out, ref)} bf16 ulps",
-               lambda: N.rms_norm_fused(x, w, **kw),  # noqa: B023
-               lambda: N.rms_norm_plain(x, w, **kw), False,  # noqa: B023
-               lower=(5 * rows * d, 4 * rows * d + 2 * d, "fp32"),
-               library=("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (d,), w, eps))),  # noqa: B023
-               site=True)
-        del x, out, ref
+        x, r, w = randn(rows, d, std=3.0), randn(rows, d, std=3.0), randn(d)
+        kw = dict(eps=eps, offset=offset, cast=offset == 0.0)
+        rms_site(record, f"{label} ({rows}, {d})", x, w, **kw)
+        rms_site(record, f"{label} add + RMSNorm ({rows}, {d})", x, w, r=r, **kw)
+        del x, r
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     for label, b, s, heads, rot, d in (("PaliGemma", 16, 2048, 10, 9, 256),
                                        ("LLaVA-7b", 16, 704, 96, 64, 128),
@@ -3873,7 +4034,8 @@ def family_launches(model: str, cfg, rollout: int = 5) -> dict:
     then one prefill with the flat attention, rope and two RMSNorms a layer
     and the final one; Gemma 4's SigLIP (at 896 px in the per-head kernel),
     the projector's RMSNorm and ``rollout`` decoder passes (the prefill and the
-    steps) of five RMSNorms a layer and the final one; LLaVA's CLIP tower
+    steps) of four RMSNorms a layer (the qk-norm runs in rope) and the final
+    one; LLaVA's CLIP tower
     to feature layer -2 (ln_pre and two LayerNorms a layer run), then the
     prefill; InstructBLIP's EVA tower (two LayerNorms a layer and the
     post-norm), the Q-Former (self-attention every layer, cross-attention
@@ -3904,7 +4066,7 @@ def family_launches(model: str, cfg, rollout: int = 5) -> dict:
                 flash_attention_flat=(0 if per_head else v.layers) + passes * text.layers,
                 layer_norm=2 * v.layers + 1, rope_pack=passes * text.layers,
                 rms_norm=(2 * text.layers + 1 if model == PALIGEMMA
-                          else 1 + passes * (5 * text.layers + 1)))
+                          else 1 + passes * (4 * text.layers + 1)))
     return want
 
 
@@ -4035,9 +4197,10 @@ def new_family_kernels(randn, record, lengths_mask) -> None:
     kv_mask), its video prefill (2 x ~8330 rows, the longest causal
     prefill of the port) and one decode step over ~2700 slots; molmo2-4b's
     prefill and decode step at d 80 (causal GQA 32/8); RMSNorm at 3200 (the
-    6B blocks and its flattened q / k norm) and the qk-norm of 32 + 8 heads
-    of 128; LayerNorm at the projectors' 4096 and 12800 and add + LN at the
-    300M blocks' 1024, eps 1e-6; rope on 32 + 8 heads of 128 and of 80. The
+    6B blocks and its flattened q / k norm), alone and with the add, and the
+    qk-norm + rope of 32 + 8 heads of 128; LayerNorm at the projectors' 4096
+    and 12800 and add + LN at the 300M blocks' 1024, eps 1e-6; rope on 32 +
+    8 heads of 128 and of 80. The
     plain versions of the GQA sites run one kv head at a time."""
     from t2v_metrics_tpu_torch.ops import attention as A
     from t2v_metrics_tpu_torch.ops import norms as N
@@ -4097,15 +4260,10 @@ def new_family_kernels(randn, record, lengths_mask) -> None:
     # norms: the 6B tower's RMSNorm at 3200 (blocks, flattened q / k), the
     # projectors' LayerNorm at 4096 (300M) and 12800 (6B), eps 1e-5, the 300M
     # blocks' add + LN at 1024, eps 1e-6
-    x, w = randn(10 * 1025, 3200, std=3.0), randn(3200)
-    out, ref = N.rms_norm_fused(x, w), N.rms_norm_plain(x, w)
-    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
-    record("rms_norm", "InternViT-6B (10250, 3200)", out, ref, bad == 0,
-           f"{bad} outside atol {NORM_ATOL} + rtol {RMS_RTOL}; max {bf16_ulps(out, ref)} "
-           "bf16 ulps", lambda: N.rms_norm_fused(x, w), lambda: N.rms_norm_plain(x, w), False,
-           lower=(5 * x.numel(), 4 * x.numel() + 2 * 3200, "fp32"),
-           library=("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (3200,), w, 1e-6))),
-           site=True)
+    x, r, w = randn(10 * 1025, 3200, std=3.0), randn(10 * 1025, 3200, std=3.0), randn(3200)
+    rms_site(record, "InternViT-6B (10250, 3200)", x, w)
+    rms_site(record, "InternViT-6B add + RMSNorm (10250, 3200)", x, w, r=r)
+    del x, r
     for rows, d in ((10 * 256, 4096), (10 * 256, 12800)):
         x, w, bias = randn(rows, d, std=3.0), randn(d), randn(d)
         out, ref = N.layer_norm_fused(x, w, bias), N.layer_norm_plain(x, w, bias)
@@ -4132,21 +4290,11 @@ def new_family_kernels(randn, record, lengths_mask) -> None:
            library=("x + r, then F.layer_norm (two calls)", cuda_ms(
                lambda: F.layer_norm(x + r, (1024,), w, bias, 1e-6))), site=True)
     del x, r, s, out, ref, s_ref
-    pk, qs, ks = randn(16 * 2688, 48 * 128, std=3.0), randn(128), randn(128)
-    buf = pk.clone()
-    out = N.rms_norm_heads_fused(buf, qs, ks, 32, 8, 128)
-    ref = N.rms_norm_heads_plain(pk, qs, ks, 32, 8, 128)
-    bad = outside(out, ref, NORM_ATOL, RMS_RTOL)
-    v_same = bool(torch.equal(out[:, 40 * 128:], pk[:, 40 * 128:]))
-    record("rms_norm", "internvl3.5-8b qk-norm (43008, 48x128), 32+8 heads of 128 in place",
-           out, ref, bad == 0 and v_same, f"{bad} outside atol {NORM_ATOL} + rtol "
-           f"{RMS_RTOL}; max {bf16_ulps(out, ref)} bf16 ulps; v lanes untouched {v_same}",
-           lambda: N.rms_norm_heads_fused(buf, qs, ks, 32, 8, 128),
-           lambda: N.rms_norm_heads_plain(pk, qs, ks, 32, 8, 128), False,
-           lower=(5 * 40 * 128 * 16 * 2688, 4 * 40 * 128 * 16 * 2688 + 4 * 128, "fp32"),
-           library=qk_norm_library(pk, 40, 48, 128, qs), site=True)
-    del pk, buf, out, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    pk, qs, ks = randn(16, 2688, 48 * 128, std=3.0), randn(128), randn(128)
+    qk_rope_site(record, "qk-norm + rope internvl3.5-8b (16, 2688, 6144), 32+8 heads of 128 "
+                 "in place", pk, qs, ks, *rope_angles(gen, 16, 2688, 128, 8192), 32, 8, 128)
+    del pk
     for label, b, s, d in (("internvl3.5-8b", 16, 2688, 128), ("molmo2-4b", 16, 256, 80)):
         pk = randn(b, s, 48 * d)
         ang = (torch.randint(0, 8192, (b, s, 1), generator=gen, device="cuda").float()
@@ -4187,15 +4335,14 @@ def internvl_launches(cfg, tiles_calls: int, passes: int = 1) -> dict:
     300M tower, an add + LayerNorm twice a layer (RMSNorm four times a layer
     in the 6B tower: the block norms and the flattened q / k norm), and the
     projector's LayerNorm; then ``passes`` decoder passes of a flat
-    attention, rope and the qk-norm a layer, two RMSNorms a layer and the
-    final one (and two grouped GEMMs a layer with the MoE dispatch)."""
+    attention and rope (with the qk-norm) a layer, two RMSNorms a layer and
+    the final one (and two grouped GEMMs a layer with the MoE dispatch)."""
     v, text = cfg.vision, cfg.text
     want = dict.fromkeys(KERNELS, 0)
     rms_layers = 4 * v.layers if v.norm_type == "rms" else 0
     want.update(flash_attention_flat=tiles_calls * v.layers + passes * text.layers,
                 layer_norm=tiles_calls * ((2 * v.layers if v.norm_type == "layer" else 0) + 1),
-                rms_norm=tiles_calls * rms_layers
-                + passes * ((3 if text.qk_norm else 2) * text.layers + 1),
+                rms_norm=tiles_calls * rms_layers + passes * (2 * text.layers + 1),
                 rope_pack=passes * text.layers,
                 grouped_gemm=passes * 2 * text.layers if text.moe_dispatch else 0)
     return want
@@ -4206,13 +4353,13 @@ def molmo2_launches(cfg, tower_calls: int, passes: int = 1) -> dict:
     tower calls (one a group of same-shape images or a video) to feature
     layer -2 (ln_pre and two LayerNorms a block run, the last block not),
     then ``passes`` decoder passes (the prefill and each cached step) of a
-    flat attention, rope and the qk-norm a layer, two RMSNorms a layer and
-    the final one."""
+    flat attention and rope (with the qk-norm) a layer, two RMSNorms a layer
+    and the final one."""
     v, text = cfg.vision, cfg.text
     want = dict.fromkeys(KERNELS, 0)
     want.update(flash_attention_flat=tower_calls * (v.layers - 1) + passes * text.layers,
                 layer_norm=tower_calls * (1 + 2 * (v.layers - 1)),
-                rms_norm=passes * (3 * text.layers + 1), rope_pack=passes * text.layers)
+                rms_norm=passes * (2 * text.layers + 1), rope_pack=passes * text.layers)
     return want
 
 
@@ -4577,15 +4724,15 @@ def omni_launches(cfg, audio_calls: int, vision_calls: int) -> dict:
     """The launches of one scoring call from the code: the audio tower (one
     call for the call's distinct clips: attention once a layer, LayerNorm
     twice a layer and ln_post), the vision tower per same-shape group (as
-    Qwen3-VL's) and one thinker prefill (attention and rope once a layer,
-    RMSNorm twice a layer, the qk-norm once a layer and the final norm, the
+    Qwen3-VL's) and one thinker prefill (attention and rope with the
+    qk-norm once a layer, RMSNorm twice a layer and the final norm, the
     grouped GEMM twice a layer)."""
     a, v, text = cfg.audio, cfg.vision, cfg.text
     return {"flash_attention_flat": audio_calls * a.layers + vision_calls * v.depth
             + text.layers, "flash_attention": 0,
             "layer_norm": audio_calls * (2 * a.layers + 1)
             + vision_calls * (2 * v.depth + 1 + len(v.deepstack_indexes)),
-            "rms_norm": 3 * text.layers + 1, "rope_pack": vision_calls * v.depth + text.layers,
+            "rms_norm": 2 * text.layers + 1, "rope_pack": vision_calls * v.depth + text.layers,
             "grouped_gemm": 2 * text.layers, "quant_matmul": 0, "quantize_rows": 0}
 
 
@@ -4863,14 +5010,13 @@ def add_launches(*dicts) -> dict:
 
 def decoder_launches(cfg, passes: int = 1) -> dict:
     """Launches of ``passes`` forwards (a prefill or a step) of a decoder:
-    attention and rope once a layer, RMSNorm twice a layer, the qk-norm once
-    a layer and the final norm, the grouped GEMM twice a MoE layer on the
-    dispatch."""
+    attention and rope (with the qk-norm where the config has one) once a
+    layer, RMSNorm twice a layer (the residual adds folded in) and the final
+    norm, the grouped GEMM twice a MoE layer on the dispatch."""
     n = cfg.layers
     gmm = 2 * n if cfg.num_experts and cfg.moe_dispatch else 0
     return kernel_counts(flash_attention_flat=n * passes, rope_pack=n * passes,
-                    rms_norm=(3 * n + 1 if cfg.qk_norm else 2 * n + 1) * passes,
-                    grouped_gemm=gmm * passes)
+                         rms_norm=(2 * n + 1) * passes, grouped_gemm=gmm * passes)
 
 
 def c2w_launches(cfg, chunks: int = 1) -> dict:
@@ -4947,8 +5093,9 @@ def talker_kernels(randn, record) -> None:
     (rows, 1024) x (128, 1024, 768) and down (rows, 384) x (128, 384, 1024)
     over a seeded top-8 routing of the prefill's rows and of one decode
     step's 8 routed rows; RMSNorm at 1024 (the talker's rows, one decode
-    row, a Code2Wav chunk), the qk-norm at 16 + 2 heads of 64 and 16 + 8 of
-    128, rope on the talker's 18 heads of 64, the predictor's 24 of 128 and
+    row, a Code2Wav chunk), alone and with the add, the qk-norm + rope at 16
+    + 2 heads of 64 and 16 + 8 of 128, rope on the talker's 18 heads of 64,
+    the predictor's 24 of 128 and
     Code2Wav's 32 of 64, and the ConvNeXt LayerNorm at C = 1024, eps 1e-6,
     over 650 and 1300 rows."""
     from t2v_metrics_tpu_torch.ops import moe as M
@@ -5020,33 +5167,26 @@ def talker_kernels(randn, record) -> None:
     del weights
     free_cuda()
 
-    # RMSNorm at 1024 (eps 1e-6 in the decoders, 1e-5 in Code2Wav)
+    # RMSNorm at 1024 (eps 1e-6 in the decoders, 1e-5 in Code2Wav), alone and
+    # through the add entry
     for label, r, eps in (("talker prefill", n, 1e-6), ("talker decode", 1, 1e-6),
                           ("Code2Wav chunk", rows, 1e-5)):
-        x, w = randn(r, 1024, std=3.0), randn(1024)
-        norm_site(record, "rms_norm", f"Qwen3-Omni {label} ({r}, 1024) eps {eps}",
-                  N.rms_norm_fused(x, w, eps), N.rms_norm_plain(x, w, eps),
-                  lambda: N.rms_norm_fused(x, w, eps),  # noqa: B023
-                  lambda: N.rms_norm_plain(x, w, eps),  # noqa: B023
-                  (5 * r * 1024, 4 * r * 1024 + 2 * 1024, "fp32"),
-                  ("F.rms_norm", cuda_ms(lambda: F.rms_norm(x, (1024,), w, eps))))  # noqa: B023
-    # the qk-norm in place: the talker's prefill rows, the predictor's prefill
+        x, res, w = randn(r, 1024, std=3.0), randn(r, 1024, std=3.0), randn(1024)
+        rms_site(record, f"Qwen3-Omni {label} ({r}, 1024) eps {eps}", x, w, eps=eps)
+        rms_site(record, f"Qwen3-Omni {label} add + RMSNorm ({r}, 1024) eps {eps}", x, w,
+                 r=res, eps=eps)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    # the qk-norm + rope in place: the talker's prefill rows, the predictor's
+    # prefill
     for label, r, hq, hk, d in (("talker", n, t.heads, t.kv_heads, t.head_dim),
                                 ("code predictor", 2, pc.heads, pc.kv_heads, pc.head_dim)):
         heads = hq + 2 * hk
-        pk, qs, ks = randn(r, heads * d, std=3.0), randn(d), randn(d)
-        buf = pk.clone()
-        out, ref = (N.rms_norm_heads_fused(buf, qs, ks, hq, hk, d),
-                    N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d))
-        norm_site(record, "rms_norm", f"Qwen3-Omni {label} qk-norm ({r}, {heads}x{d}), "
-                  f"{hq}+{hk} heads of {d} in place", out, ref,
-                  lambda: N.rms_norm_heads_fused(buf, qs, ks, hq, hk, d),  # noqa: B023
-                  lambda: N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d),  # noqa: B023
-                  (5 * r * (hq + hk) * d, 4 * r * (hq + hk) * d + 4 * d, "fp32"),
-                  qk_norm_library(pk, hq + hk, heads, d, qs))
-        del pk, buf, out, ref
+        pk, qs, ks = randn(1, r, heads * d, std=3.0), randn(d), randn(d)
+        qk_rope_site(record, f"Qwen3-Omni {label} qk-norm + rope (1, {r}, {heads * d}), "
+                     f"{hq}+{hk} heads of {d} in place", pk, qs, ks,
+                     *rope_angles(gen, 1, r, d, 2048), hq, hk, d)
+        del pk
     # rope on the packed q|k lanes
-    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
     for label, r, hq, hk, hv, d in (("talker prefill", n, t.heads, t.kv_heads, t.kv_heads, 64),
                                     ("code predictor prefill", 2, pc.heads, pc.kv_heads,
                                      pc.kv_heads, 128),
@@ -5944,13 +6084,15 @@ def phase_parallel() -> list[dict]:
     return [res[name]["counts"] for res in ranks for name, _ in PARALLEL_CASES]
 
 
+# by a substring of the lowered kernel name: the row norms are
+# row_norm::row_norm_kernel<row_norm::RmsNorm, ...> and <row_norm::LayerNorm, ...>
 KERNEL_FAMILIES = (("quant_matmul", ("quant_matmul_kernel",)),
                    ("quantize_rows", ("quant_rows_kernel",)),
                    ("grouped_gemm", ("grouped_gemm_kernel",)),
                    ("attention", ("attention_kernel",)),
                    ("rope", ("rope_kernel",)),
-                   ("rms_norm", ("rms_kernel",)),
-                   ("layer_norm", ("layer_norm_kernel",)),
+                   ("rms_norm", ("rmsnorm",)),
+                   ("layer_norm", ("layernorm",)),
                    ("gemm", ("gemm", "nvjet", "cutlass", "xmma")))
 
 
@@ -6011,71 +6153,85 @@ def main() -> int:
     card = card_line()
     log(f"[env] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    phase_build()
+    with stage("build"):
+        phase_build()
     if not args.kernels_only:
         import shutil
 
         # first, while the host holds nothing large: its RSS growth is the load's;
         # then GenAI-Bench through the CLI from the same checkpoint as a hub snapshot
-        checkpoint_counts, hub_cache = phase_checkpoint()
-        free_cuda()
-        try:
-            genai_counts = phase_genai_bench(hub_cache, profile=args.profile)
-        finally:
-            shutil.rmtree(hub_cache, ignore_errors=True)
-        free_cuda()
-    results = phase_kernels()
+        with stage("checkpoint"):
+            checkpoint_counts, hub_cache = phase_checkpoint()
+            free_cuda()
+        with stage("genai_bench"):
+            try:
+                genai_counts = phase_genai_bench(hub_cache, profile=args.profile)
+            finally:
+                shutil.rmtree(hub_cache, ignore_errors=True)
+            free_cuda()
+    with stage("kernels"):
+        results = phase_kernels()
     if args.kernels_only:
         return 0
     free_cuda()
-    for chain in (lambda: phase_chain(chain_config()),
-                  lambda: phase_inkernel_chain(chain_config()),
-                  lambda: phase_qwen_chain(qwen_chain_config()),
-                  lambda: phase_qwen_chain(qwen_chain_config(), video=True),
-                  lambda: phase_qwen3_chain(qwen3_chain_config()),
-                  lambda: phase_qwen3_chain(qwen3_chain_config(), video=True),
-                  lambda: phase_gemma_chain(gemma_chain_config()),
-                  lambda: phase_gemma_chain(gemma_chain_config(untied_head=True), m=1,
-                                            video=True),
-                  lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl")),
-                  phase_scorer_chains,
-                  *(lambda model=model: phase_family_chain(model)
-                    for model in (PALIGEMMA, GEMMA4, GEMMA4_31B, LLAVA, INSTRUCTBLIP)),
-                  *(lambda model=model: phase_new_family_chain(model)
-                    for model in (INTERNVL, INTERNVL_38B, INTERNVL_MOE, MOLMO2)),
-                  lambda: phase_omni_chain(omni_chain_config()),
-                  phase_talker_chain):
-        chain()
-        free_cuda()
+    with stage("chains"):
+        for chain in (lambda: phase_chain(chain_config()),
+                      lambda: phase_inkernel_chain(chain_config()),
+                      lambda: phase_qwen_chain(qwen_chain_config()),
+                      lambda: phase_qwen_chain(qwen_chain_config(), video=True),
+                      lambda: phase_qwen3_chain(qwen3_chain_config()),
+                      lambda: phase_qwen3_chain(qwen3_chain_config(), video=True),
+                      lambda: phase_gemma_chain(gemma_chain_config()),
+                      lambda: phase_gemma_chain(gemma_chain_config(untied_head=True), m=1,
+                                                video=True),
+                      lambda: phase_xxl_chain(chain_config(model="clip-flant5-xxl")),
+                      phase_scorer_chains,
+                      *(lambda model=model: phase_family_chain(model)
+                        for model in (PALIGEMMA, GEMMA4, GEMMA4_31B, LLAVA, INSTRUCTBLIP)),
+                      *(lambda model=model: phase_new_family_chain(model)
+                        for model in (INTERNVL, INTERNVL_38B, INTERNVL_MOE, MOLMO2)),
+                      lambda: phase_omni_chain(omni_chain_config()),
+                      phase_talker_chain):
+            chain()
+            free_cuda()
     # each slice's model is dropped on return and freed before the next
-    slice_counts = [checkpoint_counts, *genai_counts,
-                    *phase_slice(profile=args.profile, generate=32)[0]]
-    free_cuda()
+    with stage("slice xl"):
+        slice_counts = [checkpoint_counts, *genai_counts,
+                        *phase_slice(profile=args.profile, generate=32)[0]]
+        free_cuda()
     for run in (phase_qwen_slice, phase_qwen3_slice, phase_gemma_slice):
-        slice_counts.extend(run(profile=args.profile))   # the image and the video half
-        free_cuda()
+        with stage(run.__name__.removeprefix("phase_").replace("_", " ")):
+            slice_counts.extend(run(profile=args.profile))   # the image and the video half
+            free_cuda()
     bf16_rows = None
-    for quant in (None, "int8", "int8+vit"):
-        counts, rows = phase_slice("clip-flant5-xxl", quant=quant, profile=args.profile,
-                                   bf16_rows=bf16_rows, generate=8 if quant == "int8" else 0)
-        slice_counts.extend(counts)
-        bf16_rows = rows if quant is None else bf16_rows
+    with stage("slices xxl"):
+        for quant in (None, "int8", "int8+vit"):
+            counts, rows = phase_slice("clip-flant5-xxl", quant=quant, profile=args.profile,
+                                       bf16_rows=bf16_rows,
+                                       generate=8 if quant == "int8" else 0)
+            slice_counts.extend(counts)
+            bf16_rows = rows if quant is None else bf16_rows
+            free_cuda()
+    with stage("slices clip, itm"):
+        for kind in ("clip", "itm"):
+            slice_counts.append(phase_scorer_slice(kind, profile=args.profile))
+            free_cuda()
+    with stage("slices of the families"):
+        for model in (PALIGEMMA, GEMMA4, LLAVA, INSTRUCTBLIP):
+            slice_counts.extend(phase_family_slice(model, profile=args.profile))
+            free_cuda()
+        for model in (INTERNVL, MOLMO2):
+            slice_counts.extend(phase_new_family_slice(model, profile=args.profile))
+            free_cuda()
+    with stage("slices omni, talker"):
+        slice_counts.extend(phase_omni_slice(profile=args.profile))
         free_cuda()
-    for kind in ("clip", "itm"):
-        slice_counts.append(phase_scorer_slice(kind, profile=args.profile))
+        slice_counts.extend(phase_talker_slice(profile=args.profile))
         free_cuda()
-    for model in (PALIGEMMA, GEMMA4, LLAVA, INSTRUCTBLIP):
-        slice_counts.extend(phase_family_slice(model, profile=args.profile))
+    with stage("parallel"):
+        slice_counts.extend(phase_parallel())
         free_cuda()
-    for model in (INTERNVL, MOLMO2):
-        slice_counts.extend(phase_new_family_slice(model, profile=args.profile))
-        free_cuda()
-    slice_counts.extend(phase_omni_slice(profile=args.profile))
-    free_cuda()
-    slice_counts.extend(phase_talker_slice(profile=args.profile))
-    free_cuda()
-    slice_counts.extend(phase_parallel())
-    free_cuda()
+    log_stages()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": route, "source": src, "replaces": rep,
               "launches": sum(c[name] for c in slice_counts),

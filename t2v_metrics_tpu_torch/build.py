@@ -4,7 +4,8 @@ Each CUDA source (``csrc/flash_flat.cu`` and ``csrc/flash_attention.cu``,
 which share the body in ``csrc/flash_common.cuh``; ``csrc/grouped_gemm.cu``
 and ``csrc/quant_matmul.cu``, which share the GEMM mainloop in
 ``csrc/gemm_sm90.cuh``; all four the Hopper primitives in ``csrc/sm90.cuh``;
-``csrc/layer_norm.cu``, which includes none of them) is
+``csrc/layer_norm.cu`` and ``csrc/rms_norm.cu``, which share the row-norm
+body in ``csrc/row_norm.cuh`` and include none of the others) is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own with
 a plain C interface and loaded with ``ctypes``. The library's name carries a
 hash of its sources, of every header under ``csrc/`` and of the flags, so an
@@ -145,24 +146,37 @@ def _quant_matmul_cdll():
     return ctypes.CDLL(str(build_shared_lib("quant_matmul", [CSRC_DIR / "quant_matmul.cu"])))
 
 
-@functools.cache
-def layer_norm_lib():
-    """The library of csrc/layer_norm.cu, built on first use: its C entries
-    ``layer_norm_forward`` and ``layer_norm_blocks_per_sm``."""
-    lib = ctypes.CDLL(str(build_shared_lib("layer_norm", [CSRC_DIR / "layer_norm.cu"])))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+def _row_norm_lib(name: str):
+    """The library of csrc/<name>.cu, one norm of csrc/row_norm.cuh: its C
+    entries ``row_norm_forward`` and ``row_norm_blocks_per_sm``, the same in
+    both norms' libraries."""
+    lib = ctypes.CDLL(str(build_shared_lib(name, [CSRC_DIR / f"{name}.cu"])))
+    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     # x, r, scale, bias, s, y; x and r row strides; rows, d, dtype, vec,
-    # nv_cap, nv, warps_per_row, block_warps, grid; eps; stream
-    lib.layer_norm_forward.argtypes = [vp] * 6 + [i64] * 2 + [i32] * 9 + [ctypes.c_float, vp]
-    lib.layer_norm_forward.restype = i32
+    # nv_cap, nv, warps_per_row, block_warps, grid; eps, offset; cast; stream
+    lib.row_norm_forward.argtypes = ([vp] * 6 + [i64] * 2 + [i32] * 9 + [f32] * 2
+                                     + [i32, vp])
+    lib.row_norm_forward.restype = i32
     # dtype, vec, nv_cap, add, d, has_bias, block_warps; out: resident blocks an SM
-    lib.layer_norm_blocks_per_sm.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
-    lib.layer_norm_blocks_per_sm.restype = i32
+    lib.row_norm_blocks_per_sm.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
+    lib.row_norm_blocks_per_sm.restype = i32
     return lib
 
 
+@functools.cache
+def layer_norm_lib():
+    """The library of csrc/layer_norm.cu, built on first use."""
+    return _row_norm_lib("layer_norm")
+
+
+@functools.cache
+def rms_norm_lib():
+    """The library of csrc/rms_norm.cu, built on first use."""
+    return _row_norm_lib("rms_norm")
+
+
 CUDA_LIBS = (flash_flat_lib, flash_attention_lib, grouped_gemm_lib, quant_matmul_lib,
-             layer_norm_lib)
+             layer_norm_lib, rms_norm_lib)
 
 
 def build_all() -> None:

@@ -4,7 +4,8 @@ Qwen3 and Gemma 3 parts of t2v_metrics_tpu/models/decoder.py.
 Ported: ``DecoderConfig`` (every field), ``rope_cos_sin`` (1-D RoPE,
 Qwen2.5-VL's sectioned M-RoPE and Qwen3-VL's interleaved layout, linear
 scaling), the prefill branch of the attention (one packed q|k|v linear,
-qk-norm over the q|k heads in place, ``rope_pack`` on the q|k lanes, the
+qk-norm and rope in one pass over the q|k lanes (``rms_norm_rope_pack``;
+``rope_pack`` without the qk-norm), in place, the
 flat attention with GQA, key mask, causal mask, the ``q_scale`` override,
 a per-layer sliding window and the bidir image-block overlay, the
 o-projection), the dense SwiGLU MLP, the routed-expert MLP (Qwen3-VL-MoE:
@@ -37,7 +38,7 @@ from ..ops import layers as L
 from ..ops import quant as Q
 from ..ops.attention import attention_flat, attention_flat_packed
 from ..ops.moe import add_shared_expert, moe_mlp_dispatch
-from ..ops.rope import rope_pack
+from ..ops.rope import rms_norm_rope_pack, rope_pack
 from ..parallel import comm
 from ..parallel.mesh import gather_cols
 from .clip import Norm, fan_in, init_norm_, normal_
@@ -259,10 +260,11 @@ def _attn(p: DecoderBlock, cfg: DecoderConfig, x, cos, sin, mask,
     h, kvh = cfg.heads // tp, cfg.kv_heads // tp
     packed = Q.linear(x, p.qkv)                        # (B, S, (H+2KvH)*D)
     if cfg.qk_norm:
-        packed = L.rms_norm_heads(packed, p.q_norm.scale, p.k_norm.scale, h,
-                                  kvh, d, cfg.rms_eps, offset=cfg.rms_offset,
-                                  cast_weight_dtype=cfg.rms_cast_weight)
-    pk = rope_pack(packed, cos, sin, h + kvh, d)
+        pk = rms_norm_rope_pack(packed, p.q_norm.scale, p.k_norm.scale, cos, sin, h, kvh,
+                                d, cfg.rms_eps, offset=cfg.rms_offset,
+                                cast_weight_dtype=cfg.rms_cast_weight)
+    else:
+        pk = rope_pack(packed, cos, sin, h + kvh, d)
     if cache_layer is None:
         out = attention_flat_packed(pk, h, kv_heads=kvh, kv_mask=mask, causal=True,
                                     scale=cfg.q_scale, local_window=local_window,
@@ -390,30 +392,39 @@ def forward(params: Decoder, cfg: DecoderConfig, embeds: torch.Tensor,
         return L.rms_norm(x, p.scale, cfg.rms_eps, offset=cfg.rms_offset,
                           cast_weight_dtype=cfg.rms_cast_weight)
 
+    def add_norm(x, r, p):
+        return L.add_rms_norm(x, r, p.scale, cfg.rms_eps, offset=cfg.rms_offset,
+                              cast_weight_dtype=cfg.rms_cast_weight)
+
     rope_g = rope_cos_sin(cfg, position_ids, scaling=cfg.rope_scaling_factor)
     rope_l = (rope_g if cfg.local_rope_theta is None
               else rope_cos_sin(cfg, position_ids, theta=cfg.local_rope_theta))
-    x = embeds
+    # each residual add is folded into the RMSNorm that reads its sum: x is
+    # the stream less ``branch``, the last add still pending (None: none)
+    x, branch = embeds, None
     captured = embeds if capture_layer == 0 else None
     for i, blk in enumerate(params.blocks):
         sliding = (cfg.layer_types is not None and cfg.layer_types[
             i % len(cfg.layer_types)] == "sliding_attention")
-        a = _attn(blk, cfg, norm(x, blk.ln1), *(rope_l if sliding else rope_g),
+        x, h = add_norm(x, branch, blk.ln1)
+        a = _attn(blk, cfg, h, *(rope_l if sliding else rope_g),
                   attn_mask, local_window=cfg.sliding_window if sliding else None,
                   bidir_ids=bidir_ids, cache_layer=None if cache is None else cache[i],
                   cache_pos=cache_pos)
         if cfg.sandwich_norms:
             a = norm(a, blk.ln1_post)
-        x = x + a
-        m = _mlp(blk, cfg, norm(x, blk.ln_ff_pre if cfg.sandwich_norms else blk.ln2))
+        x, h = add_norm(x, a, blk.ln_ff_pre if cfg.sandwich_norms else blk.ln2)
+        branch = _mlp(blk, cfg, h)
         if cfg.sandwich_norms:
-            m = norm(m, blk.ln_ff_post)
-        x = x + m
+            branch = norm(branch, blk.ln_ff_post)
         if deepstack is not None and i < len(deepstack):
-            x = x + deepstack[i].to(x.dtype)
+            # two roundings stay two: the MLP's add here, the deepstack
+            # residual's in the next norm
+            x, branch = x + branch, deepstack[i].to(x.dtype)
         if capture_layer == i + 1:
+            x, branch = x + branch, None
             captured = x
-    x = norm(x, params.ln_final)
+    x = add_norm(x, branch, params.ln_final)[1]
     xh = x
     if logit_positions is not None:
         rows = logit_positions.long().clamp(0, x.shape[1] - 1)

@@ -16,7 +16,7 @@ HF InternVLForConditionalGeneration semantics, as in the JAX package:
     projects q, k and v separately and RMS-normalizes q and k over the whole
     flattened width (3200, not per head) before the flat attention. The
     layer scale is formed first and the residual add folded into the next
-    LayerNorm (``add_layer_norm``);
+    norm (``add_layer_norm``, ``add_rms_norm``);
   * features: the last hidden state, CLS dropped, ``pixel_shuffle`` 0.5 (HF's
     two transposes), LayerNorm eps 1e-5 over the shuffled width, GELU MLP
     into the LLM width;
@@ -346,12 +346,11 @@ def init_internvl(cfg: InternVLConfig, seed: int, device,
 # ---------------------------------------------------------------------------
 
 def _add_norm(cfg: InternVisionConfig, x, r, norm: Norm):
-    """(x + r, norm(x + r)); ``r`` None adds nothing. The LayerNorm tower
-    folds the add into the kernel; the RMSNorm tower adds, then normalizes."""
+    """(x + r, norm(x + r)); ``r`` None adds nothing. Both towers fold the
+    add into the norm's kernel."""
     if cfg.norm_type == "layer":
         return L.add_layer_norm(x, r, norm.scale, norm.bias, cfg.ln_eps)
-    s = x if r is None else x + r
-    return s, L.rms_norm(s, norm.scale, cfg.ln_eps)
+    return L.add_rms_norm(x, r, norm.scale, cfg.ln_eps)
 
 
 def vision_tower(p: InternVisionTower, cfg: InternVisionConfig,

@@ -431,10 +431,13 @@ def vision_tower_batch(params: VisionTower, cfg: QwenVisionConfig,
     cos, sin = _vision_rope(cfg, pos_hw)
     b, s, _ = x.shape
     d = cfg.head_dim
+    # each residual add is folded into the RMSNorm that reads its sum (the
+    # next block's ln1, or the merger's ln_q): ``branch`` is the last one
+    branch = None
     for i, blk in enumerate(params.blocks):
         full = i in cfg.fullatt_block_indexes
         seg = full_seg if full else win_seg
-        h = L.rms_norm(x, blk.ln1.scale, cfg.rms_eps)
+        x, h = L.add_rms_norm(x, branch, blk.ln1.scale, cfg.rms_eps)
         pk = rope_pack(Q.linear(h, blk.qkv), cos, sin, 2 * cfg.heads, d)
         if not full and tiled:
             nt = s // 128
@@ -444,13 +447,12 @@ def vision_tower_batch(params: VisionTower, cfg: QwenVisionConfig,
             a = a.reshape(b, s, -1)
         else:
             a = attention_flat_packed(pk, cfg.heads, segment_ids=seg)
-        x = x + Q.linear(a, blk.o)
-        h = L.rms_norm(x, blk.ln2.scale, cfg.rms_eps)
+        x, h = L.add_rms_norm(x, Q.linear(a, blk.o), blk.ln2.scale, cfg.rms_eps)
         h = L.ACT_FNS["silu"](Q.linear(h, blk.gate)) * Q.linear(h, blk.up)
-        x = x + Q.linear(h, blk.down)
+        branch = Q.linear(h, blk.down)
 
     mg = params.merger
-    x = L.rms_norm(x, mg.ln_q.scale, cfg.rms_eps)
+    x = L.add_rms_norm(x, branch, mg.ln_q.scale, cfg.rms_eps)[1]
     mu = cfg.merge_unit
     x = x.reshape(b, s // mu, mu * cfg.hidden)
     x = Q.linear(L.ACT_FNS["gelu"](Q.linear(x, mg.fc1)), mg.fc2)

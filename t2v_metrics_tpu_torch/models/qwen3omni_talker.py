@@ -321,16 +321,17 @@ def _c2w_transformer(p: Code2WavModel, cfg: Code2WavConfig, x):
     cos, sin = dec.rope_cos_sin(
         dataclasses.replace(dec.DecoderConfig(), head_dim=hd, rope_theta=cfg.rope_theta,
                             mrope_section=None), pos)
+    branch = None          # the layer-scaled MLP output, its add folded into the next norm
     for blk in p.blocks:
-        h = L.rms_norm(x, blk.ln1.scale, cfg.rms_norm_eps)
+        x, h = L.add_rms_norm(x, branch, blk.ln1.scale, cfg.rms_norm_eps)
         pk = rope_pack(Q.linear(h, blk.qkv), cos, sin, nh + nkv, hd)
         a = attention_flat_packed(pk, nh, kv_heads=nkv, causal=True,
                                   local_window=cfg.sliding_window)
-        x = x + Q.linear(a, blk.o) * blk.scale_attn
-        h = L.rms_norm(x, blk.ln2.scale, cfg.rms_norm_eps)
+        x, h = L.add_rms_norm(x, Q.linear(a, blk.o) * blk.scale_attn, blk.ln2.scale,
+                              cfg.rms_norm_eps)
         m = Q.mm(L.ACT_FNS[cfg.act](Q.mm(h, blk.gate)) * Q.mm(h, blk.up), blk.down)
-        x = x + m * blk.scale_mlp
-    return L.rms_norm(x, p.ln_final.scale, cfg.rms_norm_eps)
+        branch = m * blk.scale_mlp
+    return L.add_rms_norm(x, branch, p.ln_final.scale, cfg.rms_norm_eps)[1]
 
 
 def check_codes(codes, cfg: Code2WavConfig) -> None:

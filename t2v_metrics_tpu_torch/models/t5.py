@@ -225,22 +225,27 @@ def _t5_mlp(p: T5MLP, x, cfg: T5Config):
     return Q.mm(h, p.wo)
 
 
-def _enc_block(p: T5Block, x, cfg: T5Config, bias, kv_mask, rel=(None, None),
+def _enc_block(p: T5Block, x, branch, cfg: T5Config, bias, kv_mask, rel=(None, None),
                seq=False):
-    h = L.rms_norm(x, p.ln1.scale, cfg.eps)
-    x = x + _self_attention(p.attn, h, cfg, bias, kv_mask, False, *rel, seq=seq)
-    h = L.rms_norm(x, p.ln2.scale, cfg.eps)
-    return x + _t5_mlp(p.mlp, h, cfg)
+    """One encoder block on the residual stream ``x + branch`` (``branch``:
+    the previous block's MLP output, not yet added, or None). Each residual
+    add is folded into the RMSNorm that reads its sum. Returns (the stream
+    after the attention half, this block's MLP output, not yet added)."""
+    x, h = L.add_rms_norm(x, branch, p.ln1.scale, cfg.eps)
+    a = _self_attention(p.attn, h, cfg, bias, kv_mask, False, *rel, seq=seq)
+    x, h = L.add_rms_norm(x, a, p.ln2.scale, cfg.eps)
+    return x, _t5_mlp(p.mlp, h, cfg)
 
 
-def _dec_block(p: T5Block, x, enc, cfg: T5Config, self_bias, enc_mask,
+def _dec_block(p: T5Block, x, branch, enc, cfg: T5Config, self_bias, enc_mask,
                self_mask, rel=(None, None)):
-    h = L.rms_norm(x, p.ln1.scale, cfg.eps)
-    x = x + _self_attention(p.attn, h, cfg, self_bias, self_mask, True, *rel)
-    h = L.rms_norm(x, p.ln_cross.scale, cfg.eps)
-    x = x + _cross_attention(p.cross, h, enc, cfg, kv_mask=enc_mask)
-    h = L.rms_norm(x, p.ln2.scale, cfg.eps)
-    return x + _t5_mlp(p.mlp, h, cfg)
+    """One decoder block on ``x + branch``, as ``_enc_block``."""
+    x, h = L.add_rms_norm(x, branch, p.ln1.scale, cfg.eps)
+    a = _self_attention(p.attn, h, cfg, self_bias, self_mask, True, *rel)
+    x, h = L.add_rms_norm(x, a, p.ln_cross.scale, cfg.eps)
+    a = _cross_attention(p.cross, h, enc, cfg, kv_mask=enc_mask)
+    x, h = L.add_rms_norm(x, a, p.ln2.scale, cfg.eps)
+    return x, _t5_mlp(p.mlp, h, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -280,10 +285,10 @@ def encode(params: T5Model, cfg: T5Config, input_embeds: torch.Tensor,
             bias = bias[:, :, off:off + rows].contiguous()
         else:
             rel = (rel[0], rel[1][:3] + (off,))
-    x = psp.shard_seq(input_embeds)
+    x, branch = psp.shard_seq(input_embeds), None
     for blk in enc.blocks:
-        x = _enc_block(blk, x, cfg, bias, mask, rel, seq=share is not None)
-    return psp.gather_seq(L.rms_norm(x, enc.ln_final.scale, cfg.eps))
+        x, branch = _enc_block(blk, x, branch, cfg, bias, mask, rel, seq=share is not None)
+    return psp.gather_seq(L.add_rms_norm(x, branch, enc.ln_final.scale, cfg.eps)[1])
 
 
 def decode(params: T5Model, cfg: T5Config, decoder_ids: torch.Tensor,
@@ -294,9 +299,10 @@ def decode(params: T5Model, cfg: T5Config, decoder_ids: torch.Tensor,
     x = params.shared_emb[decoder_ids]
     a = decoder_ids.shape[1]
     bias, rel = _position_bias(dec, cfg, a, a, False)
+    branch = None
     for blk in dec.blocks:
-        x = _dec_block(blk, x, enc_hidden, cfg, bias, enc_mask, dec_mask, rel)
-    x = L.rms_norm(x, dec.ln_final.scale, cfg.eps)
+        x, branch = _dec_block(blk, x, branch, enc_hidden, cfg, bias, enc_mask, dec_mask, rel)
+    x = L.add_rms_norm(x, branch, dec.ln_final.scale, cfg.eps)[1]
     if cfg.tie_word_embeddings:
         logits = (x * cfg.d_model ** -0.5) @ params.shared_emb.T
     else:
@@ -371,8 +377,9 @@ def decode_step(params: T5Model, cfg: T5Config, tok_ids: torch.Tensor, cache,
     def heads_of(t):                                    # (B, S, H*d) -> (B, H, S, d)
         return t.view(b, t.shape[1], heads, cfg.d_kv).transpose(1, 2)
 
+    branch = None                                       # the pending residual add
     for blk, cl, (ck, cv) in zip(dec.blocks, cache, cross_kvs):
-        h = L.rms_norm(x, blk.ln1.scale, cfg.eps)
+        x, h = L.add_rms_norm(x, branch, blk.ln1.scale, cfg.eps)
         qkv = Q.mm(h, blk.attn.qkv)                     # (B, 1, 3*inner)
         cl["k"][:, cpos:end] = qkv[..., inner:2 * inner]
         cl["v"][:, cpos:end] = qkv[..., 2 * inner:]
@@ -382,13 +389,11 @@ def decode_step(params: T5Model, cfg: T5Config, tok_ids: torch.Tensor, cache,
                                       scale=1.0, rel_bias=rel[0], rel_cfg=rel[1]))
         else:
             a = attention_flat(qkv[..., :inner], k, v, heads, bias=bias, scale=1.0)
-        x = x + Q.mm(a, blk.attn.o)
-        h = L.rms_norm(x, blk.ln_cross.scale, cfg.eps)
+        x, h = L.add_rms_norm(x, Q.mm(a, blk.attn.o), blk.ln_cross.scale, cfg.eps)
         a = attention_flat(Q.mm(h, blk.cross.q), ck, cv, heads, kv_mask=enc_mask, scale=1.0)
-        x = x + Q.mm(a, blk.cross.o)
-        h = L.rms_norm(x, blk.ln2.scale, cfg.eps)
-        x = x + _t5_mlp(blk.mlp, h, cfg)
-    x = L.rms_norm(x, dec.ln_final.scale, cfg.eps)
+        x, h = L.add_rms_norm(x, Q.mm(a, blk.cross.o), blk.ln2.scale, cfg.eps)
+        branch = _t5_mlp(blk.mlp, h, cfg)
+    x = L.add_rms_norm(x, branch, dec.ln_final.scale, cfg.eps)[1]
     if cfg.tie_word_embeddings:
         logits = (x * cfg.d_model ** -0.5) @ params.shared_emb.T
     else:

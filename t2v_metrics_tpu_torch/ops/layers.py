@@ -2,8 +2,8 @@
 
 Norm statistics and softmax run in fp32 regardless of activation dtype. The
 norms dispatch through the wrappers in ``ops/norms.py``: a CUDA tensor runs
-the kernel (LayerNorm in CUDA, RMSNorm in Triton), a CPU tensor the plain
-PyTorch version.
+the kernel (LayerNorm and RMSNorm in CUDA, each with an entry that folds the
+residual add in), a CPU tensor the plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -43,13 +43,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return norms.rms_norm_fused(x, scale, eps, offset, cast_weight_dtype)
 
 
+def add_rms_norm(x: torch.Tensor, r: torch.Tensor | None, scale: torch.Tensor,
+                 eps: float = 1e-6, offset: float = 0.0,
+                 cast_weight_dtype: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the RMSNorm that reads its sum: (s, RMSNorm(s))
+    for s = x + r, rounded once to x's dtype as the eager add (one kernel
+    pass on CUDA; on CPU the add, then the plain RMSNorm). ``r=None``: no
+    add, (x, RMSNorm(x))."""
+    if r is None:
+        return x, rms_norm(x, scale, eps, offset, cast_weight_dtype)
+    return norms.add_rms_norm_fused(x, r, scale, eps, offset, cast_weight_dtype)
+
+
 def rms_norm_heads(packed: torch.Tensor, q_scale: torch.Tensor,
                    k_scale: torch.Tensor, n_q: int, n_k: int, d: int,
                    eps: float = 1e-6, offset: float = 0.0,
                    cast_weight_dtype: bool = True) -> torch.Tensor:
     """qk-norm: ``rms_norm`` over each head of the q|k lanes of a packed
-    qkv row, ``q_scale`` on the q heads and ``k_scale`` on the k heads (in
-    place on CUDA; use the returned tensor)."""
+    qkv row, ``q_scale`` on the q heads and ``k_scale`` on the k heads; a
+    new tensor. The CPU route only: on CUDA the qk-norm runs inside the
+    rotary embedding's kernel (``ops/rope.py:rms_norm_rope_pack``)."""
     return norms.rms_norm_heads_fused(packed, q_scale, k_scale, n_q, n_k, d,
                                       eps, offset, cast_weight_dtype)
 

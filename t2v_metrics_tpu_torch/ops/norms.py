@@ -1,5 +1,4 @@
-"""LayerNorm and RMSNorm: Hopper kernels (LayerNorm in CUDA, RMSNorm in
-Triton), with their plain versions.
+"""LayerNorm and RMSNorm: Hopper kernels in CUDA, with their plain versions.
 
 Replaces the TPU kernels ``t2v_metrics_tpu/ops/norms.py:_ln_kernel``
 (``layer_norm_fused``) and ``_rms_kernel`` (``rms_norm_fused``).
@@ -11,30 +10,28 @@ the bf16 output and one read of the (d,) weights. The plain PyTorch version
 makes several passes over an fp32 copy of the activation (convert, mean,
 subtract, square, mean, scale), each a round trip through HBM.
 
-LayerNorm (``csrc/layer_norm.cu``): a warp owns a row up to d = 1280 (the
-ViT widths 1024 and 1152), a few warps a wider one (4 at d = 4608); each
-lane loads its whole share of the row, in the widest vectors that lay the
-row evenly over the lanes (16 bytes at d = 1024, 8 at d = 1152, so no column
-is padded), before it uses the first; both fp32 statistics come from
-registers and warp shuffles; a block loads the weights once, into shared
-memory, for all of its rows; the grid is one wave of resident blocks with a
-row loop inside. The launch plan (``layer_norm_plan``) is computed here and
-tested on the CPU. ``add_layer_norm_fused`` folds the ViT blocks' residual
-add into the same pass: it reads x and r once and writes s = x + r (rounded
-once, bitwise the eager add) and the LayerNorm of s: 4 element-passes
-instead of the 5 of an add and a norm, and one launch fewer.
+Both norms are instantiations of one CUDA body (``csrc/row_norm.cuh``;
+``csrc/layer_norm.cu``, ``csrc/rms_norm.cu``) with one launch plan: a warp
+owns a row up to d = 1280 (the ViT widths 1024 and 1152, the talker's
+1024), a few warps a wider one (4 at d = 4608, 8 at 3584); each lane loads
+its whole share of the row, in the widest vectors that lay the row evenly
+over the lanes (16 bytes at d = 1024, 8 at d = 1152, so no column is
+padded), before it uses the first; the fp32 statistics come from registers
+and warp shuffles; a block loads the weights once, into shared memory, for
+all of its rows; the grid is one wave of resident blocks with a row loop
+inside. The launch plan (``layer_norm_plan``) is computed here and tested on
+the CPU. ``add_layer_norm_fused`` and ``add_rms_norm_fused`` fold a residual
+add into the same pass: they read x and r once and write s = x + r (rounded
+once, bitwise the eager add) and the norm of s: 4 element-passes instead of
+the 5 of an add and a norm, and one launch fewer.
 
-RMSNorm (Triton): one program per row holds the whole row (d=2048 for
-T5-xl) in registers, computes the fp32 statistic there and writes the bf16
-result once; the column block is the next power of two above d and its tail
-is masked. qk-norm (Qwen3) normalises each head of the q|k lanes of the
-packed qkv projection, whose heads are not one strided 2-D view. The same
-RMSNorm kernel, compiled with ``HEADS``, runs one program per token at the
-token's row stride, loads its q|k heads (a head stride of d) as one
-(heads, d) block with a statistic per head, picks the q or the k weight by
-head, and writes in place (``rms_norm_heads_launch``): one launch per layer,
-no copy of the q|k region, the v lanes untouched. Without ``HEADS`` the
-kernel is the row kernel above.
+RMSNorm keeps the JAX semantics: the fp32 statistic mean(x^2), ``eps``, the
+Gemma ``offset`` added to the weight in the weight's dtype, and T5's
+``cast_weight_dtype`` (the normalized value rounded to the weight dtype
+before a correctly rounded product). The qk-norm of the decoders (RMSNorm
+over each q|k head of the packed qkv row) runs inside the rotary embedding's
+kernel (``ops/rope.py:rms_norm_rope_pack``); ``rms_norm_heads_plain`` is its
+plain first half.
 
 The wrappers take the plain version only for a tensor on the CPU; for a CUDA
 tensor they launch the kernel or raise.
@@ -86,6 +83,14 @@ def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return (w * y).to(dtype)
 
 
+def add_rms_norm_plain(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+                       eps: float = 1e-6, offset: float = 0.0,
+                       cast_weight_dtype: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, RMSNorm(s)) for s = x + r, the eager add rounded to x's dtype."""
+    s = x + r
+    return s, rms_norm_plain(s, scale, eps, offset, cast_weight_dtype)
+
+
 def rms_norm_heads_plain(packed: torch.Tensor, q_scale: torch.Tensor,
                          k_scale: torch.Tensor, n_q: int, n_k: int, d: int,
                          eps: float = 1e-6, offset: float = 0.0,
@@ -100,61 +105,6 @@ def rms_norm_heads_plain(packed: torch.Tensor, q_scale: torch.Tensor,
         rms_norm_plain(q, q_scale, eps, offset, cast_weight_dtype).reshape(*lead, -1),
         rms_norm_plain(k, k_scale, eps, offset, cast_weight_dtype).reshape(*lead, -1),
         packed[..., (n_q + n_k) * d:]], dim=-1)
-
-
-# ---------------------------------------------------------------------------
-# The RMSNorm Triton kernel (built at first launch; triton is imported only there)
-# ---------------------------------------------------------------------------
-
-@functools.cache
-def _rms_kernel():
-    from ..build import triton_cache_env
-
-    triton_cache_env()
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rms_kernel(X, W, W2, Y, x_stride, y_stride, n_cols, eps, offset,
-                   n_heads, n_first, HAS_OFFSET: tl.constexpr,
-                   CAST: tl.constexpr, HEADS: tl.constexpr,
-                   HEADS_P2: tl.constexpr, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        cm = cols < n_cols
-        if HEADS:
-            # the row's n_heads heads of n_cols lanes, side by side, as one
-            # (heads, cols) block with a statistic per head; the heads from
-            # n_first on take the weight W2
-            hs = tl.arange(0, HEADS_P2)
-            m = (hs < n_heads)[:, None] & cm[None, :]
-            offs = hs[:, None] * n_cols + cols[None, :]
-            x = tl.load(X + row * x_stride + offs, mask=m, other=0.0).to(tl.float32)
-            var = tl.sum(x * x, axis=1)[:, None] / n_cols
-            w = tl.where((hs < n_first)[:, None],
-                         tl.load(W + cols, mask=cm, other=0.0)[None, :],
-                         tl.load(W2 + cols, mask=cm, other=0.0)[None, :])
-        else:
-            m = cm
-            offs = cols
-            x = tl.load(X + row * x_stride + offs, mask=m, other=0.0).to(tl.float32)
-            var = tl.sum(x * x, axis=0) / n_cols
-            w = tl.load(W + cols, mask=cm, other=0.0)
-        y = x * tl.rsqrt(var + eps)
-        if HAS_OFFSET:
-            # the offset is added in the weight dtype, as the plain version does
-            w = (w.to(tl.float32) + offset).to(W.dtype.element_ty)
-        if CAST:
-            # HF T5: round the normalized value to the weight dtype, then
-            # round the product again (a product of two bf16 values is exact
-            # in fp32, so this is a correctly rounded bf16 multiply)
-            y = y.to(W.dtype.element_ty).to(tl.float32)
-            out = (w.to(tl.float32) * y).to(W.dtype.element_ty)
-        else:
-            out = w.to(tl.float32) * y
-        tl.store(Y + row * y_stride + offs, out.to(Y.dtype.element_ty), mask=m)
-
-    return rms_kernel
 
 
 _MAX_COLS = 16384
@@ -178,22 +128,18 @@ def _check_weight(w: torch.Tensor, x: torch.Tensor, what: str) -> torch.Tensor:
     return w.contiguous()
 
 
-def _block(d: int) -> tuple[int, int]:
-    block = 1 << (d - 1).bit_length()
-    return block, max(1, min(16, block // 256))
-
-
 # ---------------------------------------------------------------------------
-# The CUDA LayerNorm (csrc/layer_norm.cu): launch plan and wrappers
+# The CUDA norms (csrc/row_norm.cuh): launch plan and wrappers
 # ---------------------------------------------------------------------------
 
-# The instantiations of csrc/layer_norm.cu, by the row's element size and
+# The instantiations of csrc/row_norm.cuh (each norm's), by the row's element size and
 # the vector's width in elements: the vectors a lane holds (NV). A lane
 # holds at most LN_MAX_PER_LANE values of a row; the plan takes the least NV
 # that holds its share.
 LN_NV = {2: {8: (1, 2, 4, 5), 4: (1, 2, 4, 5, 9, 10), 2: (1, 5, 10, 20), 1: (1, 10, 20, 40)},
          4: {4: (1, 2, 4, 5, 9, 10), 2: (1, 5, 10, 20), 1: (1, 10, 20, 40)}}
 LN_MAX_PER_LANE = 40
+LN_MIN_EVEN_BYTES = 4
 LN_BLOCK_WARPS = 8
 LN_WARPS_PER_ROW = (1, 2, 4, 8, 16)
 _LN_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -201,7 +147,8 @@ _LN_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 @dataclasses.dataclass(frozen=True)
 class LayerNormPlan:
-    """How ``csrc/layer_norm.cu`` lays rows of d values over a launch.
+    """How ``csrc/row_norm.cuh`` (LayerNorm and RMSNorm) lays rows of d
+    values over a launch.
 
     A row is d / ``vec`` vectors of ``vec`` elements, in strips of 32: warp
     w of the row's ``warps_per_row`` takes the ``nv`` strips from w * nv,
@@ -227,9 +174,11 @@ def layer_norm_plan(rows: int, d: int, itemsize: int, sms: int, blocks_per_sm,
     the operands' addresses and row strides.
 
     The fewest warps a row that keep each lane at ``LN_MAX_PER_LANE``
-    values at most; for each warp count the widest vector that lays the row
-    evenly over the lanes, else the widest that divides d (the vectors past
-    the row predicated off)."""
+    values at most; for each warp count the widest vector of at least
+    ``LN_MIN_EVEN_BYTES`` that lays the row evenly over the lanes, else the
+    widest that divides d (the vectors past the row predicated off): a
+    16-byte vector with some lanes idle (d = 3200, 5376, 12800) rather than
+    one 2-byte value a load."""
     if not 1 <= d <= _MAX_COLS:
         raise ValueError(f"layer_norm: row width {d} outside 1..{_MAX_COLS}")
     if itemsize not in LN_NV:
@@ -240,7 +189,8 @@ def layer_norm_plan(rows: int, d: int, itemsize: int, sms: int, blocks_per_sm,
         raise ValueError(f"layer_norm: operands not aligned to their {itemsize}-byte elements")
     for wpr in LN_WARPS_PER_ROW:
         lanes = 32 * wpr
-        even = [v for v in vecs if d % (lanes * v) == 0]
+        even = [v for v in vecs
+                if d % (lanes * v) == 0 and v * itemsize >= LN_MIN_EVEN_BYTES]
         vec = (even or vecs)[0]
         nv = -(-d // (vec * lanes))
         if nv * vec <= LN_MAX_PER_LANE:
@@ -265,73 +215,116 @@ def _vec_bytes(*spans) -> int:
     return v
 
 
+def _lib(rms: bool):
+    """The library of the norm: csrc/rms_norm.cu or csrc/layer_norm.cu, each
+    with the C entries ``row_norm_forward`` and ``row_norm_blocks_per_sm``."""
+    from ..build import layer_norm_lib, rms_norm_lib
+
+    return rms_norm_lib() if rms else layer_norm_lib()
+
+
 @functools.cache
-def _ln_blocks_per_sm(device: int, dtype: int, add: bool, d: int, has_bias: bool,
-                      vec: int, nv_cap: int, block_warps: int) -> int:
+def _blocks_per_sm(device: int, rms: bool, dtype: int, add: bool, d: int, has_bias: bool,
+                   vec: int, nv_cap: int, block_warps: int) -> int:
     """Resident blocks an SM of the instantiation (the card's occupancy,
     with the weights' shared memory)."""
     import ctypes
 
-    from ..build import layer_norm_lib
-
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = layer_norm_lib().layer_norm_blocks_per_sm(
-            dtype, vec, nv_cap, int(add), d, int(has_bias), block_warps, ctypes.byref(blocks))
+        rc = _lib(rms).row_norm_blocks_per_sm(dtype, vec, nv_cap, int(add), d, int(has_bias),
+                                              block_warps, ctypes.byref(blocks))
     if rc != 0:
-        raise RuntimeError(f"layer_norm_blocks_per_sm failed: CUDA error {rc}")
+        raise RuntimeError(f"{'rms' if rms else 'layer'}_norm_blocks_per_sm failed: "
+                           f"CUDA error {rc}")
     return blocks.value
 
 
-def _ln_launch(x, r, scale, bias, eps):
-    """Launch csrc/layer_norm.cu on CUDA rows: y = LayerNorm(x), or with r,
-    s = x + r and y = LayerNorm(s). Returns (s or None, y)."""
-    from ..build import layer_norm_lib
+@functools.lru_cache(maxsize=4096)
+def _plan(device: int, rms: bool, dtype: int, add: bool, rows: int, d: int, itemsize: int,
+          has_bias: bool, vec_bytes: int) -> LayerNormPlan:
+    """``layer_norm_plan`` for one launch on CUDA device ``device``, kept: a
+    decode step asks for the same few plans at every layer, and the host's
+    time a launch is what bounds a decode step."""
     from .gemm import sm_count
 
-    what = "layer_norm" if r is None else "add_layer_norm"
-    x2 = _rows_view(x, what)
-    r2 = None
+    occupancy = functools.partial(_blocks_per_sm, device, rms, dtype, add, d, has_bias)
+    return layer_norm_plan(rows, d, itemsize, sm_count(torch.device("cuda", device)),
+                           occupancy, vec_bytes)
+
+
+def _rows(t: torch.Tensor, what: str) -> tuple[torch.Tensor, int]:
+    """``t`` as rows of its last dimension, and their stride: ``t`` itself
+    where it is contiguous (the decode step's case, with no view made),
+    else ``_rows_view``'s 2-D view."""
+    if t.is_contiguous():
+        if t.dtype not in _LN_DTYPES:
+            raise TypeError(f"{what}: unsupported dtype {t.dtype}")
+        if t.shape[-1] > _MAX_COLS:
+            raise ValueError(f"{what}: row width {t.shape[-1]} > {_MAX_COLS}")
+        return t, t.shape[-1]
+    t2 = _rows_view(t, what)
+    return t2, t2.stride(0)
+
+
+def _norm_launch(what, x, r, scale, bias, eps, rms=None, grid=None):
+    """Launch a norm of csrc/row_norm.cuh on CUDA rows: y = norm(x), or with
+    r, s = x + r and y = norm(s). ``rms`` (offset, cast_weight_dtype) picks
+    RMSNorm, else LayerNorm; ``grid`` overrides the plan's blocks (a check
+    that the rows do not depend on it). Returns (s or None, y). A decode
+    step is bound by the host's time a launch, so this does the least it can
+    there: no view of contiguous rows, a kept plan, the raw stream."""
+    x2, x_stride = _rows(x, what)
+    r2, r_stride = None, 0
     if r is not None:
         if r.shape != x.shape or r.dtype != x.dtype or r.device != x.device:
             raise ValueError(f"{what}: r {tuple(r.shape)} {r.dtype} must match x "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
-        r2 = _rows_view(r, what)
+        r2, r_stride = _rows(r, what)
     scale = _check_weight(scale, x, what)
     if bias is not None:
         bias = _check_weight(bias, x, what)
     for w in (scale, bias):
         if w is not None and w.dtype != x.dtype:
             raise TypeError(f"{what}: weights must be {x.dtype}, got {w.dtype}")
-    rows, d = x2.shape
-    y = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)   # dense rows of d
     s = None if r is None else torch.empty_like(y)
     if rows:
-        size = x2.element_size()
-        spans = [(t.data_ptr(), t.stride(0) * size) for t in (x2, r2, y, s) if t is not None]
-        spans += [(w.data_ptr(), 0) for w in (scale, bias) if w is not None]
+        size = x.element_size()
+        xp, wp, yp = x2.data_ptr(), scale.data_ptr(), y.data_ptr()
+        rp = sp = bp = None
+        aligned = xp | wp | yp | x_stride * size | d * size
+        if r is not None:
+            rp, sp = r2.data_ptr(), s.data_ptr()
+            aligned |= rp | sp | r_stride * size
+        if bias is not None:
+            bp = bias.data_ptr()
+            aligned |= bp
         dt = _LN_DTYPES[x.dtype]
-        dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-        occupancy = functools.partial(_ln_blocks_per_sm, dev, dt, r is not None, d,
-                                      bias is not None)
-        plan = layer_norm_plan(rows, d, size, sm_count(x.device), occupancy,
-                               _vec_bytes(*spans))
-        rc = layer_norm_lib().layer_norm_forward(
-            x2.data_ptr(), None if r2 is None else r2.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), None if s is None else s.data_ptr(),
-            y.data_ptr(), x2.stride(0), 0 if r2 is None else r2.stride(0), rows, d, dt,
-            plan.vec, plan.nv_cap, plan.nv, plan.warps_per_row, plan.block_warps, plan.grid,
-            eps, torch.cuda.current_stream(x.device).cuda_stream)
+        dev = x.get_device()
+        plan = _plan(dev, rms is not None, dt, r is not None, rows, d, size, bias is not None,
+                     _vec_bytes((aligned, 0)))
+        if grid:
+            plan = dataclasses.replace(plan, grid=grid)
+        geo = (x_stride, r_stride, rows, d, dt, plan.vec, plan.nv_cap, plan.nv,
+               plan.warps_per_row, plan.block_warps, plan.grid)
+        # the current stream's handle without a torch.cuda.Stream object
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        offset, cast = rms or (0.0, False)
+        rc = _lib(rms is not None).row_norm_forward(xp, rp, wp, bp, sp, yp, *geo, eps,
+                                                    float(offset), int(cast), stream)
         if rc != 0:
-            raise RuntimeError(f"layer_norm_forward launch failed: CUDA error {rc}")
-        layer_norm_launch.launches += 1
-    return (None if s is None else s.reshape(x.shape)), y.reshape(x.shape)
+            raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+        (layer_norm_launch if rms is None else rms_norm_launch).launches += 1
+    return s, y
 
 
 def layer_norm_launch(x, scale, bias, eps):
     """Launch the LayerNorm kernel on a CUDA tensor. ``launches`` counts the
     launches of both entries, this and ``add_layer_norm_launch``."""
-    return _ln_launch(x, None, scale, bias, eps)[1]
+    return _norm_launch("layer_norm", x, None, scale, bias, eps)[1]
 
 
 layer_norm_launch.launches = 0
@@ -340,55 +333,23 @@ layer_norm_launch.launches = 0
 def add_layer_norm_launch(x, r, scale, bias, eps):
     """Launch the LayerNorm kernel with the residual add folded in, on CUDA
     tensors: (s, y) for s = x + r, y = LayerNorm(s)."""
-    return _ln_launch(x, r, scale, bias, eps)
+    return _norm_launch("add_layer_norm", x, r, scale, bias, eps)
 
 
 def rms_norm_launch(x, scale, eps, offset, cast_weight_dtype):
-    """Launch the RMSNorm kernel on a CUDA tensor."""
-    x2 = _rows_view(x, "rms_norm")
-    scale = _check_weight(scale, x, "rms_norm")
-    y = torch.empty_like(x2)
-    block, warps = _block(x2.shape[1])
-    rms_kernel = _rms_kernel()
-    rms_kernel[(x2.shape[0],)](x2, scale, scale, y, x2.stride(0), y.stride(0),
-                               x2.shape[1], eps, float(offset), 1, 1,
-                               HAS_OFFSET=bool(offset),
-                               CAST=cast_weight_dtype, HEADS=False,
-                               HEADS_P2=1, BLOCK=block, num_warps=warps)
-    rms_norm_launch.launches += 1
-    return y.reshape(x.shape)
+    """Launch the RMSNorm kernel on a CUDA tensor. ``launches`` counts the
+    launches of both entries, this and ``add_rms_norm_launch``."""
+    return _norm_launch("rms_norm", x, None, scale, None, eps,
+                        (offset, cast_weight_dtype))[1]
 
 
 rms_norm_launch.launches = 0
 
 
-def rms_norm_heads_launch(packed, q_scale, k_scale, n_q, n_k, d, eps, offset,
-                          cast_weight_dtype):
-    """Launch the RMSNorm kernel over the q|k heads of a packed CUDA row, in
-    place: one program per token, its q|k heads (d apart) as one block; the
-    q heads take ``q_scale``, the k heads ``k_scale``, the v lanes are not
-    touched. Returns ``packed``."""
-    if packed.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise TypeError(f"rms_norm_heads: unsupported dtype {packed.dtype}")
-    lanes = packed.shape[-1]
-    if (n_q + n_k) * d > lanes or d > _MAX_COLS:
-        raise ValueError(f"rms_norm_heads: {n_q}+{n_k} heads of {d} in {lanes} lanes")
-    if not packed.is_contiguous():
-        raise ValueError("rms_norm_heads: packed must be contiguous (it is "
-                         "updated in place)")
-    q_scale = _check_weight(q_scale, packed[..., :d], "rms_norm_heads")
-    k_scale = _check_weight(k_scale, packed[..., :d], "rms_norm_heads")
-    rows = packed.numel() // lanes
-    block = 1 << (d - 1).bit_length()
-    heads_p2 = 1 << (n_q + n_k - 1).bit_length()
-    rms_kernel = _rms_kernel()
-    rms_kernel[(rows,)](
-        packed, q_scale, k_scale, packed, lanes, lanes, d, eps, float(offset),
-        n_q + n_k, n_q, HAS_OFFSET=bool(offset), CAST=cast_weight_dtype,
-        HEADS=True, HEADS_P2=heads_p2, BLOCK=block,
-        num_warps=max(1, min(8, heads_p2 * block // 1024)))
-    rms_norm_launch.launches += 1
-    return packed
+def add_rms_norm_launch(x, r, scale, eps, offset, cast_weight_dtype):
+    """Launch the RMSNorm kernel with the residual add folded in, on CUDA
+    tensors: (s, y) for s = x + r, y = RMSNorm(s)."""
+    return _norm_launch("add_rms_norm", x, r, scale, None, eps, (offset, cast_weight_dtype))
 
 
 def layer_norm_fused(x: torch.Tensor, scale: torch.Tensor,
@@ -419,7 +380,7 @@ def add_layer_norm_fused(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
 def rms_norm_fused(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
                    offset: float = 0.0,
                    cast_weight_dtype: bool = True) -> torch.Tensor:
-    """RMSNorm over the last axis: the Triton kernel on CUDA, the plain
+    """RMSNorm over the last axis: the CUDA kernel on CUDA, the plain
     version on CPU."""
     if x.device.type == "cpu":
         return rms_norm_plain(x, scale, eps, offset, cast_weight_dtype)
@@ -428,16 +389,29 @@ def rms_norm_fused(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return rms_norm_launch(x, scale, eps, offset, cast_weight_dtype)
 
 
+def add_rms_norm_fused(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+                       eps: float = 1e-6, offset: float = 0.0,
+                       cast_weight_dtype: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, RMSNorm(s)) for the residual sum s = x + r (rounded once to x's
+    dtype, as the eager add): the CUDA kernel in one pass on CUDA, the add
+    and the plain version on CPU."""
+    if x.device.type == "cpu":
+        return add_rms_norm_plain(x, r, scale, eps, offset, cast_weight_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"add_rms_norm: no kernel for device {x.device}")
+    return add_rms_norm_launch(x, r, scale, eps, offset, cast_weight_dtype)
+
+
 def rms_norm_heads_fused(packed: torch.Tensor, q_scale: torch.Tensor,
                          k_scale: torch.Tensor, n_q: int, n_k: int, d: int,
                          eps: float = 1e-6, offset: float = 0.0,
                          cast_weight_dtype: bool = True) -> torch.Tensor:
-    """qk-norm over the q|k heads of a packed row: the Triton kernel (in
-    place) on CUDA, the plain version (a new tensor) on CPU."""
+    """qk-norm over the q|k heads of a packed row, alone: the plain version
+    (a new tensor) on CPU. On CUDA the qk-norm runs only inside the rotary
+    embedding's kernel, ``ops/rope.py:rms_norm_rope_pack``, and this raises."""
     if packed.device.type == "cpu":
         return rms_norm_heads_plain(packed, q_scale, k_scale, n_q, n_k, d, eps,
                                     offset, cast_weight_dtype)
-    if packed.device.type != "cuda":
-        raise ValueError(f"rms_norm_heads: no kernel for device {packed.device}")
-    return rms_norm_heads_launch(packed, q_scale, k_scale, n_q, n_k, d, eps,
-                                 offset, cast_weight_dtype)
+    raise ValueError(f"rms_norm_heads: no kernel of its own for device {packed.device}; "
+                     "the qk-norm runs fused with rope in "
+                     "ops/rope.py:rms_norm_rope_pack")

@@ -94,9 +94,10 @@ def pipeline_encode(model: tt5.T5Model, cfg: tt5.T5Config, input_embeds: torch.T
         else:
             comm.recv(x, ranks[s - 1], group)
         kvm = None if mmask is None else mmask[i]
-        y = x
+        y, branch = x, None
         for blk in blocks:
-            y = tt5._enc_block(blk, y, cfg, bias, kvm)
+            y, branch = tt5._enc_block(blk, y, branch, cfg, bias, kvm)
+        y = y + branch                              # a stage hands over whole sums
         if s < pp - 1:
             comm.send(y, ranks[s + 1], group)
         else:

@@ -16,7 +16,8 @@ from t2v_metrics_tpu_torch import build  # noqa: E402
     ("flash_flat", "flash_common.cuh"), ("flash_flat", "sm90.cuh"),
     ("grouped_gemm", "gemm_sm90.cuh"), ("grouped_gemm", "sm90.cuh"),
     ("quant_matmul", "gemm_sm90.cuh"), ("quant_matmul", "sm90.cuh"),
-    ("layer_norm", "sm90.cuh"),
+    ("layer_norm", "sm90.cuh"), ("layer_norm", "row_norm.cuh"),
+    ("rms_norm", "row_norm.cuh"), ("rms_norm", "sm90.cuh"),
 ])
 def test_editing_a_header_renames_the_library(tmp_path, lib, header):
     csrc = tmp_path / "csrc"
@@ -48,14 +49,15 @@ def test_every_gemm_header_is_hashed():
     assert '#include "sm90.cuh"' in (build.CSRC_DIR / "gemm_sm90.cuh").read_text()
 
 
-def test_layer_norm_is_built_with_the_others(tmp_path):
-    """csrc/layer_norm.cu is one of build_all's libraries, and its source is
-    in its library's hash."""
-    assert build.layer_norm_lib in build.CUDA_LIBS
+@pytest.mark.parametrize("lib", ["layer_norm", "rms_norm"])
+def test_layer_norm_is_built_with_the_others(tmp_path, lib):
+    """csrc/layer_norm.cu and csrc/rms_norm.cu are build_all's libraries,
+    each source in its library's hash."""
+    assert getattr(build, f"{lib}_lib") in build.CUDA_LIBS
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
-    src = [csrc / "layer_norm.cu"]
-    before = build.library_path("layer_norm", src, csrc)
-    assert before.name.startswith("liblayer_norm_")
+    src = [csrc / f"{lib}.cu"]
+    before = build.library_path(lib, src, csrc)
+    assert before.name.startswith(f"lib{lib}_")
     src[0].write_text(src[0].read_text() + "\n// edited\n")
-    assert build.library_path("layer_norm", src, csrc) != before
+    assert build.library_path(lib, src, csrc) != before

@@ -49,6 +49,19 @@ def _close(out, ref, atol, rtol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+def _close_qk_rope(out, ref, normed, pk, rot, d):
+    """The qk-norm + rope within chip_smoke.py's tolerance (QK_ROPE_PAIR_RTOL
+    there): each element within 1e-5 + 8e-3 |ref| + 2.5e-2 times the length
+    of its normalized pair (``normed``: the plain qk-norm); the v lanes
+    bitwise the input's."""
+    o = out[..., :rot * d].float().reshape(-1, rot, 2, d // 2)
+    r = ref[..., :rot * d].float().reshape(-1, rot, 2, d // 2)
+    n = normed[..., :rot * d].float().reshape(-1, rot, 2, d // 2)
+    pair = torch.hypot(n[:, :, :1], n[:, :, 1:])
+    assert bool(((o - r).abs() <= 1e-5 + 8e-3 * r.abs() + 2.5e-2 * pair).all())
+    assert torch.equal(out[..., rot * d:], pk[..., rot * d:])
+
+
 def _close_attn(out, ref):
     """Attention within chip_smoke.py's tolerance (ATTN_* there)."""
     out, ref = out.float(), ref.float()
@@ -132,6 +145,77 @@ def test_rms_norm_kernel_fp32(dev):
     x = _randn(dev, 5, 512, dtype=torch.float32)
     w = _randn(dev, 512, seed=1, dtype=torch.float32)
     _close(N.rms_norm_fused(x, w), N.rms_norm_plain(x, w), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("cast_wd,offset", [(True, 0.0), (False, 0.0), (False, 1.0),
+                                            (True, 1.0)])
+@pytest.mark.parametrize("shape", [(7, 1024), (3, 5, 1000), (4, 3584), (33, 2048), (9, 4096),
+                                   (17, 3200), (5, 5376), (3, 3840), (2, 1001), (6, 16384)])
+def test_add_rms_norm_kernel(dev, shape, cast_wd, offset):
+    """RMSNorm alone and with the residual add folded in (s bitwise the
+    eager x + r, y the plain RMSNorm of it); one launch a call, counted
+    under rms_norm."""
+    x, r = _randn(dev, *shape, std=3.0), _randn(dev, *shape, seed=3, std=3.0)
+    w = _randn(dev, shape[-1], seed=1)
+    kw = dict(eps=1e-6, offset=offset, cast_weight_dtype=cast_wd)
+    before = launch_counts()["rms_norm"]
+    _close(N.rms_norm_fused(x, w, **kw), N.rms_norm_plain(x, w, **kw), 1e-5, 1.6e-2)
+    s, y = N.add_rms_norm_fused(x, r, w, **kw)
+    assert launch_counts()["rms_norm"] == before + 2
+    assert s.shape == y.shape == x.shape and torch.equal(s, x + r)
+    _close(y, N.rms_norm_plain(x + r, w, **kw), 1e-5, 1.6e-2)
+
+
+@pytest.mark.parametrize("d", [1024, 3584, 4096])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=str)
+def test_rms_norm_kernel_dtypes(dev, d, dtype):
+    x, r = _randn(dev, 33, d, std=3.0, dtype=dtype), _randn(dev, 33, d, seed=3, dtype=dtype)
+    w = _randn(dev, d, seed=1, dtype=dtype)
+    rtol = 1.6e-2 if dtype == torch.float16 else 2e-5
+    _close(N.rms_norm_fused(x, w), N.rms_norm_plain(x, w), 1e-5, rtol)
+    s, y = N.add_rms_norm_fused(x, r, w)
+    assert torch.equal(s, x + r)
+    _close(y, N.rms_norm_plain(x + r, w), 1e-5, rtol)
+
+
+@pytest.mark.parametrize("d,off", [(2048, 8), (2048, 2), (3584, 4), (1001, 1)])
+def test_rms_norm_kernel_row_stride(dev, d, off):
+    """Rows of a wider tensor: a row stride that is not d, the first column
+    ``off`` elements in (16-, 8-, 4- or 2-byte aligned vectors)."""
+    x = _randn(dev, 9, d + 24, std=3.0)[:, off:off + d]
+    r = _randn(dev, 9, d + 40, seed=3, std=3.0)[:, :d]
+    w = _randn(dev, d, seed=1)
+    _close(N.rms_norm_fused(x, w), N.rms_norm_plain(x, w), 1e-5, 1.6e-2)
+    s, y = N.add_rms_norm_fused(x, r, w)
+    assert torch.equal(s, x + r)
+    _close(y, N.rms_norm_plain(x + r, w), 1e-5, 1.6e-2)
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("d", [3584, 4096])
+def test_rms_norm_kernel_any_grid(dev, d, add):
+    """Many rows a block: the row loop takes the shared buffers of the warps'
+    partial sums by turns from row to row, so the rows come out bitwise the
+    same on the plan's grid, on one block an SM and on one block."""
+    from t2v_metrics_tpu_torch.ops.gemm import sm_count
+
+    x, w = _randn(dev, 20480, d, std=3.0), _randn(dev, d, seed=1)
+    r = _randn(dev, 20480, d, seed=3, std=3.0) if add else None
+    runs = [N._norm_launch("rms_norm", x, r, w, None, 1e-6, (0.0, True), grid=g)
+            for g in (None, sm_count(x.device), 1)]
+    for s, y in runs[1:]:
+        assert torch.equal(y, runs[0][1])
+        assert (s is None) if r is None else torch.equal(s, runs[0][0])
+
+
+def test_rms_norm_refuses_what_it_lacks(dev):
+    x, w = _randn(dev, 4, 2048), _randn(dev, 2048)
+    with pytest.raises(ValueError):
+        N.add_rms_norm_fused(x, _randn(dev, 4, 1024), w)               # r's shape
+    with pytest.raises(TypeError):
+        N.rms_norm_fused(x, w.float())                                  # weight dtype
+    with pytest.raises(ValueError):
+        N.rms_norm_fused(_randn(dev, 2, 16385), _randn(dev, 16385))
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kvh,causal,bias,mask", [
@@ -363,19 +447,33 @@ def test_attention_kernel_head_dim_72(dev, b, s, h, kvh, d, causal, seg):
     _close_attn(out, A.attention_flat_reference(q, k, v, h, **kw))
 
 
-@pytest.mark.parametrize("h,kvh,d", [(32, 4, 128), (16, 16, 72), (4, 2, 64)])
-def test_rms_norm_heads_kernel(dev, h, kvh, d):
-    """qk-norm in place over the q|k heads of a packed row; v untouched."""
-    pk = _randn(dev, 3, 37, (h + 2 * kvh) * d, std=3.0)
+@pytest.mark.parametrize("h,kvh,d,offset,cast_wd", [
+    (32, 4, 128, 0.0, True), (16, 16, 72, 0.0, True), (4, 2, 64, 0.0, False),
+    (8, 4, 256, 1.0, False), (32, 8, 128, 0.0, True), (16, 2, 64, 0.0, True)])
+@pytest.mark.parametrize("b,s", [(3, 37), (4, 1), (16, 64)])
+def test_rms_norm_heads_kernel(dev, h, kvh, d, offset, cast_wd, b, s):
+    """The qk-norm over the q|k heads of a packed row, folded into the
+    rotation: one launch, counted under rope_pack, in place; v untouched.
+    The qk-norm alone has no kernel on the card and says where it runs."""
+    pk = _randn(dev, b, s, (h + 2 * kvh) * d, std=3.0)
     qs, ks = _randn(dev, d, seed=1), _randn(dev, d, seed=2)
-    ref = N.rms_norm_heads_plain(pk, qs, ks, h, kvh, d)
+    pos = torch.randint(0, 5000, (b, s), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    ang = pos[..., None].float() * _randn(dev, d, seed=3, dtype=torch.float32).abs()
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    args = (qs, ks, cos, sin, h, kvh, d, 1e-6, offset, cast_wd)
+    ref = R.rms_norm_rope_pack_plain(pk, *args)
     buf = pk.clone()
-    before = launch_counts()["rms_norm"]
-    out = N.rms_norm_heads_fused(buf, qs, ks, h, kvh, d)
-    assert launch_counts()["rms_norm"] == before + 1
+    before = launch_counts()
+    out = R.rms_norm_rope_pack(buf, *args)
+    after = launch_counts()
+    assert after["rope_pack"] == before["rope_pack"] + 1
+    assert after["rms_norm"] == before["rms_norm"]
     assert out.data_ptr() == buf.data_ptr()          # written in place
-    _close(out, ref, 1e-5, 1.6e-2)
-    assert torch.equal(out[..., (h + kvh) * d:], pk[..., (h + kvh) * d:])
+    _close_qk_rope(out, ref, N.rms_norm_heads_plain(pk, qs, ks, h, kvh, d, 1e-6, offset, cast_wd),
+                   pk, h + kvh, d)
+    with pytest.raises(ValueError, match="rms_norm_rope_pack"):
+        N.rms_norm_heads_fused(pk, qs, ks, h, kvh, d)
 
 
 @pytest.mark.parametrize("e,k,n,routing", [
@@ -688,10 +786,14 @@ def test_t5_decode_step_attention_kernels(dev):
 
 
 def test_one_row_norm_rope_kernels(dev):
-    """RMSNorm over (4, 3584) and rope over (4, 1, 36 x 128): one row a
-    sequence, as a decode step gives them."""
+    """RMSNorm over (4, 3584), alone and with the add, and rope over (4, 1,
+    36 x 128): one row a sequence, as a decode step gives them."""
     x, w = _randn(dev, 4, 3584, std=3.0), _randn(dev, 3584, seed=1)
     _close(N.rms_norm_fused(x, w), N.rms_norm_plain(x, w), 1e-5, 1.6e-2)
+    r = _randn(dev, 4, 3584, seed=4, std=3.0)
+    s, y = N.add_rms_norm_fused(x, r, w)
+    assert torch.equal(s, x + r)
+    _close(y, N.rms_norm_plain(x + r, w), 1e-5, 1.6e-2)
     pk = _randn(dev, 4, 1, 36 * 128, seed=2)
     ang = 1290.0 * _randn(dev, 128, seed=3, dtype=torch.float32).abs().expand(4, 1, 128)
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -971,17 +1073,26 @@ def test_grouped_gemm_kernel_talker_shapes(dev, tokens):
 
 
 def test_talker_norm_rope_sites(dev):
-    """RMSNorm at 1024 (eps 1e-6 and Code2Wav's 1e-5), the qk-norm of 16 + 2
-    heads of 64 and 16 + 8 of 128 (in place), rope on 18 heads of 64, 24 of
-    128 and 32 of 64, and the ConvNeXt LayerNorm at 1024, eps 1e-6."""
+    """RMSNorm at 1024 (eps 1e-6 and Code2Wav's 1e-5), alone and with the
+    add, the qk-norm + rope of 16 + 2 heads of 64 and 16 + 8 of 128 (in
+    place), rope on 18 heads of 64, 24 of 128 and 32 of 64, and the ConvNeXt
+    LayerNorm at 1024, eps 1e-6."""
     for rows, eps in ((1184, 1e-6), (1, 1e-6), (325, 1e-5)):
         x, w = _randn(dev, rows, 1024, std=3.0), _randn(dev, 1024, seed=1)
         _close(N.rms_norm_fused(x, w, eps), N.rms_norm_plain(x, w, eps), 1e-5, 1.6e-2)
+        r = _randn(dev, rows, 1024, seed=8, std=3.0)
+        s, y = N.add_rms_norm_fused(x, r, w, eps)
+        assert torch.equal(s, x + r)
+        _close(y, N.rms_norm_plain(x + r, w, eps), 1e-5, 1.6e-2)
     for rows, hq, hk, d in ((1184, 16, 2, 64), (2, 16, 8, 128)):
-        pk, qs, ks = (_randn(dev, rows, (hq + 2 * hk) * d, std=3.0), _randn(dev, d, seed=2),
+        pk, qs, ks = (_randn(dev, 1, rows, (hq + 2 * hk) * d, std=3.0), _randn(dev, d, seed=2),
                       _randn(dev, d, seed=3))
-        ref = N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d)
-        _close(N.rms_norm_heads_fused(pk.clone(), qs, ks, hq, hk, d), ref, 1e-5, 1.6e-2)
+        ang = (torch.arange(rows, device=dev, dtype=torch.float32)[None, :, None]
+               * _randn(dev, d, seed=5, dtype=torch.float32).abs())
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        ref = R.rms_norm_rope_pack_plain(pk, qs, ks, cos, sin, hq, hk, d)
+        _close_qk_rope(R.rms_norm_rope_pack(pk.clone(), qs, ks, cos, sin, hq, hk, d), ref,
+                       N.rms_norm_heads_plain(pk, qs, ks, hq, hk, d), pk, hq + hk, d)
     for rows, rot, width, d in ((1184, 18, 20, 64), (2, 24, 32, 128), (325, 32, 48, 64)):
         pk = _randn(dev, 1, rows, width * d, seed=4)
         ang = (torch.arange(rows, device=dev, dtype=torch.float32)[None, :, None]

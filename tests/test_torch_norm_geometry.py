@@ -1,6 +1,7 @@
-"""The CUDA LayerNorm's launch plan, on the CPU.
+"""The CUDA norms' launch plan, on the CPU.
 
-``ops/norms.py:layer_norm_plan`` decides how ``csrc/layer_norm.cu`` lays
+``ops/norms.py:layer_norm_plan`` decides how ``csrc/row_norm.cuh`` (the body
+of both the LayerNorm and the RMSNorm kernel) lays
 rows over warps, lanes and vectors, and the kernel only follows it. Here
 each plan is held to the kernel's index arithmetic, simulated in numpy: lane
 l of warp w of a row's warps holds the vectors q = (w * nv + i) * 32 + l of
@@ -135,9 +136,13 @@ def test_too_wide_rows_raise(dtype):
 
 
 def test_the_plan_lists_the_kernels_instantiations():
-    """LN_NV is the (element size, vector, NV) list of csrc/layer_norm.cu's
-    ``pick``: the plan never asks for a kernel the library lacks."""
-    src = (build.CSRC_DIR / "layer_norm.cu").read_text()
+    """LN_NV is the (element size, vector, NV) list of the row-norm body's
+    ``pick`` (csrc/row_norm.cuh, which csrc/layer_norm.cu and
+    csrc/rms_norm.cu instantiate): the plan never asks for a kernel either
+    library lacks."""
+    for cu in ("layer_norm.cu", "rms_norm.cu"):
+        assert '#include "row_norm.cuh"' in (build.CSRC_DIR / cu).read_text()
+    src = (build.CSRC_DIR / "row_norm.cuh").read_text()
     body = src[src.index("Kernel pick(int vec, int nv)"):src.index("Kernel kernel_for(")]
     found = {int(v): tuple(int(n) for n in nvs.split(","))
              for v, nvs in re.findall(r"pick_nv<T, (\d+), ADD, ([\d, ]+)>", body)}
