@@ -156,6 +156,12 @@ Phases (any failure exits non-zero and prints no result line):
      take the untiled window layout, then 300x380 images through
      ``batch_forward``, which take the tiled one),
      ``VQAScore("qwen3-vl-30b-a3b", init="random")`` (1024x1024 images),
+     (the xl bf16 and the qwen2.5-vl-7b slices also score 4 seeded BGR float
+     ``.npy`` images by path at 300x380 and at 1024x1024, bitwise equal to
+     their flipped and clipped arrays (``[npy]``); the xl slice loads a
+     seeded FFV1 clip written with cv2 through ``media.video_utils``'s
+     ``ApolloMMLoader`` and scores its first clip's ``concatenate_grid``
+     collage (``[apollo]``; one line says so where cv2 is absent))
      ``VQAScore("gemma-3-4b-it", init="random")`` (1024x1024 images) and
      ``VQAScore("clip-flant5-xxl", init="random", quant=q)`` for q in None,
      "int8", "int8+vit", with each int8 mode's score gap from bf16 on the
@@ -1614,6 +1620,84 @@ def seeded_clip(seed: int, frames: int = 150, fps: float = 30.0, h: int = 480,
     return DecodedVideo(rng.integers(0, 256, (frames, h, w, 3), dtype=np.uint8), fps)
 
 
+def npy_check(scorer, tag: str, texts: list[str], seed: int) -> None:
+    """Scores of 4 seeded BGR float32 ``.npy`` images (values -20 to 280)
+    given by path, at 300x380 and at 1024x1024, against the same call on
+    their flipped and clipped arrays: bitwise equal (the loader reads a
+    ``.npy`` path as that array truncated to uint8, with no Pillow)."""
+    import tempfile
+
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory(prefix="npy_") as tmp:
+        for h, w in ((300, 380), (1024, 1024)):
+            bgrs = [rng.uniform(-20.0, 280.0, (h, w, 3)).astype(np.float32)
+                    for _ in range(4)]
+            paths = [os.path.join(tmp, f"{h}x{w}_{i}.npy") for i in range(4)]
+            for path, bgr in zip(paths, bgrs):
+                np.save(path, bgr)
+            by_path = scorer(images=paths, texts=texts)
+            by_array = scorer(images=[np.clip(b[:, :, [2, 1, 0]], 0, 255) for b in bgrs],
+                              texts=texts)
+            check(by_path.shape == (4, len(texts)) and np.isfinite(by_path).all()
+                  and ((by_path >= 0) & (by_path <= 1)).all(),
+                  f"[npy] {tag} {h}x{w}: scores not finite in [0, 1]")
+            check(np.array_equal(by_path, by_array),
+                  f"[npy] {tag} {h}x{w}: .npy paths score differently from their arrays")
+            log(f"[npy] {tag} 4 .npy paths at {h}x{w} x {len(texts)} texts: bitwise "
+                f"equal to their flipped and clipped arrays; log scores row 0 "
+                f"{np.log(by_path[0]).round(4).tolist()}")
+
+
+def apollo_check(scorer, tag: str, texts: list[str], seed: int) -> None:
+    """Where cv2 imports: a seeded FFV1 clip (5 s at 30 fps, 480x640) written
+    with cv2, loaded by ``ApolloMMLoader(clip_duration=2.0,
+    frames_per_clip=4).load_video`` (its frames equal to the written ones at
+    the sampled indices), and the first clip's ``concatenate_grid`` collage
+    scored through ``scorer``. One line, and no check, where cv2 is absent:
+    nothing of the device path needs it."""
+    import tempfile
+
+    try:
+        import cv2
+    except ImportError as e:
+        log(f"[apollo] not run: cv2 does not import on this machine ({e})")
+        return
+    from t2v_metrics_tpu_torch.media import video_utils as vu
+    from t2v_metrics_tpu_torch.media.video import concatenate_grid
+
+    frames = seeded_clip(seed).frames  # RGB
+    with tempfile.TemporaryDirectory(prefix="apollo_") as tmp:
+        path = os.path.join(tmp, "clip.avi")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"FFV1"), 30.0, (640, 480))
+        check(writer.isOpened(), f"[apollo] cv2 {cv2.__version__} cannot write FFV1")
+        for f in frames:
+            writer.write(np.ascontiguousarray(f[:, :, ::-1]))
+        writer.release()
+        t0 = time.perf_counter()
+        loader = vu.ApolloMMLoader(clip_duration=2.0, frames_per_clip=4)
+        clips, stamps = loader.load_video(path)
+        t_load = time.perf_counter() - t0
+        total, fps, duration = vu.get_video_details(path)
+    _, all_idx, _ = vu.calculate_sample_indices(
+        2.0, 4, total, fps, duration,
+        clip_sampling_ratio=loader.effective_sampling_ratio(duration))
+    check((total, fps) == (150, 30.0) and len(clips) == 3
+          and all(c.shape == (4, 480, 640, 3) for c in clips),
+          f"[apollo] {total} frames at {fps} fps, clips {[c.shape for c in clips]}")
+    check(np.array_equal(np.concatenate(clips), frames[all_idx]),
+          "[apollo] loaded frames differ from the written frames at the sampled indices")
+    collage = concatenate_grid(list(clips[0]))
+    scores = scorer(images=[collage], texts=texts)
+    check(scores.shape == (1, len(texts)) and np.isfinite(scores).all()
+          and ((scores >= 0) & (scores <= 1)).all(),
+          f"[apollo] collage scores {scores} not finite in [0, 1]")
+    log(f"[apollo] cv2 {cv2.__version__}: ApolloMMLoader.load_video of a 150-frame "
+        f"480x640 FFV1 clip in {t_load:.3f} s: {len(clips)} clips of 4, indices "
+        f"{all_idx}, timestamps {[(round(float(a), 4), round(float(b), 4)) for a, b in stamps]}, "
+        f"frames equal to the written ones; {tag} on the first clip's 1024x1024 "
+        f"collage: log scores {np.log(scores[0]).round(4).tolist()}")
+
+
 def chain_config(layers_vit: int = 2, layers_t5: int = 2,
                  model: str = "clip-flant5-xl"):
     from t2v_metrics_tpu_torch.models.clip_flant5 import CLIP_T5_CONFIGS
@@ -2549,15 +2633,17 @@ def t5_generation_chain(engines, images, texts, tol) -> None:
 
 def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
                 quant: str | None = None, profile: bool = False,
-                bf16_rows=None, generate: int = 0) -> tuple[list, np.ndarray]:
+                bf16_rows=None, generate: int = 0,
+                media_checks: bool = False) -> tuple[list, np.ndarray]:
     """``VQAScore(model, init="random", quant=quant)``: the first 4 x 8 call
     with its launch counts, ``batch_forward`` of 16 x (1 image, 4 texts)
     against the pairwise forward, then with the T5 scale folded (see
     fold_t5_attention_scale) its rows against per-sample calls, pairs/s,
     memory; with ``generate``, ``generate`` of the 4 images x that many
-    tokens (phase_generation). Returns the launch counts of each path and
-    the folded ``batch_forward`` rows; an int8 mode prints its gap from
-    ``bf16_rows``, the bf16 mode's rows on the same weights."""
+    tokens (phase_generation); with ``media_checks``, ``npy_check`` and
+    ``apollo_check`` on the same scorer. Returns the launch counts of each
+    path and the folded ``batch_forward`` rows; an int8 mode prints its gap
+    from ``bf16_rows``, the bf16 mode's rows on the same weights."""
     import t2v_metrics_tpu_torch as t2v
     from t2v_metrics_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -2599,6 +2685,9 @@ def phase_slice(model: str = "clip-flant5-xl", device: str = "cuda",
     again = scorer(images=images, texts=texts)
     check(np.array_equal(scores, again), "slice: second call differs")
     log(f"[slice] log scores row 0: {np.log(scores[0]).round(4).tolist()}")
+    if media_checks:
+        npy_check(scorer, name, texts, 25)
+        apollo_check(scorer, name, texts, 26)
 
     pool_images, pool_texts = seeded_images(16, 23), seeded_texts(64, 24)
     data = [{"images": [pool_images[i]], "texts": pool_texts[4 * i:4 * i + 4]}
@@ -2995,6 +3084,7 @@ def phase_qwen_slice(model: str = QWEN, device: str = "cuda", side: int = 1024,
     check(np.array_equal(scores, scorer(images=images, texts=texts)),
           "qwen slice: second call differs")
     log(f"[qwen slice] log scores: {np.log(scores).round(4).tolist()}")
+    npy_check(scorer, model, texts, 45)
 
     pool = seeded_images(8, 43)
     pool_texts = seeded_texts(32, 44)
@@ -6197,7 +6287,8 @@ def main() -> int:
     # each slice's model is dropped on return and freed before the next
     with stage("slice xl"):
         slice_counts = [checkpoint_counts, *genai_counts,
-                        *phase_slice(profile=args.profile, generate=32)[0]]
+                        *phase_slice(profile=args.profile, generate=32,
+                                     media_checks=True)[0]]
         free_cuda()
     for run in (phase_qwen_slice, phase_qwen3_slice, phase_gemma_slice):
         with stage(run.__name__.removeprefix("phase_").replace("_", " ")):

@@ -19,9 +19,10 @@ Images: same-shape uint8 HWC arrays no larger than 384 px ship at source
 resolution and the whole preprocess (CLIP-FlanT5: pad to square; CLIPScore:
 shortest side and centre crop; a float bicubic resize, normalize) runs on
 the device, as the JAX engines' device path. Anything else is decoded on the
-host (paths with PIL), goes to the device as uint8 and is padded or resized
-and cropped there with Pillow's uint8 resize, bit for bit
-(``pillow_resize_batch``), as the JAX engines' host path does with Pillow.
+host (paths with PIL; ``.npy`` paths, BGR arrays, with numpy), goes to the
+device as uint8 and is padded or resized and cropped there with Pillow's
+uint8 resize, bit for bit (``pillow_resize_batch``), as the JAX engines'
+host path does with Pillow.
 """
 
 from __future__ import annotations
@@ -76,9 +77,17 @@ def _device_resize_batch(images) -> np.ndarray | None:
 
 
 def _load_uint8(image) -> np.ndarray:
-    """A path, PIL image or array -> uint8 RGB HWC."""
+    """A path, PIL image or array -> uint8 RGB HWC. A path ending in ``.npy``
+    holds a BGR array (the reference's ``model.py:12-13``): it is flipped to
+    RGB and, unless uint8, clipped to [0, 255] and truncated, with no
+    Pillow."""
     if isinstance(image, np.ndarray):
         arr = image
+    elif str(image).endswith(".npy"):  # no PIL image's str() ends so
+        try:
+            arr = np.load(image)[:, :, [2, 1, 0]]
+        except (OSError, ValueError, IndexError) as e:  # missing, truncated, not HWC
+            raise MediaError(f"cannot read image {image}: {e}") from e
     else:
         from PIL import Image  # only paths and PIL images need Pillow
 

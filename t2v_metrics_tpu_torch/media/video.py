@@ -1,5 +1,6 @@
-"""Host-side video frames (a copy of ``_open_capture``, ``is_video_path``,
-``extract_frames`` and ``concatenate_horizontal`` from
+"""Host-side video frames (a copy of ``_open_capture``, ``video_info``,
+``is_video_path``, ``extract_frames``, ``concatenate_horizontal``,
+``concatenate_vertical`` and ``concatenate_grid`` from
 t2v_metrics_tpu/media/video.py, without its native libav reader).
 
 Frames are decoded with OpenCV's position seek, imported only when a video
@@ -37,6 +38,21 @@ def _open_capture(video_path: str):
     if not cap.isOpened():
         raise MediaError(f"cannot open video {video_path}")
     return cap, cv2
+
+
+def video_info(video_path: str) -> dict:
+    """Frame count, frames per second (30.0 where the file gives 0), width
+    and height of a video file."""
+    cap, cv2 = _open_capture(video_path)
+    try:
+        return {
+            "total_frames": int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+            "fps": float(cap.get(cv2.CAP_PROP_FPS)) or 30.0,
+            "width": int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+            "height": int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+        }
+    finally:
+        cap.release()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -110,6 +126,46 @@ def concatenate_horizontal(frames: list[np.ndarray], dist: int = 10) -> np.ndarr
         fh, fw = f.shape[:2]
         out[:fh, x:x + fw] = f
         x += fw + dist
+    return out
+
+
+def concatenate_vertical(frames: list[np.ndarray], dist: int = 10) -> np.ndarray:
+    """Concatenate frames top-to-bottom on black, left-aligned."""
+    w = max(f.shape[1] for f in frames)
+    total_h = sum(f.shape[0] for f in frames) + dist * (len(frames) - 1)
+    out = np.zeros((total_h, w, 3), np.uint8)
+    y = 0
+    for f in frames:
+        fh, fw = f.shape[:2]
+        out[y:y + fh, :fw] = f
+        y += fh + dist
+    return out
+
+
+def concatenate_grid(frames: list[np.ndarray], dist: int = 10,
+                     output_size: tuple[int, int] = (1024, 1024)) -> np.ndarray:
+    """A square grid collage on black, at least 2 x 2: each frame resized
+    with cv2's Lanczos to fit its cell with its aspect kept, and centred
+    there."""
+    import cv2
+    from math import ceil, sqrt
+
+    n = len(frames)
+    grid = max(2, ceil(sqrt(n)))
+    cw = (output_size[0] - dist * (grid - 1)) // grid
+    ch = (output_size[1] - dist * (grid - 1)) // grid
+    out = np.zeros((output_size[1], output_size[0], 3), np.uint8)
+    for i, f in enumerate(frames):
+        ratio = f.shape[1] / f.shape[0]
+        if ratio > cw / ch:
+            nw, nh = cw, int(cw / ratio)
+        else:
+            nw, nh = int(ch * ratio), ch
+        rs = cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LANCZOS4)
+        row, col = i // grid, i % grid
+        x = col * (cw + dist) + (cw - nw) // 2
+        y = row * (ch + dist) + (ch - nh) // 2
+        out[y:y + nh, x:x + nw] = rs
     return out
 
 

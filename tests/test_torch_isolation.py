@@ -317,6 +317,26 @@ def test_video_helpers_equal_the_jax_package():
         assert TV.is_video_path(path) == JV.is_video_path(path)
 
 
+def test_video_info_and_collages_equal_the_jax_package(tmp_path):
+    """``video_info`` of a cv2-written clip, ``concatenate_vertical`` and
+    ``concatenate_grid`` (cv2 Lanczos) give the JAX package's results."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(1)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((12, 20), (16, 8), (5, 5))]
+    np.testing.assert_array_equal(TV.concatenate_vertical(frames, dist=3),
+                                  JV.concatenate_vertical(frames, dist=3))
+    np.testing.assert_array_equal(TV.concatenate_grid(frames, output_size=(64, 48)),
+                                  JV.concatenate_grid(frames, output_size=(64, 48)))
+    path = str(tmp_path / "c.avi")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"FFV1"), 12.0, (20, 12))
+    for _ in range(5):
+        writer.write(frames[0])
+    writer.release()
+    assert TV.video_info(path) == JV.video_info(path) == {
+        "total_frames": 5, "fps": 12.0, "width": 20, "height": 12}
+
+
 def test_conversation_templates_equal_the_jax_package():
     """InternVL's templates: the port's copy of fastchat_utils gives the JAX
     package's prompt in every template and separator style."""
