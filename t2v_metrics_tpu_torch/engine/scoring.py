@@ -32,6 +32,8 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import tracing
+from ..tracing import to_device, to_host
 from ..constants import (CLIP_MEAN, CLIP_STD, DEFAULT_ANSWER_TEMPLATE,
                          DEFAULT_QUESTION_TEMPLATE, IMAGE_TOKEN_INDEX)
 from ..media.video import MediaError
@@ -73,7 +75,8 @@ def _device_resize_batch(images) -> np.ndarray | None:
                 and im.shape == first.shape):
             return None
     h, w, c = first.shape
-    return np.stack(images).reshape(len(images), h, w * c)
+    with tracing.span("engine.decode"):
+        return np.stack(images).reshape(len(images), h, w * c)
 
 
 def _load_uint8(image) -> np.ndarray:
@@ -106,14 +109,16 @@ def encode_by_shape(visuals, device, encode) -> list:
     HWC and grouped by shape; each group stacked to (n, H, W*3) uint8 on the
     device goes through ``encode`` in one call (one preprocess and tower call
     a group), and each visual gets its row of the result."""
-    hosts = [_load_uint8(v) for v in visuals]
-    groups = {}
-    for i, img in enumerate(hosts):
-        groups.setdefault(img.shape, []).append(i)
+    with tracing.span("engine.decode"):
+        hosts = [_load_uint8(v) for v in visuals]
+        groups = {}
+        for i, img in enumerate(hosts):
+            groups.setdefault(img.shape, []).append(i)
     out = [None] * len(hosts)
     for (h, w, _), idxs in groups.items():
-        stack = np.stack([hosts[i] for i in idxs]).reshape(len(idxs), h, w * 3)
-        feats = encode(torch.from_numpy(stack).to(device))
+        with tracing.span("engine.decode"):
+            stack = np.stack([hosts[i] for i in idxs]).reshape(len(idxs), h, w * 3)
+        feats = encode(to_device(stack, device))
         for row, i in enumerate(idxs):
             out[i] = feats[row]
     return out
@@ -173,7 +178,7 @@ def _pixels_bucketed(images, size: int, pad_square: bool, device) -> torch.Tenso
     if stack is None:
         pixels = pillow_resize_batch(images, size, pad_square, device)
     else:
-        pixels = torch.from_numpy(stack).to(device)
+        pixels = to_device(stack, device)
     return pad_rows_to(pixels, _bucket(len(images), IMG_BUCKETS))
 
 
@@ -193,7 +198,7 @@ class _HostScores:
         self.t = t
 
     def __array__(self, dtype=None, copy=None):
-        arr = self.t.float().cpu().numpy()
+        arr = to_host(self.t)
         return arr if dtype is None else arr.astype(dtype)
 
 
@@ -281,18 +286,27 @@ class CLIPT5Engine:
     def _encode(self, pixels: torch.Tensor) -> torch.Tensor:
         """(M, H, W*3) uint8 on the device -> (M, T, D) image features."""
         cfg = self.cfg
-        x = clip_pixels(pixels, cfg.vision.image_size, cfg.image_aspect_ratio == "pad")
-        with self.par.ambient():
-            return tcft5.image_features(self.params, cfg, x)
+        with tracing.span("engine.encode"):
+            x = clip_pixels(pixels, cfg.vision.image_size, cfg.image_aspect_ratio == "pad")
+            with self.par.ambient():
+                return tcft5.image_features(self.params, cfg, x)
 
     @torch.inference_mode()
-    def _score(self, feats, arrays, pair_image, pair_text) -> torch.Tensor:
-        dev = [torch.from_numpy(a).to(self.device) for a in arrays]
-        with self.par.ambient():
-            return tcft5.score_pairs(
-                self.params, self.cfg, feats, *dev,
-                torch.from_numpy(pair_image).to(self.device).long(),
-                torch.from_numpy(pair_text).to(self.device).long())
+    def _score(self, feats, arrays, pair_image, pair_text, real: int) -> torch.Tensor:
+        """(P,) log scores on the device of the pairs ``pair_image`` x
+        ``pair_text``, the first ``real`` of them the caller's and the rest
+        padding. Traced, it counts the encoder's rows, all and the real
+        pairs'."""
+        with tracing.span("engine.score"):
+            if tracing.enabled():
+                enc_mask = arrays[3]
+                tracing.count("t5_enc_rows", len(pair_text) * enc_mask.shape[1])
+                tracing.count("t5_enc_rows_valid", int(enc_mask[pair_text[:real]].sum()))
+            dev = [to_device(a, self.device) for a in arrays]
+            pi = to_device(pair_image, self.device).long()
+            pt = to_device(pair_text, self.device).long()
+            with self.par.ambient():
+                return tcft5.score_pairs(self.params, self.cfg, feats, *dev, pi, pt)
 
     # -- host-side assembly ---------------------------------------------------
 
@@ -349,8 +363,9 @@ class CLIPT5Engine:
     def score_matrix(self, images, texts, question_template: str | None = None,
                      answer_template: str | None = None) -> np.ndarray:
         """(M images) x (N texts) -> (M, N) float32 scores = exp(mean logp)."""
-        questions, answers = self._prompts(texts, question_template,
-                                           answer_template)
+        with tracing.span("engine.tokenize"):
+            questions, answers = self._prompts(texts, question_template,
+                                               answer_template)
         rows = self.par.rows(len(images))
         local = (self._score_pairs_all(images[rows], questions, answers)
                  if rows.stop > rows.start else np.zeros((0, len(texts)), np.float32))
@@ -359,8 +374,9 @@ class CLIPT5Engine:
     def _score_pairs_all(self, images, questions, answers) -> np.ndarray:
         m, n = len(images), len(questions)
         feats = self.encode_images(images)
-        arrays = _pad_rows(self._build_text_arrays(questions, answers),
-                           _bucket(n, TXT_BUCKETS))
+        with tracing.span("engine.tokenize"):
+            arrays = _pad_rows(self._build_text_arrays(questions, answers),
+                               _bucket(n, TXT_BUCKETS))
         pair_image = np.repeat(np.arange(m, dtype=np.int32), n)
         pair_text = np.tile(np.arange(n, dtype=np.int32), m)
         p = m * n
@@ -373,8 +389,8 @@ class CLIPT5Engine:
                 pad = chunk - (hi - lo)
                 pi = np.concatenate([pi, np.repeat(pi[-1:], pad)])
                 pt = np.concatenate([pt, np.repeat(pt[-1:], pad)])
-            logp = self._score(feats, arrays, pi, pt)
-            out[lo:hi] = logp.float().cpu().numpy()[: hi - lo]
+            logp = self._score(feats, arrays, pi, pt, hi - lo)
+            out[lo:hi] = to_host(logp)[: hi - lo]
         return out.reshape(m, n)
 
     def forward_pairwise(self, images, texts, question_template=None,
@@ -404,11 +420,12 @@ class CLIPT5Engine:
 
     def _prepare(self, images, texts, question_template, answer_template):
         uniq, inv = unique_visuals(images)  # repeated [img]*N calls still encode once
-        questions, answers = self._prompts(texts, question_template,
-                                           answer_template)
         n = len(texts)
         nb = _bucket(n, TXT_BUCKETS)
-        arrays = _pad_rows(self._build_text_arrays(questions, answers), nb)
+        with tracing.span("engine.tokenize"):
+            questions, answers = self._prompts(texts, question_template,
+                                               answer_template)
+            arrays = _pad_rows(self._build_text_arrays(questions, answers), nb)
         pair_image = _pad_rows((np.asarray(inv, np.int32),), nb)[0]
         pair_text = _pad_rows((np.arange(n, dtype=np.int32),), nb)[0]
         return {"pixels": self._pixels(uniq), "m": len(uniq), "arrays": arrays,
@@ -424,7 +441,7 @@ class CLIPT5Engine:
             return _HostScores(self.par.gather_pairs(scores, owners)), prep["n"]
         feats = self._encode(prep["pixels"])[: prep["m"]]
         logp = self._score(feats, prep["arrays"], prep["pair_image"],
-                           prep["pair_text"])
+                           prep["pair_text"], prep["n"])
         return _HostScores(torch.exp(logp)), prep["n"]
 
     # -- generation -----------------------------------------------------------

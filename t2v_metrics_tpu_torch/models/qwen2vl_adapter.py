@@ -38,6 +38,7 @@ import torch
 from ..engine.scoring import _HostScores, _load_uint8, unique_visuals
 from ..media.video import MediaError, is_video, open_video
 from ..ops.image import smart_resize
+from ..tracing import to_device
 from . import qwen2vl as q
 from .generation import CachedLM, trace_from_rollout
 from . import checkpoint as ckpt
@@ -181,7 +182,7 @@ class Qwen2VLAdapter(VQAScoreModel):
             geom, pos_hw, win_seg, full_seg, reverse, tiled = _padded_geometry(
                 self.config.vision, grid, s, sb)
             perm = geom["perm_tile"] if tiled else geom["perm"]
-            dev = [torch.from_numpy(a.astype(np.int64)).to(self.device)
+            dev = [to_device(a.astype(np.int64), self.device)
                    for a in (perm, pos_hw, win_seg, full_seg, reverse)]
             self._geometry[key] = (*dev, tiled)
         return self._geometry[key]
@@ -264,7 +265,7 @@ class Qwen2VLAdapter(VQAScoreModel):
                 self._device_geometry(grid, s, sb)
             n = len(idxs)
             stack = np.stack([hosts[i][1] for i in idxs])
-            pixels = torch.from_numpy(stack.reshape(*stack.shape[:-2], -1)).to(self.device)
+            pixels = to_device(stack.reshape(*stack.shape[:-2], -1), self.device)
             rows = self._patch_rows(kind, pixels, hb, wb)[:, perm]
             if rows.shape[1] < sb:
                 rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
@@ -328,7 +329,7 @@ class Qwen2VLAdapter(VQAScoreModel):
         t_max = max(max(e[0].shape[-2] for e in encoded), 1)
         padded = torch.stack([torch.nn.functional.pad(
             e[0], (0, 0, 0, t_max - e[0].shape[-2])) for e in encoded])
-        feats = padded[torch.as_tensor(inv, device=padded.device)]
+        feats = padded[to_device(np.asarray(inv, np.int64), padded.device)]
         return (ids, feats, vis_mask, vis_slot, pos, attn), prompt_lens
 
     # ------------------------------------------------------------------
@@ -380,7 +381,7 @@ class Qwen2VLAdapter(VQAScoreModel):
             last = pos[:, j, n - 1].max()
             pos[:, j, n:n + len(a)] = last + 1 + np.arange(len(a))
 
-        dev = [torch.from_numpy(a).to(self.device)
+        dev = [to_device(a, self.device)
                for a in (full_ids, vis_mask, vis_slot, pos, attn, ans_ids,
                          ans_pos, ans_mask)]
         logp = self._splice_and_score(dev[0], feats, *dev[1:],

@@ -27,6 +27,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..tracing import to_device
 from . import qwen2vl as q2
 from . import checkpoint as ckpt
 from . import qwen3vl as q3
@@ -122,7 +123,7 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
             seg = np.concatenate([np.zeros(s, np.int32), np.full(sb - s, -1, np.int32)])
             pe_idx, pe_w, pe_perm = q3.pos_embed_interp(grid, cfg)
             self._geometry[key] = tuple(
-                torch.from_numpy(a).to(self.device)
+                to_device(a, self.device)
                 for a in (pos_hw.astype(np.int64), seg, pe_idx.astype(np.int64),
                           pe_w, pe_perm.astype(np.int64)))
         return self._geometry[key]
@@ -149,7 +150,7 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
             pos_hw, seg, pe_idx, pe_w, pe_perm = self._device_geometry(grid, s, sb)
             n = len(idxs)
             stack = np.stack([hosts[i][1] for i in idxs])
-            pixels = torch.from_numpy(stack.reshape(*stack.shape[:-2], -1)).to(self.device)
+            pixels = to_device(stack.reshape(*stack.shape[:-2], -1), self.device)
             rows = self._patch_rows(kind, pixels, hb, wb)
             if rows.shape[1] < sb:
                 rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))

@@ -2,25 +2,20 @@
 
 from __future__ import annotations
 
+from .. import tracing
 
-def _launchers() -> dict:
-    from . import attention, moe, norms, quant, rope
-
-    return {"flash_attention_flat": attention.flash_flat_launch,
-            "flash_attention": attention.flash_attention_launch,
-            "layer_norm": norms.layer_norm_launch,
-            "rms_norm": norms.rms_norm_launch,
-            "rope_pack": rope.rope_pack_launch,
-            "grouped_gemm": moe.grouped_gemm_launch,
-            "quant_matmul": quant.quant_matmul_launch,
-            "quantize_rows": quant.quantize_rows_launch}
+# each kernel's launches are the counter "launch.<kernel>" (tracing.py)
+KERNELS = ("flash_attention_flat", "flash_attention", "layer_norm", "rms_norm",
+           "rope_pack", "grouped_gemm", "quant_matmul", "quantize_rows")
+_reset_at: dict[str, int] = {}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {name: fn.launches for name, fn in _launchers().items()}
+    totals = tracing.totals()
+    return {k: totals.get("launch." + k, 0) - _reset_at.get(k, 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for fn in _launchers().values():
-        fn.launches = 0
+    totals = tracing.totals()
+    _reset_at.update({k: totals.get("launch." + k, 0) for k in KERNELS})

@@ -43,6 +43,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from .position import compute_position_bias, relative_position_bucket
 
 # the head dims each CUDA kernel is built for (88: BLIP-2's EVA ViT-g, in the
@@ -394,11 +395,8 @@ def flash_flat_launch(q, k, v, q_off, k_off, v_off, heads, kv_heads, d, sq,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_flat_forward launch failed: CUDA error {rc}")
-    flash_flat_launch.launches += 1
+    tracing.count("launch.flash_attention_flat")
     return out
-
-
-flash_flat_launch.launches = 0
 
 
 def _kernel_device(x, d, what="flash_attention_flat"):
@@ -509,11 +507,8 @@ def flash_attention_launch(q, k, v, bias, kv_mask, causal, scale, segment_ids,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_forward launch failed: CUDA error {rc}")
-    flash_attention_launch.launches += 1
+    tracing.count("launch.flash_attention")
     return out.transpose(1, 2)
-
-
-flash_attention_launch.launches = 0
 
 
 def flash_attention(q, k, v, bias=None, kv_mask=None, causal=False, scale=None,

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..parallel import comm
 from . import gemm as G
 from . import layers as L
@@ -172,11 +173,8 @@ def grouped_gemm_launch(xg: torch.Tensor, w: torch.Tensor,
                             torch.cuda.current_stream(xg.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"grouped_gemm_forward launch failed: CUDA error {rc}")
-    grouped_gemm_launch.launches += 1
+    tracing.count("launch.grouped_gemm")
     return out
-
-
-grouped_gemm_launch.launches = 0
 
 
 def grouped_matmul(xg: torch.Tensor, w: torch.Tensor,

@@ -44,6 +44,8 @@ import functools
 
 import torch
 
+from .. import tracing
+
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU route and the kernels' oracle)
@@ -317,17 +319,14 @@ def _norm_launch(what, x, r, scale, bias, eps, rms=None, grid=None):
                                                     float(offset), int(cast), stream)
         if rc != 0:
             raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
-        (layer_norm_launch if rms is None else rms_norm_launch).launches += 1
+        tracing.count("launch.layer_norm" if rms is None else "launch.rms_norm")
     return s, y
 
 
 def layer_norm_launch(x, scale, bias, eps):
-    """Launch the LayerNorm kernel on a CUDA tensor. ``launches`` counts the
-    launches of both entries, this and ``add_layer_norm_launch``."""
+    """Launch the LayerNorm kernel on a CUDA tensor. The counter
+    ``launch.layer_norm`` counts the launches of both entries, this and ``add_layer_norm_launch``."""
     return _norm_launch("layer_norm", x, None, scale, bias, eps)[1]
-
-
-layer_norm_launch.launches = 0
 
 
 def add_layer_norm_launch(x, r, scale, bias, eps):
@@ -337,13 +336,10 @@ def add_layer_norm_launch(x, r, scale, bias, eps):
 
 
 def rms_norm_launch(x, scale, eps, offset, cast_weight_dtype):
-    """Launch the RMSNorm kernel on a CUDA tensor. ``launches`` counts the
-    launches of both entries, this and ``add_rms_norm_launch``."""
+    """Launch the RMSNorm kernel on a CUDA tensor. The counter
+    ``launch.rms_norm`` counts the launches of both entries, this and ``add_rms_norm_launch``."""
     return _norm_launch("rms_norm", x, None, scale, None, eps,
                         (offset, cast_weight_dtype))[1]
-
-
-rms_norm_launch.launches = 0
 
 
 def add_rms_norm_launch(x, r, scale, eps, offset, cast_weight_dtype):

@@ -53,6 +53,7 @@ import functools
 import torch
 from torch import nn
 
+from .. import tracing
 from ..parallel import comm
 from . import gemm as G
 
@@ -238,16 +239,13 @@ def _quant_rows_run(x: torch.Tensor, mode: int, xs: torch.Tensor | None = None):
         _quant_rows_kernel()[(rows,)](x2, s if x_q is None else x_q, s, x2.stride(0), k,
                                       BLOCK=block, MODE=mode,
                                       num_warps=max(1, min(16, block // 256)))
-        quantize_rows_launch.launches += 1
+        tracing.count("launch.quantize_rows")
     return (None if x_q is None else x_q.reshape(x.shape)), s.reshape(*x.shape[:-1], 1)
 
 
 def quantize_rows_launch(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the row-quant kernel on a CUDA tensor."""
     return _quant_rows_run(x, 0)
-
-
-quantize_rows_launch.launches = 0
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -321,7 +319,7 @@ def _quant_matmul_run(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale):
                             min(units, sms), torch.cuda.current_stream(x_q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul_forward launch failed: CUDA error {rc}")
-    quant_matmul_launch.launches += 1
+    tracing.count("launch.quant_matmul")
     return part if partials else out
 
 
@@ -371,11 +369,8 @@ def quant_matmul_dequant_launch(part: torch.Tensor, x_scale: torch.Tensor,
                                     torch.cuda.current_stream(part.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul_dequant launch failed: CUDA error {rc}")
-    quant_matmul_launch.launches += 1
+    tracing.count("launch.quant_matmul")
     return out
-
-
-quant_matmul_launch.launches = 0
 
 
 def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,

@@ -56,6 +56,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from .norms import rms_norm_heads_plain
 
 
@@ -232,18 +233,16 @@ def _launch(packed, cos, sin, rot_heads, d, norm=None):
             float(eps), float(offset), D=d, HALF=half, HALF_P2=1 << (half - 1).bit_length(),
             BLOCK_R=plan.block_r, NORM=norm is not None, HAS_OFFSET=bool(offset),
             CAST=bool(cast), num_warps=plan.num_warps)
-        rope_pack_launch.launches += 1
+        tracing.count("launch.rope_pack")
     return packed
 
 
 def rope_pack_launch(packed, cos, sin, rot_heads, d):
     """Launch the kernel on a CUDA tensor: rotates the q|k lanes of
-    ``packed`` in place and returns it. ``launches`` counts the launches of
-    both entries, this and ``rms_norm_rope_pack_launch``."""
+    ``packed`` in place and returns it. The counter ``launch.rope_pack``
+    counts the launches of both entries, this and
+    ``rms_norm_rope_pack_launch``."""
     return _launch(packed, cos, sin, rot_heads, d)
-
-
-rope_pack_launch.launches = 0
 
 
 def rms_norm_rope_pack_launch(packed, q_scale, k_scale, cos, sin, n_q, n_k, d, eps,

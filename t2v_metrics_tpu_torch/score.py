@@ -23,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from . import tracing
 from .media.video import concatenate_horizontal, extract_frames, is_video_path
 from .registry import (get_clipscore_model, get_itmscore_model, get_vqascore_model,
                        list_all_clipscore_models, list_all_itmscore_models,
@@ -68,6 +69,12 @@ class Score:
         return out
 
     def forward(self, images, texts, num_frames: int = 8, **kwargs) -> np.ndarray:
+        with tracing.span("facade.call", request=True):
+            return self._forward(images, texts, num_frames, **kwargs)
+
+    __call__ = forward
+
+    def _forward(self, images, texts, num_frames, **kwargs) -> np.ndarray:
         if isinstance(images, (str, np.ndarray)):
             images = [images]
         if isinstance(texts, str):
@@ -83,8 +90,6 @@ class Score:
             scores = np.stack(rows)
         return np.asarray(scores, np.float32)
 
-    __call__ = forward
-
     def batch_forward(self, dataset, batch_size: int = 16,
                       on_drain=None, **kwargs) -> np.ndarray:
         """dataset: sequence of {"images"|"videos": [...], "texts": [...]}.
@@ -95,6 +100,10 @@ class Score:
         on_drain: optional callable(hi) invoked from the main thread each
         time samples [lo, hi) finish (scores written to the output array).
         """
+        with tracing.span("facade.batch", request=True):
+            return self._batch_forward(dataset, batch_size, on_drain, **kwargs)
+
+    def _batch_forward(self, dataset, batch_size, on_drain, **kwargs) -> np.ndarray:
         first = dataset[0]
         media_key = "videos" if "videos" in first else "images"
         num_media = len(first[media_key])
@@ -240,9 +249,16 @@ class Score:
             if on_drain is not None:
                 on_drain(phi)
 
+        def _prep(parent, pair_media, pair_text, slot):
+            with tracing.span("facade.prep", parent=parent):
+                return self.model.prepare_pairs(pair_media, pair_text, slot=slot, **kwargs)
+
         def _dispatch_one():
             plo, phi, fut = prep_q.popleft()
-            dev, cnt = self.model.forward_device_prepared(fut.result())
+            with tracing.span("facade.prep_wait"):
+                prep = fut.result()
+            with tracing.span("facade.dispatch"):
+                dev, cnt = self.model.forward_device_prepared(prep)
             inflight.append((plo, phi, dev, cnt))
 
         # keep the caller-visible progress bar (chunks is a tqdm range)
@@ -262,8 +278,7 @@ class Score:
                 pair_media, pair_text = self._flatten_pairs(
                     samples, media_key, kwargs.get("num_frames", 8))
                 prep_q.append((lo, hi, prep_ex.submit(
-                    self.model.prepare_pairs, pair_media, pair_text,
-                    slot=idx % ring, **kwargs)))
+                    _prep, tracing.current(), pair_media, pair_text, idx % ring)))
                 while len(prep_q) > prep_ahead:
                     _dispatch_one()
                     while len(inflight) > depth:

@@ -292,6 +292,7 @@ def test_chip_smoke_genai_bench_phase_on_the_cpu(tmp_path, monkeypatch):
     from t2v_metrics_tpu_torch.models import adapters as A
     from t2v_metrics_tpu_torch.models import clip_flant5 as C
     from t2v_metrics_tpu_torch.models.checkpoint import resolve_snapshot
+    from t2v_metrics_tpu_torch import tracing
     from t2v_metrics_tpu_torch.ops import attention, norms
 
     cfg = A.CLIP_T5_MODELS[MODEL]["config"]
@@ -299,12 +300,11 @@ def test_chip_smoke_genai_bench_phase_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "card_line", lambda: "CPU")
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    for mod, name, launcher in ((attention, "attention_flat_reference",
-                                 attention.flash_flat_launch),
-                                (norms, "layer_norm_plain", norms.layer_norm_launch),
-                                (norms, "rms_norm_plain", norms.rms_norm_launch)):
-        def counted(*a, _fn=getattr(mod, name), _launcher=launcher, **k):
-            _launcher.launches += 1
+    for mod, name, kernel in ((attention, "attention_flat_reference", "flash_attention_flat"),
+                              (norms, "layer_norm_plain", "layer_norm"),
+                              (norms, "rms_norm_plain", "rms_norm")):
+        def counted(*a, _fn=getattr(mod, name), _kernel=kernel, **k):
+            tracing.count("launch." + _kernel)
             return _fn(*a, **k)
         monkeypatch.setattr(mod, name, counted)
 

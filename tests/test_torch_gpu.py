@@ -1129,3 +1129,45 @@ def test_code2wav_on_the_card_as_on_the_cpu(dev):
     rms = float(want.square().mean().sqrt())
     assert got.shape == want.shape and 0.01 < rms < 0.9
     assert float((got - want).square().mean().sqrt()) <= 5e-2 * rms
+
+
+@pytest.mark.parametrize("hw", [(1024, 1024), (400, 392), (300, 380)])
+def test_host_syncs_count_every_copy_the_card_sees(dev, hw, monkeypatch):
+    """``host_syncs`` (``tracing.to_device`` / ``to_host``) against the
+    card's own record: in a profiled staged ``batch_forward`` and a call of
+    a small CLIP-FlanT5 (clip-flant5-test widened to heads of 64, which the
+    attention kernel takes), the profiler's host-to-device and
+    device-to-host copies are as many as the counter, over both resize paths
+    (above and up to 384 px) and with and without the square pad."""
+    import dataclasses
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import t2v_metrics_tpu_torch as tt2v
+    from t2v_metrics_tpu_torch import tracing
+    from t2v_metrics_tpu_torch.models import adapters
+
+    spec = adapters.CLIP_T5_MODELS["clip-flant5-test"]
+    cfg = spec["config"]
+    cfg = dataclasses.replace(
+        cfg, t5=dataclasses.replace(cfg.t5, d_model=128, d_kv=64, num_heads=2),
+        vision=dataclasses.replace(cfg.vision, width=128, heads=2, mlp_dim=256, proj_dim=128))
+    monkeypatch.setitem(adapters.CLIP_T5_MODELS, "clip-flant5-test", dict(spec, config=cfg))
+    scorer = tt2v.VQAScore("clip-flant5-test", device="cuda")
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(6)]
+    texts = ["a cube", "two red dogs", "a horse", "the sky", "one chair", "a boat"]
+    data = [{"images": [im], "texts": [t]} for im, t in zip(images, texts)]
+
+    def work():
+        scorer.batch_forward(data, batch_size=4)
+        scorer(images=images[:3], texts=[texts[1]])
+
+    work()                                      # builds, compiles, warms
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        work()
+    copies = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.name.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+    assert copies and len(copies) == tracing.counts()["host_syncs"], sorted(set(copies))
