@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..tracing import to_device, to_host
+from ..tracing import to_host
 from ..constants import (CLIP_MEAN, CLIP_STD, DEFAULT_ANSWER_TEMPLATE,
                          DEFAULT_QUESTION_TEMPLATE, IMAGE_TOKEN_INDEX)
 from ..media.video import MediaError
@@ -59,10 +59,19 @@ TXT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 _DEVICE_RESIZE_MAX_SIDE = 384
 
 
-def _device_resize_batch(images) -> np.ndarray | None:
-    """(N, H, W*3) channel-flattened uint8 stack if every image is a
-    same-shape uint8 HWC array no larger than 384 px; else None (host
-    path)."""
+def _stack_host(arrays, device) -> torch.Tensor:
+    """Same-shape uint8 HWC arrays stacked into one (n, H, W*3) host tensor
+    for ``tracing.to_device``, page-locked where ``device`` is CUDA."""
+    h, w, c = arrays[0].shape
+    out = tracing.host_empty((len(arrays), h, w * c), torch.uint8, device)
+    np.stack(arrays, out=out.numpy().reshape(len(arrays), h, w, c))
+    return out
+
+
+def _device_resize_batch(images, device) -> torch.Tensor | None:
+    """(N, H, W*3) channel-flattened uint8 host stack (``_stack_host``) if
+    every image is a same-shape uint8 HWC array no larger than 384 px; else
+    None (host path)."""
     if not images:
         return None
     first = images[0]
@@ -74,9 +83,8 @@ def _device_resize_batch(images) -> np.ndarray | None:
         if not (isinstance(im, np.ndarray) and im.dtype == np.uint8
                 and im.shape == first.shape):
             return None
-    h, w, c = first.shape
     with tracing.span("engine.decode"):
-        return np.stack(images).reshape(len(images), h, w * c)
+        return _stack_host(images, device)
 
 
 def _load_uint8(image) -> np.ndarray:
@@ -108,17 +116,18 @@ def encode_by_shape(visuals, device, encode) -> list:
     """Each visual's features on ``device``: the visuals decoded to uint8
     HWC and grouped by shape; each group stacked to (n, H, W*3) uint8 on the
     device goes through ``encode`` in one call (one preprocess and tower call
-    a group), and each visual gets its row of the result."""
+    a group), and each visual gets its row of the result. The stacks are
+    built in page-locked memory where ``device`` is CUDA."""
     with tracing.span("engine.decode"):
         hosts = [_load_uint8(v) for v in visuals]
         groups = {}
         for i, img in enumerate(hosts):
             groups.setdefault(img.shape, []).append(i)
     out = [None] * len(hosts)
-    for (h, w, _), idxs in groups.items():
+    for idxs in groups.values():
         with tracing.span("engine.decode"):
-            stack = np.stack([hosts[i] for i in idxs]).reshape(len(idxs), h, w * 3)
-        feats = encode(to_device(stack, device))
+            stack = _stack_host([hosts[i] for i in idxs], device)
+        feats = encode(tracing.to_device(stack, device))
         for row, i in enumerate(idxs):
             out[i] = feats[row]
     return out
@@ -174,11 +183,11 @@ def _pixels_bucketed(images, size: int, pad_square: bool, device) -> torch.Tenso
     """(bucket, size-or-source H, W*3) uint8 on ``device``: the device path's
     stack at source size or ``pillow_resize_batch``'s, its rows padded to
     ``IMG_BUCKETS`` with the last."""
-    stack = _device_resize_batch(images)
+    stack = _device_resize_batch(images, device)
     if stack is None:
         pixels = pillow_resize_batch(images, size, pad_square, device)
     else:
-        pixels = to_device(stack, device)
+        pixels = tracing.to_device(stack, device)
     return pad_rows_to(pixels, _bucket(len(images), IMG_BUCKETS))
 
 
@@ -279,6 +288,7 @@ class CLIPT5Engine:
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self.max_pairs = max_pairs_per_call
+        self.copies = tracing.CopyStream(self.device)
 
     # -- device passes --------------------------------------------------------
 
@@ -302,9 +312,9 @@ class CLIPT5Engine:
                 enc_mask = arrays[3]
                 tracing.count("t5_enc_rows", len(pair_text) * enc_mask.shape[1])
                 tracing.count("t5_enc_rows_valid", int(enc_mask[pair_text[:real]].sum()))
-            dev = [to_device(a, self.device) for a in arrays]
-            pi = to_device(pair_image, self.device).long()
-            pt = to_device(pair_text, self.device).long()
+            dev = [tracing.to_device(a, self.device) for a in arrays]
+            pi = tracing.to_device(pair_image, self.device).long()
+            pt = tracing.to_device(pair_text, self.device).long()
             with self.par.ambient():
                 return tcft5.score_pairs(self.params, self.cfg, feats, *dev, pi, pt)
 
@@ -404,10 +414,10 @@ class CLIPT5Engine:
     def prepare_pairs(self, images, texts, question_template=None,
                       answer_template=None):
         """Host stage of pairwise scoring: decode the images and send them to
-        the device (resized there where they take Pillow's resize), tokenize
-        and splice texts, bucket-pad. Over data-parallel ranks, each rank
-        prepares the pairs of its share of the distinct images, as one rank
-        would for those pairs alone."""
+        the device (resized there where they take Pillow's resize) on the
+        engine's copy stream, tokenize and splice texts, bucket-pad. Over
+        data-parallel ranks, each rank prepares the pairs of its share of the
+        distinct images, as one rank would for those pairs alone."""
         if len(images) != len(texts):
             raise ValueError("prepare_pairs: one image per text")
         if self.par.ranks > 1:
@@ -428,7 +438,7 @@ class CLIPT5Engine:
             arrays = _pad_rows(self._build_text_arrays(questions, answers), nb)
         pair_image = _pad_rows((np.asarray(inv, np.int32),), nb)[0]
         pair_text = _pad_rows((np.arange(n, dtype=np.int32),), nb)[0]
-        return {"pixels": self._pixels(uniq), "m": len(uniq), "arrays": arrays,
+        return {"pixels": self.copies.run(self._pixels, uniq), "m": len(uniq), "arrays": arrays,
                 "pair_image": pair_image, "pair_text": pair_text, "n": n}
 
     def forward_device_prepared(self, prep):
@@ -439,7 +449,7 @@ class CLIPT5Engine:
             scores = (self.forward_device_prepared(local)[0].t[:local["n"]] if local
                       else torch.zeros((0,), device=self.device))
             return _HostScores(self.par.gather_pairs(scores, owners)), prep["n"]
-        feats = self._encode(prep["pixels"])[: prep["m"]]
+        feats = self._encode(prep["pixels"].take())[: prep["m"]]
         logp = self._score(feats, prep["arrays"], prep["pair_image"],
                            prep["pair_text"], prep["n"])
         return _HostScores(torch.exp(logp)), prep["n"]

@@ -29,7 +29,7 @@ from ..ops import quant as Q
 from ..ops.attention import attention_flat_packed
 from ..ops.image import patch_perm, patchify_flat
 from ..parallel.mesh import build_sharded, full_shape, gather_cols
-from ..tracing import to_device
+from .. import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,7 +257,7 @@ def vision_tower(p: VisionTower, cfg: CLIPVisionConfig, pixels: torch.Tensor,
         raise ValueError("vision_tower takes channel-flattened (B, H, W*3) pixels")
     b = pixels.shape[0]
     pixels = pixels.to(p.patch_w.dtype)
-    perm = to_device(patch_perm(cfg.patch_size, 3), pixels.device)
+    perm = tracing.to_device(patch_perm(cfg.patch_size, 3), pixels.device)
     x = gather_cols(patchify_flat(pixels, cfg.patch_size, 3) @ p.patch_w[perm], p.patch_w)
     cls = p.class_emb.to(x.dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + p.pos_emb

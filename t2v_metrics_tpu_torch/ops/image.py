@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from ..tracing import to_device
+from .. import tracing
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +133,9 @@ def resize_flat(img: torch.Tensor, out_h: int, out_w: int, channels: int,
     """Resize a channel-flattened (..., H, W*C) image -> (..., out_h, out_w*C)
     as two matmuls: the H pass, then the W pass with kron(W_w, I_C)."""
     h, wc = img.shape[-2], img.shape[-1]
-    wh = to_device(resize_weights(h, out_h, filter), img.device, img.dtype)
-    kw = to_device(kron_resize_weights(wc // channels, out_w, channels, filter),
-                   img.device, img.dtype)
+    wh = tracing.to_device(resize_weights(h, out_h, filter), img.device, img.dtype)
+    kw = tracing.to_device(kron_resize_weights(wc // channels, out_w, channels, filter),
+                           img.device, img.dtype)
     return torch.matmul(torch.matmul(wh, img), kw.T)
 
 
@@ -183,10 +183,10 @@ def resize_uint8_pillow_flat(img: torch.Tensor, out_h: int, out_w: int, channels
         return torch.clamp(torch.floor((s + half) / unit), 0.0, 255.0)
 
     if out_w != w:
-        kw = to_device(pillow_fixed_weights(w, out_w, filter), x.device)
+        kw = tracing.to_device(pillow_fixed_weights(w, out_w, filter), x.device)
         x = shift(torch.einsum("pw,...hwc->...hpc", kw, x))
     if out_h != h:
-        kh = to_device(pillow_fixed_weights(h, out_h, filter), x.device)
+        kh = tracing.to_device(pillow_fixed_weights(h, out_h, filter), x.device)
         x = shift(torch.einsum("oh,...hpc->...opc", kh, x))
     return x.reshape(*lead, out_h, out_w * channels).float()
 
@@ -198,7 +198,7 @@ def pad_square_flat(img: torch.Tensor, channels: int, fill_rgb) -> torch.Tensor:
     if h == w:
         return img
     side = max(h, w)
-    fill = to_device(np.asarray(fill_rgb), img.device, img.dtype).repeat(side)
+    fill = tracing.to_device(np.asarray(fill_rgb), img.device, img.dtype).repeat(side)
     out = fill.expand(*img.shape[:-2], side, side * channels).clone()
     if w > h:
         top = (side - h) // 2
@@ -222,8 +222,8 @@ def center_crop_flat(img: torch.Tensor, crop_h: int, crop_w: int,
 def normalize_flat(img: torch.Tensor, mean, std) -> torch.Tensor:
     """Channel-normalize a (..., W*C) channel-flattened float image."""
     w = img.shape[-1] // len(mean)
-    m = to_device(np.asarray(mean), img.device, img.dtype).repeat(w)
-    s = to_device(np.asarray(std), img.device, img.dtype).repeat(w)
+    m = tracing.to_device(np.asarray(mean), img.device, img.dtype).repeat(w)
+    s = tracing.to_device(np.asarray(std), img.device, img.dtype).repeat(w)
     return (img - m) / s
 
 

@@ -30,15 +30,22 @@ alone. Spans reach a file through the profiler's ``export_chrome_trace``.
 Counters. ``count(name, n)`` adds to an always-on total; it takes no lock
 (one dictionary update, which the interpreter lock keeps whole). Names:
 ``launch.<kernel>`` a kernel launch (read through ``ops.launch_counts()``),
-``host_syncs`` a blocking copy between host and device (``to_device`` and
-``to_host``, counted also on a CPU device, where the copy is none),
+``host_syncs`` a blocking copy between host and device (``to_host``,
+counted also on a CPU device, where the copy is none), ``h2d_async`` a
+host-to-device copy that does not block (``to_device``, counted also on a
+CPU device, where the copy is none),
 ``t5_enc_rows`` and ``t5_enc_rows_valid`` the rows the T5 encoder computes
 and the real pairs' encoder lengths among them (counted only while a span
 records, since nothing else reads them).
 
 Copies. ``to_device`` and ``to_host`` are the scoring path's copies between
-host and device, each spanned and counted; they block as a plain
-``Tensor.to`` does.
+host and device, each spanned and counted. ``to_device`` to a CUDA device
+copies from page-locked memory with ``non_blocking=True``, so it neither
+blocks the host nor waits for the card; ``host_empty`` gives a page-locked
+tensor for a caller to build an array in. ``to_host`` blocks: it is the one
+wait of a device stage. ``CopyStream`` runs a stage's uploads on a stream of
+their own, beside the compute, and hands the result to the stream that
+reads it.
 """
 
 from __future__ import annotations
@@ -180,23 +187,86 @@ def count(name: str, n: int = 1) -> None:
     _totals[name] += n
 
 
-def to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
-    """A host array on ``device`` (cast to ``dtype``): the scoring path's
-    one host-to-device copy. It is pageable and blocking, so it returns once
-    the copy is done, after the work queued before it on the current
-    stream. Spanned as ``engine.h2d``; counts one ``host_syncs``."""
+def host_empty(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """An uninitialised host tensor to fill (through ``.numpy()``) and hand
+    to ``to_device``: page-locked where ``device`` is CUDA, so its copy needs
+    no staging."""
+    return torch.empty(shape, dtype=dtype, pin_memory=torch.device(device).type == "cuda")
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """A host array or tensor on ``device`` (cast to ``dtype``, one that
+    numpy has): the scoring path's one host-to-device copy. To a CUDA device
+    it does not block: a source that is not a page-locked tensor of
+    ``dtype`` (``host_empty``) is first copied into a page-locked tensor, and
+    cast there, by numpy (one thread: a torch copy of this size would start
+    the CPU's thread pool on the host path; both casts round to nearest);
+    then the copy is queued with ``non_blocking=True`` on the current stream,
+    and PyTorch's caching host allocator keeps the page-locked block from
+    reuse until that copy has run. Elsewhere it is ``Tensor.to``, no copy
+    where the dtype stays. Spanned as ``engine.h2d``; counts one
+    ``h2d_async``."""
     with span("engine.h2d"):
-        count("host_syncs")
-        return torch.from_numpy(a).to(device, dtype)
+        count("h2d_async")
+        src = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+        if torch.device(device).type != "cuda":
+            return src.to(device, dtype)
+        if dtype not in (None, src.dtype) or not src.is_pinned():
+            staged = torch.empty(src.shape, dtype=dtype or src.dtype, pin_memory=True)
+            np.copyto(staged.numpy(), src.numpy(), casting="unsafe")
+            src = staged
+        return src.to(device, non_blocking=True)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A device tensor as float32 numpy: a blocking copy that waits for
-    the work queued before it. Spanned as ``engine.d2h``; counts one
-    ``host_syncs``."""
+    the work queued before it on the current stream. Spanned as
+    ``engine.d2h``; counts one ``host_syncs``."""
     with span("engine.d2h"):
         count("host_syncs")
         return t.float().cpu().numpy()
+
+
+class Staged(NamedTuple):
+    """A tensor made by ``CopyStream.run``, and the event recorded on the
+    copy stream after its work (None where the work ran on the current
+    stream)."""
+
+    value: torch.Tensor
+    ready: object
+
+    def take(self) -> torch.Tensor:
+        """The tensor, for the current stream: the stream waits for the
+        event, and the tensor's memory is marked in use there, so that the
+        caching allocator does not hand it out before the reads queued on
+        this stream have run."""
+        if self.ready is not None:
+            stream = torch.cuda.current_stream(self.value.device)
+            stream.wait_event(self.ready)
+            self.value.record_stream(stream)
+        return self.value
+
+
+class CopyStream:
+    """A CUDA device's stream for uploads made ahead of the work that reads
+    them: ``run`` queues a function's copies and kernels there, beside the
+    compute stream, and the reader ``take``s the result. On any other device
+    ``run`` calls the function as it is."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def run(self, fn, *args) -> Staged:
+        """``fn(*args)``, a device tensor, with this thread's current stream
+        set to the copy stream while it runs."""
+        if self.stream is None:
+            return Staged(fn(*args), None)
+        with torch.cuda.stream(self.stream):
+            value = fn(*args)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return Staged(value, ready)
 
 
 def totals() -> dict[str, int]:

@@ -1131,22 +1131,12 @@ def test_code2wav_on_the_card_as_on_the_cpu(dev):
     assert float((got - want).square().mean().sqrt()) <= 5e-2 * rms
 
 
-@pytest.mark.parametrize("hw", [(1024, 1024), (400, 392), (300, 380)])
-def test_host_syncs_count_every_copy_the_card_sees(dev, hw, monkeypatch):
-    """``host_syncs`` (``tracing.to_device`` / ``to_host``) against the
-    card's own record: in a profiled staged ``batch_forward`` and a call of
-    a small CLIP-FlanT5 (clip-flant5-test widened to heads of 64, which the
-    attention kernel takes), the profiler's host-to-device and
-    device-to-host copies are as many as the counter, over both resize paths
-    (above and up to 384 px) and with and without the square pad."""
+def _card_clip_flant5(monkeypatch):
+    """A small CLIP-FlanT5 on the card: clip-flant5-test widened to heads
+    of 64, which the attention kernel takes."""
     import dataclasses
 
-    import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     import t2v_metrics_tpu_torch as tt2v
-    from t2v_metrics_tpu_torch import tracing
     from t2v_metrics_tpu_torch.models import adapters
 
     spec = adapters.CLIP_T5_MODELS["clip-flant5-test"]
@@ -1155,7 +1145,25 @@ def test_host_syncs_count_every_copy_the_card_sees(dev, hw, monkeypatch):
         cfg, t5=dataclasses.replace(cfg.t5, d_model=128, d_kv=64, num_heads=2),
         vision=dataclasses.replace(cfg.vision, width=128, heads=2, mlp_dim=256, proj_dim=128))
     monkeypatch.setitem(adapters.CLIP_T5_MODELS, "clip-flant5-test", dict(spec, config=cfg))
-    scorer = tt2v.VQAScore("clip-flant5-test", device="cuda")
+    return tt2v.VQAScore("clip-flant5-test", device="cuda")
+
+
+@pytest.mark.parametrize("hw", [(1024, 1024), (400, 392), (300, 380)])
+def test_host_syncs_count_every_copy_the_card_sees(dev, hw, monkeypatch):
+    """The copy counters (``tracing.to_device`` / ``to_host``) against the
+    card's own record: in a profiled staged ``batch_forward`` and a call of
+    a small CLIP-FlanT5, no host-to-device copy is from pageable memory, the
+    profiler's copies from page-locked memory are as many as ``h2d_async``
+    and its device-to-host copies as many as ``host_syncs``, over both
+    resize paths (above and up to 384 px) and with and without the square
+    pad."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from t2v_metrics_tpu_torch import tracing
+
+    scorer = _card_clip_flant5(monkeypatch)
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(6)]
     texts = ["a cube", "two red dogs", "a horse", "the sky", "one chair", "a boat"]
@@ -1170,4 +1178,49 @@ def test_host_syncs_count_every_copy_the_card_sees(dev, hw, monkeypatch):
         work()
     copies = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
               and e.name.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
-    assert copies and len(copies) == tracing.counts()["host_syncs"], sorted(set(copies))
+    counts = tracing.counts()
+    pageable = [c for c in copies if c.startswith("Memcpy HtoD (Pageable")]
+    pinned = [c for c in copies if c.startswith("Memcpy HtoD (Pinned")]
+    down = [c for c in copies if c.startswith("Memcpy DtoH")]
+    assert not pageable, sorted(set(copies))
+    assert pinned and len(pinned) == counts["h2d_async"], sorted(set(copies))
+    assert down and len(down) == counts["host_syncs"], sorted(set(copies))
+    assert len(pinned) + len(down) == len(copies), sorted(set(copies))
+
+
+@pytest.mark.parametrize("hw", [(1024, 1024), (300, 380)])
+def test_async_copies_score_as_the_blocking_ones(dev, hw, monkeypatch):
+    """Scores through the page-locked, non-blocking copies and the copy
+    stream equal, bit for bit, those of the blocking path (``to_device`` as
+    a pageable ``Tensor.to``, no copy stream): a staged ``batch_forward`` of
+    5 chunks with every image distinct, so that a page-locked buffer reused
+    before its copy ran, or a read of the pixels before the copy stream made
+    them, changes a score; and a call. Over Pillow's resize (1024 px) and
+    the float resize with the square pad (300x380)."""
+    import numpy as np
+
+    from t2v_metrics_tpu_torch import tracing
+
+    scorer = _card_clip_flant5(monkeypatch)
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(18)]
+    words = ["a cube", "two red dogs", "a horse", "the sky", "one chair", "a boat"]
+    texts = [f"{words[i % 6]} and {words[(5 * i + 1) % 6]}" for i in range(18)]
+    data = [{"images": [im], "texts": [t]} for im, t in zip(images, texts)]
+
+    def work():
+        return (scorer.batch_forward(data, batch_size=4),
+                scorer(images=images[:5], texts=texts[:2]))
+
+    warm = work()                               # builds, compiles, fills the host pool
+    got = work()
+    monkeypatch.setattr(tracing, "to_device",
+                        lambda a, device, dtype=None: torch.as_tensor(a).to(device, dtype))
+    monkeypatch.setattr(tracing, "host_empty",
+                        lambda shape, dtype, device: torch.empty(shape, dtype=dtype))
+    monkeypatch.setattr(scorer.model.engine, "copies", tracing.CopyStream("cpu"))
+    want = work()
+    for w, g, b in zip(warm, got, want):
+        assert np.isfinite(b).all() and len(np.unique(b)) > 1
+        np.testing.assert_array_equal(g, b)
+        np.testing.assert_array_equal(w, b)

@@ -85,10 +85,10 @@ def test_device_batch_only_for_same_shape_small_uint8():
     from t2v_metrics_tpu_torch.engine.scoring import _device_resize_batch
 
     a = np.zeros((30, 40, 3), np.uint8)
-    assert _device_resize_batch([a, a.copy()]).shape == (2, 30, 120)
-    assert _device_resize_batch([a, np.zeros((31, 40, 3), np.uint8)]) is None
-    assert _device_resize_batch([np.zeros((500, 40, 3), np.uint8)]) is None
-    assert _device_resize_batch(["x.png"]) is None
+    assert _device_resize_batch([a, a.copy()], "cpu").shape == (2, 30, 120)
+    assert _device_resize_batch([a, np.zeros((31, 40, 3), np.uint8)], "cpu") is None
+    assert _device_resize_batch([np.zeros((500, 40, 3), np.uint8)], "cpu") is None
+    assert _device_resize_batch(["x.png"], "cpu") is None
 
 
 @pytest.mark.parametrize("hw", [(1024, 1024), (1024, 768)])

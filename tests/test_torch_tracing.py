@@ -3,9 +3,10 @@
 ``record_function`` call, no record); under ``torch.profiler`` the span tree
 of a staged ``batch_forward`` and of a ``forward`` call (names, parents, one
 request id across the main and prep threads, every span among the
-profiler's events), the blocking copies and the T5 encoder's rows against
-hand counts, sessions that hold the newest profiled window alone, and the
-kernel launch counters behind ``ops.launch_counts()``.
+profiler's events), the copies (non-blocking up, blocking down) and the T5
+encoder's rows against hand counts, ``to_device`` on a CPU target, sessions
+that hold the newest profiled window alone, and the kernel launch counters
+behind ``ops.launch_counts()``.
 """
 
 import collections
@@ -29,13 +30,14 @@ MODEL = "clip-flant5-test"
 BATCH = 4
 TEXTS = ["a cube", "two red dogs on a table", "a photo of a horse riding an astronaut",
          "the sky", "one chair next to a lamp in a small room", "a boat"]
-# the blocking copies of a device stage of these 400x392 images, counted from
-# the code. Up: the pixels; the fill that pads them square and the two
-# passes' weights of the Pillow-exact resize (ops/image.py); the CLIP mean
-# and std; the patch permutation (models/clip.py); the six text arrays and
-# the two pair-index arrays. Down: the scores
+# the copies of a device stage of these 400x392 images, counted from the
+# code. Up, each through tracing.to_device and counted as h2d_async: the
+# pixels; the fill that pads them square and the two passes' weights of the
+# Pillow-exact resize (ops/image.py); the CLIP mean and std; the patch
+# permutation (models/clip.py); the six text arrays and the two pair-index
+# arrays. Down, the one blocking copy, counted as host_syncs: the scores
 H2D_A_STAGE = 1 + 1 + 2 + 2 + 1 + 6 + 2
-SYNCS_A_STAGE = H2D_A_STAGE + 1
+SYNCS_A_STAGE = 1
 
 
 @pytest.fixture(scope="module")
@@ -100,11 +102,13 @@ def test_off_without_a_profiler(scorer, images, monkeypatch):
     monkeypatch.setattr(tracing, "_session", None)
     monkeypatch.setattr(tracing, "_open", False)
     before = tracing.totals().get("host_syncs", 0)
+    before_h2d = tracing.totals().get("h2d_async", 0)
     _run("batch_forward", scorer, images)
     _run("call", scorer, images)
     assert tracing.records() == [] and tracing.counts() == {}
     assert tracing.current() is None
     assert tracing.totals()["host_syncs"] - before == 3 * SYNCS_A_STAGE
+    assert tracing.totals()["h2d_async"] - before_h2d == 3 * H2D_A_STAGE
 
 
 @pytest.mark.parametrize("kind", ["batch_forward", "call"])
@@ -144,10 +148,11 @@ def test_span_tree_and_counts(scorer, images, kind):
         assert threads["facade.dispatch"] == root.thread
     else:
         assert {s.thread for s in spans} == {root.thread}
-    # the counters, by hand: the blocking copies of each device stage; the
-    # encoder's rows of each stage's prompts, bucketed
+    # the counters, by hand: the copies of each device stage; the encoder's
+    # rows of each stage's prompts, bucketed
     counts = tracing.counts()
     assert counts["host_syncs"] == stages * SYNCS_A_STAGE
+    assert counts["h2d_async"] == stages * H2D_A_STAGE
     engine = scorer.model.engine
     if kind == "batch_forward":
         chunks = [TEXTS[i:i + BATCH] for i in range(0, len(TEXTS), BATCH)]
@@ -174,11 +179,35 @@ def test_sessions_hold_the_newest_window(scorer, images):
     _run("batch_forward", scorer, images)                # untraced
     assert tracing.records() == first and tracing.counts() == first_counts
     assert first_counts["host_syncs"] == SYNCS_A_STAGE
+    assert first_counts["h2d_async"] == H2D_A_STAGE
     _profiled(lambda: _run("batch_forward", scorer, images))
     second = tracing.records()
     assert {s.name for s in second} >= {"facade.batch", "facade.prep"}
     assert not {s.id for s in second} & {s.id for s in first}
     assert tracing.counts()["host_syncs"] == 2 * SYNCS_A_STAGE
+    assert tracing.counts()["h2d_async"] == 2 * H2D_A_STAGE
+
+
+def test_to_device_on_a_cpu_target():
+    """A CPU target takes the plain path: the values as they were, no copy
+    where the dtype stays (the result shares the source's memory, a numpy
+    array's or a ``host_empty`` tensor's, which is not page-locked there), a
+    cast where it changes; each call counted as ``h2d_async`` and none as
+    ``host_syncs``."""
+    a = np.arange(12, dtype=np.int32).reshape(3, 4)
+    buf = tracing.host_empty((2, 3), torch.uint8, "cpu")
+    buf.numpy()[:] = 7
+    before = tracing.totals()
+    got = tracing.to_device(a, "cpu")
+    from_buf = tracing.to_device(buf, torch.device("cpu"))
+    cast = tracing.to_device(a, "cpu", torch.float32)
+    after = tracing.totals()
+    np.testing.assert_array_equal(got.numpy(), a)
+    assert got.dtype == torch.int32 and np.shares_memory(got.numpy(), a)
+    assert from_buf.data_ptr() == buf.data_ptr() and not buf.is_pinned()
+    assert cast.dtype == torch.float32 and torch.equal(cast, torch.from_numpy(a).float())
+    assert after.get("h2d_async", 0) - before.get("h2d_async", 0) == 3
+    assert after.get("host_syncs", 0) == before.get("host_syncs", 0)
 
 
 def test_sessions_are_cut_at_the_profilers_start_and_stop():
