@@ -826,7 +826,7 @@ def phase_kernels() -> dict:
     weights = {"gate_up": randn(128, 2048, 1536, std=2048 ** -0.5),
                "down": randn(128, 768, 2048, std=768 ** -0.5)}
     for routing, ids in (("top-8", top8.reshape(-1)), ("skewed", skewed)):
-        _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+        _, _, be, p, used, _ = M._plan(ids, 128, M.BLOCK_M)
         be_host, used_host = be.cpu(), used.cpu()   # the plain version reads them on the host
         # the experts' groups end at these rows of the block-aligned buffer
         counts = torch.bincount(ids, minlength=128)
@@ -1535,7 +1535,7 @@ def decode_kernels(randn, record, lengths_mask) -> None:
     # top-8 routing, 32 routed rows of 128 experts (at most 32 non-empty
     # groups of one row each, one 128-row block apiece)
     ids = randn(4, 128, dtype=torch.float32).topk(8).indices.reshape(-1)
-    _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+    _, _, be, p, used, _ = M._plan(ids, 128, M.BLOCK_M)
     be_host, used_host = be.cpu(), used.cpu()
     counts = torch.bincount(ids, minlength=128)
     offs = torch.cumsum((counts + 127) // 128 * 128, 0).int()
@@ -5224,7 +5224,7 @@ def talker_kernels(randn, record) -> None:
                "down": randn(128, t.moe_d_ff, t.d_model, std=t.moe_d_ff ** -0.5)}
     for what, tokens in (("prefill", n), ("decode step", 1)):
         ids = randn(tokens, 128, dtype=torch.float32).topk(8).indices.reshape(-1)
-        _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+        _, _, be, p, used, _ = M._plan(ids, 128, M.BLOCK_M)
         be_host, used_host = be.cpu(), used.cpu()
         counts = torch.bincount(ids, minlength=128)
         offs = torch.cumsum((counts + 127) // 128 * 128, 0).int()
@@ -5785,7 +5785,7 @@ def parallel_kernels(randn, record, lengths_mask) -> None:
     topi = randn(tokens, 128, dtype=torch.float32).topk(8).indices
     mine = topi < 64
     ids = torch.where(mine, topi, 64).reshape(-1)
-    _, _, be, p, used = M._plan(ids, 65, M.BLOCK_M, 64)
+    _, _, be, p, used, _ = M._plan(ids, 65, M.BLOCK_M, 64)
     be_host, used_host = be.cpu(), used.cpu()
     tk = int(mine.sum())
     counts = torch.bincount(ids[ids < 64], minlength=64)

@@ -52,6 +52,10 @@ class QwenVisionConfig:
     out_hidden: int = 3584
     rms_eps: float = 1e-6
     tokens_per_second: int = 2
+    # the pixel normalisation of the published processor (transformers'
+    # Qwen2VLImageProcessor default for Qwen2.5-VL)
+    image_mean: tuple = CLIP_MEAN
+    image_std: tuple = CLIP_STD
 
     @property
     def head_dim(self) -> int:
@@ -289,11 +293,11 @@ def image_patches(pixels_u8: torch.Tensor, cfg: QwenVisionConfig,
     patch rows in ``frames_to_patches`` order, S = (out_h/p)*(out_w/p).
 
     Bicubic resize to the smart-resize size as Pillow resizes a uint8 image,
-    bit for bit (``resize_uint8_pillow_flat``), /255, CLIP normalize,
-    temporal tile x2, patchify.
+    bit for bit (``resize_uint8_pillow_flat``), /255, normalize with the
+    config's ``image_mean`` / ``image_std``, temporal tile x2, patchify.
     """
     x = timage.resize_uint8_pillow_flat(pixels_u8, out_h, out_w, 3)
-    x = timage.normalize_flat(x / 255.0, CLIP_MEAN, CLIP_STD)
+    x = timage.normalize_flat(x / 255.0, cfg.image_mean, cfg.image_std)
     n = x.shape[0]
     x = x.reshape(n, 1, out_h, out_w, 3).permute(0, 1, 4, 2, 3)
     return _patchify(x.expand(n, cfg.temporal_patch_size, 3, out_h, out_w), cfg)
@@ -307,16 +311,17 @@ def video_patches(frames_u8: torch.Tensor, cfg: QwenVisionConfig,
 
     The JAX adapter's device preprocess of Qwen2.5-VL video
     (``_video_feats_jit``): one float bicubic pass, rounded and clipped to
-    uint8 levels once, /255, CLIP normalize, patchify. ``pillow``: Pillow's
-    uint8 resize bit for bit, as in ``image_patches``, for Qwen3-VL and
-    Qwen3-Omni, whose JAX adapters resize video frames with Pillow.
+    uint8 levels once, /255, normalize with the config's ``image_mean`` /
+    ``image_std``, patchify. ``pillow``: Pillow's uint8 resize bit for bit,
+    as in ``image_patches``, for Qwen3-VL and Qwen3-Omni, whose JAX adapters
+    resize video frames with Pillow.
     """
     if pillow:
         x = timage.resize_uint8_pillow_flat(frames_u8, out_h, out_w, 3)
     else:
         x = torch.clamp(torch.round(timage.resize_flat(frames_u8.float(), out_h, out_w, 3)),
                         0.0, 255.0)
-    x = timage.normalize_flat(x / 255.0, CLIP_MEAN, CLIP_STD)
+    x = timage.normalize_flat(x / 255.0, cfg.image_mean, cfg.image_std)
     n, t = x.shape[:2]
     return _patchify(x.reshape(n, t, out_h, out_w, 3).permute(0, 1, 4, 2, 3), cfg)
 

@@ -38,7 +38,7 @@ import torch
 from ..engine.scoring import _HostScores, _load_uint8, unique_visuals
 from ..media.video import MediaError, is_video, open_video
 from ..ops.image import smart_resize
-from ..tracing import to_device
+from ..tracing import span, to_device
 from . import qwen2vl as q
 from .generation import CachedLM, trace_from_rollout
 from . import checkpoint as ckpt
@@ -242,10 +242,11 @@ class Qwen2VLAdapter(VQAScoreModel):
         """Decode the visuals on the host and group them by (kind, shape):
         (decoded list, {(kind, shape): [index, ...]})."""
         fps = fps if fps is not None else self.fps_default
-        hosts = [self._host_visual(v, fps) for v in visuals]
-        groups = {}
-        for i, (kind, arr, _) in enumerate(hosts):
-            groups.setdefault((kind, arr.shape), []).append(i)
+        with span("engine.decode"):
+            hosts = [self._host_visual(v, fps) for v in visuals]
+            groups = {}
+            for i, (kind, arr, _) in enumerate(hosts):
+                groups.setdefault((kind, arr.shape), []).append(i)
         return hosts, groups
 
     @torch.inference_mode()
@@ -264,15 +265,17 @@ class Qwen2VLAdapter(VQAScoreModel):
             perm, pos_hw, win_seg, full_seg, reverse, tiled = \
                 self._device_geometry(grid, s, sb)
             n = len(idxs)
-            stack = np.stack([hosts[i][1] for i in idxs])
-            pixels = to_device(stack.reshape(*stack.shape[:-2], -1), self.device)
-            rows = self._patch_rows(kind, pixels, hb, wb)[:, perm]
-            if rows.shape[1] < sb:
-                rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
-            feats = q.vision_tower_batch(
-                self.params.vision, cfg, rows, pos_hw.expand(n, -1, -1),
-                win_seg.expand(n, -1), full_seg.expand(n, -1),
-                reverse.expand(n, -1), tiled=tiled)
+            with span("engine.decode"):
+                stack = np.stack([hosts[i][1] for i in idxs])
+            with span("engine.encode"):
+                pixels = to_device(stack.reshape(*stack.shape[:-2], -1), self.device)
+                rows = self._patch_rows(kind, pixels, hb, wb)[:, perm]
+                if rows.shape[1] < sb:
+                    rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
+                feats = q.vision_tower_batch(
+                    self.params.vision, cfg, rows, pos_hw.expand(n, -1, -1),
+                    win_seg.expand(n, -1), full_seg.expand(n, -1),
+                    reverse.expand(n, -1), tiled=tiled)
             for row, i in enumerate(idxs):
                 out[i] = (feats[row, : s // mu], grid, kind == "vid", hosts[i][2])
         return out
@@ -302,34 +305,37 @@ class Qwen2VLAdapter(VQAScoreModel):
 
         p = len(visuals)
         mu = cfg.vision.merge_unit
-        ids_list = [self._build_ids(questions[j], int(np.prod(encoded[inv[j]][1])) // mu,
-                                    encoded[inv[j]][2])
-                    for j in range(p)]
-        s = _bucket(max(len(x) for x in ids_list) + self.seq_extra, SEQ_BUCKETS)
-        ids = np.zeros((p, s), np.int64)
-        vis_mask = np.zeros((p, s), bool)
-        vis_slot = np.zeros((p, s), np.int64)
-        attn = np.zeros((p, s), bool)
-        pos = np.zeros((3, p, s), np.int64)
-        prompt_lens = []
-        for j, toks in enumerate(ids_list):
-            n = len(toks)
-            arr = np.asarray(toks)
-            ids[j, :n] = arr
-            attn[j, :n] = True
-            vm = np.isin(arr, [cfg.image_token_id, cfg.video_token_id])
-            vis_mask[j, :n] = vm
-            vis_slot[j, :n][vm] = np.arange(vm.sum())
-            _, grid, video, spg = encoded[inv[j]]
-            pos[:, j, :n] = q.build_rope_index(
-                arr, [grid], cfg, second_per_grid_ts=[spg] if video else None)
-            prompt_lens.append(n)
+        with span("engine.tokenize"):
+            ids_list = [self._build_ids(questions[j],
+                                        int(np.prod(encoded[inv[j]][1])) // mu,
+                                        encoded[inv[j]][2])
+                        for j in range(p)]
+            s = _bucket(max(len(x) for x in ids_list) + self.seq_extra, SEQ_BUCKETS)
+            ids = np.zeros((p, s), np.int64)
+            vis_mask = np.zeros((p, s), bool)
+            vis_slot = np.zeros((p, s), np.int64)
+            attn = np.zeros((p, s), bool)
+            pos = np.zeros((3, p, s), np.int64)
+            prompt_lens = []
+            for j, toks in enumerate(ids_list):
+                n = len(toks)
+                arr = np.asarray(toks)
+                ids[j, :n] = arr
+                attn[j, :n] = True
+                vm = np.isin(arr, [cfg.image_token_id, cfg.video_token_id])
+                vis_mask[j, :n] = vm
+                vis_slot[j, :n][vm] = np.arange(vm.sum())
+                _, grid, video, spg = encoded[inv[j]]
+                pos[:, j, :n] = q.build_rope_index(
+                    arr, [grid], cfg, second_per_grid_ts=[spg] if video else None)
+                prompt_lens.append(n)
         # per-pair features gathered on the device from the unique visuals'
         # (the token axis is the second last: (T, D), or (levels, T, D))
-        t_max = max(max(e[0].shape[-2] for e in encoded), 1)
-        padded = torch.stack([torch.nn.functional.pad(
-            e[0], (0, 0, 0, t_max - e[0].shape[-2])) for e in encoded])
-        feats = padded[to_device(np.asarray(inv, np.int64), padded.device)]
+        with span("engine.encode"):
+            t_max = max(max(e[0].shape[-2] for e in encoded), 1)
+            padded = torch.stack([torch.nn.functional.pad(
+                e[0], (0, 0, 0, t_max - e[0].shape[-2])) for e in encoded])
+            feats = padded[to_device(np.asarray(inv, np.int64), padded.device)]
         return (ids, feats, vis_mask, vis_slot, pos, attn), prompt_lens
 
     # ------------------------------------------------------------------
@@ -361,32 +367,34 @@ class Qwen2VLAdapter(VQAScoreModel):
         (ids, feats, splice mask, splice slot, rope ids, attention mask) of
         the prompts from ``_prepare_pairs`` -> the scores on the device."""
         ids, feats, vis_mask, vis_slot, pos, attn = arrays
-        ans_tok = [self._encode_text(a) for a in answers]
-        a_max = max(len(a) for a in ans_tok)
-        pcount = len(answers)
-        s = ids.shape[1]
-        full_ids = ids.copy()
-        ans_ids = np.zeros((pcount, a_max), np.int64)
-        ans_pos = np.zeros((pcount, a_max), np.int64)
-        ans_mask = np.zeros((pcount, a_max), np.float32)
-        for j, (a, n) in enumerate(zip(ans_tok, prompt_lens)):
-            if n + len(a) > s:
-                raise ValueError("sequence bucket overflow")
-            full_ids[j, n:n + len(a)] = a
-            attn[j, n:n + len(a)] = True
-            ans_ids[j, : len(a)] = a
-            ans_pos[j, : len(a)] = n - 1 + np.arange(len(a))
-            ans_mask[j, : len(a)] = 1.0
-            # answer tokens are plain text positions in the rope index
-            last = pos[:, j, n - 1].max()
-            pos[:, j, n:n + len(a)] = last + 1 + np.arange(len(a))
+        with span("engine.tokenize"):
+            ans_tok = [self._encode_text(a) for a in answers]
+            a_max = max(len(a) for a in ans_tok)
+            pcount = len(answers)
+            s = ids.shape[1]
+            full_ids = ids.copy()
+            ans_ids = np.zeros((pcount, a_max), np.int64)
+            ans_pos = np.zeros((pcount, a_max), np.int64)
+            ans_mask = np.zeros((pcount, a_max), np.float32)
+            for j, (a, n) in enumerate(zip(ans_tok, prompt_lens)):
+                if n + len(a) > s:
+                    raise ValueError("sequence bucket overflow")
+                full_ids[j, n:n + len(a)] = a
+                attn[j, n:n + len(a)] = True
+                ans_ids[j, : len(a)] = a
+                ans_pos[j, : len(a)] = n - 1 + np.arange(len(a))
+                ans_mask[j, : len(a)] = 1.0
+                # answer tokens are plain text positions in the rope index
+                last = pos[:, j, n - 1].max()
+                pos[:, j, n:n + len(a)] = last + 1 + np.arange(len(a))
 
-        dev = [to_device(a, self.device)
-               for a in (full_ids, vis_mask, vis_slot, pos, attn, ans_ids,
-                         ans_pos, ans_mask)]
-        logp = self._splice_and_score(dev[0], feats, *dev[1:],
-                                      temperature=float(temperature))
-        return _HostScores(torch.exp(logp.float()))
+        with span("engine.score"):
+            dev = [to_device(a, self.device)
+                   for a in (full_ids, vis_mask, vis_slot, pos, attn, ans_ids,
+                             ans_pos, ans_mask)]
+            logp = self._splice_and_score(dev[0], feats, *dev[1:],
+                                          temperature=float(temperature))
+            return _HostScores(torch.exp(logp.float()))
 
     def _splice_and_score(self, ids, feats, *arrays, temperature):
         return q.splice_and_score(self.params, self.config, ids, feats,

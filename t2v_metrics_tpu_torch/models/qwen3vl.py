@@ -14,6 +14,10 @@
     the MoE variants, the routed experts (``ops/moe.py``); the deepstack
     features are added to the hidden state after the first decoder layers;
   * scoring: teacher-forced mean log P(answer tokens), as Qwen2.5-VL.
+
+Pixels are normalised with the published processor's mean and std, 0.5 and
+0.5 (``QWEN3_VL_MEAN`` / ``QWEN3_VL_STD``, set by ``resolve_config``); the
+JAX package normalises Qwen3-VL with CLIP's, which this port does not copy.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..constants import CLIP_MEAN, CLIP_STD
 from ..ops import layers as L
 from ..ops import quant as Q
 from ..ops.attention import attention_flat_packed
@@ -51,6 +56,11 @@ class Qwen3VisionConfig:
     # qwen3 videos use raw frame indices in the rope index (timestamps are
     # text): tokens_per_second=1 in the qwen2-style rope index
     tokens_per_second: int = 1
+    # the pixel normalisation: CLIP's by default, which Qwen3-Omni keeps
+    # until its published processor's is checked; ``resolve_config`` gives
+    # every Qwen3-VL model ``QWEN3_VL_MEAN`` / ``QWEN3_VL_STD``
+    image_mean: tuple = CLIP_MEAN
+    image_std: tuple = CLIP_STD
 
     @property
     def head_dim(self) -> int:
@@ -77,6 +87,15 @@ class Qwen3VLConfig:
     video_token_id: int = 151656
     vision_start_token_id: int = 151652
     vision_end_token_id: int = 151653
+
+
+# Qwen3-VL's preprocessor_config.json (and transformers 4.57's
+# Qwen3VLVideoProcessor defaults): its SigLIP2-shaped tower takes pixels in [-1, 1]
+QWEN3_VL_MEAN = QWEN3_VL_STD = (0.5, 0.5, 0.5)
+
+
+def _q3_vision(**kw) -> Qwen3VisionConfig:
+    return Qwen3VisionConfig(image_mean=QWEN3_VL_MEAN, image_std=QWEN3_VL_STD, **kw)
 
 
 def _q3_text(d_model, layers, heads, kv_heads, d_ff, vocab=151936,
@@ -141,17 +160,16 @@ def resolve_config(name: str) -> Qwen3VLConfig:
     if spec.get("moe_dims"):
         d_model, layers, heads, kv, n_exp, topk, moe_ff = spec["moe_dims"]
         return Qwen3VLConfig(
-            vision=Qwen3VisionConfig(out_hidden=d_model),
+            vision=_q3_vision(out_hidden=d_model),
             text=dataclasses.replace(
                 _q3_text(d_model, layers, heads, kv, d_ff=0),
                 num_experts=n_exp, experts_per_tok=topk, moe_d_ff=moe_ff,
                 moe_dispatch=True))
     if spec["config"] == "test":
         return Qwen3VLConfig(
-            vision=Qwen3VisionConfig(hidden=32, depth=3, heads=4, patch_size=4,
-                                     d_ff=64, out_hidden=48,
-                                     num_position_embeddings=16,
-                                     deepstack_indexes=(0, 1)),
+            vision=_q3_vision(hidden=32, depth=3, heads=4, patch_size=4,
+                              d_ff=64, out_hidden=48, num_position_embeddings=16,
+                              deepstack_indexes=(0, 1)),
             text=dec.DecoderConfig(
                 vocab_size=512, d_model=48, layers=3, heads=4, kv_heads=2,
                 head_dim=16, d_ff=96, rope_theta=5_000_000.0,
@@ -161,7 +179,7 @@ def resolve_config(name: str) -> Qwen3VLConfig:
             vision_start_token_id=503, vision_end_token_id=504)
     d_model, layers, heads, kv, d_ff = spec["dims"]
     return Qwen3VLConfig(
-        vision=Qwen3VisionConfig(out_hidden=d_model),
+        vision=_q3_vision(out_hidden=d_model),
         text=_q3_text(d_model, layers, heads, kv, d_ff))
 
 

@@ -27,7 +27,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..tracing import to_device
+from ..tracing import span, to_device
 from . import qwen2vl as q2
 from . import checkpoint as ckpt
 from . import qwen3vl as q3
@@ -149,15 +149,17 @@ class Qwen3VLAdapter(Qwen2VLAdapter):
             sb = _bucket(s, PATCH_BUCKETS)
             pos_hw, seg, pe_idx, pe_w, pe_perm = self._device_geometry(grid, s, sb)
             n = len(idxs)
-            stack = np.stack([hosts[i][1] for i in idxs])
-            pixels = to_device(stack.reshape(*stack.shape[:-2], -1), self.device)
-            rows = self._patch_rows(kind, pixels, hb, wb)
-            if rows.shape[1] < sb:
-                rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
-            main, deepstack = q3.vision_tower(
-                self.params.vision, cfg, rows, pos_hw.expand(n, -1, -1), pe_idx,
-                pe_w, pe_perm, seg.expand(n, -1), grid_t=grid[0])
-            levels = torch.stack([main, *deepstack], dim=1)   # (n, 1+n_ds, S/mu, D)
+            with span("engine.decode"):
+                stack = np.stack([hosts[i][1] for i in idxs])
+            with span("engine.encode"):
+                pixels = to_device(stack.reshape(*stack.shape[:-2], -1), self.device)
+                rows = self._patch_rows(kind, pixels, hb, wb)
+                if rows.shape[1] < sb:
+                    rows = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1]))
+                main, deepstack = q3.vision_tower(
+                    self.params.vision, cfg, rows, pos_hw.expand(n, -1, -1), pe_idx,
+                    pe_w, pe_perm, seg.expand(n, -1), grid_t=grid[0])
+                levels = torch.stack([main, *deepstack], dim=1)  # (n, 1+n_ds, S/mu, D)
             for row, i in enumerate(idxs):
                 out[i] = (levels[row, :, : s // mu], grid, kind == "vid", hosts[i][2])
         return out

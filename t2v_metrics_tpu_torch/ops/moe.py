@@ -61,12 +61,13 @@ def plan_groups(expert_ids: torch.Tensor, num_experts: int, block_m: int):
 
 def _plan(expert_ids: torch.Tensor, num_experts: int, block_m: int,
           computed: int | None = None):
-    """``plan_groups``'s four results and ``num_blocks``: a (1,) int32
+    """``plan_groups``'s four results, ``num_blocks``: a (1,) int32
     device tensor, the leading row blocks that belong to an expert (the
-    rest are pad blocks no token reads), from the counts, with no host
-    sync. ``computed``: only the blocks of the first ``computed`` experts
-    count in ``num_blocks`` (the last group is then a sink that is never
-    computed, and its blocks name expert ``computed - 1``)."""
+    rest are pad blocks no token reads), and ``counts``: (E,) the
+    assignments of each expert, both from the counts, with no host sync.
+    ``computed``: only the blocks of the first ``computed`` experts count in
+    ``num_blocks`` (the last group is then a sink that is never computed,
+    and its blocks name expert ``computed - 1``)."""
     tk = expert_ids.shape[0]
     dev = expert_ids.device
     p_rows = _round_up(tk, block_m) + num_experts * block_m
@@ -89,7 +90,7 @@ def _plan(expert_ids: torch.Tensor, num_experts: int, block_m: int,
         block_expert.clamp_(max=computed - 1)
         padded = padded[:computed]
     num_blocks = (padded.sum() // block_m).to(torch.int32).reshape(1)
-    return order, dest, block_expert, p_rows, num_blocks
+    return order, dest, block_expert, p_rows, num_blocks, counts
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +208,20 @@ def add_shared_expert(p, cfg, xt: torch.Tensor, out: torch.Tensor) -> torch.Tens
     return out + gate.to(out.dtype) * Q.mm(h, sh.down)
 
 
+def _count_routing(rows: int, experts: int, num_blocks: torch.Tensor,
+                   counts: torch.Tensor, block_m: int) -> None:
+    """The routing counters of one dispatch (``tracing``; only while a
+    session is open): ``moe_rows`` the T*k assignments and ``moe_mean_rows``
+    T*k / E in hundredths, on the host; ``moe_block_rows`` the rows the
+    grouped GEMM computes (each expert's group rounded up to ``block_m``)
+    and ``moe_max_rows`` the largest expert group, added on the device with
+    no host sync."""
+    tracing.count("moe_rows", rows)
+    tracing.count("moe_mean_rows", round(100 * rows / experts))
+    tracing.count_device("moe_block_rows", num_blocks * block_m)
+    tracing.count_device("moe_max_rows", counts.max())
+
+
 def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
                      block_m: int = BLOCK_M) -> torch.Tensor:
     """Top-k routed SwiGLU experts over x (B, S, H), exact (no token drops).
@@ -228,6 +243,9 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
     The shared expert is replicated (the JAX rules match none of its leaves)
     and every rank adds it after the all-reduce, so it counts once with no
     collective of its own.
+
+    Traced, a dispatch over all the experts counts its routing
+    (``_count_routing``); an expert-parallel rank counts nothing.
     """
     b, s, h = x.shape
     xt = x.reshape(-1, h)
@@ -245,8 +263,10 @@ def moe_mlp_dispatch(p, cfg, x: torch.Tensor,
         ids = torch.where(mine, topi - lo, e_local)
         topv = topv * mine
         computed = e_local
-    order, dest, block_expert, p_rows, used = _plan(
+    order, dest, block_expert, p_rows, used, counts = _plan(
         ids.reshape(-1), e_local + (group is not None), block_m, computed)
+    if group is None and tracing.enabled():
+        _count_routing(t * k, e_local, used, counts, block_m)
     # the grouped buffer as a row gather: each slot's source token; pad
     # slots read token row 0, a finite row whose outputs are never read
     token_of = torch.arange(t, device=dev).repeat_interleave(k)[order]

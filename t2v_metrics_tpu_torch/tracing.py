@@ -36,7 +36,12 @@ host-to-device copy that does not block (``to_device``, counted also on a
 CPU device, where the copy is none),
 ``t5_enc_rows`` and ``t5_enc_rows_valid`` the rows the T5 encoder computes
 and the real pairs' encoder lengths among them (counted only while a span
-records, since nothing else reads them).
+records, since nothing else reads them); ``moe_rows``, ``moe_mean_rows``,
+``moe_block_rows`` and ``moe_max_rows`` the routing of each MoE dispatch
+(``ops/moe.py:_count_routing``, only while a session is open).
+``count_device(name, t)`` adds a one-element device tensor into the open
+session's total on the device, with no host sync; ``counts()`` reads those
+totals back, and so waits for the card.
 
 Copies. ``to_device`` and ``to_host`` are the scoring path's copies between
 host and device, each spanned and counted. ``to_device`` to a CUDA device
@@ -80,6 +85,7 @@ class _Session:
         self.spans: list[Span] = []
         self.base = base        # the counters' totals at its start
         self.end = None         # and at its end
+        self.device: dict[str, torch.Tensor] = {}   # count_device's totals
 
 
 _totals: collections.defaultdict = collections.defaultdict(int)
@@ -187,6 +193,22 @@ def count(name: str, n: int = 1) -> None:
     _totals[name] += n
 
 
+def count_device(name: str, value: torch.Tensor) -> None:
+    """Add the one-element tensor ``value`` into the open session's total
+    ``name``, on its device and with no host sync; nothing without a
+    session. The total is an int64 tensor made outside inference mode, so
+    that calls inside and outside it may add to it."""
+    session = _session
+    if not _open:
+        return
+    total = session.device.get(name)
+    if total is None:
+        with torch.inference_mode(False):
+            session.device[name] = value.detach().reshape(()).to(torch.int64, copy=True)
+    else:
+        total.add_(value.reshape(()))
+
+
 def host_empty(shape, dtype: torch.dtype, device) -> torch.Tensor:
     """An uninitialised host tensor to fill (through ``.numpy()``) and hand
     to ``to_device``: page-locked where ``device`` is CUDA, so its copy needs
@@ -286,13 +308,16 @@ def records() -> list[Span]:
 
 
 def counts() -> dict[str, int]:
-    """The counters that moved in the newest session, by how much."""
+    """The counters that moved in the newest session, by how much, and its
+    ``count_device`` totals (read back from the device here)."""
     session = _session
     if session is None:
         return {}
     end = session.end if session.end is not None else dict(_totals)
-    return {k: v - session.base.get(k, 0) for k, v in end.items()
-            if v != session.base.get(k, 0)}
+    out = {k: v - session.base.get(k, 0) for k, v in end.items()
+           if v != session.base.get(k, 0)}
+    out.update((k, int(t)) for k, t in session.device.items())
+    return out
 
 
 def self_ns(spans: list[Span]) -> dict[int, int]:

@@ -179,8 +179,9 @@ def test_grouped_matmul_num_blocks_matches_jax_on_used_rows(e, k, n, tk):
     rng = np.random.default_rng(e)
     ids = rng.integers(0, e, (tk,))
     bm = 8
-    *plan, used = tmoe._plan(torch.from_numpy(ids), e, bm)
+    *plan, used, counts = tmoe._plan(torch.from_numpy(ids), e, bm)
     _, _, be, p = plan
+    np.testing.assert_array_equal(counts.numpy(), np.bincount(ids, minlength=e))
     want_used = int(sum(-(-c // bm) for c in np.bincount(ids, minlength=e)))
     assert used.dtype == torch.int32 and used.shape == (1,) and int(used) == want_used
     assert int(used) * bm < p                        # the E pad blocks follow

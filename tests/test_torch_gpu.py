@@ -515,7 +515,7 @@ def test_grouped_gemm_kernel_num_blocks(dev, e, k, n, routing):
         ids = torch.rand((tk // 4, e), generator=gen, device=dev).topk(4).indices.reshape(-1)
     else:
         ids = torch.randint(0, e, (tk,), generator=gen, device=dev)
-    _, _, be, p, used = M._plan(ids, e, M.BLOCK_M)
+    _, _, be, p, used, _ = M._plan(ids, e, M.BLOCK_M)
     xg = _randn(dev, p, k, seed=12)
     w = _randn(dev, e, k, n, seed=13, std=k ** -0.5)
     out = M.grouped_matmul(xg, w, be, M.BLOCK_M, used)
@@ -808,7 +808,7 @@ def test_grouped_gemm_kernel_decode_routing(dev, tokens):
     num_blocks as the dispatch calls it."""
     ids = torch.rand((tokens, 128), generator=torch.Generator(device=dev).manual_seed(5),
                      device=dev).topk(8).indices.reshape(-1)
-    _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+    _, _, be, p, used, _ = M._plan(ids, 128, M.BLOCK_M)
     assert int(used) == len(set(ids.tolist()))
     xg = _randn(dev, p, 2048, seed=6)
     w = _randn(dev, 128, 2048, 256, seed=7, std=2048 ** -0.5)
@@ -1063,7 +1063,7 @@ def test_grouped_gemm_kernel_talker_shapes(dev, tokens):
     and of 300 prefill tokens, with num_blocks."""
     ids = torch.rand((tokens, 128), generator=torch.Generator(device=dev).manual_seed(9),
                      device=dev).topk(8).indices.reshape(-1)
-    _, _, be, p, used = M._plan(ids, 128, M.BLOCK_M)
+    _, _, be, p, used, _ = M._plan(ids, 128, M.BLOCK_M)
     for k, n in ((1024, 768), (384, 1024)):
         xg = _randn(dev, p, k, seed=k)
         w = _randn(dev, 128, k, n, seed=n, std=k ** -0.5)
@@ -1224,3 +1224,61 @@ def test_async_copies_score_as_the_blocking_ones(dev, hw, monkeypatch):
         assert np.isfinite(b).all() and len(np.unique(b)) > 1
         np.testing.assert_array_equal(g, b)
         np.testing.assert_array_equal(w, b)
+
+
+def _card_qwen3_moe(device="cuda"):
+    """qwen3-vl-moe-test widened to what the card's kernels take (head dims
+    of 64, widths of whole 128-column tiles), with the sorted dispatch and
+    the grouped GEMM: (scorer, config)."""
+    import dataclasses
+
+    import t2v_metrics_tpu_torch as tt2v
+    from t2v_metrics_tpu_torch.models import qwen3vl as tq3
+
+    cfg = tq3.resolve_config("qwen3-vl-moe-test")
+    cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, hidden=128, heads=2, d_ff=256,
+                                        out_hidden=128),
+        text=dataclasses.replace(cfg.text, d_model=128, heads=2, kv_heads=1, head_dim=64,
+                                 mrope_section=(12, 10, 10), moe_d_ff=64, moe_dispatch=True))
+    return tt2v.VQAScore("qwen3-vl-moe-test", config=cfg, device=device), cfg
+
+
+def test_qwen_moe_trace_copies_back_the_scores_alone(dev):
+    """A profiled ``batch_forward`` of a small Qwen3-VL MoE with the routing
+    counters on: the card's device-to-host copies are the score read-backs
+    alone (``host_syncs``, one a chunk), every host-to-device copy is from
+    page-locked memory (``h2d_async``), and the counters, kept on the card
+    through the window, read back after it."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from t2v_metrics_tpu_torch import tracing
+
+    scorer, cfg = _card_qwen3_moe()
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (200, 240, 3), dtype=np.uint8) for _ in range(6)]
+    texts = ["a cube", "two red dogs", "a horse", "the sky", "one chair", "a boat"]
+    data = [{"images": [im], "texts": [t]} for im, t in zip(images, texts)]
+    scorer.batch_forward(data, batch_size=2)    # builds, compiles, warms
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # in a process that built the kernels, the profiler dropped the device
+        # record of the window's first operation (the first upload's
+        # cudaMemcpyAsync was recorded, its Memcpy not): a finished kernel
+        # that is no copy goes first
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        out = scorer.batch_forward(data, batch_size=2)
+    copies = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.name.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+    counts = tracing.counts()
+    down = [c for c in copies if c.startswith("Memcpy DtoH")]
+    pinned = [c for c in copies if c.startswith("Memcpy HtoD (Pinned")]
+    assert len(down) == counts["host_syncs"] == 3, sorted(set(copies))
+    assert len(pinned) == counts["h2d_async"] and len(pinned) + len(down) == len(copies)
+    t = cfg.text
+    assert counts["moe_rows"] % (t.experts_per_tok * t.layers) == 0
+    assert counts["moe_rows"] <= counts["moe_block_rows"]
+    assert counts["moe_max_rows"] * t.num_experts >= counts["moe_rows"]
+    assert np.isfinite(out).all()

@@ -471,7 +471,9 @@ def test_qwen_checkpoint_matches_jax(tmp_path, qwen_tok, family):
     if family == "qwen2.5-vl":
         hf, cfg = _qwen2_hf()
         name = "qwen2.5-vl-7b"
-        jcfg = jq2.Qwen2VLConfig(vision=jq2.QwenVisionConfig(**dataclasses.asdict(cfg.vision)),
+        vision = {k: v for k, v in dataclasses.asdict(cfg.vision).items()
+                  if k not in ("image_mean", "image_std")}      # CLIP's, as JAX's
+        jcfg = jq2.Qwen2VLConfig(vision=jq2.QwenVisionConfig(**vision),
                                  text=jdec.DecoderConfig(**dataclasses.asdict(cfg.text)),
                                  **{k: getattr(cfg, k) for k in _Q3_IDS if k != "image_token_id"},
                                  image_token_id=cfg.image_token_id)
@@ -479,6 +481,10 @@ def test_qwen_checkpoint_matches_jax(tmp_path, qwen_tok, family):
         hf, cfg = _qwen3_hf(False)
         name = "qwen3-vl-8b"
         jcfg = jq3.resolve_config("qwen3-vl-test")
+        # the JAX package normalises with CLIP's mean and std, where the port
+        # gives Qwen3-VL its published processor's 0.5
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+            cfg.vision, image_mean=CLIP_MEAN, image_std=CLIP_STD))
     path = _qwen_dir(tmp_path, hf, "state_dict")
     imgs = [_qwen_img(2), _qwen_img(3)]
     t = tt2v.VQAScore(name, config=cfg, checkpoint=path, tokenizer=qwen_tok, device="cpu",

@@ -32,6 +32,7 @@ from t2v_metrics_tpu.models import qwen3vl as jq3  # noqa: E402
 from t2v_metrics_tpu.models.adapters import CLIP_T5_MODELS as J_MODELS  # noqa: E402
 from t2v_metrics_tpu.parallel import mesh as jmesh  # noqa: E402
 from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer  # noqa: E402
+from t2v_metrics_tpu_torch.constants import CLIP_MEAN, CLIP_STD  # noqa: E402
 from t2v_metrics_tpu_torch.models import clip as tclip  # noqa: E402
 from t2v_metrics_tpu_torch.models import clip_flant5 as tcft5  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3vl as tq3  # noqa: E402
@@ -129,9 +130,16 @@ def _adapter_cases():
         want = jt2v.VQAScore(name, params=tree, tokenizer=tok)(images=images,
                                                                texts=TEXTS[:3])
         refs[name] = want
+        # the JAX package's pixel normalisation, CLIP's, where the port gives
+        # Qwen3-VL its published processor's 0.5
+        config = None
+        if name.startswith("qwen3"):
+            config = tq3.resolve_config(name)
+            config = dataclasses.replace(config, vision=dataclasses.replace(
+                config.vision, image_mean=CLIP_MEAN, image_std=CLIP_STD))
         cases.append(_case(name, "adapter_tp", ("mesh", {"dp": 2, "tp": 2}), model=name,
                            tree=tree, vocab=dict(tok._vocab), vocab_size=vocab_size,
-                           images=images, texts=TEXTS[:3]))
+                           images=images, texts=TEXTS[:3], config=config))
     return cases, refs
 
 

@@ -28,6 +28,7 @@ from t2v_metrics_tpu.models import decoder as jdec  # noqa: E402
 from t2v_metrics_tpu.models import qwen3vl as jq3  # noqa: E402
 from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer  # noqa: E402
 from t2v_metrics_tpu_torch.bridge import qwen3vl_from_numpy  # noqa: E402
+from t2v_metrics_tpu_torch.constants import CLIP_MEAN, CLIP_STD  # noqa: E402
 from t2v_metrics_tpu_torch.models import decoder as tdec  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3vl as tq3  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3vl_adapter as tq3a  # noqa: E402
@@ -38,8 +39,15 @@ NAMES = ("qwen3-vl-test", "qwen3-vl-moe-test")
 TEXTS = ["a red cube on a table", "two dogs", "a cat sleeping on a warm sofa"]
 
 
+def _jax_normalised(cfg):
+    """The port's config with the JAX package's pixel normalisation, CLIP's
+    mean and std (the port gives Qwen3-VL its published processor's 0.5)."""
+    return dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, image_mean=CLIP_MEAN, image_std=CLIP_STD))
+
+
 def _configs(name, dispatch=False):
-    j, t = jq3.resolve_config(name), tq3.resolve_config(name)
+    j, t = jq3.resolve_config(name), _jax_normalised(tq3.resolve_config(name))
     if dispatch:
         j = dataclasses.replace(j, text=dataclasses.replace(j.text, moe_dispatch=True))
         t = dataclasses.replace(t, text=dataclasses.replace(t.text, moe_dispatch=True))
@@ -160,7 +168,7 @@ def test_pairwise_forward_and_batch_forward(case):
     name, jcfg, tcfg, params = case
     tok = SimpleT5Tokenizer(jcfg.text.vocab_size)
     j = jt2v.VQAScore(name, params=params, tokenizer=tok)
-    t = tt2v.VQAScore(name, params=params, tokenizer=tok, device="cpu")
+    t = tt2v.VQAScore(name, params=params, tokenizer=tok, config=tcfg, device="cpu")
     images = _images(3, 3)
     imgs = [images[0], images[2], images[0]]
     want = j.model.forward(imgs, TEXTS)
@@ -204,7 +212,11 @@ def test_registry_matches_jax_and_unported_paths_raise(tmp_path, monkeypatch):
     assert list(tq3.QWEN3_VL_MODELS) == list(jq3.QWEN3_VL_MODELS)
     for name in jq3.QWEN3_VL_MODELS:
         got, want = tq3.resolve_config(name), jq3.resolve_config(name)
-        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        # every size the JAX package's; the normalisation the published 0.5
+        assert (got.vision.image_mean, got.vision.image_std) == ((0.5,) * 3, (0.5,) * 3)
+        assert dataclasses.asdict(_jax_normalised(got)) == dict(
+            dataclasses.asdict(want), vision=dict(dataclasses.asdict(want.vision),
+                                                  image_mean=CLIP_MEAN, image_std=CLIP_STD)), name
         assert tq3.QWEN3_VL_MODELS[name] == jq3.QWEN3_VL_MODELS[name], name
     for var in ("HF_HUB_CACHE", "HF_HOME", "HOME", "T2V_TPU_CACHE"):
         monkeypatch.setenv(var, str(tmp_path / var))         # empty local caches

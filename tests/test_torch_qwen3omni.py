@@ -38,6 +38,7 @@ from t2v_metrics_tpu.models import qwen3omni as jqo  # noqa: E402
 from t2v_metrics_tpu.models import qwen3omni_audio as jqa  # noqa: E402
 from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer  # noqa: E402
 from t2v_metrics_tpu_torch import bridge  # noqa: E402
+from t2v_metrics_tpu_torch.constants import CLIP_MEAN, CLIP_STD  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen2vl as tq2  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3omni as tqo  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen3omni_adapter as tqoa  # noqa: E402
@@ -116,8 +117,16 @@ def _close(got, want):
 # Config and registry
 # ---------------------------------------------------------------------------
 
+def _clip_normalised(vision: dict) -> dict:
+    """A JAX vision config's fields as the port holds them: the port's also
+    names the pixel normalisation, CLIP's for Qwen3-Omni as in the JAX
+    package."""
+    return dict(vision, image_mean=CLIP_MEAN, image_std=CLIP_STD)
+
+
 def test_test_config_and_registry_equal_jax():
-    assert dataclasses.asdict(TCFG) == dataclasses.asdict(JCFG)
+    want = dataclasses.asdict(JCFG)
+    assert dataclasses.asdict(TCFG) == dict(want, vision=_clip_normalised(want["vision"]))
     assert list(tqo.QWEN3_OMNI_MODELS) == list(jqo.QWEN3_OMNI_MODELS)
     for name, spec in tqo.QWEN3_OMNI_MODELS.items():
         assert spec["hf"] == jqo.QWEN3_OMNI_MODELS[name]["hf"]
@@ -136,7 +145,7 @@ def test_30b_audio_width_is_the_thinker_width():
         assert j.audio.output_dim == 3584 != j.text.d_model == 2048
         assert dataclasses.replace(t.audio, output_dim=3584) == tqa.AudioEncoderConfig(
             **dataclasses.asdict(j.audio))
-        assert dataclasses.asdict(t.vision) == dataclasses.asdict(j.vision)
+        assert dataclasses.asdict(t.vision) == _clip_normalised(dataclasses.asdict(j.vision))
         assert dataclasses.asdict(t.text) == dataclasses.asdict(j.text)
 
 

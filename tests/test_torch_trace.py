@@ -17,6 +17,8 @@ within 1e-6 (the reference's test_teacher_vs_rollout.py); the first-token
 distribution within 1e-5 of its largest probability.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -32,7 +34,9 @@ from t2v_metrics_tpu.models import qwen2vl as jq  # noqa: E402
 from t2v_metrics_tpu.models import qwen3vl as jq3  # noqa: E402
 from t2v_metrics_tpu.models.adapters import CLIP_T5_MODELS as J_MODELS  # noqa: E402
 from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer  # noqa: E402
+from t2v_metrics_tpu_torch.constants import CLIP_MEAN, CLIP_STD  # noqa: E402
 from t2v_metrics_tpu_torch.models import clip_flant5 as tcft5  # noqa: E402
+from t2v_metrics_tpu_torch.models import qwen3vl as tq3  # noqa: E402
 from t2v_metrics_tpu_torch.ops import launch_counts  # noqa: E402
 
 TOL = 1e-5
@@ -91,8 +95,19 @@ def scorers(name, quant=None):
         kw = {} if quant is None else {"quant": quant}
         _SCORERS[key] = (jt2v.VQAScore(name, params=params, tokenizer=tok, **kw),
                          tt2v.VQAScore(name, params=params, tokenizer=tok, device="cpu",
-                                       **kw))
+                                       config=_port_config(name), **kw))
     return _SCORERS[key]
+
+
+def _port_config(name):
+    """The port's Qwen3-VL config with the JAX package's pixel
+    normalisation, CLIP's mean and std (the port gives Qwen3-VL its
+    published processor's 0.5); None (the registry's) for the others."""
+    if not name.startswith("qwen3"):
+        return None
+    cfg = tq3.resolve_config(name)
+    return dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, image_mean=CLIP_MEAN, image_std=CLIP_STD))
 
 
 def _images(seed, n, hw):

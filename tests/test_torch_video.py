@@ -20,6 +20,7 @@ adapters' Pillow (Qwen3-VL on a cv2-written 100x150 clip, Gemma 3 on
 hold.
 """
 
+import dataclasses
 import sys
 import types
 
@@ -38,6 +39,7 @@ from t2v_metrics_tpu.models import qwen2vl as jq  # noqa: E402
 from t2v_metrics_tpu.models import qwen2vl_adapter as jqa  # noqa: E402
 from t2v_metrics_tpu.models import qwen3vl as jq3  # noqa: E402
 from t2v_metrics_tpu.tokenization import SimpleT5Tokenizer  # noqa: E402
+from t2v_metrics_tpu_torch.constants import CLIP_MEAN, CLIP_STD  # noqa: E402
 from t2v_metrics_tpu_torch.media.video import DecodedVideo  # noqa: E402
 from t2v_metrics_tpu_torch.models import gemma_adapters as tga  # noqa: E402
 from t2v_metrics_tpu_torch.models import qwen2vl as tq  # noqa: E402
@@ -55,6 +57,17 @@ _SCORERS = {}
 def _qwen_config(name):
     return (jq.QWEN2_VL_MODELS[name]["config"] if name.startswith("qwen2.5")
             else jq3.resolve_config(name))
+
+
+def _port_config(name):
+    """The port's Qwen3-VL config with the JAX package's pixel
+    normalisation, CLIP's mean and std (the port gives Qwen3-VL its
+    published processor's 0.5); None (the registry's) for the others."""
+    if not name.startswith("qwen3"):
+        return None
+    cfg = tq3.resolve_config(name)
+    return dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, image_mean=CLIP_MEAN, image_std=CLIP_STD))
 
 
 def _params(name):
@@ -83,7 +96,8 @@ def scorers(name):
                  else _qwen_config(name)).text.vocab_size
         tok = SimpleT5Tokenizer(vocab)
         _SCORERS[name] = (jt2v.VQAScore(name, params=params, tokenizer=tok),
-                          tt2v.VQAScore(name, params=params, tokenizer=tok, device="cpu"))
+                          tt2v.VQAScore(name, params=params, tokenizer=tok, device="cpu",
+                                        config=_port_config(name)))
     return _SCORERS[name]
 
 
@@ -222,13 +236,9 @@ def test_video_patches_match_jax_video_feats(tiled, monkeypatch):
     be one uint8 level apart: at most one element per such pixel."""
     import jax.numpy as jnp
     from t2v_metrics_tpu.ops import image as jimage
-    from t2v_metrics_tpu_torch.constants import CLIP_STD
-
     name = "qwen2.5-vl-test"
     cfg = _qwen_config(name)
     if not tiled:   # 3x3-merged-patch windows overflow the bucket untiled
-        import dataclasses
-
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, window_size=24))
     h0, w0 = (70, 90) if tiled else (60, 130)
     frames = np.random.default_rng(2).integers(0, 256, (2, 4, h0, w0, 3), dtype=np.uint8)
@@ -249,7 +259,8 @@ def test_video_patches_match_jax_video_feats(tiled, monkeypatch):
     want = np.asarray(fn({"vision": None}, pixels, perm,
                          *[np.broadcast_to(a, (n, *a.shape)) for a in
                            (pos_hw, win_seg, full_seg, reverse)]))
-    rows = tq.video_patches(torch.from_numpy(pixels), cfg.vision, hb, wb)[
+    tvision = tq.QwenVisionConfig(**dataclasses.asdict(cfg.vision))   # CLIP's mean and std
+    rows = tq.video_patches(torch.from_numpy(pixels), tvision, hb, wb)[
         :, torch.from_numpy(perm.astype(np.int64))]
     got = torch.nn.functional.pad(rows, (0, 0, 0, sb - rows.shape[1])).numpy()
     assert got.shape == want.shape == (n, sb, cfg.vision.patch_dim)

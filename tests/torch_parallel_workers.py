@@ -81,13 +81,14 @@ def case_clipscore(rank, mesh, tree, vocab, images, texts):
             "pairs": s.model.forward(images, texts[:len(images)])}
 
 
-def case_adapter_tp(rank, mesh, model, tree, vocab, vocab_size, images, texts):
+def case_adapter_tp(rank, mesh, model, tree, vocab, vocab_size, images, texts, config=None):
     """A VQAScore family's adapter with its model sharded in place: the
-    scoring path runs tensor-parallel through the leaves."""
+    scoring path runs tensor-parallel through the leaves (``config``: the
+    family's config, or None for the registry's)."""
     import t2v_metrics_tpu_torch as tt2v
 
     s = tt2v.VQAScore(model, params=tree, tokenizer=_tokenizer(vocab_size, vocab),
-                      device="cpu")
+                      device="cpu", config=config)
     M.shard_params(s.model.params, mesh)
     return s(images=images, texts=texts)
 
