@@ -256,6 +256,7 @@ import gc
 import io
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -354,6 +355,30 @@ INKERNEL_TOL_NATS = CHAIN_TOL_NATS
 # rate of their type
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+# ptxas usage (registers, spill store bytes, spill load bytes) of the attention
+# instantiations without segment ids, keyed (head dim, consumer warpgroups,
+# BAND, REL), as built before the segment-id tile plan (nvcc 12.8, sm_90a): the
+# plan's code sits behind SEG, so phase_build prints today's beside these
+SEG_FALSE_PTXAS = {
+  "flash_flat": {
+    (64, 1, 0, 0): (168, 0, 0), (64, 1, 1, 0): (136, 0, 0), (64, 2, 0, 0): (168, 0, 0),
+    (64, 2, 1, 0): (168, 0, 0), (72, 1, 0, 0): (128, 0, 0), (72, 1, 1, 0): (136, 0, 0),
+    (72, 2, 0, 0): (168, 0, 0), (72, 2, 1, 0): (168, 0, 0), (80, 1, 0, 0): (128, 0, 0),
+    (80, 1, 1, 0): (136, 0, 0), (80, 2, 0, 0): (168, 0, 0), (80, 2, 1, 0): (168, 0, 0),
+    (88, 1, 0, 0): (138, 0, 0), (88, 1, 1, 0): (152, 0, 0), (88, 2, 0, 0): (168, 0, 0),
+    (88, 2, 1, 0): (168, 0, 0), (128, 1, 0, 0): (152, 0, 0), (128, 1, 1, 0): (168, 0, 0),
+    (128, 2, 0, 0): (168, 0, 0), (128, 2, 1, 0): (168, 0, 0), (256, 1, 0, 0): (216, 0, 0),
+    (256, 1, 1, 0): (224, 0, 0), (256, 2, 0, 0): (168, 0, 0), (256, 2, 1, 0): (168, 0, 0)},
+  "flash_attention": {
+    (64, 1, 0, 0): (168, 0, 0), (64, 1, 0, 1): (167, 0, 0), (64, 2, 0, 0): (168, 0, 0),
+    (64, 2, 0, 1): (168, 0, 0), (72, 1, 0, 0): (128, 0, 0), (72, 1, 0, 1): (168, 0, 0),
+    (72, 2, 0, 0): (168, 0, 0), (72, 2, 0, 1): (168, 0, 0), (80, 1, 0, 0): (128, 0, 0),
+    (80, 1, 0, 1): (168, 0, 0), (80, 2, 0, 0): (168, 0, 0), (80, 2, 0, 1): (168, 0, 0),
+    (128, 1, 0, 0): (152, 0, 0), (128, 1, 0, 1): (196, 0, 0), (128, 2, 0, 0): (168, 0, 0),
+    (128, 2, 0, 1): (168, 0, 0), (256, 1, 0, 0): (216, 0, 0), (256, 1, 0, 1): (254, 0, 0),
+    (256, 2, 0, 0): (168, 0, 0), (256, 2, 0, 1): (168, 0, 0)},
+}
 
 KERNELS = {
     "flash_attention_flat": ("cuda", "t2v_metrics_tpu_torch/csrc/flash_flat.cu",
@@ -558,6 +583,20 @@ def phase_build() -> None:
         f"{sorted(u[0] for u in d88.values())}, spill bytes "
         f"{sum(u[1] + u[2] for u in d88.values())}")
     check(not any(u[1] or u[2] for u in d88.values()), "flash_flat.cu d=88 spills")
+    # the instantiations without segment ids, beside their usage before the
+    # segment-id tile plan
+    for lib, recorded in SEG_FALSE_PTXAS.items():
+        now = {tuple(int(x) for x in (m[1], m[2], m[4], m[5])): u
+               for k, u in build.ptxas_usage(lib).items()
+               if (m := re.search(r"kernelILi(\d+)ELi(\d)ELb([01])ELb([01])ELb([01])E", k))
+               and m[3] == "0"}
+        check(set(now) == set(recorded), f"{lib}: SEG=false instantiations {sorted(now)}")
+        for key, was in recorded.items():
+            log(f"[build] ptxas {lib} SEG=false d={key[0]} WG={key[1]} BAND={key[2]} "
+                f"REL={key[3]}: registers, spill stores, spill loads {now[key]} (before the "
+                f"segment-id tile plan {was})")
+        log(f"[build] ptxas {lib}: {sum(now[k] == v for k, v in recorded.items())} of "
+            f"{len(recorded)} SEG=false instantiations as before the segment-id tile plan")
     for lib in ("flash_flat", "flash_attention"):
         serial = [ln for ln in build.build_log(lib).splitlines()
                   if "C7513" in ln or "C7515" in ln]
@@ -1294,6 +1333,12 @@ def video_kernels(randn, record, lengths_mask) -> None:
     seg3 = torch.where(torch.arange(12288, device=dev) < 11200, 0, -1).int()[None]
     seg_site("Qwen3 ViT, video (1, 12288, 3x1152) d=72, 11200 rows, -1 pads",
              1, 12288, 16, 72, seg3)
+    free_cuda()
+    # the qwen3-vl-30b-a3b.genai-image cell's call: 16 images at 992x992, 3844
+    # patches in bucket 4096 (key tile 31 skipped by q tiles 0-29)
+    seg_img = torch.where(torch.arange(4096, device=dev) < 3844, 0, -1).int()
+    seg_site("Qwen3 ViT, images (16, 4096, 3x1152) d=72, 3844 rows, -1 pads",
+             16, 4096, 16, 72, seg_img.expand(16, 4096))
     free_cuda()
 
     # Gemma 3 decoder prefill of a 10-frame prompt: the window's lower edge

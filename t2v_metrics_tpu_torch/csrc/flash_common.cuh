@@ -87,7 +87,8 @@
 // segment id and bidir id), and arrives on the stage's full barrier with the
 // TMA. A consumer adds the key term to each score (read once per column pair
 // it holds, shared by its two rows), and runs the per-element mask pass only
-// for segment ids, the band, or a tile that crosses the causal diagonal. The
+// for a tile whose segment ids it cannot settle as a whole (below), the band,
+// or a tile that crosses the causal diagonal. The
 // fp32 bias is read as 8-byte loads of the accumulator's column pairs where
 // it has unit column stride: at d = 64 (the T5 sites) into registers while
 // the tile's products run, and the next tile's prefetched into L1. The T5
@@ -103,8 +104,27 @@
 // see; with a window it starts at the first tile it can see. The bidir overlay can reopen tiles on either side: the block finds the
 // range of keys whose id lies between the smallest and largest non-negative
 // id of its rows (a superset of the keys it can reopen) and also visits those
-// tiles. Segment-id tile skipping would plug in as one more term of
-// tile_visible.
+// tiles.
+//
+// Segment ids per key tile. Before its key loop a block stages one byte of
+// plan a key tile of its batch item, from the smallest and largest id of the
+// tile's keys, of the block's rows and of each consumer warpgroup's 64 rows (a
+// warp a tile; with Sq == Sk the rows are keys too): whether the block's rows'
+// range meets the tile's, and for each warpgroup whether the tile is one id
+// with its rows, mixed, or apart. A key tile the block's rows cannot meet is
+// not visited: one more term of tile_visible, which the producer, its key-term
+// warp and the consumers read alike from the one plan, so the barrier phases
+// stay in step. Without the band compiled in (as at every segment-id site of
+// the port), a consumer settles a visited tile as a whole where it can: if its
+// 64 rows and the tile's keys all hold one id, the segment term keeps every
+// score and the tile runs a copy of the score pass compiled without masks; if
+// their ranges do not meet, every score is -inf without a compare; only a
+// mixed tile takes the per-element compare (and only for a mixed tile does the
+// key-term warp stage the keys' ids). The rule is conservative (ranges that
+// meet with no id in common are mixed), so it adapts to whatever ids a call
+// gives. The staging lies on the block's start, which nothing else overlaps
+// (one block an SM), so the Q tile's copy is issued before it.
+// ops/attention.py:segment_tile_plan counts the plan.
 //
 // The grid: a 1-D grid decoded as (q tile, head, batch) with the q tile
 // fastest, so the q tiles of one (batch, head) run together and read its K/V
@@ -129,8 +149,16 @@
 namespace flash {
 
 constexpr int NONE = 1 << 30;
+constexpr int ID_MAX = 0x7fffffff, ID_MIN = -ID_MAX - 1;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int PINGPONG_BAR = 1;   // named barriers 1 and 2: the consumers' turns
+
+// Bytes of the segment-id plan over Sk keys: a byte a key tile of BK, padded
+// to 16.
+template <int BK>
+__host__ __device__ constexpr int seg_plan_bytes(int sk) {
+  return ((sk + BK - 1) / BK + 15) / 16 * 16;
+}
 
 // Tiles of head dim D with WG consumer warpgroups (see the notes above):
 // WG = 2 for a call with Sq > 64, WG = 1 for Sq <= 64.
@@ -151,7 +179,8 @@ struct Tile {
   static constexpr int Q_BYTES = NP * Q_PANEL, KV_BYTES = NP * KV_PANEL;
   // dynamic shared memory: Q, K and V of each stage, 256 bytes of mbarriers
   // and ids, each stage's key terms (an additive float, the segment id and
-  // the bidir id of each key), then the REL kernels' bias; 1 KB of slack to
+  // the bidir id of each key), then, past REL_OFF, the segment-id runs' range
+  // table (segment ids only) and the REL kernels' bias; 1 KB of slack to
   // align the base to the 128-byte swizzle's 1024-byte repeat
   static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
   static constexpr int KEY_OFF = BAR_OFF + 256;
@@ -251,7 +280,11 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   uint64_t* full = bars + 1;             // [STAGES]
   uint64_t* empty = bars + 1 + STAGES;   // [STAGES]
   int* ranges = reinterpret_cast<int*>(bars + 1 + 2 * STAGES);  // bidir: row / key min, max
-  float* relb = reinterpret_cast<float*>(smem + T::REL_OFF);
+  const bool seg_on = SEG && p.seg != nullptr;
+  // segment ids: each key tile's plan (below)
+  unsigned char* tile_plan = smem + T::REL_OFF;
+  float* relb =
+      reinterpret_cast<float*>(smem + T::REL_OFF + (seg_on ? seg_plan_bytes<BK>(p.Sk) : 0));
 
   const int id = blockIdx.x;
   const int qt = id % p.q_tiles;
@@ -277,6 +310,13 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       sm90::mbar_init(&empty[s], 4 * n_wg);   // one arrival per consumer warp
     }
     sm90::fence_barrier_init();
+    if constexpr (SEG) {
+      if (seg_on) {   // the Q tile's copy runs under the segment-id staging below
+        sm90::fence_proxy_async();
+        sm90::mbar_expect_tx(q_full, T::Q_BYTES);
+        load_tile(q_s, &tq, q_full, p.axis[0], T::NP, T::Q_PANEL, T::PW, h, q0, b);
+      }
+    }
   }
   // T5 bias of this head for the distances these rows see: relb[j] is the
   // bias of col - row = j + jmin - (Sq - 1)
@@ -286,6 +326,66 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int count = p.Sk + last_row - q0;
     const float* col = p.rel + (long long)h * p.num_buckets;
     for (int i = tid; i < count; i += T::THREADS) relb[i] = col[p.rel_bucket[jmin + i]];
+  }
+  if constexpr (SEG) {
+    if (seg_on) {
+      // each key tile's plan, a warp a tile: bit 0, the block visits it (the id
+      // ranges of its rows and the tile's keys meet); bits 1 + 2c and 2 + 2c,
+      // warpgroup c's class: 0 one id (no compare), 1 mixed (the compare), 2
+      // ranges apart (-inf). A warp loads its TILES tiles and the block's rows
+      // (Sq == Sk: rows are keys) at once, so the plan costs the block's start
+      // (which nothing overlaps, one block an SM) one round trip to L2 up to
+      // TILES x BK x the warps keys; the consumers, whose registers are scarce
+      // (ptxas gives the kernel 168), read a byte a tile and nothing else.
+      constexpr int WARPS = T::THREADS / 32, TILES = 4;
+      const int lane = tid % 32;
+      const int* ids = p.seg + (long long)b * p.Sk;
+      const int n_key_tiles = (p.Sk + BK - 1) / BK;
+      for (int t0 = tid / 32; t0 < n_key_tiles; t0 += TILES * WARPS) {
+        int rv[BQ / 32], kv[TILES][BK / 32];
+#pragma unroll
+        for (int i = 0; i < BQ / 32; ++i) {
+          const int row = q0 + 32 * i + lane;
+          rv[i] = row < p.Sq ? __ldg(ids + row) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < TILES; ++u)
+#pragma unroll
+          for (int i = 0; i < BK / 32; ++i) {
+            const int col = (t0 + u * WARPS) * BK + 32 * i + lane;
+            kv[u][i] = col < p.Sk ? __ldg(ids + col) : 0;
+          }
+        // the id range of values [i0, i1) of v, value i at first + 32 i + lane
+        auto range = [&](const int* v, int i0, int i1, int first, int end) {
+          int lo = ID_MAX, hi = ID_MIN;
+#pragma unroll
+          for (int i = i0; i < i1; ++i)
+            if (first + 32 * i + lane < end) {
+              lo = min(lo, v[i]);
+              hi = max(hi, v[i]);
+            }
+          return make_int2(__reduce_min_sync(0xffffffffu, lo),
+                           __reduce_max_sync(0xffffffffu, hi));
+        };
+        auto meet = [](int2 x, int2 y) { return x.x <= y.y && x.y >= y.x; };
+        const int2 rows = range(rv, 0, BQ / 32, q0, p.Sq);
+        int2 wg[WG];   // warpgroup c: rows q0 + 64c .. + 63
+#pragma unroll
+        for (int c = 0; c < WG; ++c) wg[c] = range(rv, 2 * c, 2 * c + 2, q0, p.Sq);
+#pragma unroll
+        for (int u = 0; u < TILES; ++u) {
+          const int kt = t0 + u * WARPS;
+          const int2 keys = range(kv[u], 0, BK / 32, kt * BK, p.Sk);
+          int plan = meet(keys, rows);
+#pragma unroll
+          for (int c = 0; c < WG; ++c) {
+            const bool one = keys.x == keys.y && wg[c].x == wg[c].y && keys.x == wg[c].x;
+            plan |= (!meet(keys, wg[c]) ? 2 : one ? 0 : 1) << (1 + 2 * c);
+          }
+          if (lane == 0 && kt < n_key_tiles) tile_plan[kt] = static_cast<unsigned char>(plan);
+        }
+      }
+    }
   }
   // key tiles [ob_lo, ob_hi] the bidir overlay may reopen
   int ob_lo = NONE, ob_hi = -1;
@@ -319,7 +419,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       ob_hi = ranges[3] / BK;
     }
   }
-  __syncthreads();   // barriers initialised, relb staged
+  __syncthreads();   // barriers initialised, relb and tile_plan staged
 
   // key tiles [kt_lo, n_tiles) of the causal / window band, and the overlay's
   const int shift = p.Sk - p.Sq;
@@ -333,10 +433,12 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int kt_begin = BAND ? min(kt_lo, ob_lo) : 0;
   const int kt_end = BAND ? max(n_tiles, ob_hi + 1) : n_tiles;
   auto tile_visible = [&](int kt) {
+    if constexpr (SEG) {
+      if (seg_on && !(tile_plan[kt] & 1)) return false;   // no row shares an id with it
+    }
     return !BAND || (kt >= kt_lo && kt < n_tiles) || (kt >= ob_lo && kt <= ob_hi);
   };
 
-  const bool seg_on = SEG && p.seg != nullptr;
   const bool band_on = BAND && (p.window > 0 || bidb != nullptr);
   const long long key0 = (long long)b * p.Sk;   // batch item b's keys in the id arrays
   auto key_terms = [&](int stage) {
@@ -348,11 +450,19 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     float* kadd = key_terms(stage);
     int* kseg = reinterpret_cast<int*>(kadd + BK);
     int* kbid = kseg + BK;
+    bool seg_ids = seg_on;   // the keys' ids, for a tile some warpgroup compares
+    if constexpr (SEG && !BAND) {
+      if (seg_on) {
+        seg_ids = false;
+#pragma unroll
+        for (int c = 0; c < WG; ++c) seg_ids |= ((tile_plan[kt] >> (1 + 2 * c)) & 3) == 1;
+      }
+    }
     for (int c = i; c < BK; c += n) {
       const int col = kt * BK + c;
       const bool in = col < p.Sk;
       kadd[c] = in && (p.kv_mask == nullptr || p.kv_mask[key0 + col] != 0) ? 0.f : -INFINITY;
-      if (seg_on) kseg[c] = in ? p.seg[key0 + col] : 0;
+      if (seg_ids) kseg[c] = in ? p.seg[key0 + col] : 0;
       if (band_on && bidb != nullptr) kbid[c] = in ? p.bidir[key0 + col] : -1;
     }
   };
@@ -506,63 +616,94 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       const float* kadd = key_terms(stage);
       const int* kseg = reinterpret_cast<const int*>(kadd + BK);
       const int* kbid = kseg + BK;
-      const bool need_mask =
-          seg_on || band_on || (causal_main && k0 + BK - 1 - shift > wg_first_row);
-      const bool key_on = p.kv_mask != nullptr || k0 + BK > p.Sk;   // else kadd is 0
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const int cl = 8 * j + 2 * t4;   // column pair in the tile
-        const int c0 = k0 + cl;
-        const float2 ka =
-            key_on ? *reinterpret_cast<const float2*>(kadd + cl) : make_float2(0.f, 0.f);
-        float bv[2][2] = {{ka.x, ka.y}, {ka.x, ka.y}};
-        if (EARLY_BIAS && bias_on && p.bias_vec2) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            bv[r][0] += bpre[EARLY_BIAS ? j : 0][r].x;
-            bv[r][1] += bpre[EARLY_BIAS ? j : 0][r].y;
-          }
-        } else if (bias_on) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            if (p.bias_vec2 && c0 + 1 < p.Sk) {
-              const float2 pr = __ldg(reinterpret_cast<const float2*>(bias_row[r] + c0));
-              bv[r][0] += pr.x;
-              bv[r][1] += pr.y;
-            } else {
-              bv[r][0] += __ldg(bias_row[r] + min(c0, p.Sk - 1) * p.bias_ks);
-              bv[r][1] += __ldg(bias_row[r] + min(c0 + 1, p.Sk - 1) * p.bias_ks);
-            }
-          }
-        }
-        int2 ks = make_int2(0, 0), kb = make_int2(-1, -1);
-        if (seg_on) ks = *reinterpret_cast<const int2*>(kseg + cl);
-        if (band_on && bidb != nullptr) kb = *reinterpret_cast<const int2*>(kbid + cl);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c0 + e;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = rows[r];
-            float x = fmaf(s[4 * j + 2 * r + e], p.scale, bv[r][e]);
-            if (rel_on) x += relb[min(col, p.Sk - 1) - min(row, last_row) + last_row];
-            if (need_mask) {
-              bool keep = true;
-              if (causal_main) keep = col - shift <= row;
-              if (seg_on) keep = keep && (e ? ks.y : ks.x) == seg_row[r];
-              if (band_on) {
-                bool in = col - shift <= row &&
-                          (p.window <= 0 || col - shift > row - p.window);
-                if (!in && bidb != nullptr)
-                  in = bid_row[r] >= 0 && (e ? kb.y : kb.x) == bid_row[r];
-                keep = keep && in;
-              }
-              if (!keep) x = -INFINITY;
-            }
-            s[4 * j + 2 * r + e] = x;
-          }
+      // segment ids: a tile whose keys and this warpgroup's rows all hold one
+      // id keeps every score (no pass), one whose ranges do not meet keeps none
+      // (no compare), and only a mixed tile takes the per-element compare.
+      // With the band compiled in (no segment-id site of the port has one)
+      // every visited tile compares: the registers of those instantiations
+      // (168, ptxas's cap beside a producer) leave no room for the classes.
+      bool seg_pass = seg_on, seg_none = false;
+      if constexpr (SEG && !BAND) {
+        if (seg_on) {
+          const int cls = (tile_plan[kt] >> (1 + 2 * c)) & 3;
+          seg_pass = cls == 1;
+          seg_none = cls == 2;
         }
       }
+      const bool need_mask = seg_pass || seg_none || band_on ||
+                             (causal_main && k0 + BK - 1 - shift > wg_first_row);
+      const bool key_on = p.kv_mask != nullptr || k0 + BK > p.Sk;   // else kadd is 0
+      // The pass over the tile's scores (MASKED: with the masks where
+      // need_mask). A macro, so that a segment-id tile with nothing to mask
+      // runs a copy compiled without the mask code (inside the unrolled loop a
+      // branch is predicated, and its instructions issued anyway), while the
+      // instantiations without segment ids compile the one loop as they did,
+      // and so do those with the band (every tile compares there, above).
+#define FLASH_SCORE_PASS(MASKED) \
+        _Pragma("unroll")                                                                   \
+        for (int j = 0; j < BK / 8; ++j) {                                                  \
+          const int cl = 8 * j + 2 * t4;   /* column pair in the tile */                    \
+          const int c0 = k0 + cl;                                                           \
+          const float2 ka =                                                                 \
+              key_on ? *reinterpret_cast<const float2*>(kadd + cl) : make_float2(0.f, 0.f); \
+          float bv[2][2] = {{ka.x, ka.y}, {ka.x, ka.y}};                                    \
+          if (EARLY_BIAS && bias_on && p.bias_vec2) {                                       \
+            _Pragma("unroll")                                                               \
+            for (int r = 0; r < 2; ++r) {                                                   \
+              bv[r][0] += bpre[EARLY_BIAS ? j : 0][r].x;                                    \
+              bv[r][1] += bpre[EARLY_BIAS ? j : 0][r].y;                                    \
+            }                                                                               \
+          } else if (bias_on) {                                                             \
+            _Pragma("unroll")                                                               \
+            for (int r = 0; r < 2; ++r) {                                                   \
+              if (p.bias_vec2 && c0 + 1 < p.Sk) {                                           \
+                const float2 pr = __ldg(reinterpret_cast<const float2*>(bias_row[r] + c0)); \
+                bv[r][0] += pr.x;                                                           \
+                bv[r][1] += pr.y;                                                           \
+              } else {                                                                      \
+                bv[r][0] += __ldg(bias_row[r] + min(c0, p.Sk - 1) * p.bias_ks);             \
+                bv[r][1] += __ldg(bias_row[r] + min(c0 + 1, p.Sk - 1) * p.bias_ks);         \
+              }                                                                             \
+            }                                                                               \
+          }                                                                                 \
+          int2 ks = make_int2(0, 0), kb = make_int2(-1, -1);                                \
+          if (seg_pass) ks = *reinterpret_cast<const int2*>(kseg + cl);                     \
+          if (band_on && bidb != nullptr) kb = *reinterpret_cast<const int2*>(kbid + cl);   \
+          _Pragma("unroll")                                                                 \
+          for (int e = 0; e < 2; ++e) {                                                     \
+            const int col = c0 + e;                                                         \
+            _Pragma("unroll")                                                               \
+            for (int r = 0; r < 2; ++r) {                                                   \
+              const int row = rows[r];                                                      \
+              float x = fmaf(s[4 * j + 2 * r + e], p.scale, bv[r][e]);                      \
+              if (rel_on) x += relb[min(col, p.Sk - 1) - min(row, last_row) + last_row];    \
+              if (MASKED && need_mask) {                                                    \
+                bool keep = !seg_none;                                                      \
+                if (causal_main) keep = keep && col - shift <= row;                         \
+                if (seg_pass) keep = keep && (e ? ks.y : ks.x) == seg_row[r];               \
+                if (band_on) {                                                              \
+                  bool in = col - shift <= row &&                                           \
+                            (p.window <= 0 || col - shift > row - p.window);                \
+                  if (!in && bidb != nullptr)                                               \
+                    in = bid_row[r] >= 0 && (e ? kb.y : kb.x) == bid_row[r];                \
+                  keep = keep && in;                                                        \
+                }                                                                           \
+                if (!keep) x = -INFINITY;                                                   \
+              }                                                                             \
+              s[4 * j + 2 * r + e] = x;                                                     \
+            }                                                                               \
+          }                                                                                 \
+        }
+      if constexpr (SEG && !BAND) {
+        if (need_mask) {
+          FLASH_SCORE_PASS(true)
+        } else {
+          FLASH_SCORE_PASS(false)
+        }
+      } else {
+        FLASH_SCORE_PASS(true)
+      }
+#undef FLASH_SCORE_PASS
 
       // online softmax: the 4 threads of a row group share each row
       float mu[2], alpha[2];
@@ -640,8 +781,10 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         sm90::tma_prefetch(&tq);
         sm90::tma_prefetch(&tk);
         sm90::tma_prefetch(&tv);
-        sm90::mbar_expect_tx(q_full, T::Q_BYTES);
-        load_tile(q_s, &tq, q_full, p.axis[0], T::NP, T::Q_PANEL, T::PW, h, q0, b);
+        if (!seg_on) {   // else issued before the segment-id staging
+          sm90::mbar_expect_tx(q_full, T::Q_BYTES);
+          load_tile(q_s, &tq, q_full, p.axis[0], T::NP, T::Q_PANEL, T::PW, h, q0, b);
+        }
         int it = 0;
         for (int kt = kt_begin; kt < kt_end; ++kt) {
           if (!tile_visible(kt)) continue;
@@ -670,7 +813,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   } else {
     // one warpgroup: thread 0 loads, every thread stages the key terms, and
     // a stage is refilled once the warpgroup has released it
-    if (tid == 0) {
+    if (tid == 0 && !seg_on) {   // else issued before the segment-id staging
       sm90::mbar_expect_tx(q_full, T::Q_BYTES);
       load_tile(q_s, &tq, q_full, p.axis[0], T::NP, T::Q_PANEL, T::PW, h, q0, b);
     }
@@ -725,7 +868,9 @@ cudaError_t launch_variant(const long long* geo, Params p, int extra_smem,
     if (err != cudaSuccess) return err;
   }
   auto kernel = attention_kernel<D, WG, SEG, BAND, REL>;
-  const int smem = T::SMEM + extra_smem;
+  // segment ids: the key tiles' plan
+  const int seg_smem = SEG && p.seg != nullptr ? seg_plan_bytes<T::BK>(p.Sk) : 0;
+  const int smem = T::SMEM + extra_smem + seg_smem;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return err;
@@ -737,7 +882,8 @@ cudaError_t launch_variant(const long long* geo, Params p, int extra_smem,
 }
 
 // Launch the variant the q map's box names; extra_smem: the REL kernels'
-// staged bias. Returns cudaGetLastError() after the launch.
+// staged bias (launch_variant adds the segment-id table). Returns
+// cudaGetLastError() after the launch.
 template <int D, bool SEG, bool BAND, bool REL>
 cudaError_t launch(const long long* geo, const Params& p, int extra_smem, cudaStream_t stream) {
   if (geo[9] * geo[10] * geo[11] == Tile<D, 1>::BQ)

@@ -34,11 +34,13 @@
 //
 // Specialisations: the head dim, the variant (two consumer warpgroups, or
 // one for Sq <= 64), segment ids (SEG) and the window/overlay band (BAND),
-// so the T5 and Qwen instantiations keep their instruction streams lean. No
-// key tile is skipped for segment ids (the Qwen ViT's windowed layers over a
-// whole 5120-row bucket compute every tile and mask all but their window). The TPU kernel's head-group planning and its
-// ones-column denominator on v are MXU and VMEM devices and are not carried
-// over.
+// so the T5 and Qwen instantiations keep their instruction streams lean. With
+// segment ids a block skips the key tiles none of its rows can see (the Qwen
+// ViTs' pad tiles, the Qwen2.5 ViT's windowed layers over a whole 5120-row
+// bucket: all but the tiles of its own windows) and runs the per-element
+// compare only on a tile whose ids are mixed (flash_common.cuh, "Segment ids
+// per key tile"). The TPU kernel's head-group planning and its ones-column
+// denominator on v are MXU and VMEM devices and are not carried over.
 
 #include "flash_common.cuh"
 

@@ -15,7 +15,10 @@ Port of t2v_metrics_tpu/ops/attention.py:
   * ``tma_geometry`` (``flat_geometry`` / ``head_geometry``): each
     operand's TMA tensor map (base, extents, byte strides, box, swizzle,
     zero-filled pad columns), which the CUDA entries only encode, and the
-    alignment checks the TMA needs.
+    alignment checks the TMA needs;
+  * ``segment_tile_plan``: the key tiles a call with segment ids visits and
+    the tiles that take the per-element compare, as the kernels plan them,
+    which the flat wrappers count while a trace records (``attn_seg_*``).
 
 The notes in ``csrc/`` say what each kernel replaces, what bounds it and how
 it is built. A wrapper takes the plain version for a CPU tensor; for a CUDA
@@ -205,6 +208,66 @@ def tile_rows(d: int, sq: int, single: bool = False) -> tuple[int, int]:
     if sq <= 64 or single:
         return 64, 64
     return 128, 128 if d <= 128 else 64
+
+
+# the rows of a consumer warpgroup of the kernels (wgmma's M)
+WG_ROWS = 64
+
+
+def _id_ranges(ids: torch.Tensor, n: int):
+    """(smallest, largest) id of each run of ``n`` entries of (B, S) int64
+    ids, a ragged last run over its real entries: two (B, ceil(S / n))."""
+    pad = -ids.shape[1] % n
+    b = ids.shape[0]
+    lo = torch.nn.functional.pad(ids, (0, pad), value=2 ** 62).view(b, -1, n).amin(-1)
+    hi = torch.nn.functional.pad(ids, (0, pad), value=-2 ** 62).view(b, -1, n).amax(-1)
+    return lo, hi
+
+
+def segment_tile_plan(segment_ids: torch.Tensor, block_rows: int, key_rows: int) -> dict:
+    """The kernels' plan of key tiles for (B, S) segment ids (``Sq == Sk``,
+    no causal or window band), for one head, on the ids' device with no
+    host sync (csrc/flash_common.cuh, "Segment ids per key tile"): a block of
+    ``block_rows`` rows visits a tile of ``key_rows`` keys when the id range
+    of its rows meets the tile's; a consumer warpgroup of 64 rows runs the
+    per-element compare on a visited tile unless their ranges do not meet
+    (every score -inf) or its rows and the tile's keys all hold one id.
+    Returns ``attn_seg_tiles`` ((block, key tile) pairs, an int),
+    ``attn_seg_tiles_run`` (those visited), ``attn_seg_tiles_mixed``
+    ((warpgroup, visited tile) pairs with the compare) and
+    ``attn_seg_wg_tiles`` (every (warpgroup, visited tile) pair), the last
+    three 0-d int64 tensors."""
+    ids = segment_ids.to(torch.int64)
+    lo_k, hi_k = _id_ranges(ids, key_rows)                    # (B, key tiles)
+
+    def meet(lo, hi):     # (B, R, key tiles): the ranges lo..hi meet the tiles'
+        return (lo_k[:, None] <= hi[..., None]) & (hi_k[:, None] >= lo[..., None])
+
+    visit = meet(*_id_ranges(ids, block_rows))                # (B, blocks, key tiles)
+    lo_w, hi_w = _id_ranges(ids, WG_ROWS)                     # warpgroups with rows
+    wg_visit = (visit[:, :, None].expand(-1, -1, block_rows // WG_ROWS, -1)
+                .flatten(1, 2)[:, :lo_w.shape[1]])
+    whole = ((lo_w == hi_w)[..., None] & (lo_k == hi_k)[:, None]
+             & (lo_k[:, None] == lo_w[..., None]))
+    mixed = wg_visit & meet(lo_w, hi_w) & ~whole
+    return {"attn_seg_tiles": visit.numel(), "attn_seg_tiles_run": visit.sum(),
+            "attn_seg_tiles_mixed": mixed.sum(), "attn_seg_wg_tiles": wg_visit.sum()}
+
+
+def _count_segment_tiles(segment_ids, heads, d, sq, causal, local_window) -> None:
+    """While a trace records (``tracing.enabled()``): the plan of a flat call
+    with segment ids and no causal or window band (every segment-id site of
+    the port; the kernel classifies tiles only without the band) over its
+    ``heads``, into the ``attn_seg_*`` counters, the tile count on the host
+    and the rest added on the ids' device."""
+    if (segment_ids is None or causal or local_window is not None
+            or segment_ids.shape[-1] != sq or not tracing.enabled()):
+        return
+    for name, n in segment_tile_plan(segment_ids, *tile_rows(d, sq)).items():
+        if isinstance(n, int):
+            tracing.count(name, heads * n)
+        else:
+            tracing.count_device(name, heads * n)
 
 
 def panel_width(d: int) -> int:
@@ -416,6 +479,7 @@ def flash_attention_flat(q, k, v, heads, kv_heads=None, bias=None,
     """Attention over flat q (B, Sq, H*D), k/v (B, Sk, KvH*D): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     d = q.shape[-1] // heads
+    _count_segment_tiles(segment_ids, heads, d, q.shape[1], causal, local_window)
     if not _kernel_device(q, d):
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,
                                         kv_mask, causal, scale, segment_ids,
@@ -434,6 +498,7 @@ def flash_attention_flat_packed(qkv, heads, kv_heads=None, bias=None,
     kernel reads q, k and v as column-offset views of the one array."""
     kvh = kv_heads or heads
     d = qkv.shape[-1] // (heads + 2 * kvh)
+    _count_segment_tiles(segment_ids, heads, d, qkv.shape[1], causal, local_window)
     if not _kernel_device(qkv, d):
         q, k, v, _ = _split_packed(qkv, heads, kv_heads)
         return attention_flat_reference(q, k, v, heads, kv_heads, bias,

@@ -447,6 +447,86 @@ def test_attention_kernel_head_dim_72(dev, b, s, h, kvh, d, causal, seg):
     _close_attn(out, A.attention_flat_reference(q, k, v, h, **kw))
 
 
+def _by_heads(q, k, v, heads, groups, **kw):
+    """``attention_flat_reference`` over ``groups`` groups of heads in turn
+    (bounds the plain version's (B, H, S, S) fp32 scores at 4,096 rows)."""
+    n, d = heads // groups, q.shape[-1] // heads
+    return torch.cat([A.attention_flat_reference(
+        *(x[..., g * n * d:(g + 1) * n * d] for x in (q, k, v)), n, **kw)
+        for g in range(groups)], dim=-1)
+
+
+def test_attention_kernel_qwen3_vit_cell_layout(dev):
+    """The Qwen3-VL-30B-A3B ViT's call at 992x992, B = 2: 3,844 patches of
+    segment 0 and 252 pad rows of -1 in a 4,096-row bucket, 16 heads of 72.
+    Key tile 31 (all pads) is skipped by q tiles 0-29 and tiles 0-29 by q
+    tile 31; the real rows also equal an unpadded 3,844-row call with no
+    ids, which never sees the pad keys."""
+    b, s, real, h, d = 2, 4096, 3844, 16, 72
+    qkv = _randn(dev, b, s, 3 * h * d, seed=21)
+    seg = torch.where(torch.arange(s, device=dev) < real, 0, -1).int().expand(b, s)
+    before = launch_counts()["flash_attention_flat"]
+    out = A.attention_flat_packed(qkv, h, segment_ids=seg)
+    assert launch_counts()["flash_attention_flat"] == before + 1
+    q, k, v, _ = A._split_packed(qkv, h, None)
+    _close_attn(out, _by_heads(q, k, v, h, 4, segment_ids=seg))
+    alone = A.attention_flat_packed(qkv[:, :real], h)
+    _close_attn(out[:, :real], alone)
+    _close_attn(out[:, :real], _by_heads(q[:, :real], k[:, :real], v[:, :real], h, 4))
+
+
+def _runs(dev, s, seed, ids):
+    """(1, S) int32 ids: runs of 1..96 rows, each run's id drawn from ``ids``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sizes = torch.randint(1, 97, (s,), generator=g, device=dev)
+    pick = torch.randint(0, len(ids), (s,), generator=g, device=dev)
+    vals = torch.tensor(ids, device=dev)[pick]
+    return torch.repeat_interleave(vals, sizes)[:s].int()[None]
+
+
+@pytest.mark.parametrize("b,s,h,d,ids", [
+    (2, 1280, 16, 80, "windows"),       # Qwen2.5 windows of 64: all but one tile skipped
+    (2, 512, 8, 72, "apart"),           # ranges meet, no id in common
+    (2, 700, 8, 80, "unsorted"),        # runs of ids -1..3 in any order, ragged
+    (3, 333, 4, 64, "pads"),            # one segment, a ragged tail of -1
+])
+def test_attention_kernel_segment_tile_skipping(dev, b, s, h, d, ids):
+    """Segment ids that skip key tiles, settle tiles as a whole, or meet the
+    conservative rule: rows {0, 2} against keys {1} are visited and compared
+    (their ranges meet), never skipped or kept whole."""
+    qkv = _randn(dev, b, s, 3 * h * d, seed=22)
+    r = torch.arange(s, device=dev)
+    if ids == "windows":
+        seg = (r // 64).int().expand(b, s)
+    elif ids == "apart":     # rows 0..255: runs of 32 of 0 and 2; then 1
+        seg = torch.where(r < 256, ((r // 32) % 2) * 2, 1).int().expand(b, s)
+    elif ids == "unsorted":
+        seg = torch.cat([_runs(dev, s, 30 + i, [-1, 0, 1, 2, 3]) for i in range(b)])
+    else:
+        seg = torch.where(r < s - 45, 0, -1).int().expand(b, s)
+    out = A.attention_flat_packed(qkv, h, segment_ids=seg)
+    q, k, v, _ = A._split_packed(qkv, h, None)
+    _close_attn(out, A.attention_flat_reference(q, k, v, h, segment_ids=seg))
+
+
+def test_per_head_one_warpgroup_segment_tile_skipping(dev):
+    """The one-warpgroup variant (the per-head kernel's T5 bias beside
+    segment ids at d = 256) skips through ``fill_next``: 200 rows, ids
+    ``arange // 50``, REL and a key mask."""
+    b, h, s, d = 2, 3, 200, 256
+    pk = _randn(dev, b, s, 3 * h * d, seed=23)
+    q, k, v = pk.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    mask = torch.rand((b, s), generator=gen, device=dev) > 0.2
+    args = dict(segment_ids=(torch.arange(s, device=dev) // 50).expand(b, s).int(),
+                kv_mask=mask, rel_bias=_randn(dev, h, 32, seed=25, dtype=torch.float32),
+                rel_cfg=(True, 32, 128, 0), scale=1.0)
+    before = launch_counts()["flash_attention"]
+    out = A.attention(q, k, v, **args)
+    assert launch_counts()["flash_attention"] == before + 1
+    _close_attn(out, A.attention_reference(q, k, v, **args))
+
+
 @pytest.mark.parametrize("h,kvh,d,offset,cast_wd", [
     (32, 4, 128, 0.0, True), (16, 16, 72, 0.0, True), (4, 2, 64, 0.0, False),
     (8, 4, 256, 1.0, False), (32, 8, 128, 0.0, True), (16, 2, 64, 0.0, True)])
